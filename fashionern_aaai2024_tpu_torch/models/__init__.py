@@ -1,0 +1,1 @@
+"""Models of the port (JAX counterpart: fashionern_aaai2024_tpu/models/)."""

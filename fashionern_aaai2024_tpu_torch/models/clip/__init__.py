@@ -1,0 +1,1 @@
+"""CLIP towers of the port (JAX counterpart: fashionern_aaai2024_tpu/models/clip/)."""

@@ -1,0 +1,1 @@
+"""Ops: hand-written Hopper kernels and their plain PyTorch versions."""
