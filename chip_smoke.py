@@ -1,14 +1,18 @@
-"""Smoke run of the PyTorch port's serve path on one CUDA card.
+"""Smoke run of the PyTorch port's serve and train paths on one CUDA card.
 
     python3 chip_smoke.py [--json-out PATH]
 
 Phases (each raises on failure; nothing is caught):
   1. device: require CUDA, print the card's name and power limit, build
-     the hand-written kernels from `fashionern_aaai2024_tpu_torch/csrc/`;
+     the hand-written kernels from `fashionern_aaai2024_tpu_torch/csrc/`
+     (one nvcc process per source, all at once);
   2. kernels: B1 (attention sub-block), B2 (MLP sub-block) and B3
      (packed-qkv attention) against their plain PyTorch versions at the
-     slice's shapes, bf16 and fp32, with per-call times (CUDA events,
-     median of 25);
+     serve path's shapes in bf16 and fp32 and at the train path's (the
+     frozen towers at B = 1024) in bf16, with per-call times (CUDA events,
+     median of 25) beside one PyTorch library call computing the same
+     function (`library_ms`, a yardstick the port never calls) and the
+     card's bound for the work (`bound_ms`);
   3. the slice: ViT-B-16 at full width with seeded weights under the
      bf16 serve policy, a RetrievalService over a 512-item synthetic
      gallery, 8 single queries and one 32-query batch at k=10, launch
@@ -16,7 +20,21 @@ Phases (each raises on failure; nothing is caught):
      against the port's fp32 plain run on the CPU;
   4. timings: gallery embed + index refine in img/s (bench.py's
      definition: bf16, B=128, best of 3 windows of 20) and query P50
-     latency at b=1 and b=32.
+     latency at b=1 and b=32;
+  5. kernel B4 (the BBC row loss) against its plain version at
+     (1024, 512), (1000, 512), (13, 24) and (1024, 640), fp32, with the
+     same timings and `F.cross_entropy` over the logits as its library
+     call;
+  6. the train slice: ViT-B-16 at full width, seeded weights, the bf16
+     train policy, B = 1024, lr 4e-5 (the recipe, `cli/main.py:64-65`):
+     first one fp32 step at B = 16 on the card against the same step on
+     the CPU with the plain versions (all-keep dropout on both), then 6
+     optimizer steps through `Trainer.train()` over an in-memory
+     FashionIQ-shaped dataset (uint8 224² images over a universe of
+     2,048), one validation computing Recall@10 over a 1,024-item
+     gallery, launch counts of every kernel on the steps and on the
+     validation apart, a frozen CLIP and a moving ERN, step times, and a
+     `torch.profiler` split of one more step.
 
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -27,14 +45,18 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
 import numpy as np
 import torch
+
+import torch.nn.functional as F
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP_MEAN, CLIP_STD
@@ -45,9 +67,22 @@ from fashionern_aaai2024_tpu_torch.models.composed import (
 )
 from fashionern_aaai2024_tpu_torch.ops import attention as A
 from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
+from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
+from fashionern_aaai2024_tpu_torch.retrieval import metrics
+from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
+from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
+from fashionern_aaai2024_tpu_torch.train.state import create_train_state
+from fashionern_aaai2024_tpu_torch.train.step import build_train_step
+from fashionern_aaai2024_tpu_torch.train.trainer import (
+    DatasetPlugin,
+    TrainConfig,
+    Trainer,
+    _fiq_captions,
+)
 
 # tolerances of tests/test_torch_cuda.py: fp32 at the module tolerance;
 # bf16 at three significant digits
@@ -55,24 +90,43 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=0.0),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 VIT = dict(b=32, s=197, w=768, heads=12, causal=False)
 TEXT = dict(s=77, w=512, heads=8, causal=True)
+# the serve path's shapes, in bf16 and fp32
 SHAPES = [("vit_b32", VIT), ("text_b32", dict(TEXT, b=32)), ("text_b1", dict(TEXT, b=1))]
+# the train path's: the frozen towers at the recipe's B = 1024, in bf16
+TRAIN_SHAPES = [("vit_b1024", dict(VIT, b=1024)), ("text_b1024", dict(TEXT, b=1024))]
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
 SOT, EOT, CTX = 49406, 49407, 77
 CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
             "has a floral print", "is shorter and lighter", "with a collar",
             "less casual and in blue", "has stripes and no logo"]
+B1, B2, B3, B4 = ("attention_subblock (B1)", "mlp_subblock (B2)",
+                  "packed_qkv_self_attention (B3)", "bbc_rowloss (B4)")
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
-    "attention_subblock (B1)": (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
-                                "fashionern_aaai2024_tpu/ops/attention.py:520"),
-    "mlp_subblock (B2)": (M.mlp_subblock, "fashionern_aaai2024_tpu_torch/csrc",
-                          "fashionern_aaai2024_tpu/ops/mlp.py:121"),
-    "packed_qkv_self_attention (B3)": (A.packed_qkv_self_attention,
-                                       "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
-                                       "fashionern_aaai2024_tpu/ops/attention.py:147"),
+    B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
+         "fashionern_aaai2024_tpu/ops/attention.py:520"),
+    B2: (M.mlp_subblock, "fashionern_aaai2024_tpu_torch/csrc",
+         "fashionern_aaai2024_tpu/ops/mlp.py:121"),
+    B3: (A.packed_qkv_self_attention, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
+         "fashionern_aaai2024_tpu/ops/attention.py:147"),
+    B4: (L.bbc_rowloss, "fashionern_aaai2024_tpu_torch/csrc/bbc_loss.cu",
+         "fashionern_aaai2024_tpu/ops/losses.py:55"),
 }
-SOURCES = {"attention_subblock (B1)": ["layernorm.cu", "gemm.cu", "attention.cu"],
-           "mlp_subblock (B2)": ["layernorm.cu", "gemm.cu"],
-           "packed_qkv_self_attention (B3)": ["attention.cu"]}
+SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
+           B3: ["attention.cu"], B4: ["bbc_loss.cu"]}
+TOWER_KERNELS = (B1, B2, B3)
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core and fp32
+# CUDA-core rates, HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# B4 at the train path's shape first: its timings go into the kernels line
+BBC_SHAPES = [(1024, 512), (1000, 512), (13, 24), (1024, 640)]
+BBC_TOL = dict(atol=5e-4, rtol=1e-5)
+# the train slice: the recipe's batch and lr (cli/main.py:64-65)
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 1024, 4e-5, 6
+UNIVERSE, VAL_GALLERY, VAL_QUERIES, CHECK_BATCH = 2048, 1024, 256, 16
+FIQ_CAPTIONS = [("is darker", "has longer sleeves"), ("is red", "more formal"),
+                ("has a floral print", "is shorter"), ("with a collar", "less casual"),
+                ("in blue", "has stripes and no logo"), ("is lighter", "is tighter")]
 
 
 def log(msg: str) -> None:
@@ -112,40 +166,96 @@ def kernel_inputs(b, s, w, dtype, seed):
 
     f = 4 * w
     return {
-        "attention_subblock (B1)": (t(b, s, w, scale=1.0), t(w, scale=0.1, offset=1.0),
-                                    t(w, scale=0.1), t(3 * w, w), t(3 * w), t(w, w), t(w)),
-        "mlp_subblock (B2)": (t(b, s, w, scale=1.0), t(w, scale=0.1, offset=1.0),
-                              t(w, scale=0.1), t(f, w), t(f), t(w, f), t(w)),
-        "packed_qkv_self_attention (B3)": (t(b, s, 3 * w, scale=1.0),),
+        B1: (t(b, s, w, scale=1.0), t(w, scale=0.1, offset=1.0), t(w, scale=0.1),
+             t(3 * w, w), t(3 * w), t(w, w), t(w)),
+        B2: (t(b, s, w, scale=1.0), t(w, scale=0.1, offset=1.0), t(w, scale=0.1),
+             t(f, w), t(f), t(w, f), t(w)),
+        B3: (t(b, s, 3 * w, scale=1.0),),
     }
 
 
+def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
+    """Least time of the work on an H100 SXM: the larger of its operations
+    at the peak rate of their type and its bytes at the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS[dtype], 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def tower_work(name: str, b: int, s: int, w: int, heads: int, causal: bool,
+               dtype: torch.dtype) -> tuple[float, float]:
+    """(flops, bytes) of one B1 / B2 / B3 call: every input read once and
+    the output written once; causal attention needs s(s+1)/2 scores."""
+    e = torch.finfo(dtype).bits // 8
+    m = b * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    attn = 4 * b * heads * pairs * (w // heads)
+    if name == B1:
+        return 8 * m * w * w + attn, e * (2 * m * w + 4 * w * w + 6 * w)
+    if name == B2:
+        return 16 * m * w * w, e * (2 * m * w + 8 * w * w + 7 * w)
+    return attn, e * 4 * m * w
+
+
+def library_call(name: str, args: tuple, heads: int, causal: bool):
+    """One PyTorch library composition computing the kernel's function
+    (B2 with quick_gelu, as phase 2 runs it): a yardstick for
+    `library_ms`, never called by the port."""
+    def sdpa(qkv):
+        b, s, w3 = qkv.shape
+        q, k, v = qkv.view(b, s, 3, heads, w3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return o.transpose(1, 2).reshape(b, s, w3 // 3)
+
+    if name == B3:
+        return lambda: sdpa(args[0])
+    x, g, b_, w1, b1, w2, b2 = args
+    w = x.shape[-1]
+    if name == B1:
+        return lambda: x + F.linear(sdpa(F.linear(F.layer_norm(x, (w,), g, b_), w1, b1)),
+                                    w2, b2)
+
+    def quick_gelu(h):
+        return h * torch.sigmoid(1.702 * h)
+
+    return lambda: x + F.linear(quick_gelu(F.linear(F.layer_norm(x, (w,), g, b_), w1, b1)),
+                                w2, b2)
+
+
 def phase_kernels() -> tuple[dict, list]:
-    plain = {"attention_subblock (B1)": A.attention_subblock_plain,
-             "mlp_subblock (B2)": M.mlp_subblock_plain,
-             "packed_qkv_self_attention (B3)": A.packed_qkv_self_attention_plain}
-    rows, worst = [], {name: 0.0 for name in KERNELS}
-    for dtype in (torch.bfloat16, torch.float32):
-        for label, shp in SHAPES:
-            inputs = kernel_inputs(shp["b"], shp["s"], shp["w"], dtype, seed=len(rows))
-            for name, (wrapper, _, _) in KERNELS.items():
-                args = inputs[name]
-                kw = {"activation": "quick_gelu"} if name.startswith("mlp") else {
-                    "causal": shp["causal"]}
-                pos = () if name.startswith("mlp") else (shp["heads"],)
-                got = wrapper(*args, *pos, **kw)
-                want = plain[name](*args, *pos, **kw)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-                err = (got.float() - want.float()).abs().max().item()
-                worst[name] = max(worst[name], err)
-                row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
-                           max_abs_err=err,
-                           ms=median_ms(lambda: wrapper(*args, *pos, **kw)),
-                           plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)))
-                rows.append(row)
-                log(f"  {name:32s} {label:9s} {row['dtype']:9s} err {err:.3e}  "
-                    f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
+    plain = {B1: A.attention_subblock_plain, B2: M.mlp_subblock_plain,
+             B3: A.packed_qkv_self_attention_plain}
+    rows, worst = [], {name: 0.0 for name in TOWER_KERNELS}
+    cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32) for shape in SHAPES]
+    cases += [(torch.bfloat16, shape) for shape in TRAIN_SHAPES]
+    for dtype, (label, shp) in cases:
+        inputs = kernel_inputs(shp["b"], shp["s"], shp["w"], dtype, seed=len(rows))
+        for name in TOWER_KERNELS:
+            wrapper = KERNELS[name][0]
+            args = inputs[name]
+            kw = {"activation": "quick_gelu"} if name == B2 else {"causal": shp["causal"]}
+            pos = () if name == B2 else (shp["heads"],)
+            got = wrapper(*args, *pos, **kw)
+            want = plain[name](*args, *pos, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            err = (got.float() - want.float()).abs().max().item()
+            worst[name] = max(worst[name], err)
+            del got, want
+            flops, nbytes = tower_work(name, shp["b"], shp["s"], shp["w"], shp["heads"],
+                                       shp["causal"], dtype)
+            row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                       max_abs_err=err,
+                       ms=median_ms(lambda: wrapper(*args, *pos, **kw)),
+                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)),
+                       library_ms=median_ms(library_call(name, args, shp["heads"],
+                                                         shp["causal"])),
+                       **bound(flops, nbytes, dtype))
+            rows.append(row)
+            log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {err:.3e}  "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+        del inputs
     return worst, rows
 
 
@@ -173,8 +283,7 @@ def phase_slice(card_label: str) -> tuple[dict, RetrievalService, InferenceAPI]:
     names, images, patches, batches = make_gallery()
     refs = [names[2 * i] for i in range(8)]          # inside the 16 checked items
 
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     service = RetrievalService(api, batches)
     singles = [service.query([r], [c], k=K)[0][0] for r, c in zip(refs, CAPTIONS)]
@@ -183,14 +292,12 @@ def phase_slice(card_label: str) -> tuple[dict, RetrievalService, InferenceAPI]:
     batch_results, _ = service.query(batch_refs, batch_caps, k=K)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = launch_counts()
 
     tower_calls = GALLERY // BATCH + len(refs) + 1   # ViT batches + text calls
-    log(f"  main path {run_s:.2f} s; launches {launches} "
-        f"(expected {LAYERS * tower_calls} each: {LAYERS} layers x {tower_calls} tower calls)")
-    for name, n in launches.items():
-        if n != LAYERS * tower_calls:
-            raise AssertionError(f"{name}: {n} launches, expected {LAYERS * tower_calls}")
+    log(f"  main path {run_s:.2f} s; launches {launches} (expected "
+        f"{LAYERS * tower_calls} each of B1-B3: {LAYERS} layers x {tower_calls} tower calls)")
+    check_launches("serve path", launches, tower_kernels=LAYERS * tower_calls, bbc=0)
     for res in singles + batch_results:
         scores = [r["score"] for r in res]
         if len(res) != K or not np.all(np.isfinite(scores)) or scores != sorted(
@@ -260,6 +367,279 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> dict:
     return dict(embed_refine_img_per_s=img_s, **lat)
 
 
+def reset_launches() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def check_launches(path: str, launches: dict, *, tower_kernels: int, bbc: int) -> None:
+    want = {name: tower_kernels for name in TOWER_KERNELS}
+    want[B4] = bbc
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, expected {want}")
+
+
+def unit_rows(b: int, d: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """pred, tar [b, d]: unit rows around one shared direction, as the
+    fusion stack's normalized outputs are early in training, each target
+    a little closer to its own query (scores near 75, row losses of a few
+    units)."""
+    g = np.random.default_rng(seed)
+    c = g.standard_normal(d)
+    n1, n2 = (g.standard_normal((b, d)) / np.sqrt(d) for _ in range(2))
+    pred, tar = c / np.linalg.norm(c) + 0.6 * n1, c / np.linalg.norm(c) + 0.6 * n2 + 0.1 * n1
+    unit = lambda a: torch.tensor(a / np.linalg.norm(a, axis=1, keepdims=True),
+                                  dtype=torch.float32, device="cuda")
+    return unit(pred), unit(tar)
+
+
+def phase_bbc() -> list[dict]:
+    rows = []
+    for b, d in BBC_SHAPES:
+        pred, tar = unit_rows(b, d, seed=b + d)
+        got = L.bbc_rowloss(pred, tar)
+        want = L.bbc_rowloss_plain(pred, tar)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **BBC_TOL)
+        labels = torch.arange(b, device="cuda")
+        flops, nbytes = L.bbc_flops_bytes(b, d)
+        row = dict(shape=[b, d], max_abs_err=(got - want).abs().max().item(),
+                   ms=median_ms(lambda: L.bbc_rowloss(pred, tar)),
+                   plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar)),
+                   library_ms=median_ms(lambda: F.cross_entropy(
+                       100.0 * pred @ tar.t(), labels, reduction="none")),
+                   **bound(flops, nbytes, torch.float32))
+        rows.append(row)
+        log(f"  {B4} B={b:5d} d={d:4d} err {row['max_abs_err']:.3e}  kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+    return rows
+
+
+class SyntheticFashionIQ:
+    """FashionIQ-shaped triplets (ref / tar names, two captions, uint8
+    224² images, 13 x 512 patches) over a universe of images."""
+
+    def __init__(self, images: np.ndarray, patches: np.ndarray, n: int, seed: int):
+        g = np.random.default_rng(seed)
+        u = len(images)
+        self.images, self.patches = images, patches
+        self.ref = g.integers(0, u, n)
+        self.tar = (self.ref + g.integers(1, u, n)) % u
+        self.caps = g.integers(0, len(FIQ_CAPTIONS), n)
+
+    def __len__(self) -> int:
+        return len(self.ref)
+
+    def __getitem__(self, i: int) -> dict:
+        r, t = int(self.ref[i]), int(self.tar[i])
+        return {"ref_name": f"img{r:04d}", "tar_name": f"img{t:04d}",
+                "captions": list(FIQ_CAPTIONS[self.caps[i]]),
+                "ref_image": self.images[r], "tar_image": self.images[t],
+                "ref_patch": self.patches[r], "tar_patch": self.patches[t]}
+
+
+def make_validator(images: np.ndarray, patches: np.ndarray, record: list):
+    """Recall@10 of 256 composed queries over a 1,024-item gallery,
+    through the port's InferenceAPI, RetrievalIndex and metrics; the
+    kernel launches it makes are recorded apart."""
+    names = [f"img{i:04d}" for i in range(VAL_GALLERY)]
+    g = np.random.default_rng(3)
+    refs = g.integers(0, VAL_GALLERY, VAL_QUERIES)
+    targets = (refs + g.integers(1, VAL_GALLERY, VAL_QUERIES)) % VAL_GALLERY
+    caps = [f"{FIQ_CAPTIONS[i % 6][0]} and {FIQ_CAPTIONS[i % 6][1]}"
+            for i in range(VAL_QUERIES)]
+
+    def validator(api: InferenceAPI):
+        before = launch_counts()
+        gal, _ = api.encode_image(images[:VAL_GALLERY])
+        index = RetrievalIndex(names, api.refine_gallery(gal, patches[:VAL_GALLERY]))
+        tg, ts = api.encode_text(api.tokenize(caps))
+        q = api.query(gal[torch.as_tensor(refs, device=gal.device)], patches[refs], tg, ts)
+        _, idx = index.search(q, k=K)
+        r10 = metrics.recall_at_k(idx, targets, (K,))[K]
+        after = launch_counts()
+        record.append({name: after[name] - before[name] for name in after})
+        if not torch.isfinite(q).all():
+            raise AssertionError("non-finite validation queries")
+        return r10, {"recall_at10": r10}
+
+    return validator
+
+
+def _keep_all(shape, keep, generator, device):
+    return torch.ones(shape, dtype=torch.bool, device=device)
+
+
+def check_fp32_step(cfg, dataset: SyntheticFashionIQ, card: str) -> dict:
+    """One fp32 step at B = 16 on the card (kernels B1-B4) against the same
+    step on the CPU (plain versions), same weights and batch, all-keep
+    dropout on both sides (the two devices' generators draw different
+    masks). Loss at rtol 1e-5 and ERN gradient cosine >= 0.99999: both
+    are fp32 throughout and differ only in summation order (a first run
+    on an H100 gave 8.2e-8 and 0.9999989)."""
+    from unittest import mock
+
+    from fashionern_aaai2024_tpu_torch.data.loader import default_collate
+
+    cpu_model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(1))
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).cuda()}
+    raw = default_collate([dataset[i] for i in range(CHECK_BATCH)])
+    caps = _fiq_captions(raw, random.Random(0))
+    out = {}
+    with mock.patch.object(Dr, "dropout_mask", _keep_all):
+        for dev, model in models.items():
+            state = create_train_state(model, seed=0)
+            step = build_train_step(model, cosine_annealing_schedule(TRAIN_LR, 100))
+            batch = {"ref_image": torch.from_numpy(raw["ref_image"]),
+                     "tar_image": torch.from_numpy(raw["tar_image"]),
+                     "text_ids": torch.from_numpy(tokenizer(caps)).long(),
+                     "ref_patch": torch.from_numpy(raw["ref_patch"]),
+                     "tar_patch": torch.from_numpy(raw["tar_patch"])}
+            _, loss = step(state, {k: v.to(state.device) for k, v in batch.items()})
+            grads = torch.cat([p.grad.flatten().double().cpu()
+                               for p in model.ern.parameters() if p.grad is not None])
+            out[dev] = (loss.item(), grads)
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    cos = F.cosine_similarity(g_card, g_cpu, dim=0).item()
+    log(f"  fp32 step B={CHECK_BATCH}: loss card {l_card:.6f} cpu {l_cpu:.6f} "
+        f"(rel {rel:.3e}); ERN gradient cosine {cos:.8f} ({card})")
+    if not rel <= 1e-5 or not cos >= 0.99999:
+        raise AssertionError("the card's fp32 train step disagrees with the CPU's")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, grad_cosine=cos)
+
+
+SPANS = ("train_step/towers", "train_step/fusion_forward", "train_step/bbc_loss",
+         "train_step/adam")
+
+
+def profile_step(trainer: Trainer, step_fn) -> dict:
+    """Device time of one more step, split by phase. The `record_function`
+    spans of the main thread (train/step.py, models/composed.py) sum the
+    kernel time of what they launched; the backward runs on autograd's
+    own thread, outside every span, so its time is the step's kernel time
+    less the other spans'."""
+    batch = next(iter(trainer.loader))
+    db = trainer._device_batch(batch, step=trainer.global_step)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.state, loss = step_fn(trainer.state, db)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(loss.item()):
+        raise AssertionError("non-finite loss in the profiled step")
+    # kernels, copies and sets on the card; the spans' own windows there
+    # carry the span names and are left out
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in SPANS]
+    total = sum(e.device_time_total for e in on_card) / 1e3
+    spans = {e.key: e.device_time_total / 1e3 for e in prof.key_averages() if e.key in SPANS}
+    parts = [k.split("/")[1] for k in SPANS] + ["backward"]
+    split = dict.fromkeys(parts)
+    if spans and total > 0:
+        split = {k.split("/")[1]: spans.get(k, 0.0) for k in SPANS}
+        split["backward"] = total - sum(spans.values())
+    return dict(wall_ms=wall * 1e3, device_ms=total,
+                bbc_kernels_ms=sum(e.device_time_total for e in on_card
+                                   if "bbc_" in e.name) / 1e3,
+                spans_device_ms=split)
+
+
+def phase_train(card: str) -> dict:
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    g = np.random.default_rng(2)
+    side = cfg.vision.image_size
+    images = g.integers(0, 256, (UNIVERSE, side, side, 3), dtype=np.uint8)
+    patches = g.standard_normal((UNIVERSE, 13, cfg.feature_dim), dtype=np.float32)
+    dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * TRAIN_STEPS, seed=4)
+    fp32 = check_fp32_step(cfg, dataset, card)
+
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
+    val_launches: list = []
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as ckpt_dir:
+        tcfg = TrainConfig(dataset="fashioniq", clip_model_name="ViT-B-16",
+                           activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                           num_epochs=1, validation_frequency=1, print_frequency=1,
+                           max_steps_per_epoch=TRAIN_STEPS, num_workers=0, precision="bf16",
+                           image_dtype="uint8", eval_batch_size=128, ckpt_dir=ckpt_dir,
+                           seed=0)
+        trainer = Trainer(tcfg, device="cuda", model=model, train_dataset=dataset,
+                          validator=make_validator(images, patches, val_launches),
+                          plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
+                                               _fiq_captions),
+                          tokenizer=tokenizer)
+        clip_before = {k: v.clone() for k, v in model.clip.state_dict().items()}
+        ern_before = {n: p.detach().clone() for n, p in model.ern.named_parameters()}
+        times, losses = [], []
+        inner = trainer.step_fn
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = inner(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            return state, loss
+
+        trainer.step_fn = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        total = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        if len(val_launches) != 1:
+            raise AssertionError(f"{len(val_launches)} validations, expected 1")
+        launches = {name: total[name] - val_launches[0][name] for name in total}
+        check_launches("train path", launches, tower_kernels=TRAIN_STEPS * 3 * LAYERS,
+                       bbc=TRAIN_STEPS)
+        val_calls = -(-VAL_GALLERY // 128) + -(-VAL_QUERIES // 128)
+        check_launches("validation", val_launches[0], tower_kernels=LAYERS * val_calls, bbc=0)
+        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"train losses {losses}")
+        for k, v in model.clip.state_dict().items():
+            if not torch.equal(v, clip_before[k]):
+                raise AssertionError(f"frozen CLIP tensor {k} changed")
+        moved = [n for n, p in model.ern.named_parameters()
+                 if not torch.equal(p.detach(), ern_before[n])]
+        still = sorted(set(ern_before) - set(moved))
+        # the BERT pooler feeds no output of the DVR tower: no gradient
+        if any("pooler" not in n for n in still):
+            raise AssertionError(f"ERN tensors that did not move: {still}")
+        clip_sum = sum(v.double().sum().item() for v in model.clip.state_dict().values())
+        step_ms = statistics.median(times[1:]) * 1e3
+        info = dict(losses=losses, step_seconds=times, median_step_ms_2_6=step_ms,
+                    samples_per_s=TRAIN_BATCH / step_ms * 1e3, run_seconds=run_s,
+                    launches=launches, validation_launches=val_launches[0],
+                    recall_at10=trainer.best.best_metric, peak_memory_gib=peak_gb,
+                    ern_moved=len(moved), ern_unmoved=still, clip_checksum=clip_sum,
+                    fp32_check=fp32)
+        log(f"  {TRAIN_STEPS} steps at B={TRAIN_BATCH}: losses "
+            f"{[round(x, 4) for x in losses]}; median step (2-6) {step_ms:.2f} ms = "
+            f"{info['samples_per_s']:.1f} samples/s; peak memory {peak_gb:.2f} GiB ({card})")
+        log(f"  launches on the steps {launches}; on the validation {val_launches[0]}; "
+            f"Recall@10 {info['recall_at10']:.3f}; CLIP unchanged (checksum {clip_sum:.6e}); "
+            f"{len(moved)} ERN tensors moved, unmoved (no gradient): {still}")
+        info["profile"] = profile_step(trainer, inner)
+    prof = info["profile"]
+    spans = ", ".join(f"{k} not measured" if v is None else f"{k} {v:.2f} ms"
+                      for k, v in prof["spans_device_ms"].items())
+    log(f"  profiled step: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms, "
+        f"B4 kernels {prof['bbc_kernels_ms']:.4f} ms; device time by span: {spans} ({card})")
+    return info
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json-out", help="also write every measurement to this file")
@@ -286,16 +666,29 @@ def main() -> None:
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
+    log(f"phase 5: {B4} against its plain version ({card})")
+    bbc_rows = phase_bbc()
+    log(f"phase 6: the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
+    train = phase_train(card)
+    log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
+        f"({card})")
 
-    headline = {r["kernel"]: r for r in rows if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
+    timed = {r["kernel"]: r for r in rows if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
+    timed[B4] = bbc_rows[0]
+    worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
+    by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name]}
+               for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=slice_info["launches"][name], max_abs_err=worst[name],
-                    ms=headline[name]["ms"], plain_ms=headline[name]["plain_ms"],
+                    launches=sum(by_path[name].values()), launches_by_path=by_path[name],
+                    max_abs_err=worst[name], ms=timed[name]["ms"],
+                    plain_ms=timed[name]["plain_ms"], bound_ms=timed[name]["bound_ms"],
+                    bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"],
                     files=SOURCES[name])
                for name, (_, src, rep) in KERNELS.items()]
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump(dict(card=card, kernel_rows=rows, slice=slice_info, timings=timings,
+            json.dump(dict(card=card, kernel_rows=rows, bbc_rows=bbc_rows, slice=slice_info,
+                           timings=timings, train=train,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,15 @@
-"""ComposedCIRModel: frozen CLIP + ERN, the serving half of the API.
+"""ComposedCIRModel: frozen CLIP + trainable ERN.
 
 JAX counterpart: `fashionern_aaai2024_tpu/models/composed.py`
-(`encode_image`, `encode_text`, `index`, `query`). State_dict keys are
-`clip.*` (open_clip names) and `ern.*` (reference ERN names).
+(`encode_image`, `encode_text`, `index`, `query`, `train_features`,
+`train_forward`). State_dict keys are `clip.*` (open_clip names) and
+`ern.*` (reference ERN names).
+
+CLIP is frozen, as the JAX model's `stop_gradient` makes it: the train
+forward runs the towers under `torch.no_grad()` (not
+`torch.inference_mode()`, whose tensors the fusion stack's backward
+could not save), and `train/state.py` turns off `requires_grad` on
+every CLIP parameter.
 
 Also here:
   * `apply_precision`, the port of `cli/main.py:554 _cast_precision`
@@ -16,10 +23,12 @@ import math
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP
 from fashionern_aaai2024_tpu_torch.models.ern.ern import ERN
+from fashionern_aaai2024_tpu_torch.models.ern.layers import TorchBatchNorm
 
 
 class ComposedCIRModel(nn.Module):
@@ -35,12 +44,42 @@ class ComposedCIRModel(nn.Module):
     def encode_text(self, text_ids: torch.Tensor, mode: str = "global"):
         return self.clip.encode_text(text_ids, mode=mode)
 
-    def index(self, tar_feats: torch.Tensor, tar_local_feats: torch.Tensor) -> torch.Tensor:
-        return self.ern.index(tar_feats, tar_local_feats)
+    def index(self, tar_feats: torch.Tensor, tar_local_feats: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.ern.index(tar_feats, tar_local_feats, generator)
 
     def query(self, ref_feats: torch.Tensor, ref_local_feats: torch.Tensor,
-              text_feats: torch.Tensor, text_seq_feats: torch.Tensor) -> torch.Tensor:
-        return self.ern.query(ref_feats, ref_local_feats, text_feats, text_seq_feats)
+              text_feats: torch.Tensor, text_seq_feats: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.ern.query(ref_feats, ref_local_feats, text_feats, text_seq_feats,
+                              generator)
+
+    def train_features(self, ref_feats: torch.Tensor, ref_local_feats: torch.Tensor,
+                       text_feats: torch.Tensor, text_seq_feats: torch.Tensor,
+                       tar_feats: torch.Tensor, tar_local_feats: torch.Tensor,
+                       generator: torch.Generator | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.ern.train_step_features(ref_feats, ref_local_feats, text_feats,
+                                            text_seq_feats, tar_feats, tar_local_feats,
+                                            generator)
+
+    def train_forward(self, ref_image: torch.Tensor, tar_image: torch.Tensor,
+                      text_ids: torch.Tensor, ref_patch: torch.Tensor,
+                      tar_patch: torch.Tensor, generator: torch.Generator | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One training-step forward (`composed.py:85-123`): the frozen
+        towers, then the fusion stack in fp32 on raw query-side globals
+        and L2-normalized target globals."""
+        with torch.no_grad(), record_function("train_step/towers"):
+            ref_glob, _ = self.encode_image(ref_image)
+            tar_glob, _ = self.encode_image(tar_image)
+            text_glob, text_seq = self.encode_text(text_ids)
+        ref_glob, tar_glob = ref_glob.float(), tar_glob.float()
+        text_glob, text_seq = text_glob.float(), text_seq.float()
+        tar_glob = tar_glob / torch.linalg.vector_norm(tar_glob, dim=-1, keepdim=True)
+        with record_function("train_step/fusion_forward"):
+            return self.train_features(ref_glob, ref_patch, text_glob, text_seq, tar_glob,
+                                       tar_patch, generator)
 
 
 @torch.no_grad()
@@ -52,7 +91,8 @@ def apply_precision(model: ComposedCIRModel, precision: str) -> ComposedCIRModel
     every weight rounded to bf16. That is what JAX computes when
     `_cast_precision`'s bf16 leaves meet the fp32 inputs that
     `InferenceAPI.query` passes (`evaluate.py:213-216`): flax promotes
-    to fp32."""
+    to fp32. Training does not use it: its policy rounds nothing of the
+    ERN stack (`train/state.py cast_frozen_clip_bf16`)."""
     if precision == "fp32":
         return model
     if precision != "bf16":
@@ -88,7 +128,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     def normal(p: torch.Tensor, std: float, mean: float = 0.0) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * std + mean)
 
-    norm_types = (nn.LayerNorm, nn.BatchNorm1d)
+    norm_types = (nn.LayerNorm, TorchBatchNorm)
     for mod_name, mod in model.named_modules():
         for name, p in mod.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
@@ -103,7 +143,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 normal(p, 0.02)
             else:  # Linear / in_proj [out, in], conv [out, in, kh, kw]
                 normal(p, p[0].numel() ** -0.5)
-        if isinstance(mod, nn.BatchNorm1d):
+        if isinstance(mod, TorchBatchNorm):
             normal(mod.running_mean, 0.02)
             mod.running_var.copy_(1.0 + 0.1 * torch.rand(
                 mod.running_var.shape, generator=generator))

@@ -17,6 +17,16 @@ Input is the composed model's `{"params": {"clip", "ern"}, "batch_stats":
 output is a `clip.*` / `ern.*` state_dict of fp32 CPU tensors, with the
 BatchNorm step counters (`num_batches_tracked`, which reference
 checkpoints carry too) set to 0.
+
+`load_jax_train_state` carries a whole JAX `CIRTrainState`
+(`fashionern_aaai2024_tpu/train/state.py:26`) into the port's train
+state, so a run can continue here: the weights and ERN batch statistics
+as above, optax's `ScaleByAdamState` `mu` / `nu` / `count` as
+`torch.optim.Adam`'s `exp_avg` / `exp_avg_sq` / `step` (the moments are
+parameter-shaped trees, converted with the parameters' own layout
+changes), and the step. The JAX dropout key is not carried: the port
+seeds its masks from (seed, step), and `jax.random` and
+`torch.Generator` draw different masks anyway.
 """
 
 from __future__ import annotations
@@ -154,3 +164,27 @@ def state_dict_from_variables(variables: Mapping, cfg: CLIPConfig) -> dict:
     sd = {f"clip.{k}": v for k, v in clip_state_dict(params["clip"], cfg).items()}
     sd.update({f"ern.{k}": v for k, v in ern_state_dict(params["ern"], stats["ern"]).items()})
     return sd
+
+
+def load_jax_train_state(state, jax_state, cfg: CLIPConfig):
+    """Load a JAX `CIRTrainState` (its fields as arrays: `step`,
+    `clip_params`, `ern_params`, `batch_stats`, and `opt_state` as
+    `optax.adam` builds it, `(ScaleByAdamState, ScaleByScheduleState)`)
+    into the port's `CIRTrainState` `state`, in place, and return it."""
+    stats = jax_state.batch_stats
+    variables = {"params": {"clip": jax_state.clip_params, "ern": jax_state.ern_params},
+                 "batch_stats": stats}
+    state.model.load_state_dict(state_dict_from_variables(variables, cfg), strict=True)
+    adam = jax_state.opt_state[0]
+    mu = ern_state_dict(adam.mu, stats["ern"])
+    nu = ern_state_dict(adam.nu, stats["ern"])
+    count = float(np.asarray(adam.count))
+    moments = {}
+    for i, (name, p) in enumerate(state.model.ern.named_parameters()):
+        moments[i] = {"step": torch.tensor(count),
+                      "exp_avg": mu[name].to(p.device, p.dtype),
+                      "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    groups = state.optimizer.state_dict()["param_groups"]
+    state.optimizer.load_state_dict({"state": moments, "param_groups": groups})
+    state.step = int(np.asarray(jax_state.step))
+    return state

@@ -1,8 +1,9 @@
 """ERN: the trainable model's two serving towers.
 
 JAX counterpart: `fashionern_aaai2024_tpu/models/ern/ern.py`, its
-`index` (gallery side) and `query` (query side, reference mode="test").
-TME and the train-step features are not ported yet.
+`index` (gallery side), `query` (query side, reference mode="test") and
+`train_step_features` (reference mode="train", `ern.py:63-75`). TME is
+not ported yet. `generator` selects train mode (models/ern/layers.py).
 """
 
 from __future__ import annotations
@@ -26,10 +27,22 @@ class ERN(nn.Module):
         self.SR_module = VisualSR(feature_dim, num_region=patch_num)
         self.Combiner_module = CombinerSimple(feature_dim)
 
-    def index(self, tar_feats: torch.Tensor, tar_local_feats: torch.Tensor) -> torch.Tensor:
+    def index(self, tar_feats: torch.Tensor, tar_local_feats: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
         """Combiner(tar_global, SR(tar_patches))."""
-        return self.Combiner_module(tar_feats, self.SR_module(tar_local_feats))
+        center = self.SR_module(tar_local_feats, generator)
+        return self.Combiner_module(tar_feats, center, generator)
 
     def query(self, ref_feats: torch.Tensor, ref_local_feats: torch.Tensor,
-              text_feats: torch.Tensor, text_seq_feats: torch.Tensor) -> torch.Tensor:
-        return self.DVR(ref_local_feats, text_seq_feats, ref_feats, text_feats)
+              text_feats: torch.Tensor, text_seq_feats: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.DVR(ref_local_feats, text_seq_feats, ref_feats, text_feats, generator)
+
+    def train_step_features(self, ref_feats: torch.Tensor, ref_local_feats: torch.Tensor,
+                            text_feats: torch.Tensor, text_seq_feats: torch.Tensor,
+                            tar_feats: torch.Tensor, tar_local_feats: torch.Tensor,
+                            generator: torch.Generator | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(query embedding, target embedding): reference mode="train"."""
+        fusion = self.query(ref_feats, ref_local_feats, text_feats, text_seq_feats, generator)
+        return fusion, self.index(tar_feats, tar_local_feats, generator)

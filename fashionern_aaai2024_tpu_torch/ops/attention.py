@@ -15,8 +15,9 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
   * `packed_kv_cross_attention`, `multi_head_attention` and
     `fused_qkv_self_attention` are plain PyTorch, the `_packed_cross_ref`,
     `_mha_ref` and `_qkv_fused_ref` formulas: on the TPU their call
-    sites in this slice ran on XLA (`:353`, `:739`, and the bf16-only
-    gate at `:466` that the fp32 fusion stack never passed).
+    sites ran on XLA (`:353`, `:739`, and the bf16-only gate at `:466`
+    that the fp32 fusion stack never passed). `multi_head_attention`
+    also carries the train mode's probability dropout.
 
 Weights are in the torch layout: in_proj_weight [3W, W] and Linear
 weight [out, in].
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
 
 NEG_INF = -1e30
 _HEAD_DIM = 64
@@ -58,9 +60,12 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = False, scale: float | None = None) -> torch.Tensor:
+                         causal: bool = False, scale: float | None = None,
+                         dropout_rate: float = 0.0,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
     """[B, H, S, Dh] attention, the `_mha_ref` formula (`:636`): scores
-    in the operand dtype, softmax in fp32, probabilities cast back."""
+    in the operand dtype, softmax in fp32, probabilities cast back, then
+    probability dropout when a generator is given (`:648-650`)."""
     sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
     if scale is None:
         scale = dh ** -0.5
@@ -68,6 +73,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         s = s + causal_bias(sq, q.device)[:, :sk].to(s.dtype)
     p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    p = dropout(p, dropout_rate, generator)
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 

@@ -7,10 +7,11 @@ CUDA tensor launches the hand-written kernel or raises. Nothing falls
 back, and no environment variable changes the choice.
 
 The CUDA sources live in `fashionern_aaai2024_tpu_torch/csrc/`. At the
-first launch they are compiled with `nvcc` for `sm_90a` into one shared
-library with a plain C interface, under `build/torch_kernels/<hash>/`
-at the root of the checkout, keyed by a hash of the sources and flags,
-and loaded with `ctypes`. Every C entry point launches on the caller's
+first launch each `.cu` file is compiled with `nvcc` for `sm_90a`, all
+of them at once in parallel processes, and the objects are linked into
+one shared library with a plain C interface, under
+`build/torch_kernels/<hash>/` at the root of the checkout, keyed by a
+hash of the sources and flags, and loaded with `ctypes`. Every C entry point launches on the caller's
 stream and returns the `cudaError_t` of the launch; `launch` raises on
 anything but 0.
 """
@@ -33,7 +34,7 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 _LIB_NAME = "libfern_kernels.so"
 
@@ -48,6 +49,9 @@ _SIGNATURES = {
     "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # qkv, out, batch, seq, heads, causal, scale, dtype, device, stream
     "fern_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # pred, tar, row, part_m, part_l, diag, B, d, temp, splits,
+    # tiles_per_split, device, stream
+    "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +72,18 @@ def _find_nvcc() -> str:
     raise RuntimeError(
         "nvcc not found (not on PATH, not at /usr/local/cuda/bin/nvcc): "
         "the port's CUDA kernels cannot be built")
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    failed = [(cmd, p.returncode, out, err)
+              for cmd, p, (out, err) in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n{err}"
+                                     for cmd, rc, out, err in failed))
 
 
 class KernelLibrary:
@@ -95,21 +111,21 @@ class KernelLibrary:
     def _build(self, target: Path) -> None:
         nvcc = _find_nvcc()
         target.parent.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in _sources(self.csrc_dir) if p.suffix == ".cu"]
+        cu = [p for p in _sources(self.csrc_dir) if p.suffix == ".cu"]
         # build beside the target, then rename: a concurrent loader never
         # sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(self.csrc_dir), "-o", tmp, *cu]
+        work = Path(tempfile.mkdtemp(dir=target.parent))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        try:
+            objs = [work / f"{p.stem}.o" for p in cu]
+            _run_all([[nvcc, *NVCC_FLAGS, "-I", str(self.csrc_dir), "-c", "-o", str(o),
+                       str(p)] for p, o in zip(cu, objs)])
+            lib = work / _LIB_NAME
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+            os.replace(lib, target)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         self.build_seconds = time.perf_counter() - t0
-        os.replace(tmp, target)
 
     def load(self) -> ctypes.CDLL:
         if self._lib is not None:
@@ -140,9 +156,30 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise when grad mode is on and an operand requires grad.
+
+    A kernel launched through `ctypes` writes into a tensor that autograd
+    never sees: its result has no `grad_fn`, and a gradient would be
+    dropped without a word. The kernels are forward-only; a caller that
+    trains through one wraps it in a `torch.autograd.Function` (as
+    `ops/losses.py` does for B4) or runs it under `torch.no_grad()` (as
+    the frozen towers do)."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: an operand of shape {tuple(t.shape)} requires grad, but the "
+                "CUDA kernel has no backward; run it under torch.no_grad() or "
+                "detach the operand")
+
+
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device, contiguous, in a dtype the
-    kernels take (fp32 or bf16), all of one dtype."""
+    kernels take (fp32 or bf16), all of one dtype, and none that needs
+    a gradient (`check_no_grad`)."""
+    check_no_grad(name, *tensors)
     first = tensors[0]
     if first.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {first.dtype} not supported "
@@ -182,7 +219,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def launch_layer_norm(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    """LN kernel on a contiguous [rows, W] CUDA tensor (a piece of B1/B2)."""
+    """LN kernel on a contiguous [rows, W] CUDA tensor (a piece of B1/B2);
+    its callers have passed `check_cuda_operands`."""
     rows, width = x2.shape
     y = torch.empty_like(x2)
     launch("fern_layernorm", x2.data_ptr(), weight.data_ptr(), bias.data_ptr(),
@@ -198,7 +236,7 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
 
     a [M, K]; weight [N, K] (torch Linear layout); bias [N]; residual
     [M, N]. K and N must be multiples of 8 (16-byte vector loads and
-    stores)."""
+    stores). Its callers have passed `check_cuda_operands`."""
     m, k = a.shape
     n = weight.shape[0]
     if weight.shape[1] != k:

@@ -3,12 +3,21 @@
 Kernels B1 (`attention_subblock`), B2 (`mlp_subblock`) and B3
 (`packed_qkv_self_attention`) are held against the JAX Pallas kernels run
 as the JAX tests run them (`force_pallas=True, interpret=True`); exact
-GELU against `_mlp_ref(activation="gelu")`. The same numpy inputs feed
-both sides.
+GELU against `_mlp_ref(activation="gelu")`. Kernel B4 (`bbc_rowloss`)
+against `_bbc_rowloss_pallas(..., interpret=True)` and `_bbc_rowloss_ref`,
+and its autograd against `jax.grad` of the custom-VJP `_bbc_mean_loss`.
+The same numpy inputs feed both sides.
 
 Tolerances: fp32 atol 2e-5 (the module tolerance of the parity suites);
 bf16 atol = rtol = 2e-2 (bf16 keeps about three significant digits and
-the two frameworks accumulate in different orders).
+the two frameworks accumulate in different orders). B4's row losses at
+atol 5e-4, rtol 1e-5: the temperature of 100 turns the fp32 ordering
+error of a d = 512 dot product (about 1e-6) into about 1e-4 on a score.
+Its gradients at rtol 1e-4 and an atol of 5e-5 times the largest
+gradient element: a score near 75 carries an fp32 rounding error of
+about 1e-5 (its ulp is 7.6e-6), which the softmax passes on as a relative
+error of each probability, and each gradient element is a sum of such
+probabilities times rows of the other operand.
 """
 
 import jax.numpy as jnp
@@ -16,11 +25,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from fashionern_aaai2024_tpu.ops import attention as JA
+from fashionern_aaai2024_tpu.ops import losses as JL
 from fashionern_aaai2024_tpu.ops import mlp as JM
 from fashionern_aaai2024_tpu_torch.ops import attention as TA
-from fashionern_aaai2024_tpu_torch.ops import mlp as TM
 from fashionern_aaai2024_tpu_torch.ops import common as TCm
+from fashionern_aaai2024_tpu_torch.ops import losses as TL
+from fashionern_aaai2024_tpu_torch.ops import mlp as TM
 
 torch.set_num_threads(2)
 
@@ -171,3 +184,111 @@ def test_kernel_library_hash_tracks_sources(tmp_path):
     assert lib.source_hash() == TCm.KernelLibrary().source_hash()
     (src / "attention.cu").write_text((src / "attention.cu").read_text() + "\n// edit\n")
     assert lib.library_path() != before
+
+
+# --- B4: the BBC row loss ------------------------------------------------
+
+ROW_TOL = dict(atol=5e-4, rtol=1e-5)
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 5e-5
+
+
+def _grad_close(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_OF_MAX * np.abs(want).max())
+
+
+def _bbc_inputs(b, d, seed=11):
+    """Unit rows around one shared direction, as the fusion stack's
+    normalized outputs are early in training, each target a little
+    closer to its own query: every score is near 75 and the row losses
+    are a few units, so neither the diagonal nor one column dominates."""
+    g = np.random.default_rng(seed)
+    c = g.standard_normal(d)
+    n1, n2 = (g.standard_normal((b, d)) / np.sqrt(d) for _ in range(2))
+    pred, tar = c / np.linalg.norm(c) + 0.6 * n1, c / np.linalg.norm(c) + 0.6 * n2 + 0.1 * n1
+    unit = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+    return unit(pred), unit(tar)
+
+
+@pytest.mark.parametrize("d", [24, 512, 640])
+@pytest.mark.parametrize("b", [1, 13, 128, 200, 1024])
+def test_bbc_rowloss_matches_ref(b, d):
+    pred, tar = _bbc_inputs(b, d)
+    want = JL._bbc_rowloss_ref(jnp.asarray(pred), jnp.asarray(tar), 100.0)
+    got = TL.bbc_rowloss(torch.from_numpy(pred), torch.from_numpy(tar))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ROW_TOL)
+
+
+@pytest.mark.parametrize("b,d", [(1, 24), (13, 24), (128, 512), (200, 640)])
+def test_bbc_rowloss_matches_pallas(b, d):
+    pred, tar = _bbc_inputs(b, d, seed=12)
+    want = JL._bbc_rowloss_pallas(jnp.asarray(pred), jnp.asarray(tar), 100.0, interpret=True)
+    got = TL.bbc_rowloss(torch.from_numpy(pred), torch.from_numpy(tar))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ROW_TOL)
+
+
+@pytest.mark.parametrize("b,d", [(1, 24), (13, 24), (32, 512), (200, 640)])
+def test_bbc_mean_loss_and_grads_match_custom_vjp(b, d):
+    pred, tar = _bbc_inputs(b, d, seed=13)
+    want, (jgp, jgt) = jax.value_and_grad(JL._bbc_mean_loss, argnums=(0, 1))(
+        jnp.asarray(pred), jnp.asarray(tar), 100.0)
+    tp = torch.from_numpy(pred).requires_grad_()
+    tt = torch.from_numpy(tar).requires_grad_()
+    loss = TL.batch_based_classification_loss(tp, tt)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), **ROW_TOL)
+    _grad_close(tp.grad, jgp)
+    _grad_close(tt.grad, jgt)
+
+
+def test_bbc_global_negatives():
+    """One device: "global" negatives are the local ones, as in a
+    one-device JAX run; across a process group they are not ported."""
+    pred, tar = (torch.from_numpy(a) for a in _bbc_inputs(16, 24))
+    local = TL.batch_based_classification_loss(pred, tar)
+    assert TL.batch_based_classification_loss(pred, tar, negatives="global") == local
+    with pytest.raises(NotImplementedError, match="A8"):
+        TL.batch_based_classification_loss(pred, tar, negatives="global",
+                                           process_group=object())
+    with pytest.raises(ValueError):
+        TL.batch_based_classification_loss(pred, tar, negatives="nope")
+
+
+@pytest.mark.parametrize("b", [1, 13, 64, 65, 1000, 1024, 4096])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_bbc_split_plan_covers_every_tile(b, sms):
+    """The kernel's C entry point refuses a plan where a split owns no
+    column tile; every plan the wrapper makes passes that check."""
+    splits, per_split = TL.split_plan(b, sms)
+    tiles = -(-b // 64)
+    assert splits == -(-tiles // per_split)
+    assert (splits - 1) * per_split < tiles <= splits * per_split
+
+
+def test_plain_path_keeps_autograd():
+    """On the CPU every wrapper takes its plain version, which autograd
+    differentiates; the no-grad guard applies to CUDA launches only."""
+    x, g_, b_, wqkv, bqkv, wo, bo = (torch.tensor(a) for a in _subblock_inputs(17))
+    x.requires_grad_()
+    out = TA.attention_subblock(x, g_, b_, wqkv.t().contiguous(), bqkv, wo, bo, 2)
+    assert out.grad_fn is not None
+    f = torch.tensor(np.random.default_rng(1).standard_normal((512, 128)) * 0.05,
+                     dtype=torch.float32)
+    out = TM.mlp_subblock(out, g_, b_, f, torch.zeros(512), f.t().contiguous(),
+                          torch.zeros(128))
+    qkv = torch.randn(2, 9, 384, requires_grad=True)
+    att = TA.packed_qkv_self_attention(qkv, 2)
+    (out.sum() + att.sum()).backward()
+    assert x.grad is not None and qkv.grad is not None
+    assert torch.isfinite(x.grad).all()
+
+
+def test_no_grad_guard_names_the_operand():
+    """The guard itself, which every CUDA wrapper calls before a launch."""
+    w = torch.zeros(4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        TCm.check_no_grad("gemm", torch.zeros(4), w)
+    with torch.no_grad():
+        TCm.check_no_grad("gemm", torch.zeros(4), w)
+    TCm.check_no_grad("gemm", torch.zeros(4), w.detach(), None)
