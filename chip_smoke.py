@@ -21,11 +21,29 @@ Phases (each raises on failure; nothing is caught):
   4. timings: gallery embed + index refine in img/s (bench.py's
      definition: bf16, B=128, best of 3 windows of 20) and query P50
      latency at b=1 and b=32;
-  5. kernel B4 (the BBC row loss) against its plain version at
+  5. int8 kernels: B5 (int8 MLP sub-block) and B6 (int8 attention
+     sub-block) against their plain versions at vit_b32, text_b32 and
+     text_b1 in bf16 and fp32 and at vit_b1024 and text_b1024 in bf16,
+     each kernel's LN + quantize prologue counted for flipped int8 codes,
+     and a control (the plain version with its activations rounded to
+     bf16 before quantizing) that the same check must reject, with the
+     same timings; the library yardstick is LN + quantize + `torch._int_mm` +
+     rescale (with SDPA for B6's attention), and the bound counts int8
+     operations at 1,979 TOPS, attention FLOPs at the float peak and bytes
+     at 3.35 TB/s;
+  6. the int8 serve slice: the same ViT-B-16 with `quantize_mlp=True`
+     (phase 3's seeded weights), bf16, `quantize_gallery=True`, the same
+     gallery and queries, launch counts (B5 and B6 on every block, B1-B3
+     none), embed + refine img/s and query P50 as in phase 4, the card's
+     embeddings against the port's plain int8 run on the CPU in fp32, and
+     the top-10 overlap with phase 3's bf16 service;
+  7. kernel B4 (the BBC row loss) against its plain version at
      (1024, 512), (1000, 512), (13, 24) and (1024, 640), fp32, with the
      same timings and `F.cross_entropy` over the logits as its library
      call;
-  6. the train slice: ViT-B-16 at full width, seeded weights, the bf16
+  8. the int8 train slice: 2 steps of `Trainer.train()` at B = 1024 with
+     `quantize_towers=True`, launch counts and step times;
+  9. the train slice: ViT-B-16 at full width, seeded weights, the bf16
      train policy, B = 1024, lr 4e-5 (the recipe, `cli/main.py:64-65`):
      first one fp32 step at B = 16 on the card against the same step on
      the CPU with the plain versions (all-keep dropout on both), then 6
@@ -34,7 +52,10 @@ Phases (each raises on failure; nothing is caught):
      2,048), one validation computing Recall@10 over a 1,024-item
      gallery, launch counts of every kernel on the steps and on the
      validation apart, a frozen CLIP and a moving ERN, step times, and a
-     `torch.profiler` split of one more step.
+     `torch.profiler` split of one more step;
+  10. a `torch.profiler` split by kernel of one embed + refine call of
+      each tier (phases 4 and 6). Every profile runs after every
+      host-clock and event timing: the profiler slows later launches.
 
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -52,6 +73,7 @@ import sys
 import tempfile
 import time
 import zlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -70,6 +92,8 @@ from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
+from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
+from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
 from fashionern_aaai2024_tpu_torch.retrieval import metrics
 from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
@@ -101,6 +125,7 @@ CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
             "less casual and in blue", "has stripes and no logo"]
 B1, B2, B3, B4 = ("attention_subblock (B1)", "mlp_subblock (B2)",
                   "packed_qkv_self_attention (B3)", "bbc_rowloss (B4)")
+B5, B6 = "int8_mlp_subblock (B5)", "int8_attention_subblock (B6)"
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -110,10 +135,41 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/attention.py:147"),
     B4: (L.bbc_rowloss, "fashionern_aaai2024_tpu_torch/csrc/bbc_loss.cu",
          "fashionern_aaai2024_tpu/ops/losses.py:55"),
+    B5: (Q.int8_mlp_subblock, "fashionern_aaai2024_tpu_torch/csrc",
+         "fashionern_aaai2024_tpu/ops/qmlp.py:85"),
+    B6: (Q.int8_attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
+         "fashionern_aaai2024_tpu/ops/qmlp.py:213"),
 }
 SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
-           B3: ["attention.cu"], B4: ["bbc_loss.cu"]}
+           B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
+           B6: ["quant.cu", "qgemm.cu", "attention.cu"]}
 TOWER_KERNELS = (B1, B2, B3)
+INT8_KERNELS = (B5, B6)
+# int8 kernels against their plain versions: an int8 code that the two
+# summation orders round to neighbouring values moves the outputs that
+# depend on it by about one quantization step of a product, at most
+# INT8_STEP beyond the float tolerance (fp32: largest excess read 8.1e-3;
+# bf16: every reading inside the bf16 tolerance, by 1.2e-2 at least); a
+# flip in a key or value token moves every query row of its image a
+# little, so the mean error is held to INT8_MEAN, set per dtype between
+# the kernels' largest reading (fp32 1.2e-5, bf16 6.1e-6, here and in
+# tests/test_torch_cuda.py) and the smallest of a control that rounds its
+# activations to bf16 before quantizing them (fp32 1.3e-4, bf16 1.4e-4;
+# every run checks that the control fails); the LN + quantize prologue
+# alone may flip at most 0.1% of its codes, by one (read: 1.0e-6; the
+# control flips 5%)
+INT8_STEP = {torch.float32: 1.2e-2, torch.bfloat16: 0.0}
+INT8_MEAN = {torch.float32: 4e-5, torch.bfloat16: 3e-5}
+INT8_CODE_SHARE = 1e-3
+INT8_SHAPES = [(torch.bfloat16, s) for s in SHAPES] + [(torch.float32, s) for s in SHAPES]
+INT8_SHAPES += [(torch.bfloat16, s) for s in TRAIN_SHAPES]
+# int8 tensor-core peak of the H100 SXM (dense), NVIDIA data sheet
+PEAK_INT8_OPS = 1979e12
+# the card's int8 bf16 embeddings against the port's plain int8 fp32 run
+# on the CPU (predicted before the first run: min above 0.97; measured
+# min 0.99960 over five runs, so held at 0.999)
+INT8_COSINE_MIN = 0.999
+INT8_TRAIN_STEPS = 2
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core and fp32
 # CUDA-core rates, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -274,12 +330,16 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(), dim=-1)
 
 
-def phase_slice(card_label: str) -> tuple[dict, RetrievalService, InferenceAPI]:
-    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+def phase_slice(card_label: str, quantize: bool = False
+                ) -> tuple[dict, RetrievalService, InferenceAPI]:
+    """The serve slice, float (phase 3) or int8 towers and gallery (phase
+    6); both from the same seeded weights."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", quantize_mlp=quantize)
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     reference = copy.deepcopy(model).eval()          # fp32, plain versions, CPU
     apply_precision(model, "bf16")
-    api = InferenceAPI(model, tokenizer=tokenizer, device="cuda", batch_size=BATCH)
+    api = InferenceAPI(model, tokenizer=tokenizer, device="cuda", batch_size=BATCH,
+                       quantize_gallery=quantize)
     names, images, patches, batches = make_gallery()
     refs = [names[2 * i] for i in range(8)]          # inside the 16 checked items
 
@@ -295,9 +355,13 @@ def phase_slice(card_label: str) -> tuple[dict, RetrievalService, InferenceAPI]:
     launches = launch_counts()
 
     tower_calls = GALLERY // BATCH + len(refs) + 1   # ViT batches + text calls
+    kinds = "B5-B6" if quantize else "B1-B3"
     log(f"  main path {run_s:.2f} s; launches {launches} (expected "
-        f"{LAYERS * tower_calls} each of B1-B3: {LAYERS} layers x {tower_calls} tower calls)")
-    check_launches("serve path", launches, tower_kernels=LAYERS * tower_calls, bbc=0)
+        f"{LAYERS * tower_calls} each of {kinds}: {LAYERS} layers x {tower_calls} tower calls)")
+    if quantize:
+        check_launches("int8 serve path", launches, int8_kernels=LAYERS * tower_calls)
+    else:
+        check_launches("serve path", launches, tower_kernels=LAYERS * tower_calls)
     for res in singles + batch_results:
         scores = [r["score"] for r in res]
         if len(res) != K or not np.all(np.isfinite(scores)) or scores != sorted(
@@ -320,17 +384,49 @@ def phase_slice(card_label: str) -> tuple[dict, RetrievalService, InferenceAPI]:
     _, top_card = service.index.search(card_query, k=K)
     _, top_cpu = service.index.search(cpu_query, k=K)
     overlap = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(top_card, top_cpu)]))
-    log(f"  card bf16 vs CPU fp32: gallery cosine min {cos_g.min().item():.5f}, "
-        f"query cosine min {cos_q.min().item():.5f}, top-{K} overlap {overlap:.3f} "
-        f"({card_label})")
-    if cos_g.min() < 0.99 or cos_q.min() < 0.99:
-        raise AssertionError("card embeddings disagree with the fp32 CPU run")
+    log(f"  card bf16 vs CPU fp32: gallery cosine min {cos_g.min().item():.5f} "
+        f"(median {cos_g.median().item():.5f}), query cosine min {cos_q.min().item():.5f} "
+        f"(median {cos_q.median().item():.5f}), top-{K} overlap {overlap:.3f} ({card_label})")
+    limit = INT8_COSINE_MIN if quantize else 0.99
+    if cos_g.min() < limit or cos_q.min() < limit:
+        raise AssertionError(f"card embeddings disagree with the fp32 CPU run (limit {limit})")
     return dict(main_path_seconds=run_s, launches=launches,
                 gallery_cosine_min=cos_g.min().item(), query_cosine_min=cos_q.min().item(),
-                topk_overlap=overlap, startup_seconds=service.startup_seconds), service, api
+                gallery_cosine_median=cos_g.median().item(),
+                query_cosine_median=cos_q.median().item(), topk_overlap=overlap,
+                startup_seconds=service.startup_seconds,
+                results=[[r["name"] for r in res] for res in singles + batch_results]
+                ), service, api
 
 
-def phase_timings(service: RetrievalService, api: InferenceAPI) -> dict:
+def kernel_split(fn, top: int = 6) -> dict:
+    """Device time of one call of `fn` by kernel name (`torch.profiler`),
+    the call's wall time and the card's idle share over it. The second of
+    two profiled calls is kept: the first pays the profiler's start-up."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    device = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(wall_ms=wall, device_ms=device, idle_share=1.0 - device / wall if wall else None,
+                top=[dict(kernel=k[:90], ms=ms, launches=n) for k, (ms, n) in ranked])
+
+
+def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, object]:
+    """Embed + refine img/s and query P50s; also returns the embed +
+    refine call for `kernel_split`, which runs after every host-clock
+    measurement of the script (the profiler slows later launches)."""
     g = np.random.default_rng(1)
     b = 128
     images = torch.from_numpy(g.random((b, 224, 224, 3), dtype=np.float32)).to(
@@ -364,7 +460,7 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> dict:
         times = [service.query(names[i:i + qb], [CAPTIONS[(i + j) % 8] for j in range(qb)],
                                k=K)[1] for i in range(reps)]
         lat[f"query_p50_ms_b{qb}"] = statistics.median(times) * 1e3
-    return dict(embed_refine_img_per_s=img_s, **lat)
+    return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine
 
 
 def reset_launches() -> None:
@@ -376,9 +472,11 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
-def check_launches(path: str, launches: dict, *, tower_kernels: int, bbc: int) -> None:
+def check_launches(path: str, launches: dict, *, tower_kernels: int = 0, bbc: int = 0,
+                   int8_kernels: int = 0) -> None:
     want = {name: tower_kernels for name in TOWER_KERNELS}
     want[B4] = bbc
+    want.update({name: int8_kernels for name in INT8_KERNELS})
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
 
@@ -482,8 +580,6 @@ def check_fp32_step(cfg, dataset: SyntheticFashionIQ, card: str) -> dict:
     masks). Loss at rtol 1e-5 and ERN gradient cosine >= 0.99999: both
     are fp32 throughout and differ only in summation order (a first run
     on an H100 gave 8.2e-8 and 0.9999989)."""
-    from unittest import mock
-
     from fashionern_aaai2024_tpu_torch.data.loader import default_collate
 
     cpu_model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(1))
@@ -640,6 +736,224 @@ def phase_train(card: str) -> dict:
     return info
 
 
+def int8_inputs(b, s, w, dtype, seed):
+    """B5 and B6 operands: float activations, LN parameters and biases in
+    `dtype`, weights drawn at std 0.02 in `dtype` and quantized as the
+    towers' cache does (int8 [out, in], fp32 scale per output row)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=0.02, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=g)).to(dtype).cuda()
+
+    def q(out_f, in_f):
+        values, scale = quantize_rowwise(t(out_f, in_f))
+        return values, scale.reshape(-1)
+
+    f = 4 * w
+    x, ln = t(b, s, w, scale=1.0), (t(w, scale=0.1, offset=1.0), t(w, scale=0.1))
+    return {B5: (x, *ln, *q(f, w), t(f), *q(w, f), t(w)),
+            B6: (x, *ln, *q(3 * w, w), t(3 * w), *q(w, w), t(w))}
+
+
+def int8_work(name: str, b: int, s: int, w: int, heads: int, causal: bool,
+              dtype: torch.dtype) -> tuple[float, float, float]:
+    """(int8 operations, float attention FLOPs, bytes) of one B5 / B6
+    call: x read and the output written once in `dtype`, the int8
+    weights, their fp32 scales and the biases read once."""
+    e = torch.finfo(dtype).bits // 8
+    m = b * s
+    if name == B5:
+        return 16 * m * w * w, 0.0, e * (2 * m * w + 7 * w) + 8 * w * w + 4 * 5 * w
+    pairs = s * (s + 1) // 2 if causal else s * s
+    attn = 4 * b * heads * pairs * (w // heads)
+    return 8 * m * w * w, attn, e * (2 * m * w + 6 * w) + 4 * w * w + 4 * 4 * w
+
+
+def int8_bound(ops: float, flops: float, nbytes: float, dtype: torch.dtype) -> dict:
+    """Least time on an H100 SXM: the larger of the operations' time (int8
+    at 1,979 TOPS plus attention FLOPs at the dtype's peak) and the bytes'
+    at 3.35 TB/s."""
+    ops_ms = 1e3 * (ops / PEAK_INT8_OPS + flops / PEAK_FLOPS[dtype])
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def int8_library_call(name: str, args: tuple, heads: int, causal: bool):
+    """A PyTorch library composition of B5 / B6's function: LN, row
+    quantization, `torch._int_mm`, rescale (and SDPA for B6's attention).
+    A yardstick for `library_ms`, never called by the port."""
+    def quant(y):
+        scale = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+        return torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8), scale
+
+    def qmm(aq, a_s, wq, w_s):
+        return torch._int_mm(aq, wq.t()).float() * a_s * w_s
+
+    x, g, b_, w1q, w1s, b1, w2q, w2s, b2 = args
+    bsz, s, w = x.shape
+    x2 = x.view(-1, w)
+
+    def ln_quant():
+        return quant(F.layer_norm(x2.float(), (w,), g.float(), b_.float()))
+
+    if name == B5:
+        f = w1q.shape[0]
+        c = f // Q.hidden_groups(f, "quick_gelu")
+
+        def b5():
+            h = qmm(*ln_quant(), w1q, w1s) + b1.float()
+            h = h * torch.sigmoid(1.702 * h)
+            acc = sum(qmm(*quant(h[:, i:i + c]), w2q[:, i:i + c].contiguous(), w2s)
+                      for i in range(0, f, c))
+            return x2 + (acc + b2.float()).to(x.dtype)
+        return b5
+
+    def b6():
+        qkv = (qmm(*ln_quant(), w1q, w1s) + b1.float()).to(x.dtype)
+        q, k, v = qkv.view(bsz, s, 3, heads, w // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        o = o.transpose(1, 2).reshape(-1, w).float()
+        return x2 + (qmm(*quant(o), w2q, w2s) + b2.float()).to(x.dtype)
+    return b6
+
+
+def int8_errors(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> dict:
+    """Share of elements off the float tolerance, largest and mean error,
+    and whether they pass the float tolerance + INT8_STEP and INT8_MEAN."""
+    err = (got.float() - want.float()).abs()
+    limit = TOL[dtype]["atol"] + TOL[dtype]["rtol"] * want.float().abs()
+    mean = err.mean().item()
+    return dict(elements_off_share=(err > limit).float().mean().item(),
+                max_abs_err=err.max().item(), mean_abs_err=mean,
+                passes=bool((err <= limit + INT8_STEP[dtype]).all()) and mean <= INT8_MEAN[dtype])
+
+
+def bf16_control(plain_fn, *args, **kwargs) -> torch.Tensor:
+    """`plain_fn` with one fault of precision: every activation rounded to
+    bf16 before its row quantization (LN output, hidden, attention output),
+    as a kernel that kept them in bf16 would compute."""
+    def quantize_bf16(y):
+        return quantize_rowwise(y.to(torch.bfloat16).float())
+
+    with mock.patch.object(Q, "quantize_rowwise", quantize_bf16):
+        return plain_fn(*args, **kwargs)
+
+
+def ln_quant_flips(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> float:
+    """Share of the LN + quantize kernel's int8 codes that differ from the
+    plain version's (by one step at most; raises otherwise)."""
+    x2 = x.view(-1, x.shape[-1])
+    q, _ = common.launch_ln_quant(x2, g, b, 1e-5)
+    want, _ = Q.ln_quantize(x2, g, b, 1e-5)
+    diff = (q.int() - want.int()).abs()
+    share = diff.float().mean().item()
+    if diff.max().item() > 1 or share > INT8_CODE_SHARE:
+        raise AssertionError(f"LN + quantize: codes off by {diff.max().item()}, share {share}")
+    return share
+
+
+def phase_int8_kernels() -> tuple[dict, list]:
+    plain = {B5: Q.int8_mlp_subblock_plain, B6: Q.int8_attention_subblock_plain}
+    rows, worst = [], {name: 0.0 for name in INT8_KERNELS}
+    for dtype, (label, shp) in INT8_SHAPES:
+        inputs = int8_inputs(shp["b"], shp["s"], shp["w"], dtype, seed=100 + len(rows))
+        flips = ln_quant_flips(*inputs[B5][:3])
+        for name in INT8_KERNELS:
+            wrapper, args = KERNELS[name][0], inputs[name]
+            kw = {"activation": "quick_gelu"} if name == B5 else {"causal": shp["causal"]}
+            pos = () if name == B5 else (shp["heads"],)
+            got = wrapper(*args, *pos, **kw)
+            want = plain[name](*args, *pos, **kw)
+            control = bf16_control(plain[name], *args, *pos, **kw)
+            torch.cuda.synchronize()
+            close = int8_errors(got, want, dtype)
+            ctl = int8_errors(control, want, dtype)
+            if not close.pop("passes"):
+                raise AssertionError(f"{name} {label} {dtype}: off its plain version {close}")
+            if ctl.pop("passes"):
+                raise AssertionError(f"{name} {label} {dtype}: the check passes the bf16 "
+                                     f"control {ctl}")
+            worst[name] = max(worst[name], close["max_abs_err"])
+            del got, want, control
+            ops, flops, nbytes = int8_work(name, shp["b"], shp["s"], shp["w"], shp["heads"],
+                                           shp["causal"], dtype)
+            row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                       ln_quant_code_flip_share=flips, **close,
+                       control_max_abs_err=ctl["max_abs_err"],
+                       control_mean_abs_err=ctl["mean_abs_err"],
+                       ms=median_ms(lambda: wrapper(*args, *pos, **kw)),
+                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)),
+                       library_ms=median_ms(int8_library_call(name, args, shp["heads"],
+                                                              shp["causal"])),
+                       **int8_bound(ops, flops, nbytes, dtype))
+            rows.append(row)
+            log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {row['max_abs_err']:.3e} "
+                f"mean {row['mean_abs_err']:.2e} off float tol {row['elements_off_share']:.4f} "
+                f"LN codes flipped {flips:.2e} (bf16 control: mean "
+                f"{row['control_mean_abs_err']:.2e})  "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+        del inputs
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+def topk_overlap(a: list, b: list) -> float:
+    return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
+
+
+def phase_int8_train(card: str) -> dict:
+    """2 steps of Trainer.train() at B = 1024 with int8 frozen towers."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", quantize_mlp=True)
+    g = np.random.default_rng(5)
+    side = cfg.vision.image_size
+    images = g.integers(0, 256, (UNIVERSE, side, side, 3), dtype=np.uint8)
+    patches = g.standard_normal((UNIVERSE, 13, cfg.feature_dim), dtype=np.float32)
+    dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * INT8_TRAIN_STEPS, seed=6)
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as ckpt_dir:
+        tcfg = TrainConfig(dataset="fashioniq", clip_model_name="ViT-B-16",
+                           activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                           num_epochs=1, print_frequency=1,
+                           max_steps_per_epoch=INT8_TRAIN_STEPS, num_workers=0,
+                           precision="bf16", image_dtype="uint8", ckpt_dir=ckpt_dir, seed=0,
+                           quantize_towers=True)
+        trainer = Trainer(tcfg, device="cuda", train_dataset=dataset,
+                          plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
+                                               _fiq_captions),
+                          tokenizer=tokenizer)
+        if not trainer.model.clip_config.quantize_mlp:
+            raise AssertionError("quantize_towers did not build int8 towers")
+        times, losses = [], []
+        inner = trainer.step_fn
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = inner(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            return state, loss
+
+        trainer.step_fn = timed_step
+        reset_launches()
+        trainer.train()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    check_launches("int8 train path", launches, bbc=INT8_TRAIN_STEPS,
+                   int8_kernels=INT8_TRAIN_STEPS * 3 * LAYERS)
+    if len(losses) != INT8_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"int8 train losses {losses}")
+    log(f"  {INT8_TRAIN_STEPS} steps at B={TRAIN_BATCH}, int8 towers: losses "
+        f"{[round(x, 4) for x in losses]}; step times "
+        f"{[round(1e3 * t, 2) for t in times]} ms (the second: "
+        f"{TRAIN_BATCH / times[-1]:.1f} samples/s); launches {launches} ({card})")
+    return dict(losses=losses, step_seconds=times, launches=launches,
+                samples_per_s_step2=TRAIN_BATCH / times[-1])
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json-out", help="also write every measurement to this file")
@@ -662,21 +976,45 @@ def main() -> None:
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     slice_info, service, api = phase_slice(card)
     log(f"phase 4: timings ({card})")
-    timings = phase_timings(service, api)
+    timings, embed_fn = phase_timings(service, api)
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
-    log(f"phase 5: {B4} against its plain version ({card})")
+    log(f"phase 5: int8 kernels B5 and B6 against their plain versions ({card})")
+    int8_worst, int8_rows = phase_int8_kernels()
+    log(f"phase 6: the int8 serve slice, ViT-B-16 bf16, int8 towers and gallery ({card})")
+    int8_info, int8_service, int8_api = phase_slice(card, quantize=True)
+    int8_info["bf16_topk_overlap"] = topk_overlap(slice_info["results"], int8_info["results"])
+    int8_timings, int8_embed_fn = phase_timings(int8_service, int8_api)
+    log(f"  top-{K} overlap with the bf16 service {int8_info['bf16_topk_overlap']:.3f}; "
+        f"embed + refine {int8_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
+        f"int8 towers); query P50 {int8_timings['query_p50_ms_b1']:.3f} ms at b=1, "
+        f"{int8_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
+    del int8_service, int8_api
+    log(f"phase 7: {B4} against its plain version ({card})")
     bbc_rows = phase_bbc()
-    log(f"phase 6: the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
+    log(f"phase 8: the int8 train slice, B={TRAIN_BATCH}, quantize_towers ({card})")
+    int8_train = phase_int8_train(card)
+    log(f"phase 9: the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
     train = phase_train(card)
+    log(f"phase 10: profiles of embed + refine, B=128 ({card})")
+    for label, fn, out in (("bf16", embed_fn, timings), ("int8", int8_embed_fn, int8_timings)):
+        split = out["embed_refine_profile"] = kernel_split(fn)
+        log(f"  {label} towers: wall {split['wall_ms']:.3f} ms, device "
+            f"{split['device_ms']:.3f} ms, idle share {split['idle_share']:.3f}; "
+            + "; ".join(f"{t['kernel'][:48]} {t['ms']:.3f} ms x{t['launches']}"
+                        for t in split["top"]) + f" ({card})")
     log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
         f"({card})")
 
-    timed = {r["kernel"]: r for r in rows if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
+    timed = {r["kernel"]: r for r in rows + int8_rows
+             if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
-    by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name]}
+    worst.update(int8_worst)
+    by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name],
+                      "int8_serve": int8_info["launches"][name],
+                      "int8_train": int8_train["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -688,7 +1026,9 @@ def main() -> None:
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(dict(card=card, kernel_rows=rows, bbc_rows=bbc_rows, slice=slice_info,
-                           timings=timings, train=train,
+                           timings=timings, train=train, int8_kernel_rows=int8_rows,
+                           int8_slice=int8_info, int8_timings=int8_timings,
+                           int8_train=int8_train,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@
 // (fashionern_aaai2024_tpu/ops/attention.py:124-163) and the per-head
 // loop inside `_subblock_kernel` (ops/attention.py:496-510).
 //
-// qkv [B, S, 3W] (q | k | v, each W = H x 64 wide) -> out [B, S, W].
+// qkv [B, S, 3W] (q | k | v, each W = H x 64 wide) -> out [B, S, W], in
+// the qkv type or in fp32: kernel B6 (`_qattn_kernel`, ops/qmlp.py:186-201)
+// keeps the concatenated heads in fp32 before it quantizes them.
 // Heads are sliced in the kernel, so the [B, H, S, 64] layout is never
 // built in device memory.
 //
@@ -50,9 +52,9 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int seq) {
          (size_t)kAttnWarps * (kHeadDim + kMaxSeq) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int H, int causal,
+attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int S, int H, int causal,
                  float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kld = KStride<T>::value;
@@ -128,38 +130,44 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int H, i
       o0 = fmaf(p, v.x, o0);
       o1 = fmaf(p, v.y, o1);
     }
-    T* orow = out + ((size_t)b * S + i) * W + h * kHeadDim;
-    orow[2 * lane] = from_f<T>(o0);
-    orow[2 * lane + 1] = from_f<T>(o1);
+    TO* orow = out + ((size_t)b * S + i) * W + h * kHeadDim;
+    orow[2 * lane] = from_f<TO>(o0);
+    orow[2 * lane + 1] = from_f<TO>(o1);
     __syncwarp();  // qw / pw are rewritten by the next row
   }
 }
 
-template <typename T>
+template <typename T, typename TO>
 static cudaError_t launch_attention(const void* qkv, void* out, int batch, int seq, int heads,
                                     int causal, float scale, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<T>(seq);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(heads, batch);
-  attention_kernel<T><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), seq, heads, causal, scale);
+  attention_kernel<T, TO><<<grid, kAttnWarps * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<TO*>(out), seq, heads, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace fern
 
+// dtype: the qkv type; out_dtype: the output's, the same or fp32.
 extern "C" int fern_attention(const void* qkv, void* out, int batch, int seq, int heads,
-                              int causal, float scale, int dtype, int device, void* stream) {
+                              int causal, float scale, int dtype, int out_dtype, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (seq > fern::kMaxSeq) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fern::DTYPE_BF16)
-    return (int)fern::launch_attention<fern::bf16>(qkv, out, batch, seq, heads, causal, scale, s);
-  if (dtype == fern::DTYPE_F32)
-    return (int)fern::launch_attention<float>(qkv, out, batch, seq, heads, causal, scale, s);
+  using fern::bf16;
+  using fern::launch_attention;
+  if (dtype == fern::DTYPE_BF16 && out_dtype == fern::DTYPE_BF16)
+    return (int)launch_attention<bf16, bf16>(qkv, out, batch, seq, heads, causal, scale, s);
+  if (dtype == fern::DTYPE_BF16 && out_dtype == fern::DTYPE_F32)
+    return (int)launch_attention<bf16, float>(qkv, out, batch, seq, heads, causal, scale, s);
+  if (dtype == fern::DTYPE_F32 && out_dtype == fern::DTYPE_F32)
+    return (int)launch_attention<float, float>(qkv, out, batch, seq, heads, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

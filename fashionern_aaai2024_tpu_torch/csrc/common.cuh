@@ -64,4 +64,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 16-byte asynchronous copy to shared memory; with pred false the 16
+// bytes are zero-filled (0 source bytes).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 }  // namespace fern

@@ -35,19 +35,6 @@ constexpr int kLds = kBK + 8;  // 80-byte rows: 32-byte aligned, staggered banks
 constexpr int kWarpM = 64, kWarpN = 32;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // One 128 x 32 tile of a row-major [rows, K] matrix into shared memory.
 __device__ __forceinline__ void load_tile(bf16 (*dst)[kLds], const bf16* src, int row0,
                                           int rows, int k0, int K) {

@@ -46,7 +46,7 @@ class CLIPConfig:
     vision: VisionConfig
     text: TextConfig
     activation: str = "gelu"        # "gelu" | "quick_gelu"
-    quantize_mlp: bool = False      # int8 towers are not ported yet; must stay False
+    quantize_mlp: bool = False      # int8 towers (serving; kernels B5 / B6, ops/qmlp.py)
 
     @property
     def feature_dim(self) -> int:
@@ -78,8 +78,11 @@ RN50X4 = CLIPConfig(
 _CONFIGS = {"ViT-B-16": VIT_B_16, "RN50x4": RN50X4}
 
 
-def get_clip_config(name: str, activation: str | None = None) -> CLIPConfig:
+def get_clip_config(name: str, activation: str | None = None,
+                    quantize_mlp: bool | None = None) -> CLIPConfig:
     cfg = _CONFIGS[name]
     if activation is not None:
         cfg = dataclasses.replace(cfg, activation=activation)
+    if quantize_mlp is not None:
+        cfg = dataclasses.replace(cfg, quantize_mlp=quantize_mlp)
     return cfg

@@ -5,6 +5,9 @@ ViT image tower sits under `visual.`; the text tower's parameters are at
 the top level, as in open_clip (see `models/clip/text.py`), with
 `logit_scale` beside them.
 
+`config.quantize_mlp` (the `--quantize-towers` serving tier) runs both
+towers' blocks with int8 projections (`models/clip/transformer.py`).
+
 `encode_image` takes uint8 images as well and CLIP-normalizes them on
 the device (`model.py:47-57`), then casts to the tower's weight dtype.
 """
@@ -31,11 +34,9 @@ class CLIP(TextTower):
         if config.vision.kind != "vit":
             raise NotImplementedError(
                 "only the ViT image tower is ported (RN50x4: ROADMAP.md queue A)")
-        if config.quantize_mlp:
-            raise NotImplementedError("int8 towers are not ported yet (ROADMAP.md queue A)")
-        super().__init__(config.text, config.activation)
+        super().__init__(config.text, config.activation, config.quantize_mlp)
         self.config = config
-        self.visual = ViTTower(config.vision, config.activation)
+        self.visual = ViTTower(config.vision, config.activation, config.quantize_mlp)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,7 +24,7 @@ from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
 
 
 class TextTower(nn.Module):
-    def __init__(self, config: TextConfig, activation: str = "gelu"):
+    def __init__(self, config: TextConfig, activation: str = "gelu", quantize: bool = False):
         super().__init__()
         if config.tme:
             raise NotImplementedError("TME is not ported yet (ROADMAP.md queue A)")
@@ -33,7 +33,7 @@ class TextTower(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(config.context_length, config.width))
         self.transformer = Transformer(config.width, config.layers, config.heads,
-                                       activation, causal=True)
+                                       activation, causal=True, quantize=quantize)
         self.ln_final = nn.LayerNorm(config.width)
         self.text_projection = nn.Parameter(torch.empty(config.width, config.embed_dim))
 

@@ -31,7 +31,7 @@ from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
 
 
 class ViTTower(nn.Module):
-    def __init__(self, config: VisionConfig, activation: str = "gelu"):
+    def __init__(self, config: VisionConfig, activation: str = "gelu", quantize: bool = False):
         super().__init__()
         self.config = config
         w, p = config.width, config.patch_size
@@ -40,7 +40,8 @@ class ViTTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(w))
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, w))
         self.ln_pre = nn.LayerNorm(w)
-        self.transformer = Transformer(w, config.layers, config.heads, activation)
+        self.transformer = Transformer(w, config.layers, config.heads, activation,
+                                       quantize=quantize)
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, config.embed_dim))
 

@@ -106,11 +106,12 @@ def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.
 
 
 def packed_qkv_self_attention_plain(qkv: torch.Tensor, heads: int, *,
-                                    causal: bool = False,
-                                    scale: float | None = None) -> torch.Tensor:
+                                    causal: bool = False, scale: float | None = None,
+                                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of B3 with `_packed_kernel`'s rounding points
     (`:124-143`): fp32 scores and softmax, p / denom cast to the qkv
-    dtype, fp32 P.V, output cast."""
+    dtype, fp32 P.V, output cast to `out_dtype` (default: the qkv dtype;
+    B6 keeps it fp32)."""
     b, s, w3 = qkv.shape
     w = w3 // 3
     dh = w // heads
@@ -122,7 +123,7 @@ def packed_qkv_self_attention_plain(qkv: torch.Tensor, heads: int, *,
         sc = sc + causal_bias(s, qkv.device)
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     p = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
-    return _merge_heads(torch.matmul(p, v).to(qkv.dtype))
+    return _merge_heads(torch.matmul(p, v).to(out_dtype or qkv.dtype))
 
 
 def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = False,
@@ -133,20 +134,29 @@ def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = F
     plain version."""
     if not common.is_cuda(qkv):
         return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
+    common.check_cuda_operands("packed_qkv_self_attention", qkv)
+    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype)
+    packed_qkv_self_attention.launches += 1
+    return out
+
+
+def launch_attention_core(qkv: torch.Tensor, heads: int, *, causal: bool,
+                          scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """The attention core kernel (csrc/attention.cu) on a checked CUDA
+    qkv [B, S, 3W]; output in the qkv dtype or fp32 (B6). Counts nothing:
+    its callers (B3, B6) do."""
     b, s, w3 = qkv.shape
     if w3 % 3 or w3 // 3 != heads * _HEAD_DIM:
         raise ValueError(f"packed_qkv_self_attention: qkv width {w3} with {heads} "
                          f"heads; the kernel takes head dim {_HEAD_DIM} only")
     if s > _MAX_SEQ:
         raise ValueError(f"packed_qkv_self_attention: S={s} > {_MAX_SEQ}")
-    common.check_cuda_operands("packed_qkv_self_attention", qkv)
     if scale is None:
         scale = _HEAD_DIM ** -0.5
-    out = torch.empty((b, s, w3 // 3), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, s, w3 // 3), dtype=out_dtype, device=qkv.device)
     common.launch("fern_attention", qkv.data_ptr(), out.data_ptr(), b, s, heads,
                   int(causal), scale, common.DTYPE_CODES[qkv.dtype],
-                  qkv.device.index, common.stream_of(qkv))
-    packed_qkv_self_attention.launches += 1
+                  common.DTYPE_CODES[out_dtype], qkv.device.index, common.stream_of(qkv))
     return out
 
 

@@ -47,8 +47,16 @@ _SIGNATURES = {
     "fern_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # a, bt, bias, res, c, m, n, k, act, dtype, device, stream
     "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qkv, out, batch, seq, heads, causal, scale, dtype, device, stream
-    "fern_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # qkv, out, batch, seq, heads, causal, scale, dtype, out_dtype, device, stream
+    "fern_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # x, gamma, beta, q, scale, rows, width, eps, dtype, device, stream
+    "fern_ln_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, q, scale, rows, width, groups, device, stream
+    "fern_quant_groups": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, lda, bt, ldb, a_scale, a_scale_stride, b_scale, bias, partial, res,
+    # c, m, n, k, act, dtype, out_f32, device, stream
+    "fern_qgemm": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P),
     # pred, tar, row, part_m, part_l, diag, B, d, temp, splits,
     # tiles_per_split, device, stream
     "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
@@ -175,6 +183,20 @@ def check_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
                 "detach the operand")
 
 
+def check_int8_operands(name: str, device: torch.device, *pairs: torch.Tensor) -> None:
+    """int8 weights and their fp32 scales, given as (values, scales)
+    pairs: on `device`, contiguous, of those two dtypes."""
+    check_no_grad(name, *pairs)
+    for i, t in enumerate(pairs):
+        want = torch.int8 if i % 2 == 0 else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: operand {i} is {t.dtype}, expected {want}")
+        if t.device != device:
+            raise ValueError(f"{name}: operands on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is not contiguous")
+
+
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device, contiguous, in a dtype the
     kernels take (fp32 or bf16), all of one dtype, and none that needs
@@ -252,5 +274,73 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),
            c.data_ptr(), m, n, k, ACT_CODES[activation], DTYPE_CODES[a.dtype],
+           a.device.index, stream_of(a))
+    return c
+
+
+def launch_ln_quant(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """LN + row-int8 kernel on a contiguous [rows, W] CUDA tensor (the
+    prologue of B5 and B6) -> (int8 [rows, W], fp32 scales [rows, 1])."""
+    rows, width = x2.shape
+    q = torch.empty((rows, width), dtype=torch.int8, device=x2.device)
+    scale = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    launch("fern_ln_quant", x2.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
+           scale.data_ptr(), rows, width, eps, DTYPE_CODES[x2.dtype], x2.device.index,
+           stream_of(x2))
+    return q, scale
+
+
+def launch_quant_groups(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-int8 kernel on a contiguous fp32 [rows, F] CUDA tensor, one
+    scale per row and per group of F / groups columns -> (int8 [rows, F],
+    fp32 scales [rows, groups])."""
+    rows, width = x.shape
+    if x.dtype != torch.float32 or width % groups:
+        raise ValueError(f"quant_groups: {x.dtype} [{rows}, {width}] in {groups} groups")
+    q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows, groups), dtype=torch.float32, device=x.device)
+    launch("fern_quant_groups", x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, width,
+           groups, x.device.index, stream_of(x))
+    return q, scale
+
+
+def launch_qgemm(a: torch.Tensor, a_scale: torch.Tensor, weight: torch.Tensor,
+                 w_scale: torch.Tensor, *, k_range: tuple[int, int] | None = None,
+                 group: int = 0, bias: torch.Tensor | None = None,
+                 partial: torch.Tensor | None = None, residual: torch.Tensor | None = None,
+                 activation: str | None = None, out_dtype: torch.dtype) -> torch.Tensor:
+    """int8 GEMM kernel with its rescaling epilogue:
+
+        [res +] cast(act([partial +] float(a . weight.T) * a_scale * w_scale + bias))
+
+    a int8 [M, Kfull]; a_scale fp32 [M, G] (column `group` is used);
+    weight int8 [N, Kfull] (torch layout) with w_scale fp32 [N];
+    `k_range` = (k0, k1) multiplies only columns k0:k1 of both (one
+    hidden group of B5); bias and residual in `out_dtype` or, for an fp32
+    output, in the activations' dtype (`bias.dtype`); partial fp32 [M, N].
+    Its callers have checked the operands."""
+    m, kfull = a.shape
+    n = weight.shape[0]
+    k0, k1 = k_range if k_range is not None else (0, kfull)
+    if weight.shape[1] != kfull or (k1 - k0) % 16 or k0 % 16 or kfull % 16:
+        raise ValueError(f"qgemm: a {tuple(a.shape)}, weight {tuple(weight.shape)}, "
+                         f"k {k0}:{k1} (multiples of 16 only)")
+    io = bias if bias is not None else residual
+    io_dtype = io.dtype if io is not None else out_dtype
+    if out_dtype != torch.float32 and out_dtype != io_dtype:
+        raise TypeError(f"qgemm: output {out_dtype} with bias/residual {io_dtype}")
+    if residual is not None and (out_dtype != residual.dtype or residual.shape != (m, n)):
+        raise ValueError(f"qgemm: residual {residual.dtype} {tuple(residual.shape)}")
+    if partial is not None and (partial.dtype != torch.float32 or partial.shape != (m, n)):
+        raise ValueError(f"qgemm: partial {partial.dtype} {tuple(partial.shape)}")
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    groups = a_scale.shape[1]
+    launch("fern_qgemm", a.data_ptr() + k0, kfull, weight.data_ptr() + k0, kfull,
+           a_scale.data_ptr() + 4 * group, groups, w_scale.data_ptr(),
+           None if bias is None else bias.data_ptr(),
+           None if partial is None else partial.data_ptr(),
+           None if residual is None else residual.data_ptr(), c.data_ptr(), m, n, k1 - k0,
+           ACT_CODES[activation], DTYPE_CODES[io_dtype], int(out_dtype == torch.float32),
            a.device.index, stream_of(a))
     return c

@@ -12,6 +12,8 @@ equal scores unspecified.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 _CHUNK_BUDGET_BYTES = 1 << 30  # ~1 GB of fp32 score matrix per scan step
@@ -39,6 +41,34 @@ def merge_top_k(scores: torch.Tensor, indices: torch.Tensor,
     return top_s, torch.gather(i, 1, pos)
 
 
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """`t` with zero rows appended up to `rows`."""
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
+
+
+def chunked_top_k(score_chunk: Callable[[int, int], torch.Tensor], n: int, k: int,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Running exact top-k over a gallery of `n` rows scanned in chunks.
+    `score_chunk(start, chunk)` gives the [Q, chunk] scores of rows
+    start:start + chunk, the rows past the gallery's end zero-padded;
+    their columns are masked to -inf here."""
+    best_s = best_i = None
+    for start in range(0, n, chunk):
+        valid = min(chunk, n - start)
+        s = score_chunk(start, chunk)
+        s[:, valid:] = -torch.inf
+        cs, ci = stable_top_k(s, min(k, chunk))
+        ci = ci + start
+        if best_s is None:
+            best_s, best_i = cs, ci
+        else:
+            best_s, best_i = merge_top_k(torch.cat([best_s, cs], dim=1),
+                                         torch.cat([best_i, ci], dim=1), k)
+    return best_s, best_i
+
+
 def blocked_top_k_similarity(queries: torch.Tensor, gallery: torch.Tensor, k: int = 51,
                              chunk: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,24 +80,11 @@ def blocked_top_k_similarity(queries: torch.Tensor, gallery: torch.Tensor, k: in
     zero-padded to full size and its pad columns masked to -inf: every
     chunk is then one product of one shape, so duplicate gallery rows
     score bit-identically wherever they sit and ties stay ties."""
-    q = queries.shape[0]
     n = gallery.shape[0]
-    k = min(k, n)
-    chunk = _auto_chunk(q, n) if chunk is None else min(chunk, n)
+    chunk = _auto_chunk(queries.shape[0], n) if chunk is None else min(chunk, n)
     qf = queries.float()
-    best_s = best_i = None
-    for start in range(0, n, chunk):
-        part = gallery[start:start + chunk].float()
-        valid = part.shape[0]
-        if valid < chunk:
-            part = torch.cat([part, part.new_zeros((chunk - valid, part.shape[1]))])
-        s = qf @ part.t()
-        s[:, valid:] = -torch.inf
-        cs, ci = stable_top_k(s, min(k, chunk))
-        ci = ci + start
-        if best_s is None:
-            best_s, best_i = cs, ci
-        else:
-            best_s, best_i = merge_top_k(torch.cat([best_s, cs], dim=1),
-                                         torch.cat([best_i, ci], dim=1), k)
-    return best_s, best_i
+
+    def score_chunk(start: int, size: int) -> torch.Tensor:
+        return qf @ pad_rows(gallery[start:start + size].float(), size).t()
+
+    return chunked_top_k(score_chunk, n, min(k, n), chunk)

@@ -2,9 +2,10 @@
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/engine.py`:
 `GalleryFeatures`, `embed_gallery` (`:74`) and the exact tier of
-`RetrievalIndex.search` (`:136`). `embed_gallery` is serial here: the
-JAX version's prefetch thread, int8 gallery, approximate top-k and mesh
-sharding are not ported yet.
+`RetrievalIndex` (`:136-214`), fp32 or int8 (`quantize=True`,
+`--quantize-gallery`). `embed_gallery` is serial here: the JAX version's
+prefetch thread, approximate top-k (and with it `calibrate_approx`) and
+mesh sharding are not ported yet.
 
 Features stay on the model's device as fp32 tensors, so a query's
 reference-row gather and the search run there without a host round
@@ -19,6 +20,10 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from fashionern_aaai2024_tpu_torch.ops.quant import (
+    blocked_top_k_similarity_int8,
+    quantize_rows,
+)
 from fashionern_aaai2024_tpu_torch.ops.similarity import blocked_top_k_similarity
 
 
@@ -47,15 +52,32 @@ def embed_gallery(encode_image_fn: Callable, loader: Iterable[dict]) -> GalleryF
 
 
 class RetrievalIndex:
-    """Refined gallery embeddings + exact top-k search."""
+    """Refined gallery embeddings + exact top-k search.
 
-    def __init__(self, names: Sequence[str], features: torch.Tensor):
+    `quantize=True` stores the gallery on its device as int8 with one fp32
+    scale per row (`ops/quant.py quantize_rows`; 4x fewer bytes than
+    fp32) and searches it (`blocked_top_k_similarity_int8`). The fp32
+    features then move to the host, as the JAX index keeps them there
+    for `scores_for`."""
+
+    def __init__(self, names: Sequence[str], features: torch.Tensor, quantize: bool = False):
         self.names = list(names)
-        self.features = features.float()
+        self.quantized = quantize
+        self.features_q = self.scales = None
+        if quantize:
+            self.features_q, self.scales = quantize_rows(features.float())
+            self.features = features.float().cpu()
+        else:
+            self.features = features.float()
 
     def search(self, query_features: torch.Tensor, k: int = 51,
                chunk: int | None = None) -> tuple[np.ndarray, np.ndarray]:
         """-> (scores [Q, k], gallery row indices [Q, k]) as host arrays."""
-        q = torch.as_tensor(query_features).to(self.features.device)
-        scores, idx = blocked_top_k_similarity(q, self.features, k=k, chunk=chunk)
+        if self.quantized:
+            q = torch.as_tensor(query_features).to(self.features_q.device)
+            scores, idx = blocked_top_k_similarity_int8(q, self.features_q, self.scales, k=k,
+                                                        chunk=chunk)
+        else:
+            q = torch.as_tensor(query_features).to(self.features.device)
+            scores, idx = blocked_top_k_similarity(q, self.features, k=k, chunk=chunk)
         return scores.cpu().numpy(), idx.cpu().numpy()

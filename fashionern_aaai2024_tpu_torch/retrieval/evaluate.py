@@ -36,11 +36,14 @@ class InferenceAPI:
 
     def __init__(self, model: ComposedCIRModel, *, tokenizer: Callable,
                  device: torch.device | str, batch_size: int = 32,
-                 context_length: int = 77):
+                 context_length: int = 77, quantize_gallery: bool = False):
         """`tokenizer`: callable (captions, context_length) -> int32
         [B, L]. The CLIP BPE table is not in the repository, so there is
-        no default."""
+        no default. `quantize_gallery`: the services built on this API
+        store the refined gallery int8 for the top-k search
+        (`--quantize-gallery`, `ops/quant.py`)."""
         self.device = resolve_device(device)
+        self.quantize_gallery = quantize_gallery
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.context_length = context_length

@@ -5,8 +5,9 @@ JAX counterpart: `fashionern_aaai2024_tpu/retrieval/server.py`
 the ViT tower, refines it through the ERN index tower and builds the
 index; `query` answers composed queries (reference image name + caption)
 along the JAX service's multi-dispatch path (`server.py:291-296`): text
-tower, DVR query tower, exact top-k. Results have the JAX service's
-`_format_results` shape.
+tower, DVR query tower, exact top-k (over an int8 gallery when the API
+was built with `quantize_gallery`, `server.py:119-121`). Results have
+the JAX service's `_format_results` shape.
 
 Not ported yet: the one-dispatch serve program, live adds
 (`--capacity`), the HTTP handler and the micro-batcher.
@@ -30,7 +31,8 @@ class RetrievalService:
         self.api = api
         self.gallery = embed_gallery(api.encode_image, classic_loader)
         refined = api.refine_gallery(self.gallery.features, self.gallery.local_features)
-        self.index = RetrievalIndex(self.gallery.names, refined)
+        self.index = RetrievalIndex(self.gallery.names, refined,
+                                    quantize=api.quantize_gallery)
         self.rows = last_wins_rows(self.gallery.names)
         self.startup_seconds = time.perf_counter() - t0
 

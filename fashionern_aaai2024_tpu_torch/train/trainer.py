@@ -13,9 +13,9 @@ state).
 Differences from the JAX Trainer:
   * `device` in place of `mesh`. A mesh of more than one device, and
     therefore "global" negatives across devices, raise
-    `NotImplementedError` (ROADMAP A8); so do `quantize_towers` (A6),
-    `tme` (A5), and any dataset class or dataset evaluator the port does
-    not have yet (A9): pass `train_dataset` and `validator`.
+    `NotImplementedError` (ROADMAP A8); so do `tme` (A5) and any dataset
+    class or dataset evaluator the port does not have yet (A9): pass
+    `train_dataset` and `validator`.
   * The model carries its weights: pass a `ComposedCIRModel`, or the
     Trainer builds one with seeded random weights
     (`models/composed.py random_init_`), which are not the JAX package's
@@ -95,7 +95,7 @@ class TrainConfig:
     precision: str = "fp32"                 # "fp32" | "bf16" (frozen CLIP towers only)
     cache_features: bool = False            # pre-encode unique images once; text stays online
     image_dtype: str = "float32"            # "uint8" = raw-pixel feed, normalize on device
-    quantize_towers: bool = False           # not ported (ROADMAP A6)
+    quantize_towers: bool = False           # int8 frozen towers (kernels B5 / B6)
     ckpt_every_steps: int | None = None     # periodic resume checkpoint (kill-safety)
     prefetch_batches: int = 2               # host->device prefetch depth (0 = serial feed)
     tme: bool = False                       # not ported (ROADMAP A5)
@@ -171,8 +171,6 @@ class Trainer:
             raise NotImplementedError(
                 "training on a mesh of more than one device is not ported yet "
                 "(ROADMAP.md A8)")
-        if cfg.quantize_towers:
-            raise NotImplementedError("int8 towers are not ported yet (ROADMAP.md A6)")
         if cfg.tme:
             raise NotImplementedError("TME is not ported yet (ROADMAP.md A5)")
         if cfg.precision not in ("fp32", "bf16"):
@@ -187,10 +185,12 @@ class Trainer:
         self.plugin = plugin or PLUGINS[cfg.dataset]
         self.device = resolve_device(device)
         if model is None:
-            model = random_init_(
-                ComposedCIRModel(get_clip_config(cfg.clip_model_name, cfg.activation),
-                                 patch_num=cfg.patch_num),
-                torch.Generator().manual_seed(cfg.seed))
+            # the towers are frozen and run under torch.no_grad(), so the
+            # forward-only int8 kernels serve the train step too
+            clip_cfg = get_clip_config(cfg.clip_model_name, cfg.activation,
+                                       quantize_mlp=True if cfg.quantize_towers else None)
+            model = random_init_(ComposedCIRModel(clip_cfg, patch_num=cfg.patch_num),
+                                 torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
         self.clip_cfg = model.clip_config
         self.tokenizer = tokenizer

@@ -14,6 +14,25 @@ Weights are drawn at std 0.02, the CLIP / BERT init scale, which keeps
 the projections below 2 in magnitude: a one-ulp flip there (<= 2^-7)
 then stays inside atol even where `x + proj` cancels to a small result.
 
+B5 and B6 (`int8_mlp_subblock`, `int8_attention_subblock`): the
+kernels and the plain versions quantize the same values, but the LN's
+mean and variance, quick_gelu and the attention sum in another order, so
+a value on a rounding boundary can land on the other side and flip one
+int8 code by one step. The LN + quantize kernel alone is held to that:
+codes equal except at most 0.1% flipped, each by exactly one. A flipped
+code moves the outputs that depend on it by about one quantization step
+of a product (activation scale, an absmax near 4 over 127, times weights
+drawn at std 0.02, largest near 0.1): in fp32 at most INT8_STEP = 1.2e-2
+beyond the float tolerance above (6.3e-3 read at ViT B=4 on an H100); in
+bf16 the bf16 tolerance holds it (INT8_STEP = 0). One flip in a key or
+value token moves every query row of its image a little, so in fp32 a
+large share of the elements can sit off 2e-5 (30% of the rows at ViT
+B=4); the mean error is held instead, per dtype, between the largest
+reading of these tests (fp32 1.2e-5, bf16 2.5e-6) and the smallest of a
+control that rounds the activations to bf16 before quantizing (fp32
+1.3e-4, bf16 1.4e-4): INT8_MEAN = 4e-5 in fp32 and 3e-5 in bf16, the
+limits `chip_smoke.py` holds the serve shapes to.
+
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
 1e-6, into about 1e-4 on a score); gradients through the autograd
@@ -27,8 +46,11 @@ import pytest
 import torch
 
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
+from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
+from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +195,90 @@ def test_cuda_wrappers_refuse_operands_that_require_grad(device):
     with torch.no_grad():
         A.packed_qkv_self_attention(torch.randn(2, 9, 3 * w, device=device,
                                                 requires_grad=True), 2)
+
+
+# --- B5 and B6: the int8 sub-blocks -------------------------------------
+
+INT8_SHAPES = [(2, 9, 128, 2, False)] + SHAPES
+INT8_STEP = {torch.float32: 1.2e-2, torch.bfloat16: 0.0}
+INT8_MEAN = {torch.float32: 4e-5, torch.bfloat16: 3e-5}
+
+
+def _close_up_to_flips(got, want, dtype):
+    """TOL[dtype] + INT8_STEP[dtype] on every element, mean error <=
+    INT8_MEAN[dtype]."""
+    err = (got.float() - want.float()).abs()
+    limit = TOL[dtype]["atol"] + TOL[dtype]["rtol"] * want.float().abs() + INT8_STEP[dtype]
+    assert (err <= limit).all(), err.max().item()
+    assert err.mean().item() <= INT8_MEAN[dtype], err.mean().item()
+
+
+def _int8_weight(g, out_f, in_f, device, dtype):
+    q, s = quantize_rowwise(_t(g, (out_f, in_f), 0.02, dtype, device))
+    return q, s.reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w", [(2, 9, 128), (4, 197, 768), (1, 77, 512)])
+def test_ln_quant_kernel_matches_plain(device, dtype, b, s, w):
+    g = np.random.default_rng(5)
+    x = _t(g, (b * s, w), 1.0, dtype, device)
+    ln_w, ln_b = _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device)
+    q, scale = common.launch_ln_quant(x, ln_w, ln_b, 1e-5)
+    want_q, want_scale = Q.ln_quantize(x, ln_w, ln_b, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(scale, want_scale, atol=0.0, rtol=1e-6)
+    diff = (q.int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert diff.float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,causal", INT8_SHAPES)
+def test_int8_mlp_kernel_matches_plain(device, dtype, b, s, w, heads, causal):
+    g = np.random.default_rng(6)
+    f = 4 * w
+    args = (_t(g, (b, s, w), 1.0, dtype, device),
+            _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device),
+            *_int8_weight(g, f, w, device, dtype), _t(g, (f,), 0.02, dtype, device),
+            *_int8_weight(g, w, f, device, dtype), _t(g, (w,), 0.02, dtype, device))
+    n0 = Q.int8_mlp_subblock.launches
+    got = Q.int8_mlp_subblock(*args, activation="quick_gelu")
+    torch.cuda.synchronize()
+    assert Q.int8_mlp_subblock.launches == n0 + 1
+    _close_up_to_flips(got, Q.int8_mlp_subblock_plain(*args, activation="quick_gelu"), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,causal", INT8_SHAPES)
+def test_int8_attention_kernel_matches_plain(device, dtype, b, s, w, heads, causal):
+    g = np.random.default_rng(7)
+    args = (_t(g, (b, s, w), 1.0, dtype, device),
+            _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device),
+            *_int8_weight(g, 3 * w, w, device, dtype), _t(g, (3 * w,), 0.02, dtype, device),
+            *_int8_weight(g, w, w, device, dtype), _t(g, (w,), 0.02, dtype, device))
+    n0 = Q.int8_attention_subblock.launches
+    got = Q.int8_attention_subblock(*args, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert Q.int8_attention_subblock.launches == n0 + 1
+    _close_up_to_flips(got, Q.int8_attention_subblock_plain(*args, heads, causal=causal),
+                       dtype)
+
+
+def test_int8_wrappers_refuse_operands_that_require_grad(device):
+    w = 128
+    g = np.random.default_rng(8)
+    x = torch.randn(2, 9, w, device=device, requires_grad=True)
+    ln, zeros = torch.ones(w, device=device), torch.zeros(w, device=device)
+    fc, proj = _int8_weight(g, 4 * w, w, device, torch.float32), _int8_weight(
+        g, w, 4 * w, device, torch.float32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        Q.int8_mlp_subblock(x, ln, zeros, *fc, torch.zeros(4 * w, device=device), *proj, zeros)
+    qkv, out = _int8_weight(g, 3 * w, w, device, torch.float32), _int8_weight(
+        g, w, w, device, torch.float32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        Q.int8_attention_subblock(x, ln, zeros, *qkv, torch.zeros(3 * w, device=device), *out,
+                                  zeros, 2)
+    with torch.no_grad():
+        Q.int8_attention_subblock(x, ln, zeros, *qkv, torch.zeros(3 * w, device=device), *out,
+                                  zeros, 2)

@@ -219,7 +219,7 @@ def test_best_checkpointer(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(quantize_towers=True), "A6"), (dict(tme=True), "A5")])
+    pytest.param(dict(tme=True), "A5", id="overrides1-A5")])
 def test_trainer_raises_on_what_is_not_ported(tmp_path, overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         _trainer(tmp_path, **overrides)
