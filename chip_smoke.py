@@ -8,16 +8,21 @@ Phases (each raises on failure; nothing is caught):
      (one nvcc process per source, all at once);
   2. kernels: B1 (attention sub-block), B2 (MLP sub-block) and B3
      (packed-qkv attention) against their plain PyTorch versions at the
-     serve path's shapes in bf16 and fp32 and at the train path's (the
-     frozen towers at B = 1024) in bf16, with per-call times (CUDA events,
-     median of 25) beside one PyTorch library call computing the same
-     function (`library_ms`, a yardstick the port never calls) and the
+     serve path's shapes in bf16 and fp32 (ViT-B-16, and the text towers
+     of ViT-B-16 and RN50x4) and at the train path's (the frozen towers at
+     B = 1024) in bf16; B7 (QKV projection + attention) at the DVR BERT's
+     shapes, B8 (packed-kv cross-attention) at the RN50x4 attention pool's
+     and the MR cross-attention's, B11 (LayerNorm) at ln_final, the BERT's
+     and the ViT's ln_pre, each in bf16 and fp32; with per-call times (CUDA
+     events, median of 25) beside one PyTorch library call computing the
+     same function (`library_ms`, a yardstick the port never calls) and the
      card's bound for the work (`bound_ms`);
   3. the slice: ViT-B-16 at full width with seeded weights under the
      bf16 serve policy, a RetrievalService over a 512-item synthetic
      gallery, 8 single queries and one 32-query batch at k=10, launch
-     counts of every kernel on that run, and the card's embeddings held
-     against the port's fp32 plain run on the CPU;
+     counts of every kernel on that run (B1-B3 in the towers, B7 and B8
+     in the DVR query tower, B11 at every standalone LayerNorm), and the
+     card's embeddings held against the port's fp32 plain run on the CPU;
   4. timings: gallery embed + index refine in img/s (bench.py's
      definition: bf16, B=128, best of 3 windows of 20) and query P50
      latency at b=1 and b=32;
@@ -53,9 +58,20 @@ Phases (each raises on failure; nothing is caught):
      gallery, launch counts of every kernel on the steps and on the
      validation apart, a frozen CLIP and a moving ERN, step times, and a
      `torch.profiler` split of one more step;
-  10. a `torch.profiler` split by kernel of one embed + refine call of
-      each tier (phases 4 and 6). Every profile runs after every
-      host-clock and event timing: the profiler slows later launches.
+  10. the RN50x4 serve slice: the same run as phases 3 and 4 with RN50x4
+      (modified ResNet at base width 80 on 288² images, attention pool
+      with 40 heads of 64; text tower 12 x 640; DVR at d = 640 with 8
+      heads of 80) over a gallery of 512 items with 13 x 640 patches:
+      launch counts (B1-B3 in the text tower, B8 once per gallery batch
+      and once per query call, B7 twice per query call, B11 at ln_final
+      and the BERT's LayerNorms), the tower's output norm, card against
+      CPU, embed + refine img/s and query P50;
+  11. a `torch.profiler` split by kernel of one embed + refine call of
+      each tier (phases 4, 6 and 10), and of one RN50x4 query at b=32, with
+      the device time of the `record_function` spans (image tower, its
+      trunk and attention pool, index refine; text tower, DVR query
+      tower, search). Every profile runs after every host-clock and event
+      timing: the profiler slows later launches.
 
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -79,6 +95,7 @@ import numpy as np
 import torch
 
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP_MEAN, CLIP_STD
@@ -90,6 +107,7 @@ from fashionern_aaai2024_tpu_torch.models.composed import (
 from fashionern_aaai2024_tpu_torch.ops import attention as A
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
+from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
@@ -118,6 +136,26 @@ TEXT = dict(s=77, w=512, heads=8, causal=True)
 SHAPES = [("vit_b32", VIT), ("text_b32", dict(TEXT, b=32)), ("text_b1", dict(TEXT, b=1))]
 # the train path's: the frozen towers at the recipe's B = 1024, in bf16
 TRAIN_SHAPES = [("vit_b1024", dict(VIT, b=1024)), ("text_b1024", dict(TEXT, b=1024))]
+# the RN50x4 text tower (W = 640, 10 heads of 64): serve shapes in bf16
+# and fp32, B = 1024 in bf16
+RN_TEXT = dict(s=77, w=640, heads=10, causal=True)
+RN_SHAPES = [("rn_text_b32", dict(RN_TEXT, b=32)), ("rn_text_b1", dict(RN_TEXT, b=1))]
+RN_TRAIN_SHAPES = [("rn_text_b1024", dict(RN_TEXT, b=1024))]
+# B7: the DVR BERT (S = 1 + 13 + 77) at d = 640 (8 heads of 80) and 512
+BERT_SHAPES = [("bert640", dict(b=32, s=91, w=640, heads=8)),
+               ("bert512", dict(b=32, s=91, w=512, heads=8))]
+# B8: the RN50x4 attention pool (40 heads of 64) and the MR cross-attention
+CROSS_SHAPES = [("attnpool", dict(b=128, sq=1, sk=82, w=2560, heads=40)),
+                ("mr640", dict(b=32, sq=77, sk=13, w=640, heads=8)),
+                ("mr512", dict(b=32, sq=77, sk=13, w=512, heads=8))]
+# B11: RN50x4 ln_final, the BERT's LNs at d = 640, the ViT's ln_pre at B=128
+LN_SHAPES = [("ln_final", dict(rows=32 * 77, w=640, eps=1e-5)),
+             ("bert_ln", dict(rows=32 * 91, w=640, eps=1e-12)),
+             ("vit_ln_pre", dict(rows=128 * 197, w=768, eps=1e-5))]
+# the DVR query tower's mini-BERT: layers, and its LayerNorms per forward
+# (the embedding LN and two post-LNs a layer)
+BERT_LAYERS = 2
+BERT_LNS = 1 + 2 * BERT_LAYERS
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
 SOT, EOT, CTX = 49406, 49407, 77
 CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
@@ -126,6 +164,8 @@ CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
 B1, B2, B3, B4 = ("attention_subblock (B1)", "mlp_subblock (B2)",
                   "packed_qkv_self_attention (B3)", "bbc_rowloss (B4)")
 B5, B6 = "int8_mlp_subblock (B5)", "int8_attention_subblock (B6)"
+B7, B8, B11 = ("fused_qkv_self_attention (B7)", "packed_kv_cross_attention (B8)",
+               "layer_norm (B11)")
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -139,12 +179,20 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/qmlp.py:85"),
     B6: (Q.int8_attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/qmlp.py:213"),
+    B7: (A.fused_qkv_self_attention, "fashionern_aaai2024_tpu_torch/csrc",
+         "fashionern_aaai2024_tpu/ops/attention.py:388"),
+    B8: (A.packed_kv_cross_attention, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
+         "fashionern_aaai2024_tpu/ops/attention.py:264"),
+    B11: (LN.layer_norm, "fashionern_aaai2024_tpu_torch/csrc/layernorm.cu",
+          "fashionern_aaai2024_tpu/ops/layernorm.py:46"),
 }
 SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
            B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
-           B6: ["quant.cu", "qgemm.cu", "attention.cu"]}
+           B6: ["quant.cu", "qgemm.cu", "attention.cu"], B7: ["gemm.cu", "attention.cu"],
+           B8: ["attention.cu"], B11: ["layernorm.cu"]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
+NEW_KERNELS = (B7, B8, B11)
 # int8 kernels against their plain versions: an int8 code that the two
 # summation orders round to neighbouring values moves the outputs that
 # depend on it by about one quantization step of a product, at most
@@ -282,8 +330,9 @@ def phase_kernels() -> tuple[dict, list]:
     plain = {B1: A.attention_subblock_plain, B2: M.mlp_subblock_plain,
              B3: A.packed_qkv_self_attention_plain}
     rows, worst = [], {name: 0.0 for name in TOWER_KERNELS}
-    cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32) for shape in SHAPES]
-    cases += [(torch.bfloat16, shape) for shape in TRAIN_SHAPES]
+    cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
+             for shape in SHAPES + RN_SHAPES]
+    cases += [(torch.bfloat16, shape) for shape in TRAIN_SHAPES + RN_TRAIN_SHAPES]
     for dtype, (label, shp) in cases:
         inputs = kernel_inputs(shp["b"], shp["s"], shp["w"], dtype, seed=len(rows))
         for name in TOWER_KERNELS:
@@ -315,11 +364,109 @@ def phase_kernels() -> tuple[dict, list]:
     return worst, rows
 
 
-def make_gallery(seed: int = 0):
+def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tuple:
+    """B7: x [b, s, w], weight [3w, w] and bias at std 0.02; B8: q
+    [b, sq, w], kv [b, sk, 2w]; B11: x [rows, w] around 2, LN weight and
+    bias near (1, 0)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=0.02, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=g)).to(dtype).cuda()
+
+    w = shp["w"]
+    if name == B7:
+        return t(shp["b"], shp["s"], w, scale=1.0), t(3 * w, w), t(3 * w)
+    if name == B8:
+        return t(shp["b"], shp["sq"], w, scale=1.0), t(shp["b"], shp["sk"], 2 * w, scale=1.0)
+    return t(shp["rows"], w, scale=1.0, offset=2.0), t(w, scale=0.1, offset=1.0), t(w, scale=0.1)
+
+
+def new_kernel_work(name: str, shp: dict, dtype: torch.dtype) -> dict:
+    """Bound of one B7 / B8 / B11 call: every input read once and the
+    output written once. B7: the projection's 6·m·w² and the attention's
+    4·b·s²·w FLOPs at the dtype's peak; B8: 4·b·sq·sk·w; B11: its ~8
+    fp32 operations an element, on the CUDA cores (67 TFLOP/s)."""
+    e = torch.finfo(dtype).bits // 8
+    w = shp["w"]
+    if name == B7:
+        b, s = shp["b"], shp["s"]
+        return bound(6 * b * s * w * w + 4 * b * s * s * w,
+                     e * (2 * b * s * w + 3 * w * w + 3 * w), dtype)
+    if name == B8:
+        b, sq, sk = shp["b"], shp["sq"], shp["sk"]
+        return bound(4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w), dtype)
+    rows = shp["rows"]
+    return bound(8 * rows * w, e * (2 * rows * w + 2 * w), torch.float32)
+
+
+def sdpa_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+               causal: bool = False) -> torch.Tensor:
+    """SDPA over [B, S, W] head views (`library_ms` only)."""
+    def split(t):
+        b, s, w = t.shape
+        return t.view(b, s, heads, w // heads).transpose(1, 2)
+
+    o = F.scaled_dot_product_attention(split(q), split(k), split(v), is_causal=causal)
+    return o.transpose(1, 2).reshape(q.shape)
+
+
+def new_kernel_calls(name: str, args: tuple, shp: dict):
+    """(kernel, plain version, library call) of B7 / B8 / B11; the library
+    calls are F.linear + SDPA, SDPA and F.layer_norm, never called by the
+    port."""
+    if name == B7:
+        heads, w = shp["heads"], shp["w"]
+        x, wt, bias = args
+
+        def library():
+            qkv = F.linear(x, wt, bias)
+            return sdpa_heads(qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:], heads)
+        return (lambda: A.fused_qkv_self_attention(*args, heads),
+                lambda: A.fused_qkv_self_attention_plain(*args, heads), library)
+    if name == B8:
+        heads, w = shp["heads"], shp["w"]
+        q, kv = args
+        return (lambda: A.packed_kv_cross_attention(q, kv, heads),
+                lambda: A.packed_kv_cross_attention_plain(q, kv, heads),
+                lambda: sdpa_heads(q, kv[..., :w], kv[..., w:], heads))
+    x, g, b_ = args
+    eps = shp["eps"]
+    return (lambda: LN.layer_norm(x, g, b_, eps), lambda: LN.layer_norm_plain(x, g, b_, eps),
+            lambda: F.layer_norm(x, (shp["w"],), g, b_, eps))
+
+
+def phase_new_kernels() -> tuple[dict, list]:
+    """B7, B8 and B11 against their plain versions, bf16 and fp32."""
+    rows, worst = [], {name: 0.0 for name in NEW_KERNELS}
+    cases = [(B7, s) for s in BERT_SHAPES] + [(B8, s) for s in CROSS_SHAPES]
+    cases += [(B11, s) for s in LN_SHAPES]
+    for name, (label, shp) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = new_kernel_inputs(name, shp, dtype, seed=200 + len(rows))
+            kernel, plain, library = new_kernel_calls(name, args, shp)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            err = (got.float() - want.float()).abs().max().item()
+            worst[name] = max(worst[name], err)
+            del got, want
+            row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
+                       library_ms=median_ms(library), **new_kernel_work(name, shp, dtype))
+            rows.append(row)
+            log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {err:.3e}  "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            del args
+    return worst, rows
+
+
+def make_gallery(side: int = 224, dim: int = 512, seed: int = 0):
     g = np.random.default_rng(seed)
-    raw = g.random((GALLERY, 224, 224, 3), dtype=np.float32)
+    raw = g.random((GALLERY, side, side, 3), dtype=np.float32)
     images = ((raw - CLIP_MEAN) / CLIP_STD).astype(np.float32)
-    patches = g.standard_normal((GALLERY, 13, 512)).astype(np.float32)
+    patches = g.standard_normal((GALLERY, 13, dim)).astype(np.float32)
     names = [f"item{i:04d}" for i in range(GALLERY)]
     batches = [{"name": names[i:i + BATCH], "image": images[i:i + BATCH],
                 "patch": patches[i:i + BATCH]} for i in range(0, GALLERY, BATCH)]
@@ -330,17 +477,32 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(), dim=-1)
 
 
-def phase_slice(card_label: str, quantize: bool = False
+def serve_launches(cfg, gallery_calls: int, query_calls: int) -> dict:
+    """Expected launches of a serve run: per gallery batch the image tower
+    (ViT: B1-B3 (or B5-B6) in each block, B11 at ln_pre and ln_post;
+    ResNet: B8 at the attention pool); per query call the text tower (the
+    same in each block, B11 at ln_final) and the DVR query tower (B7 in
+    each BERT layer, B11 at the BERT's LNs, B8 at MR)."""
+    vit = cfg.vision.kind == "vit"
+    blocks = cfg.text.layers * query_calls + (cfg.vision.layers * gallery_calls if vit else 0)
+    want = dict.fromkeys(INT8_KERNELS if cfg.quantize_mlp else TOWER_KERNELS, blocks)
+    want[B7] = BERT_LAYERS * query_calls
+    want[B8] = query_calls + (0 if vit else gallery_calls)
+    want[B11] = (1 + BERT_LNS) * query_calls + (2 * gallery_calls if vit else 0)
+    return want
+
+
+def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = False
                 ) -> tuple[dict, RetrievalService, InferenceAPI]:
-    """The serve slice, float (phase 3) or int8 towers and gallery (phase
-    6); both from the same seeded weights."""
-    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", quantize_mlp=quantize)
+    """The serve slice of `model_name`, float (phases 3 and 10) or int8
+    towers and gallery (phase 6); each from seeded weights."""
+    cfg = get_clip_config(model_name, activation="quick_gelu", quantize_mlp=quantize)
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     reference = copy.deepcopy(model).eval()          # fp32, plain versions, CPU
     apply_precision(model, "bf16")
     api = InferenceAPI(model, tokenizer=tokenizer, device="cuda", batch_size=BATCH,
                        quantize_gallery=quantize)
-    names, images, patches, batches = make_gallery()
+    names, images, patches, batches = make_gallery(cfg.vision.image_size, cfg.feature_dim)
     refs = [names[2 * i] for i in range(8)]          # inside the 16 checked items
 
     reset_launches()
@@ -354,14 +516,15 @@ def phase_slice(card_label: str, quantize: bool = False
     run_s = time.perf_counter() - t0
     launches = launch_counts()
 
-    tower_calls = GALLERY // BATCH + len(refs) + 1   # ViT batches + text calls
-    kinds = "B5-B6" if quantize else "B1-B3"
-    log(f"  main path {run_s:.2f} s; launches {launches} (expected "
-        f"{LAYERS * tower_calls} each of {kinds}: {LAYERS} layers x {tower_calls} tower calls)")
-    if quantize:
-        check_launches("int8 serve path", launches, int8_kernels=LAYERS * tower_calls)
-    else:
-        check_launches("serve path", launches, tower_kernels=LAYERS * tower_calls)
+    want = serve_launches(cfg, GALLERY // BATCH, len(refs) + 1)
+    log(f"  main path {run_s:.2f} s; launches {launches} (expected {want}: "
+        f"{GALLERY // BATCH} gallery batches, {len(refs) + 1} query calls)")
+    check_launches(f"{model_name} {'int8 ' if quantize else ''}serve path", launches, want)
+    norms = service.gallery.features.float().norm(dim=-1)
+    log(f"  image tower output norm: min {norms.min().item():.4f}, median "
+        f"{norms.median().item():.4f}, max {norms.max().item():.4f}")
+    if not torch.isfinite(norms).all() or norms.max() > 1e4 or norms.min() < 1e-4:
+        raise AssertionError("the seeded image tower saturates or vanishes")
     for res in singles + batch_results:
         scores = [r["score"] for r in res]
         if len(res) != K or not np.all(np.isfinite(scores)) or scores != sorted(
@@ -395,14 +558,18 @@ def phase_slice(card_label: str, quantize: bool = False
                 gallery_cosine_median=cos_g.median().item(),
                 query_cosine_median=cos_q.median().item(), topk_overlap=overlap,
                 startup_seconds=service.startup_seconds,
+                image_norm_min=norms.min().item(), image_norm_median=norms.median().item(),
+                image_norm_max=norms.max().item(),
                 results=[[r["name"] for r in res] for res in singles + batch_results]
                 ), service, api
 
 
-def kernel_split(fn, top: int = 6) -> dict:
+def kernel_split(fn, top: int = 6, spans: tuple = ()) -> dict:
     """Device time of one call of `fn` by kernel name (`torch.profiler`),
-    the call's wall time and the card's idle share over it. The second of
-    two profiled calls is kept: the first pays the profiler's start-up."""
+    the call's wall time, the card's idle share over it, and the device
+    time of the `record_function` spans named in `spans` (the kernels
+    each launched). The second of two profiled calls is kept: the first
+    pays the profiler's start-up."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(2):
         fn()
@@ -414,29 +581,54 @@ def kernel_split(fn, top: int = 6) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the spans' own windows on the card carry the span names
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ALL_SPANS:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     device = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    span_ms = {e.key: e.device_time_total / 1e3 for e in prof.key_averages() if e.key in spans}
     return dict(wall_ms=wall, device_ms=device, idle_share=1.0 - device / wall if wall else None,
-                top=[dict(kernel=k[:90], ms=ms, launches=n) for k, (ms, n) in ranked])
+                top=[dict(kernel=k[:90], ms=ms, launches=n) for k, (ms, n) in ranked],
+                spans_device_ms={k: span_ms.get(k) for k in spans})
 
 
-def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, object]:
+EMBED_SPANS = ("embed/image_tower", "image_tower/trunk", "image_tower/attnpool",
+               "embed/index_refine")
+QUERY_SPANS = ("query/text_tower", "query/dvr", "query/search")
+ALL_SPANS = frozenset(EMBED_SPANS + QUERY_SPANS)
+
+
+def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, object, object]:
     """Embed + refine img/s and query P50s; also returns the embed +
-    refine call for `kernel_split`, which runs after every host-clock
+    refine call and a b=32 query call (its steps in `record_function`
+    spans) for `kernel_split`, which runs after every host-clock
     measurement of the script (the profiler slows later launches)."""
     g = np.random.default_rng(1)
     b = 128
-    images = torch.from_numpy(g.random((b, 224, 224, 3), dtype=np.float32)).to(
+    cfg = api.model.clip_config
+    side = cfg.vision.image_size
+    images = torch.from_numpy(g.random((b, side, side, 3), dtype=np.float32)).to(
         "cuda", torch.bfloat16)
-    patches = torch.from_numpy(g.standard_normal((b, 13, 512)).astype(np.float32)).cuda()
+    patches = torch.from_numpy(
+        g.standard_normal((b, 13, cfg.feature_dim)).astype(np.float32)).cuda()
     bench_api = InferenceAPI(api.model, tokenizer=tokenizer, device="cuda", batch_size=b)
 
     def embed_and_refine():
-        feats, _ = bench_api.encode_image(images)
-        return bench_api.refine_gallery(feats, patches)
+        with record_function("embed/image_tower"):
+            feats, _ = bench_api.encode_image(images)
+        with record_function("embed/index_refine"):
+            return bench_api.refine_gallery(feats, patches)
+
+    def query_b32():
+        rows = torch.arange(32, device="cuda")
+        with record_function("query/text_tower"):
+            tg, ts = api.encode_text(api.tokenize([CAPTIONS[i % 8] for i in range(32)]))
+        with record_function("query/dvr"):
+            q = api.query(service.gallery.features[rows], service.gallery.local_features[rows],
+                          tg, ts)
+        with record_function("query/search"):
+            return service.index.search(q, k=K)
 
     for _ in range(2):
         embed_and_refine()
@@ -460,7 +652,7 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
         times = [service.query(names[i:i + qb], [CAPTIONS[(i + j) % 8] for j in range(qb)],
                                k=K)[1] for i in range(reps)]
         lat[f"query_p50_ms_b{qb}"] = statistics.median(times) * 1e3
-    return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine
+    return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine, query_b32
 
 
 def reset_launches() -> None:
@@ -472,13 +664,25 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
-def check_launches(path: str, launches: dict, *, tower_kernels: int = 0, bbc: int = 0,
-                   int8_kernels: int = 0) -> None:
-    want = {name: tower_kernels for name in TOWER_KERNELS}
-    want[B4] = bbc
-    want.update({name: int8_kernels for name in INT8_KERNELS})
+def check_launches(path: str, launches: dict, want: dict) -> None:
+    """The run's launch counts equal `want` (kernel -> count; 0 for every
+    kernel it leaves out)."""
+    want = {name: want.get(name, 0) for name in KERNELS}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
+
+
+def train_launches(steps: int, int8: bool = False) -> dict:
+    """Expected launches of `steps` train steps: 3 frozen tower passes a
+    step (B1-B3, or B5-B6, in each block), B11 at the ViT's ln_pre and
+    ln_post (2 image passes), the text tower's ln_final and the train-mode
+    BERT's LNs; B4 once. The train-mode BERT and MR attention are
+    `multi_head_attention` with probability dropout, as in JAX: no B7, no
+    B8."""
+    want = dict.fromkeys(INT8_KERNELS if int8 else TOWER_KERNELS, steps * 3 * LAYERS)
+    want[B4] = steps
+    want[B11] = steps * (2 * 2 + 1 + BERT_LNS)
+    return want
 
 
 def unit_rows(b: int, d: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -698,10 +902,9 @@ def phase_train(card: str) -> dict:
         if len(val_launches) != 1:
             raise AssertionError(f"{len(val_launches)} validations, expected 1")
         launches = {name: total[name] - val_launches[0][name] for name in total}
-        check_launches("train path", launches, tower_kernels=TRAIN_STEPS * 3 * LAYERS,
-                       bbc=TRAIN_STEPS)
-        val_calls = -(-VAL_GALLERY // 128) + -(-VAL_QUERIES // 128)
-        check_launches("validation", val_launches[0], tower_kernels=LAYERS * val_calls, bbc=0)
+        check_launches("train path", launches, train_launches(TRAIN_STEPS))
+        check_launches("validation", val_launches[0],
+                       serve_launches(cfg, -(-VAL_GALLERY // 128), -(-VAL_QUERIES // 128)))
         if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
             raise AssertionError(f"train losses {losses}")
         for k, v in model.clip.state_dict().items():
@@ -942,8 +1145,7 @@ def phase_int8_train(card: str) -> dict:
         trainer.train()
         torch.cuda.synchronize()
         launches = launch_counts()
-    check_launches("int8 train path", launches, bbc=INT8_TRAIN_STEPS,
-                   int8_kernels=INT8_TRAIN_STEPS * 3 * LAYERS)
+    check_launches("int8 train path", launches, train_launches(INT8_TRAIN_STEPS, int8=True))
     if len(losses) != INT8_TRAIN_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"int8 train losses {losses}")
     log(f"  {INT8_TRAIN_STEPS} steps at B={TRAIN_BATCH}, int8 towers: losses "
@@ -973,10 +1175,11 @@ def main() -> None:
 
     log(f"phase 2: kernels against their plain versions ({card})")
     worst, rows = phase_kernels()
+    new_worst, new_rows = phase_new_kernels()
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     slice_info, service, api = phase_slice(card)
     log(f"phase 4: timings ({card})")
-    timings, embed_fn = phase_timings(service, api)
+    timings, embed_fn, _ = phase_timings(service, api)
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
@@ -985,7 +1188,7 @@ def main() -> None:
     log(f"phase 6: the int8 serve slice, ViT-B-16 bf16, int8 towers and gallery ({card})")
     int8_info, int8_service, int8_api = phase_slice(card, quantize=True)
     int8_info["bf16_topk_overlap"] = topk_overlap(slice_info["results"], int8_info["results"])
-    int8_timings, int8_embed_fn = phase_timings(int8_service, int8_api)
+    int8_timings, int8_embed_fn, _ = phase_timings(int8_service, int8_api)
     log(f"  top-{K} overlap with the bf16 service {int8_info['bf16_topk_overlap']:.3f}; "
         f"embed + refine {int8_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
         f"int8 towers); query P50 {int8_timings['query_p50_ms_b1']:.3f} ms at b=1, "
@@ -997,24 +1200,48 @@ def main() -> None:
     int8_train = phase_int8_train(card)
     log(f"phase 9: the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
     train = phase_train(card)
-    log(f"phase 10: profiles of embed + refine, B=128 ({card})")
-    for label, fn, out in (("bf16", embed_fn, timings), ("int8", int8_embed_fn, int8_timings)):
-        split = out["embed_refine_profile"] = kernel_split(fn)
-        log(f"  {label} towers: wall {split['wall_ms']:.3f} ms, device "
+    log(f"phase 10: the RN50x4 serve slice, bf16 towers ({card})")
+    rn_info, rn_service, rn_api = phase_slice(card, model_name="RN50x4")
+    rn_timings, rn_embed_fn, rn_query_fn = phase_timings(rn_service, rn_api)
+    log(f"  embed + refine {rn_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
+        f"RN50x4); query P50 {rn_timings['query_p50_ms_b1']:.3f} ms at b=1, "
+        f"{rn_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
+    log(f"phase 11: profiles of embed + refine, B=128, and of an RN50x4 query, b=32 ({card})")
+    vit_spans = ("embed/image_tower", "embed/index_refine")
+    profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
+                 vit_spans),
+                ("ViT-B-16 int8 embed + refine", int8_embed_fn, int8_timings,
+                 "embed_refine_profile", vit_spans),
+                ("RN50x4 bf16 embed + refine", rn_embed_fn, rn_timings, "embed_refine_profile",
+                 EMBED_SPANS),
+                ("RN50x4 bf16 query b=32", rn_query_fn, rn_timings, "query_b32_profile",
+                 QUERY_SPANS))
+    for label, fn, out, key, spans in profiles:
+        split = out[key] = kernel_split(fn, spans=spans)
+        span_text = "".join(f"; span {k} " + ("not measured" if v is None else f"{v:.3f} ms")
+                            for k, v in split["spans_device_ms"].items())
+        log(f"  {label}: wall {split['wall_ms']:.3f} ms, device "
             f"{split['device_ms']:.3f} ms, idle share {split['idle_share']:.3f}; "
             + "; ".join(f"{t['kernel'][:48]} {t['ms']:.3f} ms x{t['launches']}"
-                        for t in split["top"]) + f" ({card})")
+                        for t in split["top"]) + span_text + f" ({card})")
     log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
         f"({card})")
 
     timed = {r["kernel"]: r for r in rows + int8_rows
              if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
+    # B7, B8 and B11 at one RN50x4 site each, in that site's dtype
+    for name, shape, dtype in ((B7, "bert640", "float32"), (B8, "attnpool", "bfloat16"),
+                               (B11, "ln_final", "bfloat16")):
+        timed[name] = next(r for r in new_rows if r["kernel"] == name and
+                           r["shape"] == shape and r["dtype"] == dtype)
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
     worst.update(int8_worst)
+    worst.update(new_worst)
     by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name],
                       "int8_serve": int8_info["launches"][name],
-                      "int8_train": int8_train["launches"][name]}
+                      "int8_train": int8_train["launches"][name],
+                      "rn50x4_serve": rn_info["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -1025,10 +1252,11 @@ def main() -> None:
                for name, (_, src, rep) in KERNELS.items()]
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump(dict(card=card, kernel_rows=rows, bbc_rows=bbc_rows, slice=slice_info,
-                           timings=timings, train=train, int8_kernel_rows=int8_rows,
-                           int8_slice=int8_info, int8_timings=int8_timings,
-                           int8_train=int8_train,
+            json.dump(dict(card=card, kernel_rows=rows, new_kernel_rows=new_rows,
+                           bbc_rows=bbc_rows, slice=slice_info, timings=timings, train=train,
+                           int8_kernel_rows=int8_rows, int8_slice=int8_info,
+                           int8_timings=int8_timings, int8_train=int8_train,
+                           rn50x4_slice=rn_info, rn50x4_timings=rn_timings,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

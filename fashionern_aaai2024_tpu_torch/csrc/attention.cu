@@ -1,28 +1,39 @@
-// Self-attention straight from packed qkv: kernel B3, and the attention
-// core of kernel B1.
+// The one softmax attention core of the port: kernels B3, B7 (after its
+// projection GEMM) and B8, and the attention core of kernels B1 and B6.
 //
 // Replaces: `_packed_kernel` / `_packed_pallas`
-// (fashionern_aaai2024_tpu/ops/attention.py:124-163) and the per-head
-// loop inside `_subblock_kernel` (ops/attention.py:496-510).
+// (fashionern_aaai2024_tpu/ops/attention.py:124-163), the per-head loop
+// inside `_subblock_kernel` (ops/attention.py:496-510), the attention half
+// of `_qkv_fused_kernel` (ops/attention.py:370-384) and
+// `_packed_cross_kernel` / `_packed_cross_pallas` (ops/attention.py:240-283).
 //
-// qkv [B, S, 3W] (q | k | v, each W = H x 64 wide) -> out [B, S, W], in
-// the qkv type or in fp32: kernel B6 (`_qattn_kernel`, ops/qmlp.py:186-201)
-// keeps the concatenated heads in fp32 before it quantizes them.
-// Heads are sliced in the kernel, so the [B, H, S, 64] layout is never
-// built in device memory.
+// Layouts: q rows [B, Sq, *] with row stride q_ld, k and v rows
+// [B, Sk, *] with row stride kv_ld, head h at columns h*D .. h*D+D-1 of
+// each; out [B, Sq, H*D]. One kernel serves
+//   packed qkv [B, S, 3W]:    q = qkv, k = qkv + W, v = qkv + 2W, both ld 3W
+//                             (B3, B1's core, B6's core, B7's core);
+//   q [B, Sq, W] + kv [B, Sk, 2W]: k = kv, v = kv + W, kv_ld 2W (B8).
+// The output is in the operand type or in fp32: kernel B6
+// (`_qattn_kernel`, ops/qmlp.py:186-201) keeps the concatenated heads in
+// fp32 before it quantizes them. Heads are sliced in the kernel, so the
+// [B, H, S, D] layout is never built in device memory.
 //
-// Bound: at S <= 256 the scores of one head fit on chip, so DRAM traffic
-// is only qkv in and out once; the limit is shared-memory bandwidth
-// feeding fp32 FMAs (2 x S^2 x 64 a head). This first version runs on
+// Bound: at Sk <= 256 the scores of one head fit on chip, so DRAM traffic
+// is only q, k, v in and out once; the limit is shared-memory bandwidth
+// feeding fp32 FMAs (2 x Sq x Sk x D a head). This first version runs on
 // the CUDA cores, not the tensor cores.
 // Design: one block per (head, image), K and V of the head staged in
-// shared memory (the K rows padded to an odd word stride so that the 32
-// lanes reading 32 different rows hit 32 banks). One warp per query
-// row: each lane scores up to 8 keys with q held in registers, the
-// softmax reductions are warp shuffles, and each lane then owns two of
-// the 64 output dims for the P . V sum. Rounding follows the Pallas
-// kernel: fp32 scores and softmax, probabilities normalized in fp32 and
-// cast to the storage type, fp32 P . V, output cast per head.
+// shared memory (the K rows padded to an odd word stride, 33 / 41 words
+// in bf16 and 65 / 81 in fp32 at D = 64 / 80, so that the 32 lanes
+// reading 32 different rows hit 32 banks). One warp per query row: each
+// lane scores up to 8 keys with q held in registers, the softmax
+// reductions are warp shuffles, and each lane then owns pairs of output
+// dims (pair `lane` and, at D = 80, pair `lane + 32` for lanes 0..7) for
+// the P . V sum, which runs over the keys in order. Rounding follows the
+// Pallas kernels: fp32 scores and softmax, probabilities normalized in
+// fp32 and cast to the storage type, fp32 P . V, output cast per head.
+// At the attention pool (Sq = 1) seven of the eight warps only stage K
+// and V: that shape is bound by reading kv once.
 
 #include <math.h>
 
@@ -30,13 +41,13 @@
 
 namespace fern {
 
-constexpr int kHeadDim = 64;
 constexpr int kMaxSeq = 256;
 constexpr int kAttnWarps = 8;
 
-template <typename T> struct KStride;
-template <> struct KStride<bf16> { static constexpr int value = 66; };   // 33 words
-template <> struct KStride<float> { static constexpr int value = 65; };  // 65 words
+// K row stride in elements: an odd number of 32-bit words
+template <typename T, int D> struct KStride;
+template <int D> struct KStride<bf16, D> { static constexpr int value = D + 2; };
+template <int D> struct KStride<float, D> { static constexpr int value = D + 1; };
 
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -45,49 +56,54 @@ __device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-template <typename T>
-__host__ __device__ constexpr size_t attention_smem_bytes(int seq) {
-  return align16((size_t)seq * KStride<T>::value * sizeof(T)) +
-         align16((size_t)seq * kHeadDim * sizeof(T)) +
-         (size_t)kAttnWarps * (kHeadDim + kMaxSeq) * sizeof(float);
+template <typename T, int D>
+__host__ __device__ constexpr size_t attention_smem_bytes(int sk) {
+  return align16((size_t)sk * KStride<T, D>::value * sizeof(T)) +
+         align16((size_t)sk * D * sizeof(T)) +
+         (size_t)kAttnWarps * (D + kMaxSeq) * sizeof(float);
 }
 
-template <typename T, typename TO>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int S, int H, int causal,
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 TO* __restrict__ out, int Sq, int Sk, int H, int q_ld, int kv_ld, int causal,
                  float scale) {
+  static_assert(D % 2 == 0 && D <= 128, "head dim: even, at most 128");
+  constexpr int kPairs = D / 2;
+  constexpr int kPairRounds = (kPairs + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kld = KStride<T>::value;
+  constexpr int kld = KStride<T, D>::value;
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + align16((size_t)S * kld * sizeof(T)));
+  T* Vs = reinterpret_cast<T*>(smem + align16((size_t)Sk * kld * sizeof(T)));
   float* qbuf = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Vs) +
-                                         align16((size_t)S * kHeadDim * sizeof(T)));
-  float* pbuf = qbuf + kAttnWarps * kHeadDim;
+                                         align16((size_t)Sk * D * sizeof(T)));
+  float* pbuf = qbuf + kAttnWarps * D;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int W = H * kHeadDim, W3 = 3 * W;
+  const int W = H * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * S * W3;
+  const T* qb = q + (size_t)b * Sq * q_ld + h * D;
+  const T* kb = k + (size_t)b * Sk * kv_ld + h * D;
+  const T* vb = v + (size_t)b * Sk * kv_ld + h * D;
 
-  for (int idx = threadIdx.x; idx < S * kHeadDim; idx += blockDim.x) {
-    const int j = idx / kHeadDim, d = idx % kHeadDim;
-    Ks[j * kld + d] = base[(size_t)j * W3 + W + h * kHeadDim + d];
-    Vs[j * kHeadDim + d] = base[(size_t)j * W3 + 2 * W + h * kHeadDim + d];
+  for (int idx = threadIdx.x; idx < Sk * D; idx += blockDim.x) {
+    const int j = idx / D, d = idx % D;
+    Ks[j * kld + d] = kb[(size_t)j * kv_ld + d];
+    Vs[j * D + d] = vb[(size_t)j * kv_ld + d];
   }
   __syncthreads();
 
-  float* qw = qbuf + warp * kHeadDim;
+  float* qw = qbuf + warp * D;
   float* pw = pbuf + warp * kMaxSeq;
-  for (int i = warp; i < S; i += kAttnWarps) {
-    const T* qrow = base + (size_t)i * W3 + h * kHeadDim;
-    qw[lane] = to_f(qrow[lane]);
-    qw[lane + 32] = to_f(qrow[lane + 32]);
+  for (int i = warp; i < Sq; i += kAttnWarps) {
+    const T* qrow = qb + (size_t)i * q_ld;
+    for (int d = lane; d < D; d += 32) qw[d] = to_f(qrow[d]);
     __syncwarp();
-    float q[kHeadDim];
+    float qr[D];
 #pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) q[d] = qw[d];
+    for (int d = 0; d < D; ++d) qr[d] = qw[d];
 
-    const int jmax = causal ? i + 1 : S;  // keys past i carry the -1e30 bias: p = 0
+    const int jmax = causal ? i + 1 : Sk;  // keys past i carry the -1e30 bias: p = 0
     float s[kMaxSeq / 32];
     float m = -INFINITY;
 #pragma unroll
@@ -98,10 +114,10 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int S, int H, 
         const T* kr = Ks + j * kld;
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < kHeadDim; d += 2) {
+        for (int d = 0; d < D; d += 2) {
           const float2 kv = load2(kr + d);
-          dot = fmaf(q[d], kv.x, dot);
-          dot = fmaf(q[d + 1], kv.y, dot);
+          dot = fmaf(qr[d], kv.x, dot);
+          dot = fmaf(qr[d + 1], kv.y, dot);
         }
         s[t] = dot * scale;
         m = fmaxf(m, s[t]);
@@ -123,51 +139,77 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int S, int H, 
     }
     __syncwarp();
 
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < jmax; ++j) {
-      const float p = pw[j];
-      const float2 v = load2(Vs + j * kHeadDim + 2 * lane);
-      o0 = fmaf(p, v.x, o0);
-      o1 = fmaf(p, v.y, o1);
+    TO* orow = out + ((size_t)b * Sq + i) * W + h * D;
+#pragma unroll
+    for (int r = 0; r < kPairRounds; ++r) {
+      const int d = 2 * (lane + 32 * r);
+      if (d < D) {
+        float o0 = 0.f, o1 = 0.f;
+        for (int j = 0; j < jmax; ++j) {
+          const float p = pw[j];
+          const float2 vv = load2(Vs + j * D + d);
+          o0 = fmaf(p, vv.x, o0);
+          o1 = fmaf(p, vv.y, o1);
+        }
+        orow[d] = from_f<TO>(o0);
+        orow[d + 1] = from_f<TO>(o1);
+      }
     }
-    TO* orow = out + ((size_t)b * S + i) * W + h * kHeadDim;
-    orow[2 * lane] = from_f<TO>(o0);
-    orow[2 * lane + 1] = from_f<TO>(o1);
     __syncwarp();  // qw / pw are rewritten by the next row
   }
 }
 
-template <typename T, typename TO>
-static cudaError_t launch_attention(const void* qkv, void* out, int batch, int seq, int heads,
+template <typename T, typename TO, int D>
+static cudaError_t launch_attention(const void* q, const void* k, const void* v, void* out,
+                                    int batch, int sq, int sk, int heads, int q_ld, int kv_ld,
                                     int causal, float scale, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes<T>(seq);
+  const size_t smem = attention_smem_bytes<T, D>(sk);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<T, TO, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(heads, batch);
-  attention_kernel<T, TO><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<TO*>(out), seq, heads, causal, scale);
+  attention_kernel<T, TO, D><<<grid, kAttnWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<TO*>(out), sq, sk, heads, q_ld, kv_ld, causal, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+static cudaError_t dispatch_types(const void* q, const void* k, const void* v, void* out,
+                                  int batch, int sq, int sk, int heads, int q_ld, int kv_ld,
+                                  int causal, float scale, int dtype, int out_dtype,
+                                  cudaStream_t s) {
+  if (dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
+    return launch_attention<bf16, bf16, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                           causal, scale, s);
+  if (dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
+    return launch_attention<bf16, float, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                            causal, scale, s);
+  if (dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
+    return launch_attention<float, float, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                             causal, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace fern
 
-// dtype: the qkv type; out_dtype: the output's, the same or fp32.
-extern "C" int fern_attention(const void* qkv, void* out, int batch, int seq, int heads,
-                              int causal, float scale, int dtype, int out_dtype, int device,
-                              void* stream) {
+// q, k, v: the first head's first row of each operand (k and v may point
+// into one packed tensor); q_ld / kv_ld: row strides in elements; dtype:
+// the operands' type; out_dtype: the output's, the same or fp32.
+extern "C" int fern_attention(const void* q, const void* k, const void* v, void* out,
+                              int batch, int sq, int sk, int heads, int head_dim, int q_ld,
+                              int kv_ld, int causal, float scale, int dtype, int out_dtype,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (seq > fern::kMaxSeq) return (int)cudaErrorInvalidValue;
-  if (batch == 0) return 0;
+  if (sk < 1 || sk > fern::kMaxSeq || (causal && sq != sk)) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using fern::bf16;
-  using fern::launch_attention;
-  if (dtype == fern::DTYPE_BF16 && out_dtype == fern::DTYPE_BF16)
-    return (int)launch_attention<bf16, bf16>(qkv, out, batch, seq, heads, causal, scale, s);
-  if (dtype == fern::DTYPE_BF16 && out_dtype == fern::DTYPE_F32)
-    return (int)launch_attention<bf16, float>(qkv, out, batch, seq, heads, causal, scale, s);
-  if (dtype == fern::DTYPE_F32 && out_dtype == fern::DTYPE_F32)
-    return (int)launch_attention<float, float>(qkv, out, batch, seq, heads, causal, scale, s);
+  if (head_dim == 64)
+    return (int)fern::dispatch_types<64>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                         causal, scale, dtype, out_dtype, s);
+  if (head_dim == 80)
+    return (int)fern::dispatch_types<80>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                         causal, scale, dtype, out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

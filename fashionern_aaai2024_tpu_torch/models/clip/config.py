@@ -4,8 +4,7 @@ A copy of `fashionern_aaai2024_tpu/models/clip/config.py`: the JAX
 module cannot be imported without flax (its package `__init__` imports
 it), and the two must describe the same models. The reference supports
 two backbones:
-  * RN50x4  — modified ResNet, feature_dim 640, input 288 (its image
-    tower is not ported yet, so the port builds the ViT only)
+  * RN50x4  — modified ResNet, feature_dim 640, input 288
   * ViT-B-16 — feature_dim 512, input 224
 Text context length is always 77.
 

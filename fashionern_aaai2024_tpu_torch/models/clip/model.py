@@ -1,12 +1,15 @@
 """The CLIP dual encoder.
 
 JAX counterpart: `fashionern_aaai2024_tpu/models/clip/model.py`. The
-ViT image tower sits under `visual.`; the text tower's parameters are at
-the top level, as in open_clip (see `models/clip/text.py`), with
+image tower, the ViT (`models/clip/vit.py`) or the modified ResNet of
+RN50x4 (`models/clip/resnet.py`) as the config's `vision.kind` says
+(`model.py:25-29`), sits under `visual.`; the text tower's parameters
+are at the top level, as in open_clip (see `models/clip/text.py`), with
 `logit_scale` beside them.
 
-`config.quantize_mlp` (the `--quantize-towers` serving tier) runs both
-towers' blocks with int8 projections (`models/clip/transformer.py`).
+`config.quantize_mlp` (the `--quantize-towers` serving tier) runs the
+transformer towers' blocks with int8 projections
+(`models/clip/transformer.py`).
 
 `encode_image` takes uint8 images as well and CLIP-normalizes them on
 the device (`model.py:47-57`), then casts to the tower's weight dtype.
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
+from fashionern_aaai2024_tpu_torch.models.clip.resnet import ModifiedResNet
 from fashionern_aaai2024_tpu_torch.models.clip.text import TextTower
 from fashionern_aaai2024_tpu_torch.models.clip.vit import ViTTower
 
@@ -31,12 +35,14 @@ CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 class CLIP(TextTower):
     def __init__(self, config: CLIPConfig):
-        if config.vision.kind != "vit":
-            raise NotImplementedError(
-                "only the ViT image tower is ported (RN50x4: ROADMAP.md queue A)")
         super().__init__(config.text, config.activation, config.quantize_mlp)
         self.config = config
-        self.visual = ViTTower(config.vision, config.activation, config.quantize_mlp)
+        if config.vision.kind == "vit":
+            self.visual = ViTTower(config.vision, config.activation, config.quantize_mlp)
+        elif config.vision.kind == "resnet":
+            self.visual = ModifiedResNet(config.vision)
+        else:
+            raise ValueError(f"unknown image tower kind {config.vision.kind!r}")
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -2,9 +2,9 @@
 
 JAX counterpart: `fashionern_aaai2024_tpu/models/clip/text.py` (the
 vanilla single-branch tower; TME is not ported yet). Causal pre-LN
-trunk, ln_final, projection of every position to the joint dim. The
-global feature is the projected token at argmax(text_ids), the EOT
-position, since EOT has the highest id (`text.py:62-65`).
+trunk, ln_final (kernel B11), projection of every position to the joint
+dim. The global feature is the projected token at argmax(text_ids), the
+EOT position, since EOT has the highest id (`text.py:62-65`).
 
 open_clip keeps the text tower's parameters at the top level of its
 `CLIP` module (`token_embedding.weight`, `positional_embedding`,
@@ -20,7 +20,7 @@ from torch import nn
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import TextConfig
 from fashionern_aaai2024_tpu_torch.models.clip.transformer import Transformer
-from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 
 
 class TextTower(nn.Module):

@@ -17,8 +17,9 @@ With `quantize` (`CLIPConfig.quantize_mlp`, the `--quantize-towers`
 serving tier) a block dispatches as the JAX block does
 (`transformer.py:128-164`): at head dim 64 and W % 128 == 0, kernel B6
 (`ops.qmlp.int8_attention_subblock`), otherwise the float attention
-(LN, `fused_qkv_self_attention`, out-projection, all plain PyTorch, as
-XLA ran them); then kernel B5 (`ops.qmlp.int8_mlp_subblock`).
+(LN as kernel B11, `fused_qkv_self_attention` as kernel B7, the
+out-projection in plain PyTorch); then kernel B5
+(`ops.qmlp.int8_mlp_subblock`).
 
 The int8 weights are cached per block: each of the four matrices
 quantized once (`quantize_colwise` of the JAX layout, kept in the torch
@@ -39,7 +40,7 @@ from fashionern_aaai2024_tpu_torch.ops.attention import (
     attention_subblock,
     fused_qkv_self_attention,
 )
-from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 from fashionern_aaai2024_tpu_torch.ops.mlp import mlp_subblock
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
 from fashionern_aaai2024_tpu_torch.ops.qmlp import int8_attention_subblock, int8_mlp_subblock

@@ -5,7 +5,7 @@ JAX counterpart: `fashionern_aaai2024_tpu/models/clip/vit.py`. open_clip
 class token + positional embedding, ln_pre, pre-LN blocks, ln_post,
 projection of all tokens to the joint dim. `forward` returns
 (global [B, d], tokens [B, 197, d]), global being the projected class
-token.
+token. ln_pre and ln_post are kernel B11 (`ops.layernorm.layer_norm`).
 
 The input stays NHWC, as in the JAX API. The patch embed is an unfold
 and one matrix product with conv1's weight, which is the convolution's
@@ -27,7 +27,7 @@ from torch import nn
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import VisionConfig
 from fashionern_aaai2024_tpu_torch.models.clip.transformer import Transformer
-from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 
 
 class ViTTower(nn.Module):

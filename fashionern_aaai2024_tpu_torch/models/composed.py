@@ -27,6 +27,12 @@ from torch.profiler import record_function
 
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP
+from fashionern_aaai2024_tpu_torch.models.clip.resnet import (
+    Bottleneck,
+    FrozenBatchNorm2d,
+    ModifiedResNet,
+    calibrate_batchnorm_,
+)
 from fashionern_aaai2024_tpu_torch.models.ern.ern import ERN
 from fashionern_aaai2024_tpu_torch.models.ern.layers import TorchBatchNorm
 
@@ -87,12 +93,14 @@ def apply_precision(model: ComposedCIRModel, precision: str) -> ComposedCIRModel
     """The serve precision policy, in place.
 
     "fp32": unchanged. "bf16" (the serve default): the CLIP towers are
-    stored and computed in bf16; the ERN stack keeps fp32 storage with
-    every weight rounded to bf16. That is what JAX computes when
-    `_cast_precision`'s bf16 leaves meet the fp32 inputs that
-    `InferenceAPI.query` passes (`evaluate.py:213-216`): flax promotes
-    to fp32. Training does not use it: its policy rounds nothing of the
-    ERN stack (`train/state.py cast_frozen_clip_bf16`)."""
+    stored and computed in bf16, the ResNet's BatchNorm running
+    statistics included (as `_cast_precision` casts `batch_stats`); the
+    ERN stack keeps fp32 storage with every weight rounded to bf16.
+    That is what JAX computes when `_cast_precision`'s bf16 leaves meet
+    the fp32 inputs that `InferenceAPI.query` passes
+    (`evaluate.py:213-216`): flax promotes to fp32. Training does not use
+    it: its policy rounds nothing of the ERN stack (`train/state.py
+    cast_frozen_clip_bf16`)."""
     if precision == "fp32":
         return model
     if precision != "bf16":
@@ -118,17 +126,28 @@ _NAMED_STD = {
 }
 
 
+# the seeded scale of each bottleneck branch's last BN (random_init_)
+RESIDUAL_BN_SCALE = 0.25
+
+
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, in place (there is no checkpoint in the
-    repository). Matrices are normal with std fan_in^-0.5, embeddings as
-    in the JAX initializers, biases normal(0.02), norm scales
-    1 + normal(0.02), BN running statistics near (0, 1). Draws on the CPU
-    from `generator`, so a seed gives the same weights on any device."""
+    repository). Matrices and convolution kernels are normal with std
+    fan_in^-0.5, embeddings as in the JAX initializers, biases
+    normal(0.02), norm scales 1 + normal(0.02), the ERN's BN running
+    statistics near (0, 1). In the ResNet tower the last BN of each
+    bottleneck's branch is scaled by RESIDUAL_BN_SCALE, and the running
+    statistics are those that two seeded N(0, 1) images meet at each BN
+    (`calibrate_batchnorm_`), so that its activations stay O(1) through
+    the 26 bottlenecks of RN50x4 on inputs other than those two (with
+    full-scale branches, random weights let some inputs blow up by the
+    last stage). Draws on the CPU from `generator`, so a seed gives the
+    same weights on any device."""
     def normal(p: torch.Tensor, std: float, mean: float = 0.0) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * std + mean)
 
-    norm_types = (nn.LayerNorm, TorchBatchNorm)
+    norm_types = (nn.LayerNorm, TorchBatchNorm, FrozenBatchNorm2d)
     for mod_name, mod in model.named_modules():
         for name, p in mod.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
@@ -147,4 +166,12 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal(mod.running_mean, 0.02)
             mod.running_var.copy_(1.0 + 0.1 * torch.rand(
                 mod.running_var.shape, generator=generator))
+    for mod in model.modules():
+        if isinstance(mod, ModifiedResNet):
+            for block in mod.modules():
+                if isinstance(block, Bottleneck):
+                    block.bn3.weight.mul_(RESIDUAL_BN_SCALE)
+            side = mod.config.image_size
+            images = torch.randn((2, side, side, 3), generator=generator)
+            calibrate_batchnorm_(mod, images.to(mod.conv1.weight.device))
     return model

@@ -13,7 +13,9 @@ them gives the original variables leaf for leaf.
     BN batch_stats mean, var        -> running_mean, running_var
 
 Input is the composed model's `{"params": {"clip", "ern"}, "batch_stats":
-{"ern"}}` tree with array leaves (numpy, or anything `np.asarray` takes);
+{"ern"}}` tree (with `batch_stats["clip"]["visual"]` too for the RN50x4
+tower, whose BatchNorms carry running statistics) with array leaves
+(numpy, or anything `np.asarray` takes);
 output is a `clip.*` / `ern.*` state_dict of fp32 CPU tensors, with the
 BatchNorm step counters (`num_batches_tracked`, which reference
 checkpoints carry too) set to 0.
@@ -66,26 +68,65 @@ def _resblocks(p: Mapping, prefix: str, layers: int) -> dict:
     return sd
 
 
-def clip_state_dict(params: Mapping, cfg: CLIPConfig) -> dict:
-    """CLIP params subtree (visual / text / logit_scale) -> open_clip
-    names; inverse of `clip_variables_from_torch` for the ViT tower."""
-    if cfg.vision.kind != "vit":
-        raise NotImplementedError("only the ViT tower is ported")
-    v, t = params["visual"], params["text"]
-    sd = {
-        "visual.conv1.weight": _t(v["conv1"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+def _conv(p: Mapping, prefix: str) -> dict:
+    return {f"{prefix}.weight": _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()}
+
+
+def _resnet_tower(v: Mapping, stats: Mapping, cfg: CLIPConfig) -> dict:
+    """Inverse of `models/clip/convert.py:74 _resnet_tower`."""
+    sd: dict = {}
+    for i in (1, 2, 3):
+        sd.update(_conv(v[f"conv{i}"], f"visual.conv{i}"))
+        sd.update(_batch_norm(v[f"bn{i}"], stats[f"bn{i}"], f"visual.bn{i}"))
+    for stage, blocks in enumerate(cfg.vision.layers):
+        for j in range(blocks):
+            name, pre = f"layer{stage + 1}_{j}", f"visual.layer{stage + 1}.{j}"
+            p, s = v[name], stats[name]
+            for i in (1, 2, 3):
+                sd.update(_conv(p[f"conv{i}"], f"{pre}.conv{i}"))
+                sd.update(_batch_norm(p[f"bn{i}"], s[f"bn{i}"], f"{pre}.bn{i}"))
+            if "downsample_conv" in p:
+                sd.update(_conv(p["downsample_conv"], f"{pre}.downsample.0"))
+                sd.update(_batch_norm(p["downsample_bn"], s["downsample_bn"],
+                                      f"{pre}.downsample.1"))
+    ap = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd.update(_linear(ap[name], f"visual.attnpool.{name}"))
+    return sd
+
+
+def _vit_tower(v: Mapping, cfg: CLIPConfig) -> dict:
+    sd = _conv(v["conv1"], "visual.conv1")
+    sd.update({
         "visual.class_embedding": _t(v["class_embedding"]),
         "visual.positional_embedding": _t(v["positional_embedding"]),
         "visual.proj": _t(v["proj"]),
+    })
+    sd.update(_norm(v["ln_pre"]["scale"], v["ln_pre"]["bias"], "visual.ln_pre"))
+    sd.update(_norm(v["ln_post"]["scale"], v["ln_post"]["bias"], "visual.ln_post"))
+    sd.update(_resblocks(v["transformer"], "visual.transformer", cfg.vision.layers))
+    return sd
+
+
+def clip_state_dict(params: Mapping, cfg: CLIPConfig, stats: Mapping | None = None) -> dict:
+    """CLIP params subtree (visual / text / logit_scale), with the CLIP
+    batch_stats subtree for the ResNet tower, -> open_clip names; inverse
+    of `clip_variables_from_torch`."""
+    t = params["text"]
+    if cfg.vision.kind == "vit":
+        sd = _vit_tower(params["visual"], cfg)
+    else:
+        if stats is None:
+            raise ValueError("the ResNet tower needs the CLIP batch_stats")
+        sd = _resnet_tower(params["visual"], stats["visual"], cfg)
+    sd.update({
         "token_embedding.weight": _t(t["token_embedding"]),
         "positional_embedding": _t(t["positional_embedding"]),
         "text_projection": _t(t["text_projection"]),
         "logit_scale": _t(params["logit_scale"]).reshape(()),
-    }
-    sd.update(_norm(v["ln_pre"]["scale"], v["ln_pre"]["bias"], "visual.ln_pre"))
-    sd.update(_norm(v["ln_post"]["scale"], v["ln_post"]["bias"], "visual.ln_post"))
+    })
     sd.update(_norm(t["ln_final"]["scale"], t["ln_final"]["bias"], "ln_final"))
-    sd.update(_resblocks(v["transformer"], "visual.transformer", cfg.vision.layers))
     sd.update(_resblocks(t["transformer"], "transformer", cfg.text.layers))
     return sd
 
@@ -161,7 +202,8 @@ def ern_state_dict(params: Mapping, stats: Mapping) -> dict:
 def state_dict_from_variables(variables: Mapping, cfg: CLIPConfig) -> dict:
     """Composed-model variables -> `ComposedCIRModel.load_state_dict` input."""
     params, stats = variables["params"], variables["batch_stats"]
-    sd = {f"clip.{k}": v for k, v in clip_state_dict(params["clip"], cfg).items()}
+    clip = clip_state_dict(params["clip"], cfg, stats.get("clip"))
+    sd = {f"clip.{k}": v for k, v in clip.items()}
     sd.update({f"ern.{k}": v for k, v in ern_state_dict(params["ern"], stats["ern"]).items()})
     return sd
 

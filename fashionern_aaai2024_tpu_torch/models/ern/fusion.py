@@ -23,8 +23,11 @@ state_dict, the names `models/ern/convert.py` reads:
 BERT keeps the reference's quirks: LayerNorm eps 1e-12, intermediate
 size 3072 at any hidden size, exact GELU, token type 0 for CLS and the
 patches, and only the first `patch_num` MR outputs kept
-(`fusion.py:273-275`). The attention sites run the plain formulas of
-`ops/attention.py`, as they ran on XLA on the TPU.
+(`fusion.py:273-275`). In eval the BERT's attention is kernel B7
+(`ops.attention.fused_qkv_self_attention`) and the MR cross-attention
+kernel B8 (`packed_kv_cross_attention`, `models/ern/layers.py`); the
+BERT's LayerNorms are kernel B11 (`ops.layernorm.layer_norm`) in both
+modes. On a CPU tensor each takes its plain version.
 
 Every forward takes `generator` (see `models/ern/layers.py`): None is
 eval, a `torch.Generator` is train mode. Train mode drops out where the
@@ -52,8 +55,8 @@ from fashionern_aaai2024_tpu_torch.ops.attention import (
     fused_qkv_self_attention,
     multi_head_attention,
 )
-from fashionern_aaai2024_tpu_torch.ops.common import layer_norm
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 
 BERT_INTERMEDIATE = 3072
 BERT_LN_EPS = 1e-12
@@ -163,9 +166,11 @@ class _Linear(nn.Module):
 
 class BertLayer(nn.Module):
     """Post-LN BERT layer. In eval the q/k/v weights concatenate into one
-    packed projection (`fusion.py:143-145`); in train mode q, k and v are
-    projected apart and the attention drops probabilities
-    (`fusion.py:146-158`)."""
+    packed projection (`fusion.py:143-145`) for kernel B7; in train mode
+    q, k and v are projected apart and the attention drops probabilities
+    (`fusion.py:146-158`). The concatenation runs on every eval call: at
+    d = 640 it reads and writes 4.9 MB a layer, under 3 µs at the card's
+    3.35 TB/s, where a query takes milliseconds."""
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()

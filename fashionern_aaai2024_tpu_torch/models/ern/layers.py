@@ -6,11 +6,11 @@ re-created these torch idioms in flax; here most are torch itself.
   * `torch_normalize`: `F.normalize`, eps 1e-12 inside the max.
   * `sr_l2norm`: VisualSR's x / (||x|| + eps), eps added.
   * `TorchMultiheadAttention`: `nn.MultiheadAttention`'s parameter
-    layout (packed in_proj_weight [3d, d], out_proj), computed with the
-    plain `_mha_ref` formula rather than PyTorch's fused path, so it
-    computes what the JAX module computes: eval through
-    `ops.attention.packed_kv_cross_attention`, train mode (`:68-85`)
-    through `multi_head_attention` with probability dropout.
+    layout (packed in_proj_weight [3d, d], out_proj), computed as the JAX
+    module computes it rather than by PyTorch's fused path: eval through
+    kernel B8 (`ops.attention.packed_kv_cross_attention`, its plain
+    version on a CPU tensor), train mode (`:68-85`) through
+    `multi_head_attention` with probability dropout.
   * `TorchBatchNorm`: `nn.BatchNorm1d`'s state_dict names and eval
     formula, with the train mode of flax's `nn.BatchNorm`, which the JAX
     module runs (`:107-113`) and which this port is held against:

@@ -1,4 +1,5 @@
-"""Attention for the port: kernels B1 and B3, and the plain formulas.
+"""Attention for the port: kernels B1, B3, B7 and B8, and the plain
+formulas.
 
 JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
 
@@ -12,22 +13,36 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     `:147`): attention straight from packed [B, S, 3W] qkv
     (csrc/attention.cu). It is also B1's attention core: B1 calls it,
     so each B1 launch counts one B3 launch too.
-  * `packed_kv_cross_attention`, `multi_head_attention` and
-    `fused_qkv_self_attention` are plain PyTorch, the `_packed_cross_ref`,
-    `_mha_ref` and `_qkv_fused_ref` formulas: on the TPU their call
-    sites ran on XLA (`:353`, `:739`, and the bf16-only gate at `:466`
-    that the fp32 fusion stack never passed). `multi_head_attention`
-    also carries the train mode's probability dropout.
+  * `fused_qkv_self_attention` (B7, TPU kernel `_qkv_fused_pallas`,
+    `:388`): the QKV projection (csrc/gemm.cu, GEMM + bias) and then the
+    attention core on the packed result, for the DVR query tower's
+    mini-BERT in eval.
+  * `packed_kv_cross_attention` (B8, TPU kernel `_packed_cross_pallas`,
+    `:264`): cross-attention of q [B, Sq, W] against packed kv
+    [B, Sk, 2W], the attention core in its cross layout, for the RN50x4
+    attention pool and the DVR query tower's MR cross-attention.
+  * `multi_head_attention`: plain PyTorch, the `_mha_ref` formula with
+    the train mode's probability dropout (`:636`); the train-mode BERT
+    and MR attention take it, as in JAX (`:742`).
+
+On the TPU the dispatch chose XLA at the B7 and B8 sites (`:353`, and
+the bf16-only gate at `:466` that the fp32 fusion stack never passed).
+Here a CUDA tensor launches the kernel or raises; the plain versions
+follow the Pallas kernels' rounding, not `_mha_ref`'s bf16 scores, so in
+bf16 they differ from JAX's XLA formula (ROADMAP C6); in fp32 they agree.
+
+One core kernel (csrc/attention.cu) serves every layout, at head dim 64
+or 80 and at most 256 keys.
 
 Weights are in the torch layout: in_proj_weight [3W, W] and Linear
 weight [out, in].
 
 Each kernel has a plain version beside it with the Pallas kernel's
 rounding points (LN output cast to x.dtype, bias added to the fp32
-accumulator before the cast, probabilities normalized in fp32 then cast,
-each head's output cast, the projection cast before `x + proj`). A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+accumulator before the cast, scores and softmax in fp32, probabilities
+normalized in fp32 then cast, each head's output cast, the projection
+cast before `x + proj`). A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,9 +52,10 @@ import torch.nn.functional as F
 
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm_plain
 
 NEG_INF = -1e30
-_HEAD_DIM = 64
+_HEAD_DIMS = (64, 80)
 _MAX_SEQ = 256
 
 
@@ -77,29 +93,68 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
-def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
-                              scale: float | None = None) -> torch.Tensor:
-    """q [B, Sq, W], kv [B, Sk, 2W] (k | v) -> [B, Sq, W];
-    `_packed_cross_ref` (`:286`)."""
-    w = q.shape[-1]
-    o = multi_head_attention(_split_heads(q, heads), _split_heads(kv[..., :w], heads),
-                             _split_heads(kv[..., w:], heads), scale=scale)
-    return _merge_heads(o)
+# --- the attention core: plain version and kernel launch -----------------
 
 
-def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                             heads: int, *, causal: bool = False,
-                             scale: float | None = None) -> torch.Tensor:
-    """QKV projection + self-attention, `_qkv_fused_ref` (`:409`).
-    x [B, S, W], weight [3W, W], bias [3W]. Plain PyTorch: the mini-BERT
-    that calls it runs in fp32, where the TPU never took kernel B7."""
-    qkv = F.linear(x, weight, bias)
-    w = x.shape[-1]
-    o = multi_head_attention(_split_heads(qkv[..., :w], heads),
-                             _split_heads(qkv[..., w:2 * w], heads),
-                             _split_heads(qkv[..., 2 * w:], heads),
-                             causal=causal, scale=scale)
-    return _merge_heads(o)
+def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+                         causal: bool = False, scale: float | None = None,
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """q [B, Sq, W], k and v [B, Sk, W] -> [B, Sq, W] with the Pallas
+    kernels' rounding points (`_packed_kernel` `:124-143`,
+    `_packed_cross_kernel` `:240-259`): fp32 scores and softmax, p / denom
+    cast to the operand dtype, fp32 P.V, output cast to `out_dtype`
+    (default: the operand dtype; B6 keeps it fp32)."""
+    sq, w = q.shape[1], q.shape[2]
+    if scale is None:
+        scale = (w // heads) ** -0.5
+    qh, kh, vh = (_split_heads(t, heads).float() for t in (q, k, v))
+    sc = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if causal:
+        sc = sc + causal_bias(sq, q.device)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype).float()
+    return _merge_heads(torch.matmul(p, vh).to(out_dtype or q.dtype))
+
+
+def _launch_core(name: str, q: torch.Tensor, kv: torch.Tensor, *, w: int, sk: int,
+                 heads: int, q_ld: int, kv_ld: int, k_col: int, v_col: int, causal: bool,
+                 scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """The attention core kernel (csrc/attention.cu). q: a checked
+    contiguous CUDA tensor whose [B, Sq] rows start with the W query
+    columns, at row stride `q_ld`; kv: the same for the Sk key and value
+    rows, at row stride `kv_ld`, keys from column `k_col`, values from
+    `v_col` (q and kv may be one tensor). Output [B, Sq, W] in
+    `out_dtype`. Counts nothing: its callers do."""
+    b, sq = q.shape[0], q.shape[1]
+    dh = w // heads
+    if dh * heads != w or dh not in _HEAD_DIMS:
+        raise ValueError(f"{name}: width {w} with {heads} heads; the kernel takes head dim "
+                         f"{' or '.join(map(str, _HEAD_DIMS))} only")
+    if sk > _MAX_SEQ:
+        raise ValueError(f"{name}: S={sk} > {_MAX_SEQ} keys")
+    if scale is None:
+        scale = dh ** -0.5
+    out = torch.empty((b, sq, w), dtype=out_dtype, device=q.device)
+    base, esize = kv.data_ptr(), kv.element_size()
+    common.launch("fern_attention", q.data_ptr(), base + esize * k_col, base + esize * v_col,
+                  out.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, int(causal), scale,
+                  common.DTYPE_CODES[q.dtype], common.DTYPE_CODES[out_dtype], q.device.index,
+                  common.stream_of(q))
+    return out
+
+
+def launch_attention_core(qkv: torch.Tensor, heads: int, *, causal: bool,
+                          scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """The attention core kernel on a checked CUDA packed qkv [B, S, 3W];
+    output in the qkv dtype or fp32 (B6). Counts nothing: its callers
+    (B3, B6, B7) do."""
+    w3 = qkv.shape[-1]
+    if w3 % 3:
+        raise ValueError(f"packed_qkv_self_attention: qkv width {w3} is not 3W")
+    w = w3 // 3
+    return _launch_core("packed_qkv_self_attention", qkv, qkv, w=w, sk=qkv.shape[1],
+                        heads=heads, q_ld=w3, kv_ld=w3, k_col=w, v_col=2 * w, causal=causal,
+                        scale=scale, out_dtype=out_dtype)
 
 
 # --- B3: packed-qkv self-attention ---------------------------------------
@@ -109,29 +164,18 @@ def packed_qkv_self_attention_plain(qkv: torch.Tensor, heads: int, *,
                                     causal: bool = False, scale: float | None = None,
                                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of B3 with `_packed_kernel`'s rounding points
-    (`:124-143`): fp32 scores and softmax, p / denom cast to the qkv
-    dtype, fp32 P.V, output cast to `out_dtype` (default: the qkv dtype;
-    B6 keeps it fp32)."""
-    b, s, w3 = qkv.shape
-    w = w3 // 3
-    dh = w // heads
-    if scale is None:
-        scale = dh ** -0.5
-    q, k, v = (_split_heads(t, heads).float() for t in qkv.split(w, dim=-1))
-    sc = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if causal:
-        sc = sc + causal_bias(s, qkv.device)
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
-    return _merge_heads(torch.matmul(p, v).to(out_dtype or qkv.dtype))
+    (`:124-143`), output in `out_dtype` (default: the qkv dtype)."""
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    return attention_core_plain(q, k, v, heads, causal=causal, scale=scale,
+                                out_dtype=out_dtype)
 
 
 def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = False,
                               scale: float | None = None) -> torch.Tensor:
     """Self-attention from packed qkv [B, S, 3W] -> [B, S, W] (B3).
 
-    CUDA: csrc/attention.cu, head dim 64 and S <= 256 only. CPU: the
-    plain version."""
+    CUDA: csrc/attention.cu, head dim 64 or 80 and S <= 256 only. CPU:
+    the plain version."""
     if not common.is_cuda(qkv):
         return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
     common.check_cuda_operands("packed_qkv_self_attention", qkv)
@@ -140,27 +184,81 @@ def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = F
     return out
 
 
-def launch_attention_core(qkv: torch.Tensor, heads: int, *, causal: bool,
-                          scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
-    """The attention core kernel (csrc/attention.cu) on a checked CUDA
-    qkv [B, S, 3W]; output in the qkv dtype or fp32 (B6). Counts nothing:
-    its callers (B3, B6) do."""
-    b, s, w3 = qkv.shape
-    if w3 % 3 or w3 // 3 != heads * _HEAD_DIM:
-        raise ValueError(f"packed_qkv_self_attention: qkv width {w3} with {heads} "
-                         f"heads; the kernel takes head dim {_HEAD_DIM} only")
-    if s > _MAX_SEQ:
-        raise ValueError(f"packed_qkv_self_attention: S={s} > {_MAX_SEQ}")
-    if scale is None:
-        scale = _HEAD_DIM ** -0.5
-    out = torch.empty((b, s, w3 // 3), dtype=out_dtype, device=qkv.device)
-    common.launch("fern_attention", qkv.data_ptr(), out.data_ptr(), b, s, heads,
-                  int(causal), scale, common.DTYPE_CODES[qkv.dtype],
-                  common.DTYPE_CODES[out_dtype], qkv.device.index, common.stream_of(qkv))
+packed_qkv_self_attention.launches = 0
+
+
+# --- B8: cross-attention over packed kv ----------------------------------
+
+
+def packed_kv_cross_attention_plain(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
+                                    scale: float | None = None) -> torch.Tensor:
+    """Plain version of B8 with `_packed_cross_kernel`'s rounding points
+    (`:240-259`)."""
+    k, v = kv.split(q.shape[-1], dim=-1)
+    return attention_core_plain(q, k, v, heads, scale=scale)
+
+
+def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
+                              scale: float | None = None) -> torch.Tensor:
+    """q [B, Sq, W] against kv [B, Sk, 2W] (k | v) -> [B, Sq, W] (B8).
+
+    CUDA: the attention core in its cross layout, head dim 64 or 80 and
+    Sk <= 256 only. CPU: the plain version."""
+    if not common.is_cuda(q):
+        return packed_kv_cross_attention_plain(q, kv, heads, scale=scale)
+    b, sq, w = q.shape
+    if kv.ndim != 3 or kv.shape[0] != b or kv.shape[2] != 2 * w:
+        raise ValueError(f"packed_kv_cross_attention: q {tuple(q.shape)} with kv "
+                         f"{tuple(kv.shape)}; kv must be [B, Sk, 2W]")
+    common.check_cuda_operands("packed_kv_cross_attention", q, kv)
+    out = _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1], heads=heads,
+                       q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False, scale=scale,
+                       out_dtype=q.dtype)
+    packed_kv_cross_attention.launches += 1
     return out
 
 
-packed_qkv_self_attention.launches = 0
+packed_kv_cross_attention.launches = 0
+
+
+# --- B7: QKV projection + self-attention ---------------------------------
+
+
+def fused_qkv_self_attention_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                                   heads: int, *, causal: bool = False,
+                                   scale: float | None = None) -> torch.Tensor:
+    """Plain version of B7 with `_qkv_fused_kernel`'s rounding points
+    (`:361-384`): the projection in fp32 (true fp32 for fp32 operands, the
+    kernel's `Precision.HIGHEST`), the bias added in fp32, the sum cast to
+    x.dtype, then the attention core's."""
+    qkv = F.linear(x.float(), weight.float(), bias.float()).to(x.dtype)
+    return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
+
+
+def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             heads: int, *, causal: bool = False,
+                             scale: float | None = None) -> torch.Tensor:
+    """QKV projection + self-attention (B7). x [B, S, W], weight [3W, W]
+    (torch layout), bias [3W] -> [B, S, W].
+
+    CUDA: csrc/gemm.cu (GEMM + bias into packed [B, S, 3W] qkv, in
+    x.dtype) and then the attention core, head dim 64 or 80 and S <= 256
+    only. CPU: the plain version."""
+    if not common.is_cuda(x):
+        return fused_qkv_self_attention_plain(x, weight, bias, heads, causal=causal,
+                                              scale=scale)
+    b, s, w = x.shape
+    if weight.shape != (3 * w, w) or bias.shape != (3 * w,):
+        raise ValueError(f"fused_qkv_self_attention: weight {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)} for width {w}")
+    common.check_cuda_operands("fused_qkv_self_attention", x, weight, bias)
+    qkv = common.launch_gemm(x.view(b * s, w), weight, bias).view(b, s, 3 * w)
+    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype)
+    fused_qkv_self_attention.launches += 1
+    return out
+
+
+fused_qkv_self_attention.launches = 0
 
 
 # --- B1: the whole attention sub-block ----------------------------------
@@ -173,7 +271,7 @@ def attention_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor,
                              scale: float | None = None, eps: float = 1e-5) -> torch.Tensor:
     """Plain version of B1 with `_subblock_kernel`'s rounding points
     (`:479-515`)."""
-    y = common.layer_norm(x, ln_weight, ln_bias, eps)
+    y = layer_norm_plain(x, ln_weight, ln_bias, eps)
     qkv = F.linear(y.float(), in_proj_weight.float(), in_proj_bias.float()).to(x.dtype)
     o = packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
     proj = F.linear(o.float(), out_weight.float(), out_bias.float()).to(x.dtype)

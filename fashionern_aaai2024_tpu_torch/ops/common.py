@@ -47,8 +47,9 @@ _SIGNATURES = {
     "fern_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # a, bt, bias, res, c, m, n, k, act, dtype, device, stream
     "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qkv, out, batch, seq, heads, causal, scale, dtype, out_dtype, device, stream
-    "fern_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # q, k, v, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, causal, scale,
+    # dtype, out_dtype, device, stream
+    "fern_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # x, gamma, beta, q, scale, rows, width, eps, dtype, device, stream
     "fern_ln_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, q, scale, rows, width, groups, device, stream
@@ -226,23 +227,10 @@ def is_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics, output in
-    x.dtype — `ops/layernorm.py:37 _layer_norm_ref`. Plain PyTorch: the
-    towers' ln_pre / ln_post / ln_final and the BERT LNs ran on XLA on
-    the TPU, as here."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
-    return y.to(x.dtype)
-
-
 def launch_layer_norm(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    """LN kernel on a contiguous [rows, W] CUDA tensor (a piece of B1/B2);
-    its callers have passed `check_cuda_operands`."""
+    """LN kernel on a contiguous [rows, W] CUDA tensor (kernel B11, and a
+    piece of B1/B2); its callers have passed `check_cuda_operands`."""
     rows, width = x2.shape
     y = torch.empty_like(x2)
     launch("fern_layernorm", x2.data_ptr(), weight.data_ptr(), bias.data_ptr(),

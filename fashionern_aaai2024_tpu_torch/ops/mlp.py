@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm_plain
 
 
 def act_f32(h: torch.Tensor, name: str) -> torch.Tensor:
@@ -44,7 +45,7 @@ def mlp_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
                        activation: str = "quick_gelu", eps: float = 1e-5) -> torch.Tensor:
     """Plain version of B2 with `_mlp_kernel`'s rounding points
     (`mlp.py:94-115`)."""
-    y = common.layer_norm(x, ln_weight, ln_bias, eps)
+    y = layer_norm_plain(x, ln_weight, ln_bias, eps)
     h = F.linear(y.float(), fc_weight.float(), fc_bias.float())
     h = act_f32(h, activation).to(x.dtype)
     o = F.linear(h.float(), proj_weight.float(), proj_bias.float()).to(x.dtype)

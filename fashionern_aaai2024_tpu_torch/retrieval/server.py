@@ -2,7 +2,8 @@
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/server.py`
 `RetrievalService` (`:91`). At construction it embeds the gallery through
-the ViT tower, refines it through the ERN index tower and builds the
+the image tower (ViT-B-16 or RN50x4), refines it through the ERN index
+tower and builds the
 index; `query` answers composed queries (reference image name + caption)
 along the JAX service's multi-dispatch path (`server.py:291-296`): text
 tower, DVR query tower, exact top-k (over an int8 gallery when the API

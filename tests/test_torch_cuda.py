@@ -33,6 +33,14 @@ control that rounds the activations to bf16 before quantizing (fp32
 1.3e-4, bf16 1.4e-4): INT8_MEAN = 4e-5 in fp32 and 3e-5 in bf16, the
 limits `chip_smoke.py` holds the serve shapes to.
 
+B7 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and
+B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B11's
+autograd Function against the plain version's autograd at rtol 1e-5 and
+an atol of 1e-5 times the largest gradient element (two fp32 reductions
+in another order). The small RN50x4-shaped ResNet tower (tests/test_clip.py
+RN_SMALL), card against CPU in fp32 with TF32 off, at atol 1e-4: cuDNN
+and the CPU's convolutions sum in other orders through 14 convolutions.
+
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
 1e-6, into about 1e-4 on a score); gradients through the autograd
@@ -47,6 +55,7 @@ import torch
 
 from fashionern_aaai2024_tpu_torch.ops import attention as A
 from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
@@ -132,6 +141,115 @@ def test_kernels_reject_what_they_do_not_take(device):
     with pytest.raises(TypeError, match="float16"):
         A.packed_qkv_self_attention(torch.zeros((2, 10, 384), device=device,
                                                 dtype=torch.float16), 2)
+
+
+# (batch, sq, sk, heads, head dim): the RN50x4 attention pool, the DVR
+# MR cross-attention at d = 640 and 512, the largest key count
+CROSS_SHAPES = [(4, 1, 82, 40, 64), (4, 77, 13, 8, 80), (4, 77, 13, 8, 64), (2, 5, 256, 2, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,heads,dh", CROSS_SHAPES)
+def test_cross_attention_kernel_matches_plain(device, dtype, b, sq, sk, heads, dh):
+    g = np.random.default_rng(10)
+    w = heads * dh
+    q, kv = _t(g, (b, sq, w), 1.0, dtype, device), _t(g, (b, sk, 2 * w), 1.0, dtype, device)
+    n0 = A.packed_kv_cross_attention.launches
+    got = A.packed_kv_cross_attention(q, kv, heads)
+    torch.cuda.synchronize()
+    assert A.packed_kv_cross_attention.launches == n0 + 1
+    _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), dtype)
+
+
+# (batch, seq, heads, head dim, causal): the DVR BERT at d = 640 and 512,
+# a short sequence, and a causal case of the core at head dim 80
+QKV_SHAPES = [(4, 91, 8, 80, False), (4, 91, 8, 64, False), (2, 11, 2, 80, False),
+              (2, 77, 2, 80, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,heads,dh,causal", QKV_SHAPES)
+def test_fused_qkv_kernel_matches_plain(device, dtype, b, s, heads, dh, causal):
+    g = np.random.default_rng(11)
+    w = heads * dh
+    args = (_t(g, (b, s, w), 1.0, dtype, device), _t(g, (3 * w, w), 0.02, dtype, device),
+            _t(g, (3 * w,), 0.02, dtype, device))
+    n0 = A.fused_qkv_self_attention.launches
+    got = A.fused_qkv_self_attention(*args, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert A.fused_qkv_self_attention.launches == n0 + 1
+    _close(got, A.fused_qkv_self_attention_plain(*args, heads, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,w,eps", [(32 * 77, 640, 1e-5), (4 * 91, 640, 1e-12),
+                                        (4 * 197, 768, 1e-5), (37, 128, 1e-5)])
+def test_layer_norm_kernel_matches_plain(device, dtype, rows, w, eps):
+    g = np.random.default_rng(12)
+    x = _t(g, (rows, w), 1.0, dtype, device, offset=2.0)
+    ln_w, ln_b = _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device)
+    n0 = LN.layer_norm.launches
+    got = LN.layer_norm(x, ln_w, ln_b, eps)
+    torch.cuda.synchronize()
+    assert LN.layer_norm.launches == n0 + 1
+    _close(got, LN.layer_norm_plain(x, ln_w, ln_b, eps), dtype)
+
+
+def test_layer_norm_autograd_matches_plain_autograd(device):
+    g = np.random.default_rng(13)
+    w = 640
+    x0 = _t(g, (2, 91, w), 1.0, torch.float32, device)
+    ln0 = (_t(g, (w,), 0.1, torch.float32, device, 1.0), _t(g, (w,), 0.1, torch.float32, device))
+    up = _t(g, (2, 91, w), 1.0, torch.float32, device)
+    ours = [t.clone().requires_grad_() for t in (x0, *ln0)]
+    plain = [t.clone().requires_grad_() for t in (x0, *ln0)]
+    (LN.layer_norm(*ours, 1e-12) * up).sum().backward()
+    (LN.layer_norm_plain(*plain, 1e-12) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_b7_b8_refuse_operands_that_require_grad(device):
+    w = 160
+    x = torch.randn(2, 9, w, device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        A.fused_qkv_self_attention(x, torch.zeros(3 * w, w, device=device),
+                                   torch.zeros(3 * w, device=device), 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        A.packed_kv_cross_attention(x, torch.zeros(2, 13, 2 * w, device=device), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        A.packed_kv_cross_attention(torch.zeros(2, 9, 96, device=device),
+                                    torch.zeros(2, 13, 192, device=device), 2)
+    with pytest.raises(ValueError, match="S=300"):
+        A.packed_kv_cross_attention(torch.zeros(2, 9, w, device=device),
+                                    torch.zeros(2, 300, 2 * w, device=device), 2)
+    with torch.no_grad():
+        A.packed_kv_cross_attention(x, torch.zeros(2, 13, 2 * w, device=device), 2)
+
+
+def test_small_resnet_tower_card_matches_cpu(device):
+    from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig, TextConfig, \
+        VisionConfig
+    from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+
+    cfg = CLIPConfig(name="rn-small", vision=VisionConfig(kind="resnet", image_size=64,
+                                                          embed_dim=24, width=16,
+                                                          layers=(1, 1, 1, 1), heads=8),
+                     text=TextConfig(vocab_size=100, context_length=16, width=32, heads=4,
+                                     layers=2, embed_dim=24))
+    cpu = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0)).eval()
+    images = torch.tensor(np.random.default_rng(14).standard_normal((3, 64, 64, 3)),
+                          dtype=torch.float32)
+    with torch.no_grad():
+        want = cpu.encode_image(images)
+        card = cpu.to(device)
+        n0 = A.packed_kv_cross_attention.launches
+        got = card.encode_image(images.to(device))
+        torch.cuda.synchronize()
+    assert A.packed_kv_cross_attention.launches == n0 + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
 
 
 def _bbc_inputs(b, d, device, seed=3):

@@ -3,7 +3,10 @@
 Kernels B1 (`attention_subblock`), B2 (`mlp_subblock`) and B3
 (`packed_qkv_self_attention`) are held against the JAX Pallas kernels run
 as the JAX tests run them (`force_pallas=True, interpret=True`); exact
-GELU against `_mlp_ref(activation="gelu")`. Kernel B4 (`bbc_rowloss`)
+GELU against `_mlp_ref(activation="gelu")`. B7
+(`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and B11
+(`layer_norm`) against `_qkv_fused_pallas`, `_packed_cross_pallas` and
+`_layer_norm_pallas` with `interpret=True`, at head dim 64 and 80. Kernel B4 (`bbc_rowloss`)
 against `_bbc_rowloss_pallas(..., interpret=True)` and `_bbc_rowloss_ref`,
 and its autograd against `jax.grad` of the custom-VJP `_bbc_mean_loss`.
 The same numpy inputs feed both sides.
@@ -28,10 +31,12 @@ import torch
 import jax
 
 from fashionern_aaai2024_tpu.ops import attention as JA
+from fashionern_aaai2024_tpu.ops import layernorm as JLN
 from fashionern_aaai2024_tpu.ops import losses as JL
 from fashionern_aaai2024_tpu.ops import mlp as JM
 from fashionern_aaai2024_tpu_torch.ops import attention as TA
 from fashionern_aaai2024_tpu_torch.ops import common as TCm
+from fashionern_aaai2024_tpu_torch.ops import layernorm as TLN
 from fashionern_aaai2024_tpu_torch.ops import losses as TL
 from fashionern_aaai2024_tpu_torch.ops import mlp as TM
 
@@ -151,7 +156,120 @@ def test_layer_norm_matches_jax(dtype):
     w = (1 + 0.1 * g.standard_normal(96)).astype(np.float32)
     b = (0.1 * g.standard_normal(96)).astype(np.float32)
     (jx, tx), (jw, tw), (jb, tb) = (_pair(a, dtype) for a in (x, w, b))
-    _close(layer_norm(jx, jw, jb, 1e-12), TCm.layer_norm(tx, tw, tb, 1e-12), dtype)
+    _close(layer_norm(jx, jw, jb, 1e-12), TLN.layer_norm(tx, tw, tb, 1e-12), dtype)
+
+
+# --- B7, B8 and B11 against the interpret-mode Pallas kernels ------------
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("sq,sk", [(1, 10), (5, 13)])
+def test_packed_kv_cross_attention_matches_pallas(dtype, dh, sq, sk):
+    g = np.random.default_rng(20 + dh + sq)
+    w = 2 * dh
+    (jq, tq), (jkv, tkv) = (_pair(g.standard_normal(shape).astype(np.float32), dtype)
+                            for shape in ((3, sq, w), (3, sk, 2 * w)))
+    want = JA._packed_cross_pallas(jq, jkv, jnp.zeros((sq, sk), jnp.float32), dh ** -0.5, 1,
+                                   2, interpret=True)
+    _close(want, TA.packed_kv_cross_attention(tq, tkv, 2), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", [11, 91])
+def test_fused_qkv_self_attention_matches_pallas(dtype, dh, s):
+    g = np.random.default_rng(30 + dh + s)
+    w = 2 * dh
+    f = np.float32
+    arrays = (g.standard_normal((2, s, w)).astype(f),
+              (0.05 * g.standard_normal((w, 3 * w))).astype(f),
+              (0.05 * g.standard_normal(3 * w)).astype(f))
+    (jx, tx), (jw, tw), (jb, tb) = (_pair(a, dtype) for a in arrays)
+    want = JA._qkv_fused_pallas(jx, jw, jb, jnp.zeros((s, s), jnp.float32), dh ** -0.5, 2,
+                                interpret=True)
+    # the port takes the torch layout: [3W, W]
+    _close(want, TA.fused_qkv_self_attention(tx, tw.t().contiguous(), tb, 2), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("w", [128, 640])
+def test_layer_norm_matches_pallas(dtype, eps, w):
+    g = np.random.default_rng(40 + w)
+    f = np.float32
+    arrays = ((2 + g.standard_normal((3, 13, w))).astype(f),       # 39 rows: ragged
+              (1 + 0.1 * g.standard_normal(w)).astype(f), (0.1 * g.standard_normal(w)).astype(f))
+    (jx, tx), (jw, tw), (jb, tb) = (_pair(a, dtype) for a in arrays)
+    want = JLN._layer_norm_pallas(jx, jw, jb, eps, interpret=True)
+    _close(want, TLN.layer_norm(tx, tw, tb, eps), dtype)
+
+
+def test_bf16_cross_attention_follows_the_kernel_not_the_xla_formula():
+    """ROADMAP C6: in bf16 the port's B8 (and B7) keeps the Pallas
+    kernels' fp32 scores, where JAX's dispatch default, `_packed_cross_ref`
+    through `_mha_ref`, rounds the scores to bf16; at the attention pool's
+    shape (Sq = 1, Sk = 82) the two differ by more than the bf16
+    tolerance while the port matches the kernel. In fp32 all three agree."""
+    g = np.random.default_rng(50)
+    q = (2 * g.standard_normal((2, 1, 128))).astype(np.float32)
+    kv = (2 * g.standard_normal((2, 82, 256))).astype(np.float32)
+    diffs = {}
+    for dtype in ("fp32", "bf16"):
+        (jq, tq), (jkv, tkv) = _pair(q, dtype), _pair(kv, dtype)
+        kernel = np.asarray(JA._packed_cross_pallas(
+            jq, jkv, jnp.zeros((1, 82), jnp.float32), 64 ** -0.5, 1, 2, interpret=True),
+            np.float32)
+        xla = np.asarray(JA.packed_kv_cross_attention(jq, jkv, 2), np.float32)
+        port = TA.packed_kv_cross_attention(tq, tkv, 2).float().numpy()
+        diffs[dtype] = (np.abs(port - kernel).max(), np.abs(port - xla).max())
+    assert max(diffs["fp32"]) <= 2e-5
+    to_kernel, to_xla = diffs["bf16"]
+    assert to_xla > 2e-2
+    assert to_kernel <= to_xla / 10
+
+
+def test_layer_norm_function_backward_is_the_plain_gradient(monkeypatch):
+    """B11's autograd Function (the CUDA path) differentiates the plain
+    version. Run here with the kernel launch replaced by the plain
+    formula: its gradients equal plain autograd's, for x, weight and bias
+    and for x alone."""
+    monkeypatch.setattr(TCm, "launch_layer_norm", TLN.layer_norm_plain)
+    g = np.random.default_rng(51)
+    x0 = torch.tensor(g.standard_normal((4, 7, 24)), dtype=torch.float32)
+    w0 = torch.tensor(1 + 0.1 * g.standard_normal(24), dtype=torch.float32)
+    b0 = torch.tensor(0.1 * g.standard_normal(24), dtype=torch.float32)
+    up = torch.tensor(g.standard_normal((4, 7, 24)), dtype=torch.float32)
+    for needs in ((True, True, True), (True, False, False)):
+        ours = [t.clone().requires_grad_(n) for t, n in zip((x0, w0, b0), needs)]
+        plain = [t.clone().requires_grad_(n) for t, n in zip((x0, w0, b0), needs)]
+        (TLN.LayerNormFunction.apply(*ours, 1e-12) * up).sum().backward()
+        (TLN.layer_norm_plain(*plain, 1e-12) * up).sum().backward()
+        for a, b in zip(ours, plain):
+            if b.grad is None:
+                assert a.grad is None
+            else:
+                torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
+
+
+def test_cpu_tensors_take_the_plain_versions_of_b7_b8_b11():
+    g = np.random.default_rng(52)
+    x = torch.tensor(g.standard_normal((2, 9, 160)), dtype=torch.float32)
+    w = torch.tensor(0.05 * g.standard_normal((480, 160)), dtype=torch.float32)
+    b = torch.zeros(480)
+    before = (TA.fused_qkv_self_attention.launches, TA.packed_kv_cross_attention.launches,
+              TLN.layer_norm.launches)
+    torch.testing.assert_close(TA.fused_qkv_self_attention(x, w, b, 2),
+                               TA.fused_qkv_self_attention_plain(x, w, b, 2), rtol=0, atol=0)
+    kv = torch.cat([x, x], dim=-1)
+    torch.testing.assert_close(TA.packed_kv_cross_attention(x[:, :1].contiguous(), kv, 2),
+                               TA.packed_kv_cross_attention_plain(x[:, :1], kv, 2),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(TLN.layer_norm(x, w[0], b[:160], 1e-5),
+                               TLN.layer_norm_plain(x, w[0], b[:160], 1e-5), rtol=0, atol=0)
+    assert (TA.fused_qkv_self_attention.launches, TA.packed_kv_cross_attention.launches,
+            TLN.layer_norm.launches) == before
+    assert TCm.LIBRARY._lib is None
 
 
 def test_cpu_tensors_take_the_plain_version():

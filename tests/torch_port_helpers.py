@@ -38,6 +38,20 @@ def tiny_config(module):
                         activation="gelu")
 
 
+def resnet_config(module, layers=(1, 1, 1, 1), activation: str = "quick_gelu"):
+    """`tests/test_clip.py` RN_SMALL: a modified ResNet at image 64, base
+    width 16, one bottleneck a stage, an attention pool of 8 heads of 64;
+    the text tower of `tiny_config`."""
+    return module.CLIPConfig(
+        name="port-rn-test",
+        vision=module.VisionConfig(kind="resnet", image_size=64, embed_dim=D, width=16,
+                                   layers=layers, heads=8),
+        text=module.TextConfig(vocab_size=100, context_length=CTX, width=32, heads=4,
+                               layers=2, embed_dim=D),
+        activation=activation,
+    )
+
+
 def jax_model_and_variables(cfg, seed: int = 0):
     model = jax_composed.ComposedCIRModel(cfg, patch_num=PATCH_NUM)
     rng = jax.random.PRNGKey(seed)
