@@ -1,11 +1,15 @@
-"""Times the attention core (kernel B3, `packed_qkv_self_attention`) of the
-checkout in the current directory on one CUDA card.
+"""Times the attention core (kernel B3, `packed_qkv_self_attention`) and
+the fp32 SIMT GEMM (`ops/common.py launch_gemm`, which the fp32 tiers of
+B1, B2 and B7 and kernel B12 share) of the checkout in the current
+directory on one CUDA card.
 
     cd <checkout> && python3 <path>/ab_attention.py LABEL
 
-Prints one line: LABEL and the median of 50 CUDA-event timings (after 5
-warm-ups) of one call at ViT-B-16 B=32 (bf16 and fp32), text B=32
-(causal, bf16) and ViT-B-16 B=1024 (bf16). To compare two checkouts,
+Prints two lines: LABEL and the median of 50 CUDA-event timings (after 5
+warm-ups) of one call, B3 at ViT-B-16 B=32 (bf16 and fp32), text B=32
+(causal, bf16) and ViT-B-16 B=1024 (bf16); the GEMM with a bias at the
+RN50x4 BERT's fused QKV projection (B7, [32*91, 640] x [640, 1920]) and
+the ViT-B-16 c_fc (B2, [32*197, 768] x [768, 3072]). To compare two checkouts,
 run it in each in turns (parent, change, change, parent) in one call on
 one card; the package is imported from the current directory, so the
 script runs unchanged against an older checkout.
@@ -19,11 +23,13 @@ import torch
 
 sys.path.insert(0, os.getcwd())
 from fashionern_aaai2024_tpu_torch.ops import attention as A  # noqa: E402
+from fashionern_aaai2024_tpu_torch.ops import common  # noqa: E402
 
 SHAPES = (("vit_b32", (32, 197, 768, 12, False), torch.bfloat16),
           ("vit_b32", (32, 197, 768, 12, False), torch.float32),
           ("text_b32", (32, 77, 512, 8, True), torch.bfloat16),
           ("vit_b1024", (1024, 197, 768, 12, False), torch.bfloat16))
+GEMMS = (("bert640_qkv", (32 * 91, 640, 1920)), ("vit_cfc", (32 * 197, 768, 3072)))
 
 
 def median_ms(fn, runs: int = 50) -> float:
@@ -49,7 +55,13 @@ def main() -> None:
         qkv = torch.randn((b, s, 3 * w), generator=g).to(dtype).cuda()
         ms = median_ms(lambda: A.packed_qkv_self_attention(qkv, heads, causal=causal))
         out.append(f"{label}/{str(dtype)[6:]} {ms:.4f}")
-    print(sys.argv[1] if len(sys.argv) > 1 else "checkout", "B3 ms:", "; ".join(out), flush=True)
+    label = sys.argv[1] if len(sys.argv) > 1 else "checkout"
+    print(label, "B3 ms:", "; ".join(out), flush=True)
+    out = []
+    for name, (m, k, n) in GEMMS:
+        a, w, b = (torch.randn(shape, generator=g).cuda() for shape in ((m, k), (n, k), (n,)))
+        out.append(f"{name}/float32 {median_ms(lambda: common.launch_gemm(a, w, b)):.4f}")
+    print(label, "fp32 GEMM ms:", "; ".join(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -66,12 +66,31 @@ Phases (each raises on failure; nothing is caught):
       and once per query call, B7 twice per query call, B11 at ln_final
       and the BERT's LayerNorms), the tower's output norm, card against
       CPU, embed + refine img/s and query P50;
-  11. a `torch.profiler` split by kernel of one embed + refine call of
-      each tier (phases 4, 6 and 10), and of one RN50x4 query at b=32, with
-      the device time of the `record_function` spans (image tower, its
-      trunk and attention pool, index refine; text tower, DVR query
-      tower, search). Every profile runs after every host-clock and event
-      timing: the profiler slows later launches.
+  11. the TME slice (`tme=True`), ViT-B-16 at full width (d = 512, TME's
+      cross-attention 8 heads of 64), seeded weights: the serve run of
+      phases 3 and 4 under the bf16 policy (TME in bf16), launch counts
+      (B9 and one more B11 per query call, B12 three per query call and
+      one per refine chunk), card against the CPU's fp32 plain run (the
+      fused queries and TME's text globals, which TME must move from the
+      tower's), query P50; then one fp32 train step at B = 16, card against CPU (loss
+      rtol 1e-5, ERN and TME gradient cosine >= 0.99999), 3 steps of
+      `Trainer.train()` at B = 1024 with step times and launch counts
+      (B9 through its autograd Function and one more B11 a step), and a
+      profiled step.
+  12. a `torch.profiler` split by kernel of one embed + refine call of
+      each tier (phases 4, 6 and 10), and of one RN50x4 and one TME query
+      at b=32, with the device time of the `record_function` spans (image
+      tower, its trunk and attention pool, index refine; text tower, DVR
+      query tower, search). Every profile runs after every host-clock and
+      event timing: the profiler slows later launches.
+
+Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
+and 1024, head dim 64 and 80, fp32 and bf16, and one biased case) and
+B12 (`combiner_apply`) at d = 512 and 640, M = 1, 32, 128 and 1024, fp32
+and bf16, against their plain versions, with the same timings (library
+calls: SDPA with the bias as `attn_mask`; the `F.linear` composition).
+Every eval combiner of every phase runs B12: three per query call, one
+per index refine chunk.
 
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -105,6 +124,7 @@ from fashionern_aaai2024_tpu_torch.models.composed import (
     random_init_,
 )
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
 from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
@@ -166,6 +186,7 @@ B1, B2, B3, B4 = ("attention_subblock (B1)", "mlp_subblock (B2)",
 B5, B6 = "int8_mlp_subblock (B5)", "int8_attention_subblock (B6)"
 B7, B8, B11 = ("fused_qkv_self_attention (B7)", "packed_kv_cross_attention (B8)",
                "layer_norm (B11)")
+B9, B12 = "multi_head_attention (B9)", "combiner_apply (B12)"
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -185,11 +206,16 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/attention.py:264"),
     B11: (LN.layer_norm, "fashionern_aaai2024_tpu_torch/csrc/layernorm.cu",
           "fashionern_aaai2024_tpu/ops/layernorm.py:46"),
+    B9: (A.multi_head_attention, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
+         "fashionern_aaai2024_tpu/ops/attention.py:84"),
+    B12: (Cb.combiner_apply, "fashionern_aaai2024_tpu_torch/csrc",
+          "fashionern_aaai2024_tpu/ops/combiner.py:63"),
 }
 SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
            B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
            B6: ["quant.cu", "qgemm.cu", "attention.cu"], B7: ["gemm.cu", "attention.cu"],
-           B8: ["attention.cu"], B11: ["layernorm.cu"]}
+           B8: ["attention.cu"], B11: ["layernorm.cu"], B9: ["attention.cu"],
+           B12: ["gemm.cu", "combiner.cu"]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
@@ -228,6 +254,17 @@ BBC_TOL = dict(atol=5e-4, rtol=1e-5)
 # the train slice: the recipe's batch and lr (cli/main.py:64-65)
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 1024, 4e-5, 6
 UNIVERSE, VAL_GALLERY, VAL_QUERIES, CHECK_BATCH = 2048, 1024, 256, 16
+# B9 at TME's cross-attention: 77 text tokens against 13 patches, 8 heads
+# (64 at d = 512, 80 at d = 640), at the serve batch and the train batch;
+# one case with a causal + arbitrary bias (Sq != Sk)
+MHA_SHAPES = [("tme512_b32", dict(b=32, d=512)), ("tme640_b32", dict(b=32, d=640)),
+              ("tme512_b1024", dict(b=1024, d=512)), ("tme640_b1024", dict(b=1024, d=640))]
+MHA_BIASED = ("biased512_b32", dict(b=32, d=512, causal=True, bias=True))
+# B12 at the combiners' rows: a query (1, 32), an index refine batch (128),
+# the validation's and a large refine chunk's (1024)
+COMBINER_SHAPES = [(d, m) for d in (512, 640) for m in (1, 32, 128, 1024)]
+# the TME slice: train steps at B = 1024
+TME_TRAIN_STEPS = 3
 FIQ_CAPTIONS = [("is darker", "has longer sleeves"), ("is red", "more formal"),
                 ("has a floral print", "is shorter"), ("with a collar", "less casual"),
                 ("in blue", "has stripes and no logo"), ("is lighter", "is tighter")]
@@ -462,6 +499,107 @@ def phase_new_kernels() -> tuple[dict, list]:
     return worst, rows
 
 
+def mha_case(shp: dict, dtype: torch.dtype, seed: int):
+    """B9 operands as TME builds them: head views [B, 8, S, Dh] of
+    [B, S, d] projections (77 queries, 13 keys and values), and the
+    shared fp32 [77, 13] bias of the biased case."""
+    g = torch.Generator().manual_seed(seed)
+    b, d, heads = shp["b"], shp["d"], 8
+
+    def view(s):
+        t = torch.randn((b, s, d), generator=g).to(dtype).cuda()
+        return t.view(b, s, heads, d // heads).transpose(1, 2)
+
+    bias = (2 * torch.randn((77, 13), generator=g)).cuda() if shp.get("bias") else None
+    return view(77), view(13), view(13), bias
+
+
+def mha_work(shp: dict, dtype: torch.dtype) -> dict:
+    """Bound of one B9 call: 4·B·Sq·Sk·d FLOPs (scores and P·V) at the
+    dtype's peak; q, k, v and the bias read once, the output written once
+    (causal: only the unmasked pairs)."""
+    e = torch.finfo(dtype).bits // 8
+    b, d, sq, sk = shp["b"], shp["d"], 77, 13
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if shp.get("causal") else sq * sk
+    return bound(4 * b * pairs * d, e * (2 * b * sq * d + 2 * b * sk * d)
+                 + (4 * sq * sk if shp.get("bias") else 0), dtype)
+
+
+def combiner_module(d: int, dtype: torch.dtype, seed: int):
+    """A CombinerSimple with the seeded init of `random_init_`."""
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    return random_init_(CombinerSimple(d), torch.Generator().manual_seed(seed)).to(
+        "cuda", dtype).eval()
+
+
+def combiner_work(d: int, m: int, dtype: torch.dtype) -> dict:
+    """Bound of one B12 call: 2·M·(8d² + 64d² + 8d) FLOPs at the dtype's
+    peak; the weights (2 x [4d, d], [8d, 8d], [8d], biases), the two
+    input rows and the output row once each."""
+    e = torch.finfo(dtype).bits // 8
+    weights = 8 * d * d + 8 * d + 64 * d * d + 8 * d + 8 * d + 1
+    return bound(2 * m * (8 * d * d + 64 * d * d + 8 * d), e * (weights + 3 * m * d), dtype)
+
+
+def combiner_library(image: torch.Tensor, text: torch.Tensor, module) -> torch.Tensor:
+    """The combiner as one `F.linear` composition (`library_ms` only)."""
+    tp = F.relu(F.linear(text, module.text_projection_layer[0].weight,
+                         module.text_projection_layer[0].bias))
+    ip = F.relu(F.linear(image, module.image_projection_layer[0].weight,
+                         module.image_projection_layer[0].bias))
+    h = F.relu(F.linear(torch.cat([tp, ip], dim=-1), module.dynamic_scalar[0].weight,
+                        module.dynamic_scalar[0].bias))
+    sigma = torch.sigmoid(F.linear(h, module.dynamic_scalar[3].weight,
+                                   module.dynamic_scalar[3].bias))
+    return F.normalize(sigma * text + (1.0 - sigma) * image, dim=-1)
+
+
+def phase_tme_kernels() -> tuple[dict, list]:
+    """B9 and B12 against their plain versions, fp32 and bf16."""
+    rows, worst = [], {B9: 0.0, B12: 0.0}
+    cases = [(B9, label, shp, dtype) for label, shp in MHA_SHAPES + [MHA_BIASED]
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(B12, f"d{d}_m{m}", dict(d=d, m=m), dtype) for d, m in COMBINER_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)]
+    for name, label, shp, dtype in cases:
+        seed = 300 + len(rows)
+        if name == B9:
+            q, k, v, bias = mha_case(shp, dtype, seed)
+            causal = shp.get("causal", False)
+            bias32 = A.shared_bias(causal, bias, 77, 13, "cuda")
+            kernel = lambda: A.multi_head_attention(q, k, v, causal=causal, bias=bias)
+            plain = lambda: A.mha_plain(q, k, v, bias32)
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=None if bias32 is None else bias32.to(dtype))
+            work = mha_work(shp, dtype)
+        else:
+            module = combiner_module(shp["d"], dtype, seed)
+            g = torch.Generator().manual_seed(seed)
+            image, text = (torch.randn((shp["m"], shp["d"]), generator=g).to(dtype).cuda()
+                           for _ in range(2))
+            kernel = lambda: Cb.combiner_apply(image, text, module)
+            plain = lambda: Cb.combiner_apply_plain(image, text, module)
+            library = lambda: combiner_library(image, text, module)
+            work = combiner_work(shp["d"], shp["m"], dtype)
+        with torch.no_grad():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            err = (got.float() - want.float()).abs().max().item()
+            worst[name] = max(worst[name], err)
+            del got, want
+            row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
+                       library_ms=median_ms(library), **work)
+        rows.append(row)
+        log(f"  {name:32s} {label:13s} {row['dtype']:9s} err {err:.3e}  "
+            f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+            f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return worst, rows
+
+
 def make_gallery(side: int = 224, dim: int = 512, seed: int = 0):
     g = np.random.default_rng(seed)
     raw = g.random((GALLERY, side, side, 3), dtype=np.float32)
@@ -477,26 +615,33 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(), dim=-1)
 
 
-def serve_launches(cfg, gallery_calls: int, query_calls: int) -> dict:
+def serve_launches(cfg, gallery_calls: int, query_calls: int, refine_chunks: int = 1) -> dict:
     """Expected launches of a serve run: per gallery batch the image tower
     (ViT: B1-B3 (or B5-B6) in each block, B11 at ln_pre and ln_post;
-    ResNet: B8 at the attention pool); per query call the text tower (the
-    same in each block, B11 at ln_final) and the DVR query tower (B7 in
-    each BERT layer, B11 at the BERT's LNs, B8 at MR)."""
+    ResNet: B8 at the attention pool); per index refine chunk the index
+    tower's combiner (B12); per query call the text tower (the same in
+    each block, B11 at ln_final), TME on a TME model (B11 at its LN, B9)
+    and the DVR query tower (B7 in each BERT layer, B11 at the BERT's LNs,
+    B8 at MR, B12 in its three combiners)."""
     vit = cfg.vision.kind == "vit"
+    tme = int(cfg.text.tme)
     blocks = cfg.text.layers * query_calls + (cfg.vision.layers * gallery_calls if vit else 0)
     want = dict.fromkeys(INT8_KERNELS if cfg.quantize_mlp else TOWER_KERNELS, blocks)
     want[B7] = BERT_LAYERS * query_calls
     want[B8] = query_calls + (0 if vit else gallery_calls)
-    want[B11] = (1 + BERT_LNS) * query_calls + (2 * gallery_calls if vit else 0)
+    want[B11] = (1 + tme + BERT_LNS) * query_calls + (2 * gallery_calls if vit else 0)
+    want[B9] = tme * query_calls
+    want[B12] = 3 * query_calls + refine_chunks
     return want
 
 
-def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = False
-                ) -> tuple[dict, RetrievalService, InferenceAPI]:
-    """The serve slice of `model_name`, float (phases 3 and 10) or int8
-    towers and gallery (phase 6); each from seeded weights."""
-    cfg = get_clip_config(model_name, activation="quick_gelu", quantize_mlp=quantize)
+def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = False,
+                tme: bool = False) -> tuple[dict, RetrievalService, InferenceAPI]:
+    """The serve slice of `model_name`, float (phases 3 and 10), with TME
+    (phase 11) or int8 towers and gallery (phase 6); each from seeded
+    weights."""
+    cfg = get_clip_config(model_name, activation="quick_gelu", quantize_mlp=quantize,
+                          tme=tme)
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     reference = copy.deepcopy(model).eval()          # fp32, plain versions, CPU
     apply_precision(model, "bf16")
@@ -519,7 +664,8 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     want = serve_launches(cfg, GALLERY // BATCH, len(refs) + 1)
     log(f"  main path {run_s:.2f} s; launches {launches} (expected {want}: "
         f"{GALLERY // BATCH} gallery batches, {len(refs) + 1} query calls)")
-    check_launches(f"{model_name} {'int8 ' if quantize else ''}serve path", launches, want)
+    tier = "int8 " if quantize else "TME " if tme else ""
+    check_launches(f"{model_name} {tier}serve path", launches, want)
     norms = service.gallery.features.float().norm(dim=-1)
     log(f"  image tower output norm: min {norms.min().item():.4f}, median "
         f"{norms.median().item():.4f}, max {norms.max().item():.4f}")
@@ -538,9 +684,9 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     card_gallery = service.index.features[:16]
     rows = [service.rows[r] for r in refs]
     ids = tokenizer(CAPTIONS)
-    tg, ts = ref_api.encode_text(ids)
+    tg, ts = ref_api.encode_text(ids, visual_emb=patches[rows])
     cpu_query = ref_api.query(g16[rows], patches[rows], tg, ts)
-    ctg, cts = api.encode_text(ids)
+    ctg, cts = api.encode_text(ids, visual_emb=service.gallery.local_features[rows])
     card_query = api.query(service.gallery.features[rows], service.gallery.local_features[rows],
                            ctg, cts)
     cos_g, cos_q = cosine(card_gallery, cpu_gallery), cosine(card_query, cpu_query)
@@ -553,7 +699,22 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     limit = INT8_COSINE_MIN if quantize else 0.99
     if cos_g.min() < limit or cos_q.min() < limit:
         raise AssertionError(f"card embeddings disagree with the fp32 CPU run (limit {limit})")
-    return dict(main_path_seconds=run_s, launches=launches,
+    tme_info = {}
+    if tme:
+        # TME's own output, which the fused query blends with the image
+        # side: the card's enhanced text globals against the CPU's, and how
+        # far TME moves them from the tower's (it must not be the identity)
+        with torch.no_grad():
+            tower_g, _ = reference.clip.encode_text(torch.as_tensor(ids, dtype=torch.long))
+        cos_t, shift = cosine(ctg, tg), 1 - cosine(tg, tower_g)
+        tme_info = dict(text_cosine_min=cos_t.min().item(), tme_shift_min=shift.min().item())
+        log(f"  TME text globals: card vs CPU cosine min {cos_t.min().item():.5f}; "
+            f"1 - cosine to the tower's globals: min {shift.min().item():.4f}, max "
+            f"{shift.max().item():.4f} ({card_label})")
+        if cos_t.min() < limit or shift.min() < 1e-3:
+            raise AssertionError("TME's text globals disagree with the CPU's, or TME did not "
+                                 "move them")
+    return dict(main_path_seconds=run_s, launches=launches, **tme_info,
                 gallery_cosine_min=cos_g.min().item(), query_cosine_min=cos_q.min().item(),
                 gallery_cosine_median=cos_g.median().item(),
                 query_cosine_median=cos_q.median().item(), topk_overlap=overlap,
@@ -623,7 +784,8 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
     def query_b32():
         rows = torch.arange(32, device="cuda")
         with record_function("query/text_tower"):
-            tg, ts = api.encode_text(api.tokenize([CAPTIONS[i % 8] for i in range(32)]))
+            tg, ts = api.encode_text(api.tokenize([CAPTIONS[i % 8] for i in range(32)]),
+                                     visual_emb=service.gallery.local_features[rows])
         with record_function("query/dvr"):
             q = api.query(service.gallery.features[rows], service.gallery.local_features[rows],
                           tg, ts)
@@ -672,16 +834,18 @@ def check_launches(path: str, launches: dict, want: dict) -> None:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
 
 
-def train_launches(steps: int, int8: bool = False) -> dict:
+def train_launches(steps: int, int8: bool = False, tme: bool = False) -> dict:
     """Expected launches of `steps` train steps: 3 frozen tower passes a
     step (B1-B3, or B5-B6, in each block), B11 at the ViT's ln_pre and
-    ln_post (2 image passes), the text tower's ln_final and the train-mode
-    BERT's LNs; B4 once. The train-mode BERT and MR attention are
-    `multi_head_attention` with probability dropout, as in JAX: no B7, no
-    B8."""
+    ln_post (2 image passes), the text tower's ln_final, TME's LN on a TME
+    model and the train-mode BERT's LNs; B9 at TME's cross-attention; B4
+    once. The train-mode BERT and MR attention are `mha_ref` with
+    probability dropout, as in JAX: no B7, no B8, no B9; the train-mode
+    combiners drop out too: no B12."""
     want = dict.fromkeys(INT8_KERNELS if int8 else TOWER_KERNELS, steps * 3 * LAYERS)
     want[B4] = steps
-    want[B11] = steps * (2 * 2 + 1 + BERT_LNS)
+    want[B11] = steps * (2 * 2 + 1 + int(tme) + BERT_LNS)
+    want[B9] = steps * int(tme)
     return want
 
 
@@ -778,12 +942,13 @@ def _keep_all(shape, keep, generator, device):
 
 
 def check_fp32_step(cfg, dataset: SyntheticFashionIQ, card: str) -> dict:
-    """One fp32 step at B = 16 on the card (kernels B1-B4) against the same
-    step on the CPU (plain versions), same weights and batch, all-keep
-    dropout on both sides (the two devices' generators draw different
-    masks). Loss at rtol 1e-5 and ERN gradient cosine >= 0.99999: both
-    are fp32 throughout and differ only in summation order (a first run
-    on an H100 gave 8.2e-8 and 0.9999989)."""
+    """One fp32 step at B = 16 on the card (kernels B1-B4, and B9 and B11
+    in TME on a TME model) against the same step on the CPU (plain
+    versions), same weights and batch, all-keep dropout on both sides (the
+    two devices' generators draw different masks). Loss at rtol 1e-5 and
+    ERN gradient cosine >= 0.99999, TME's alone too: both are fp32
+    throughout and differ only in summation order (a first run on an H100
+    gave 8.2e-8 and 0.9999989)."""
     from fashionern_aaai2024_tpu_torch.data.loader import default_collate
 
     cpu_model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(1))
@@ -801,21 +966,27 @@ def check_fp32_step(cfg, dataset: SyntheticFashionIQ, card: str) -> dict:
                      "ref_patch": torch.from_numpy(raw["ref_patch"]),
                      "tar_patch": torch.from_numpy(raw["tar_patch"])}
             _, loss = step(state, {k: v.to(state.device) for k, v in batch.items()})
-            grads = torch.cat([p.grad.flatten().double().cpu()
-                               for p in model.ern.parameters() if p.grad is not None])
-            out[dev] = (loss.item(), grads)
-    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+
+            def grads(prefix: str = "") -> torch.Tensor:
+                return torch.cat([p.grad.flatten().double().cpu()
+                                  for n, p in model.ern.named_parameters()
+                                  if p.grad is not None and n.startswith(prefix)])
+            out[dev] = (loss.item(), grads(), grads("TME.") if cfg.text.tme else None)
+    (l_cpu, g_cpu, t_cpu), (l_card, g_card, t_card) = out["cpu"], out["cuda"]
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     cos = F.cosine_similarity(g_card, g_cpu, dim=0).item()
+    tme_cos = None if t_cpu is None else F.cosine_similarity(t_card, t_cpu, dim=0).item()
     log(f"  fp32 step B={CHECK_BATCH}: loss card {l_card:.6f} cpu {l_cpu:.6f} "
-        f"(rel {rel:.3e}); ERN gradient cosine {cos:.8f} ({card})")
-    if not rel <= 1e-5 or not cos >= 0.99999:
+        f"(rel {rel:.3e}); ERN gradient cosine {cos:.8f}"
+        + ("" if tme_cos is None else f", TME's {tme_cos:.8f}") + f" ({card})")
+    if not rel <= 1e-5 or not cos >= 0.99999 or not (tme_cos is None or tme_cos >= 0.99999):
         raise AssertionError("the card's fp32 train step disagrees with the CPU's")
-    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, grad_cosine=cos)
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, grad_cosine=cos,
+                tme_grad_cosine=tme_cos)
 
 
-SPANS = ("train_step/towers", "train_step/fusion_forward", "train_step/bbc_loss",
-         "train_step/adam")
+SPANS = ("train_step/towers", "train_step/tme", "train_step/fusion_forward",
+         "train_step/bbc_loss", "train_step/adam")
 
 
 def profile_step(trainer: Trainer, step_fn) -> dict:
@@ -852,13 +1023,16 @@ def profile_step(trainer: Trainer, step_fn) -> dict:
                 spans_device_ms=split)
 
 
-def phase_train(card: str) -> dict:
-    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+def phase_train(card: str, tme: bool = False) -> dict:
+    """The train slice (phase 9: 6 steps and a validation) or its TME
+    variant (phase 11: 3 steps, no validation)."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", tme=tme)
+    steps = TME_TRAIN_STEPS if tme else TRAIN_STEPS
     g = np.random.default_rng(2)
     side = cfg.vision.image_size
     images = g.integers(0, 256, (UNIVERSE, side, side, 3), dtype=np.uint8)
     patches = g.standard_normal((UNIVERSE, 13, cfg.feature_dim), dtype=np.float32)
-    dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * TRAIN_STEPS, seed=4)
+    dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * steps, seed=4)
     fp32 = check_fp32_step(cfg, dataset, card)
 
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
@@ -868,11 +1042,12 @@ def phase_train(card: str) -> dict:
         tcfg = TrainConfig(dataset="fashioniq", clip_model_name="ViT-B-16",
                            activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                            num_epochs=1, validation_frequency=1, print_frequency=1,
-                           max_steps_per_epoch=TRAIN_STEPS, num_workers=0, precision="bf16",
+                           max_steps_per_epoch=steps, num_workers=0, precision="bf16",
                            image_dtype="uint8", eval_batch_size=128, ckpt_dir=ckpt_dir,
-                           seed=0)
+                           seed=0, tme=tme)
         trainer = Trainer(tcfg, device="cuda", model=model, train_dataset=dataset,
-                          validator=make_validator(images, patches, val_launches),
+                          validator=None if tme else make_validator(images, patches,
+                                                                    val_launches),
                           plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
                                                _fiq_captions),
                           tokenizer=tokenizer)
@@ -899,13 +1074,16 @@ def phase_train(card: str) -> dict:
         run_s = time.perf_counter() - t0
         total = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        if len(val_launches) != 1:
-            raise AssertionError(f"{len(val_launches)} validations, expected 1")
-        launches = {name: total[name] - val_launches[0][name] for name in total}
-        check_launches("train path", launches, train_launches(TRAIN_STEPS))
-        check_launches("validation", val_launches[0],
-                       serve_launches(cfg, -(-VAL_GALLERY // 128), -(-VAL_QUERIES // 128)))
-        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        if len(val_launches) != (0 if tme else 1):
+            raise AssertionError(f"{len(val_launches)} validations")
+        launches = dict(total)
+        if val_launches:
+            launches = {name: total[name] - val_launches[0][name] for name in total}
+            check_launches("validation", val_launches[0],
+                           serve_launches(cfg, -(-VAL_GALLERY // 128), -(-VAL_QUERIES // 128)))
+        check_launches(f"{'TME ' if tme else ''}train path", launches,
+                       train_launches(steps, tme=tme))
+        if len(losses) != steps or not np.all(np.isfinite(losses)):
             raise AssertionError(f"train losses {losses}")
         for k, v in model.clip.state_dict().items():
             if not torch.equal(v, clip_before[k]):
@@ -918,16 +1096,18 @@ def phase_train(card: str) -> dict:
             raise AssertionError(f"ERN tensors that did not move: {still}")
         clip_sum = sum(v.double().sum().item() for v in model.clip.state_dict().values())
         step_ms = statistics.median(times[1:]) * 1e3
-        info = dict(losses=losses, step_seconds=times, median_step_ms_2_6=step_ms,
+        info = dict(losses=losses, step_seconds=times, median_step_ms_from_2=step_ms,
                     samples_per_s=TRAIN_BATCH / step_ms * 1e3, run_seconds=run_s,
-                    launches=launches, validation_launches=val_launches[0],
+                    launches=launches,
+                    validation_launches=val_launches[0] if val_launches else None,
                     recall_at10=trainer.best.best_metric, peak_memory_gib=peak_gb,
                     ern_moved=len(moved), ern_unmoved=still, clip_checksum=clip_sum,
                     fp32_check=fp32)
-        log(f"  {TRAIN_STEPS} steps at B={TRAIN_BATCH}: losses "
-            f"{[round(x, 4) for x in losses]}; median step (2-6) {step_ms:.2f} ms = "
+        log(f"  {steps} steps at B={TRAIN_BATCH}{' with TME' if tme else ''}: losses "
+            f"{[round(x, 4) for x in losses]}; step times "
+            f"{[round(1e3 * t, 2) for t in times]} ms, median (2-{steps}) {step_ms:.2f} ms = "
             f"{info['samples_per_s']:.1f} samples/s; peak memory {peak_gb:.2f} GiB ({card})")
-        log(f"  launches on the steps {launches}; on the validation {val_launches[0]}; "
+        log(f"  launches on the steps {launches}; on the validation {info['validation_launches']}; "
             f"Recall@10 {info['recall_at10']:.3f}; CLIP unchanged (checksum {clip_sum:.6e}); "
             f"{len(moved)} ERN tensors moved, unmoved (no gradient): {still}")
         info["profile"] = profile_step(trainer, inner)
@@ -1176,6 +1356,7 @@ def main() -> None:
     log(f"phase 2: kernels against their plain versions ({card})")
     worst, rows = phase_kernels()
     new_worst, new_rows = phase_new_kernels()
+    tme_worst, tme_rows = phase_tme_kernels()
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     slice_info, service, api = phase_slice(card)
     log(f"phase 4: timings ({card})")
@@ -1206,7 +1387,14 @@ def main() -> None:
     log(f"  embed + refine {rn_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
         f"RN50x4); query P50 {rn_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{rn_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
-    log(f"phase 11: profiles of embed + refine, B=128, and of an RN50x4 query, b=32 ({card})")
+    log(f"phase 11: the TME slice, ViT-B-16, tme=True, bf16 serve policy ({card})")
+    tme_info, tme_service, tme_api = phase_slice(card, tme=True)
+    tme_timings, _, tme_query_fn = phase_timings(tme_service, tme_api)
+    log(f"  TME query P50 {tme_timings['query_p50_ms_b1']:.3f} ms at b=1, "
+        f"{tme_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
+    tme_train = phase_train(card, tme=True)
+    log(f"phase 12: profiles of embed + refine, B=128, and of an RN50x4 and a TME query, "
+        f"b=32 ({card})")
     vit_spans = ("embed/image_tower", "embed/index_refine")
     profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
                  vit_spans),
@@ -1215,6 +1403,8 @@ def main() -> None:
                 ("RN50x4 bf16 embed + refine", rn_embed_fn, rn_timings, "embed_refine_profile",
                  EMBED_SPANS),
                 ("RN50x4 bf16 query b=32", rn_query_fn, rn_timings, "query_b32_profile",
+                 QUERY_SPANS),
+                ("ViT-B-16 TME bf16 query b=32", tme_query_fn, tme_timings, "query_b32_profile",
                  QUERY_SPANS))
     for label, fn, out, key, spans in profiles:
         split = out[key] = kernel_split(fn, spans=spans)
@@ -1234,14 +1424,22 @@ def main() -> None:
                                (B11, "ln_final", "bfloat16")):
         timed[name] = next(r for r in new_rows if r["kernel"] == name and
                            r["shape"] == shape and r["dtype"] == dtype)
+    # B9 at TME's serve site (bf16, b = 32, d = 512), B12 at an index
+    # refine batch (fp32, M = 128, d = 512)
+    for name, shape, dtype in ((B9, "tme512_b32", "bfloat16"), (B12, "d512_m128", "float32")):
+        timed[name] = next(r for r in tme_rows if r["kernel"] == name and
+                           r["shape"] == shape and r["dtype"] == dtype)
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
     worst.update(int8_worst)
     worst.update(new_worst)
+    worst.update(tme_worst)
     by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name],
                       "int8_serve": int8_info["launches"][name],
                       "int8_train": int8_train["launches"][name],
-                      "rn50x4_serve": rn_info["launches"][name]}
+                      "rn50x4_serve": rn_info["launches"][name],
+                      "tme_serve": tme_info["launches"][name],
+                      "tme_train": tme_train["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -1253,6 +1451,8 @@ def main() -> None:
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(dict(card=card, kernel_rows=rows, new_kernel_rows=new_rows,
+                           tme_kernel_rows=tme_rows, tme_slice=tme_info,
+                           tme_timings=tme_timings, tme_train=tme_train,
                            bbc_rows=bbc_rows, slice=slice_info, timings=timings, train=train,
                            int8_kernel_rows=int8_rows, int8_slice=int8_info,
                            int8_timings=int8_timings, int8_train=int8_train,

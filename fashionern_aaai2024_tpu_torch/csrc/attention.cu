@@ -1,18 +1,25 @@
 // The one softmax attention core of the port: kernels B3, B7 (after its
-// projection GEMM) and B8, and the attention core of kernels B1 and B6.
+// projection GEMM), B8 and B9, and the attention core of kernels B1 and
+// B6.
 //
 // Replaces: `_packed_kernel` / `_packed_pallas`
 // (fashionern_aaai2024_tpu/ops/attention.py:124-163), the per-head loop
 // inside `_subblock_kernel` (ops/attention.py:496-510), the attention half
 // of `_qkv_fused_kernel` (ops/attention.py:370-384) and
-// `_packed_cross_kernel` / `_packed_cross_pallas` (ops/attention.py:240-283).
+// `_packed_cross_kernel` / `_packed_cross_pallas` (ops/attention.py:240-283),
+// and `_attn_kernel` / `_mha_pallas` (ops/attention.py:61-110), B9.
 //
 // Layouts: q rows [B, Sq, *] with row stride q_ld, k and v rows
 // [B, Sk, *] with row stride kv_ld, head h at columns h*D .. h*D+D-1 of
 // each; out [B, Sq, H*D]. One kernel serves
 //   packed qkv [B, S, 3W]:    q = qkv, k = qkv + W, v = qkv + 2W, both ld 3W
 //                             (B3, B1's core, B6's core, B7's core);
-//   q [B, Sq, W] + kv [B, Sk, 2W]: k = kv, v = kv + W, kv_ld 2W (B8).
+//   q [B, Sq, W] + kv [B, Sk, 2W]: k = kv, v = kv + W, kv_ld 2W (B8);
+//   [B, H, S, Dh] views of [B, S, H*Dh] rows: heads H, ld H*Dh; and
+//   contiguous [B*H, S, Dh]: heads 1, ld Dh (B9).
+// B9 adds an optional shared [Sq, Sk] fp32 bias (causal with Sq != Sk,
+// padding masks), read into the scores after the scale, where
+// `_attn_kernel` adds it.
 // The output is in the operand type or in fp32: kernel B6
 // (`_qattn_kernel`, ops/qmlp.py:186-201) keeps the concatenated heads in
 // fp32 before it quantizes them. Heads are sliced in the kernel, so the
@@ -63,11 +70,13 @@ __host__ __device__ constexpr size_t attention_smem_bytes(int sk) {
          (size_t)kAttnWarps * (D + kMaxSeq) * sizeof(float);
 }
 
-template <typename T, typename TO, int D>
+// kBias: the bias is a template flag, so the kernels without one (B1, B3,
+// B6, B7, B8) compile to the same code as before it existed.
+template <typename T, typename TO, int D, bool kBias>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 TO* __restrict__ out, int Sq, int Sk, int H, int q_ld, int kv_ld, int causal,
-                 float scale) {
+                 const float* __restrict__ bias, TO* __restrict__ out, int Sq, int Sk, int H,
+                 int q_ld, int kv_ld, int causal, float scale) {
   static_assert(D % 2 == 0 && D <= 128, "head dim: even, at most 128");
   constexpr int kPairs = D / 2;
   constexpr int kPairRounds = (kPairs + 31) / 32;
@@ -104,6 +113,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int d = 0; d < D; ++d) qr[d] = qw[d];
 
     const int jmax = causal ? i + 1 : Sk;  // keys past i carry the -1e30 bias: p = 0
+    const float* brow = kBias ? bias + (size_t)i * Sk : nullptr;
     float s[kMaxSeq / 32];
     float m = -INFINITY;
 #pragma unroll
@@ -119,7 +129,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           dot = fmaf(qr[d], kv.x, dot);
           dot = fmaf(qr[d + 1], kv.y, dot);
         }
-        s[t] = dot * scale;
+        // the bias is added to the rounded product, as the plain version
+        // does (no fused multiply-add)
+        if constexpr (kBias)
+          s[t] = __fadd_rn(__fmul_rn(dot, scale), brow[j]);
+        else
+          s[t] = dot * scale;
         m = fmaxf(m, s[t]);
       }
     }
@@ -159,57 +174,72 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, typename TO, int D>
-static cudaError_t launch_attention(const void* q, const void* k, const void* v, void* out,
-                                    int batch, int sq, int sk, int heads, int q_ld, int kv_ld,
-                                    int causal, float scale, cudaStream_t stream) {
+template <typename T, typename TO, int D, bool kBias>
+static cudaError_t launch_kernel(const void* q, const void* k, const void* v,
+                                 const float* bias, void* out, int batch, int sq, int sk,
+                                 int heads, int q_ld, int kv_ld, int causal, float scale,
+                                 cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<T, D>(sk);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, TO, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, TO, D, kBias>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(heads, batch);
-  attention_kernel<T, TO, D><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  attention_kernel<T, TO, D, kBias><<<grid, kAttnWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<TO*>(out), sq, sk, heads, q_ld, kv_ld, causal, scale);
   return cudaGetLastError();
 }
 
+template <typename T, typename TO, int D>
+static cudaError_t launch_attention(const void* q, const void* k, const void* v,
+                                    const float* bias, void* out, int batch, int sq, int sk,
+                                    int heads, int q_ld, int kv_ld, int causal, float scale,
+                                    cudaStream_t stream) {
+  if (bias == nullptr)
+    return launch_kernel<T, TO, D, false>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
+                                          kv_ld, causal, scale, stream);
+  return launch_kernel<T, TO, D, true>(q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                       causal, scale, stream);
+}
+
 template <int D>
-static cudaError_t dispatch_types(const void* q, const void* k, const void* v, void* out,
-                                  int batch, int sq, int sk, int heads, int q_ld, int kv_ld,
-                                  int causal, float scale, int dtype, int out_dtype,
-                                  cudaStream_t s) {
+static cudaError_t dispatch_types(const void* q, const void* k, const void* v,
+                                  const float* bias, void* out, int batch, int sq, int sk,
+                                  int heads, int q_ld, int kv_ld, int causal, float scale,
+                                  int dtype, int out_dtype, cudaStream_t s) {
   if (dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
-    return launch_attention<bf16, bf16, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                           causal, scale, s);
+    return launch_attention<bf16, bf16, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
+                                           kv_ld, causal, scale, s);
   if (dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
-    return launch_attention<bf16, float, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                            causal, scale, s);
+    return launch_attention<bf16, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
+                                            kv_ld, causal, scale, s);
   if (dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
-    return launch_attention<float, float, D>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                             causal, scale, s);
+    return launch_attention<float, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
+                                             kv_ld, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace fern
 
 // q, k, v: the first head's first row of each operand (k and v may point
-// into one packed tensor); q_ld / kv_ld: row strides in elements; dtype:
+// into one packed tensor); bias: null or a contiguous fp32 [sq, sk] added
+// to every head's scores; q_ld / kv_ld: row strides in elements; dtype:
 // the operands' type; out_dtype: the output's, the same or fp32.
-extern "C" int fern_attention(const void* q, const void* k, const void* v, void* out,
-                              int batch, int sq, int sk, int heads, int head_dim, int q_ld,
-                              int kv_ld, int causal, float scale, int dtype, int out_dtype,
-                              int device, void* stream) {
+extern "C" int fern_attention(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, int batch, int sq, int sk, int heads, int head_dim,
+                              int q_ld, int kv_ld, int causal, float scale, int dtype,
+                              int out_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (sk < 1 || sk > fern::kMaxSeq || (causal && sq != sk)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
   if (head_dim == 64)
-    return (int)fern::dispatch_types<64>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+    return (int)fern::dispatch_types<64>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
                                          causal, scale, dtype, out_dtype, s);
   if (head_dim == 80)
-    return (int)fern::dispatch_types<80>(q, k, v, out, batch, sq, sk, heads, q_ld, kv_ld,
+    return (int)fern::dispatch_types<80>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
                                          causal, scale, dtype, out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

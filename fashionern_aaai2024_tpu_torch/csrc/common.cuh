@@ -13,7 +13,7 @@
 namespace fern {
 
 enum DType : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
-enum Act : int { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU = 2 };
+enum Act : int { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU = 2, ACT_RELU = 3 };
 
 using bf16 = __nv_bfloat16;
 
@@ -31,10 +31,12 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Activations in fp32, as ops/mlp.py:50 `_act_f32`.
+// Activations in fp32, as ops/mlp.py:50 `_act_f32`; ReLU for the
+// combiner's projections (ops/combiner.py:38-49).
 __device__ __forceinline__ float apply_act(float v, int act) {
   if (act == ACT_QUICK_GELU) return v * (1.0f / (1.0f + expf(-1.702f * v)));
   if (act == ACT_GELU) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  if (act == ACT_RELU) return fmaxf(v, 0.0f);
   return v;
 }
 

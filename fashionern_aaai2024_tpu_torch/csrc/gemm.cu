@@ -6,7 +6,9 @@
 // activation and c_proj + residual of `_mlp_kernel` (ops/mlp.py:100-115).
 //
 // Layouts: A [M, K] row-major (activations), Bt [N, K] row-major (the
-// torch Linear / in_proj_weight layout, out x in), C and res [M, N].
+// torch Linear / in_proj_weight layout, out x in), res [M, N], C [M, N]
+// at row stride ldc >= N: kernel B12 writes its two projections straight
+// into the two halves of one [M, 8d] concat buffer (ops/combiner.py).
 //
 // Bound: at the serve shapes (M = B x 197 or B x 77, K and N in
 // 512..3072) the products are compute-bound on the tensor cores: a
@@ -18,7 +20,10 @@
 // 16 x 16 x 16 bf16 fragments with fp32 accumulators, and a two-stage
 // cp.async pipeline so the next K tile loads while this one multiplies.
 // Design (fp32): SIMT FMA, 64 x 64 block tile, 4 x 4 outputs a thread,
-// full fp32 (no TF32), as the fp32 parity tier needs.
+// full fp32 (no TF32), as the fp32 parity tier needs. A split-K entry
+// (`fern_gemm_f32_partials`) writes one fp32 partial product per slice of
+// K for kernel B12's hidden layer, where a few row tiles against a deep K
+// would leave most SMs idle or waiting on memory.
 // The epilogue (common.cuh) applies bias, activation, the cast and the
 // residual in registers, so the [M, N] pre-activation never reaches DRAM.
 
@@ -51,7 +56,7 @@ __device__ __forceinline__ void load_tile(bf16 (*dst)[kLds], const bf16* src, in
 __global__ void __launch_bounds__(kThreads)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt,
                  const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                 bf16* __restrict__ C, int M, int N, int K, int act) {
+                 bf16* __restrict__ C, int M, int N, int K, int ldc, int act) {
   __shared__ __align__(128) bf16 As[2][kBM][kLds];
   __shared__ __align__(128) bf16 Bs[2][kBN][kLds];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -114,7 +119,8 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt,
 #pragma unroll
         for (int t = 0; t < 8; ++t)
           out[t] = epilogue<bf16>(scr[r * 16 + c0 + t], bias, res, idx + t, gn + t, act);
-        *reinterpret_cast<uint4*>(C + idx) = *reinterpret_cast<const uint4*>(out);
+        *reinterpret_cast<uint4*>(C + (size_t)gm * ldc + gn) =
+            *reinterpret_cast<const uint4*>(out);
       }
       __syncwarp();
     }
@@ -123,60 +129,76 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt,
 
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 
+// Each thread owns a 4 x 4 block of C (rows 4ty.., columns 4tx..) and
+// reads its four A values and four B values of a k step as one 16-byte
+// shared load each (a warp's A loads are broadcasts of two addresses), so
+// the FMAs, not shared-memory bandwidth, set the pace. The next K tile is
+// fetched into registers while this one multiplies. Every output sums
+// its products in k order, one fmaf at a time.
 __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
                 const float* __restrict__ bias, const float* __restrict__ res,
-                float* __restrict__ C, int M, int N, int K, int act) {
-  __shared__ float As[kFBK][kFBM + 4];
-  __shared__ float Bs[kFBK][kFBN + 4];
+                float* __restrict__ C, int M, int N, int K, int ldc, int act, int k_per) {
+  // blockIdx.z takes K slice [kz0, kz1) and writes its own [M, ldc] C
+  const int kz0 = blockIdx.z * k_per, kz1 = min(K, kz0 + k_per);
+  C += (size_t)blockIdx.z * M * ldc;
+  __shared__ __align__(16) float As[kFBK][kFBM + 4];
+  __shared__ __align__(16) float Bs[kFBK][kFBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int bm = blockIdx.y * kFBM, bn = blockIdx.x * kFBN;
   const int lr = tid / 4, lk = (tid % 4) * 4;  // loader: row, first k of 4
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (bm + lr < M && k0 + lk < K)
+  auto fetch = [&](int k0, float4& a, float4& b) {
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    b = a;
+    if (bm + lr < M && k0 + lk < kz1)
       a = *reinterpret_cast<const float4*>(A + (size_t)(bm + lr) * K + k0 + lk);
-    if (bn + lr < N && k0 + lk < K)
+    if (bn + lr < N && k0 + lk < kz1)
       b = *reinterpret_cast<const float4*>(Bt + (size_t)(bn + lr) * K + k0 + lk);
+  };
+  float acc[4][4] = {};
+  float4 a, b;
+  fetch(kz0, a, b);
+  for (int k0 = kz0; k0 < kz1; k0 += kFBK) {
     As[lk + 0][lr] = a.x; As[lk + 1][lr] = a.y; As[lk + 2][lr] = a.z; As[lk + 3][lr] = a.w;
     Bs[lk + 0][lr] = b.x; Bs[lk + 1][lr] = b.y; Bs[lk + 2][lr] = b.z; Bs[lk + 3][lr] = b.w;
     __syncthreads();
+    if (k0 + kFBK < kz1) fetch(k0 + kFBK, a, b);
 #pragma unroll
     for (int k = 0; k < kFBK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx + 16 * j];
+      const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+      const float ar[4] = {av.x, av.y, av.z, av.w}, br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gm = bm + ty + 16 * i;
+    const int gm = bm + 4 * ty + i;
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int gn = bn + tx + 16 * j;
+      const int gn = bn + 4 * tx + j;
       if (gn >= N) continue;
-      const size_t idx = (size_t)gm * N + gn;
-      C[idx] = epilogue<float>(acc[i][j], bias, res, idx, gn, act);
+      C[(size_t)gm * ldc + gn] =
+          epilogue<float>(acc[i][j], bias, res, (size_t)gm * N + gn, gn, act);
     }
   }
 }
 
 }  // namespace fern
 
+// ldc: C's row stride in elements (n for a contiguous C; a multiple of
+// 8 in bf16, for the 16-byte stores).
 extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const void* res,
-                         void* c, int m, int n, int k, int act, int dtype, int device,
-                         void* stream) {
+                         void* c, int m, int n, int k, int ldc, int act, int dtype,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (ldc < n) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == fern::DTYPE_BF16) {
@@ -184,7 +206,7 @@ extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const 
     fern::gemm_bf16_kernel<<<grid, fern::kThreads, 0, s>>>(
         static_cast<const fern::bf16*>(a), static_cast<const fern::bf16*>(bt),
         static_cast<const fern::bf16*>(bias), static_cast<const fern::bf16*>(res),
-        static_cast<fern::bf16*>(c), m, n, k, act);
+        static_cast<fern::bf16*>(c), m, n, k, ldc, act);
     return (int)cudaGetLastError();
   }
   if (dtype == fern::DTYPE_F32) {
@@ -192,8 +214,25 @@ extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const 
     fern::gemm_f32_kernel<<<grid, fern::kThreads, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(bt),
         static_cast<const float*>(bias), static_cast<const float*>(res),
-        static_cast<float*>(c), m, n, k, act);
+        static_cast<float*>(c), m, n, k, ldc, act, k);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// fp32 split-K product without epilogue: partials [ceil(k / k_per), m, n],
+// slice z = a[:, z*k_per : (z+1)*k_per] . bt[:, same]^T. k_per: a
+// multiple of 16 (the k tile).
+extern "C" int fern_gemm_f32_partials(const void* a, const void* bt, void* partials, int m,
+                                      int n, int k, int k_per, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (k_per < fern::kFBK || k_per % fern::kFBK) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  dim3 grid((n + fern::kFBN - 1) / fern::kFBN, (m + fern::kFBM - 1) / fern::kFBM,
+            (k + k_per - 1) / k_per);
+  fern::gemm_f32_kernel<<<grid, fern::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(bt), nullptr, nullptr,
+      static_cast<float*>(partials), m, n, k, n, fern::ACT_NONE, k_per);
+  return (int)cudaGetLastError();
 }

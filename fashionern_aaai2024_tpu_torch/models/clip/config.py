@@ -36,7 +36,7 @@ class TextConfig:
     heads: int = 8
     layers: int = 12
     embed_dim: int = 512
-    tme: bool = False               # TME is not ported yet; must stay False
+    tme: bool = False               # TME text enhancement (ERN subtree, models/ern/tme.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +78,13 @@ _CONFIGS = {"ViT-B-16": VIT_B_16, "RN50x4": RN50X4}
 
 
 def get_clip_config(name: str, activation: str | None = None,
-                    quantize_mlp: bool | None = None) -> CLIPConfig:
+                    quantize_mlp: bool | None = None,
+                    tme: bool | None = None) -> CLIPConfig:
     cfg = _CONFIGS[name]
     if activation is not None:
         cfg = dataclasses.replace(cfg, activation=activation)
     if quantize_mlp is not None:
         cfg = dataclasses.replace(cfg, quantize_mlp=quantize_mlp)
+    if tme:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, tme=True))
     return cfg

@@ -1,7 +1,9 @@
 """CLIP text tower.
 
-JAX counterpart: `fashionern_aaai2024_tpu/models/clip/text.py` (the
-vanilla single-branch tower; TME is not ported yet). Causal pre-LN
+JAX counterpart: `fashionern_aaai2024_tpu/models/clip/text.py`: the
+vanilla single-branch tower at any `TextConfig.tme`, since TME lives in
+the trainable ERN subtree (`models/ern/tme.py`, applied by
+`models/composed.py encode_text`). Causal pre-LN
 trunk, ln_final (kernel B11), projection of every position to the joint
 dim. The global feature is the projected token at argmax(text_ids), the
 EOT position, since EOT has the highest id (`text.py:62-65`).
@@ -26,8 +28,6 @@ from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 class TextTower(nn.Module):
     def __init__(self, config: TextConfig, activation: str = "gelu", quantize: bool = False):
         super().__init__()
-        if config.tme:
-            raise NotImplementedError("TME is not ported yet (ROADMAP.md queue A)")
         self.text_config = config
         self.token_embedding = nn.Embedding(config.vocab_size, config.width)
         self.positional_embedding = nn.Parameter(

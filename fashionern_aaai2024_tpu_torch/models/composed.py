@@ -11,6 +11,12 @@ forward runs the towers under `torch.no_grad()` (not
 could not save), and `train/state.py` turns off `requires_grad` on
 every CLIP parameter.
 
+With `clip_config.text.tme` the ERN holds TME (`models/ern/tme.py`):
+`encode_text` then needs the reference patches (`visual_emb`) and
+returns the enhanced token features, with the enhanced EOT row as the
+global feature (`composed.py:45-72`). In the train forward TME runs
+after the towers' `torch.no_grad()` block, so it trains.
+
 Also here:
   * `apply_precision`, the port of `cli/main.py:554 _cast_precision`
     as the serve path sees it;
@@ -42,13 +48,34 @@ class ComposedCIRModel(nn.Module):
         super().__init__()
         self.clip_config = clip_config
         self.clip = CLIP(clip_config)
-        self.ern = ERN(clip_config.feature_dim, patch_num=patch_num)
+        self.ern = ERN(clip_config.feature_dim, patch_num=patch_num,
+                       tme=clip_config.text.tme)
 
     def encode_image(self, images: torch.Tensor):
         return self.clip.encode_image(images)
 
-    def encode_text(self, text_ids: torch.Tensor, mode: str = "global"):
-        return self.clip.encode_text(text_ids, mode=mode)
+    def enhance_text(self, text_ids: torch.Tensor, seq: torch.Tensor,
+                     visual_emb: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(global, seq) of a TME model from the text tower's token
+        features: TME over `seq`, and the enhanced row at the EOT position
+        (argmax of the ids) as the global feature. Raises without
+        `visual_emb`."""
+        if visual_emb is None:
+            raise ValueError("TextConfig.tme=True requires visual_emb (the reference-patch "
+                             "embeddings) at every encode_text call; the vanilla path is "
+                             "tme=False (default)")
+        seq = self.ern.enhance_text(seq, visual_emb)
+        eot = text_ids.argmax(dim=-1)
+        return seq[torch.arange(seq.shape[0], device=seq.device), eot], seq
+
+    def encode_text(self, text_ids: torch.Tensor, mode: str = "global",
+                    visual_emb: torch.Tensor | None = None):
+        """mode="global" -> (global, seq); "seq" -> seq. Vanilla models
+        ignore `visual_emb`; TME models need it (`enhance_text`)."""
+        global_feat, seq = self.clip.encode_text(text_ids)
+        if self.clip_config.text.tme:
+            global_feat, seq = self.enhance_text(text_ids, seq, visual_emb)
+        return seq if mode == "seq" else (global_feat, seq)
 
     def index(self, tar_feats: torch.Tensor, tar_local_feats: torch.Tensor,
               generator: torch.Generator | None = None) -> torch.Tensor:
@@ -74,12 +101,16 @@ class ComposedCIRModel(nn.Module):
                       tar_patch: torch.Tensor, generator: torch.Generator | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """One training-step forward (`composed.py:85-123`): the frozen
-        towers, then the fusion stack in fp32 on raw query-side globals
-        and L2-normalized target globals."""
+        towers, TME on a TME model (conditioned on `ref_patch`, outside
+        the towers' no-grad block), then the fusion stack in fp32 on raw
+        query-side globals and L2-normalized target globals."""
         with torch.no_grad(), record_function("train_step/towers"):
             ref_glob, _ = self.encode_image(ref_image)
             tar_glob, _ = self.encode_image(tar_image)
-            text_glob, text_seq = self.encode_text(text_ids)
+            text_glob, text_seq = self.clip.encode_text(text_ids)
+        if self.clip_config.text.tme:
+            with record_function("train_step/tme"):
+                text_glob, text_seq = self.enhance_text(text_ids, text_seq, ref_patch)
         ref_glob, tar_glob = ref_glob.float(), tar_glob.float()
         text_glob, text_seq = text_glob.float(), text_seq.float()
         tar_glob = tar_glob / torch.linalg.vector_norm(tar_glob, dim=-1, keepdim=True)
@@ -98,14 +129,18 @@ def apply_precision(model: ComposedCIRModel, precision: str) -> ComposedCIRModel
     ERN stack keeps fp32 storage with every weight rounded to bf16.
     That is what JAX computes when `_cast_precision`'s bf16 leaves meet
     the fp32 inputs that `InferenceAPI.query` passes
-    (`evaluate.py:213-216`): flax promotes to fp32. Training does not use
-    it: its policy rounds nothing of the ERN stack (`train/state.py
-    cast_frozen_clip_bf16`)."""
+    (`evaluate.py:213-216`): flax promotes to fp32. TME is the exception:
+    its inputs are the bf16 text tower's token features, so JAX runs it
+    wholly in bf16, and here it is stored and computed in bf16. Training
+    does not use this policy: it rounds nothing of the ERN stack
+    (`train/state.py cast_frozen_clip_bf16`)."""
     if precision == "fp32":
         return model
     if precision != "bf16":
         raise ValueError(f"unknown precision {precision!r}")
     model.clip.to(torch.bfloat16)
+    if model.clip_config.text.tme:
+        model.ern.TME.to(torch.bfloat16)
     for t in list(model.ern.parameters()) + list(model.ern.buffers()):
         if t.dtype == torch.float32:
             t.copy_(t.to(torch.bfloat16).to(torch.float32))
@@ -142,7 +177,9 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     (`calibrate_batchnorm_`), so that its activations stay O(1) through
     the 26 bottlenecks of RN50x4 on inputs other than those two (with
     full-scale branches, random weights let some inputs blow up by the
-    last stage). Draws on the CPU from `generator`, so a seed gives the
+    last stage). TME's out-projection is drawn like every Linear, where
+    JAX zero-initializes it, so that a seeded TME model differs from the
+    vanilla one. Draws on the CPU from `generator`, so a seed gives the
     same weights on any device."""
     def normal(p: torch.Tensor, std: float, mean: float = 0.0) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * std + mean)

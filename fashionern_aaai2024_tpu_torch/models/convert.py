@@ -20,6 +20,12 @@ output is a `clip.*` / `ern.*` state_dict of fp32 CPU tensors, with the
 BatchNorm step counters (`num_batches_tracked`, which reference
 checkpoints carry too) set to 0.
 
+A TME model's `ern/TME` subtree has no reference names (the reference's
+TME is closed source); it maps onto the port's own `ern.TME.*` names
+(`models/ern/tme.py`): Dense kernels transposed, the attention's
+DenseGeneral kernels [d, H, Dh] / [H, Dh, d] and biases [H, Dh] flattened
+over (H, Dh), the LayerNorm's scale as weight.
+
 `load_jax_train_state` carries a whole JAX `CIRTrainState`
 (`fashionern_aaai2024_tpu/train/state.py:26`) into the port's train
 state, so a run can continue here: the weights and ERN batch statistics
@@ -178,6 +184,19 @@ def _bert(p: Mapping, prefix: str) -> dict:
     return sd
 
 
+def _tme(p: Mapping, prefix: str) -> dict:
+    """The JAX `TMEModule` params -> `models/ern/tme.py` names."""
+    sd = _linear(p["visual_proj"], f"{prefix}.visual_proj")
+    sd.update(_norm(p["ln"]["scale"], p["ln"]["bias"], f"{prefix}.ln"))
+    for name in ("query", "key", "value", "out"):
+        lp = p["cross_attn"][name]
+        kernel = _t(lp["kernel"])
+        kernel = kernel.reshape(-1, kernel.shape[-1]) if name == "out" else kernel.flatten(1)
+        sd[f"{prefix}.cross_attn.{name}.weight"] = kernel.t().contiguous()
+        sd[f"{prefix}.cross_attn.{name}.bias"] = _t(lp["bias"]).flatten()
+    return sd
+
+
 def ern_state_dict(params: Mapping, stats: Mapping) -> dict:
     """ERN params + batch_stats -> reference ERN names; inverse of
     `ern_variables_from_torch`."""
@@ -196,6 +215,8 @@ def ern_state_dict(params: Mapping, stats: Mapping) -> dict:
         sd.update(_combiner(dvr[name], f"DVR.{name}"))
     sd.update(_visual_sr(params["SR_module"], stats["SR_module"], "SR_module"))
     sd.update(_combiner(params["Combiner_module"], "Combiner_module"))
+    if "TME" in params:
+        sd.update(_tme(params["TME"], "TME"))
     return sd
 
 

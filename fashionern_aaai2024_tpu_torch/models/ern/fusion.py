@@ -24,10 +24,11 @@ BERT keeps the reference's quirks: LayerNorm eps 1e-12, intermediate
 size 3072 at any hidden size, exact GELU, token type 0 for CLS and the
 patches, and only the first `patch_num` MR outputs kept
 (`fusion.py:273-275`). In eval the BERT's attention is kernel B7
-(`ops.attention.fused_qkv_self_attention`) and the MR cross-attention
-kernel B8 (`packed_kv_cross_attention`, `models/ern/layers.py`); the
-BERT's LayerNorms are kernel B11 (`ops.layernorm.layer_norm`) in both
-modes. On a CPU tensor each takes its plain version.
+(`ops.attention.fused_qkv_self_attention`), the MR cross-attention
+kernel B8 (`packed_kv_cross_attention`, `models/ern/layers.py`) and every
+combiner kernel B12 (`ops.combiner.combiner_apply`); the BERT's
+LayerNorms are kernel B11 (`ops.layernorm.layer_norm`) in both modes. On
+a CPU tensor each takes its plain version.
 
 Every forward takes `generator` (see `models/ern/layers.py`): None is
 eval, a `torch.Generator` is train mode. Train mode drops out where the
@@ -55,6 +56,7 @@ from fashionern_aaai2024_tpu_torch.ops.attention import (
     fused_qkv_self_attention,
     multi_head_attention,
 )
+from fashionern_aaai2024_tpu_torch.ops.combiner import combiner_apply
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 
@@ -70,8 +72,9 @@ class CombinerSimple(nn.Module):
     """out = normalize(σ·text + (1−σ)·image), σ = MLP(proj_text ⊕ proj_image).
 
     The `nn.Sequential` holders keep the reference's parameter names
-    (`text_projection_layer.0`, `dynamic_scalar.{0,3}`); the forward
-    calls their Linear layers itself, so dropout can take a generator."""
+    (`text_projection_layer.0`, `dynamic_scalar.{0,3}`). In eval the
+    forward is kernel B12 (`combiner_apply`); in train mode it calls the
+    Linear layers itself, so dropout can take a generator."""
 
     def __init__(self, feature_dim: int):
         super().__init__()
@@ -86,6 +89,9 @@ class CombinerSimple(nn.Module):
 
     def forward(self, image_features: torch.Tensor, text_features: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if generator is None:
+            return combiner_apply(image_features, text_features, self)
+
         def project(layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
             return dropout(F.relu(layer[0](x)), FUSION_DROPOUT, generator)
 

@@ -1,4 +1,4 @@
-"""Attention for the port: kernels B1, B3, B7 and B8, and the plain
+"""Attention for the port: kernels B1, B3, B7, B8 and B9, and the plain
 formulas.
 
 JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
@@ -21,12 +21,22 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     `:264`): cross-attention of q [B, Sq, W] against packed kv
     [B, Sk, 2W], the attention core in its cross layout, for the RN50x4
     attention pool and the DVR query tower's MR cross-attention.
-  * `multi_head_attention`: plain PyTorch, the `_mha_ref` formula with
-    the train mode's probability dropout (`:636`); the train-mode BERT
-    and MR attention take it, as in JAX (`:742`).
+  * `multi_head_attention` (B9, TPU kernel `_mha_pallas`, `:84`):
+    [B, H, Sq, Dh] queries against [B, H, Sk, Dh] keys and values with
+    an optional shared [Sq, Sk] fp32 bias (causal, padding). With
+    probability dropout (the train-mode BERT and MR attention) it is the
+    plain `_mha_ref` formula, as in JAX (`:742`); otherwise a CUDA tensor
+    launches the attention core on the operands' own strides (a head view
+    of [B, S, H*Dh] rows, or contiguous [B, H, S, Dh]), through
+    `MHAFunction` when a gradient is wanted (TME trains through it; its
+    backward is the `_mha_ref` VJP, as `_mha_pallas_diff_bwd`, `:679`).
+    JAX's dispatch gates the kernel to Sk >= 512 or Dh % 128 == 0
+    (`:739`), 128-lane padding on the TPU; Hopper has no such limit, so
+    here it runs at TME's shapes.
 
-On the TPU the dispatch chose XLA at the B7 and B8 sites (`:353`, and
-the bf16-only gate at `:466` that the fp32 fusion stack never passed).
+On the TPU the dispatch chose XLA at the B7, B8 and B9 sites (`:353`,
+`:739`, and the bf16-only gate at `:466` that the fp32 fusion stack never
+passed).
 Here a CUDA tensor launches the kernel or raises; the plain versions
 follow the Pallas kernels' rounding, not `_mha_ref`'s bf16 scores, so in
 bf16 they differ from JAX's XLA formula (ROADMAP C6); in fp32 they agree.
@@ -75,24 +85,6 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = False, scale: float | None = None,
-                         dropout_rate: float = 0.0,
-                         generator: torch.Generator | None = None) -> torch.Tensor:
-    """[B, H, S, Dh] attention, the `_mha_ref` formula (`:636`): scores
-    in the operand dtype, softmax in fp32, probabilities cast back, then
-    probability dropout when a generator is given (`:648-650`)."""
-    sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
-    if scale is None:
-        scale = dh ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.tensor(scale, dtype=q.dtype)
-    if causal:
-        s = s + causal_bias(sq, q.device)[:, :sk].to(s.dtype)
-    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-    p = dropout(p, dropout_rate, generator)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
-
-
 # --- the attention core: plain version and kernel launch -----------------
 
 
@@ -137,7 +129,7 @@ def _launch_core(name: str, q: torch.Tensor, kv: torch.Tensor, *, w: int, sk: in
     out = torch.empty((b, sq, w), dtype=out_dtype, device=q.device)
     base, esize = kv.data_ptr(), kv.element_size()
     common.launch("fern_attention", q.data_ptr(), base + esize * k_col, base + esize * v_col,
-                  out.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, int(causal), scale,
+                  None, out.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, int(causal), scale,
                   common.DTYPE_CODES[q.dtype], common.DTYPE_CODES[out_dtype], q.device.index,
                   common.stream_of(q))
     return out
@@ -155,6 +147,172 @@ def launch_attention_core(qkv: torch.Tensor, heads: int, *, causal: bool,
     return _launch_core("packed_qkv_self_attention", qkv, qkv, w=w, sk=qkv.shape[1],
                         heads=heads, q_ld=w3, kv_ld=w3, k_col=w, v_col=2 * w, causal=causal,
                         scale=scale, out_dtype=out_dtype)
+
+
+# --- B9: [B, H, S, Dh] attention with a shared bias -----------------------
+
+
+def shared_bias(causal: bool, bias: torch.Tensor | None, sq: int, sk: int,
+                device: torch.device | str) -> torch.Tensor | None:
+    """`multi_head_attention`'s fp32 [Sq, Sk] bias (`:712-717`): -1e30
+    above the diagonal of [Sq, Sk] when causal, plus `bias`; None when
+    there is neither."""
+    out = None
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+        out = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
+    if bias is not None:
+        b32 = bias.to(device, torch.float32)
+        out = b32 if out is None else out + b32
+    return out
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
+            scale: float, dropout_rate: float = 0.0,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """The `_mha_ref` formula (`:636`): scores in the operand dtype, the
+    bias added in that dtype, softmax in fp32, probabilities cast back,
+    probability dropout when a generator is given (`:648-650`)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.tensor(scale, dtype=q.dtype)
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    p = dropout(p, dropout_rate, generator)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
+    """Plain version of B9 with `_attn_kernel`'s rounding points
+    (`:61-80`): fp32 scores times `scale` plus the fp32 [Sq, Sk] bias,
+    softmax in fp32, p / denom cast to the operand dtype, fp32 P.V, the
+    output cast to the operand dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype).float()
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def _core_layout(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """How the attention core reads a [B, H, S, Dh] operand, as (batch,
+    heads, row stride), or None. Heads side by side in the rows of a
+    [B, S, >= H*Dh] tensor (a head view of a projection's output):
+    (B, H, row stride); B*H blocks of S rows (contiguous [B, H, S, Dh]):
+    (B*H, 1, row stride)."""
+    b, h, s, dh = t.shape
+    sb, sh, ss, sd = t.stride()
+    if sd != 1 or ss < dh:
+        return None
+    if (h == 1 or sh == dh) and ss >= h * dh and (b == 1 or sb == s * ss):
+        return b, h, ss
+    if (h == 1 or sh == s * ss) and (b == 1 or sb == h * s * ss):
+        return b * h, 1, ss
+    return None
+
+
+def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
+                scale: float) -> torch.Tensor:
+    """Kernel B9: the attention core on [B, H, S, Dh] operands read
+    through their strides (`_core_layout`); operands in any other layout,
+    or in two different ones, are copied to contiguous first. Returns
+    [B, H, Sq, Dh], a view of the kernel's [batch, Sq, heads * Dh]
+    output. Counts nothing: `multi_head_attention` does."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    if k.shape != (b, h, sk, dh) or v.shape != k.shape:
+        raise ValueError(f"multi_head_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; expected [B, H, S, Dh] with shared B, H, Dh")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"multi_head_attention: head dim {dh}; the kernel takes head dim "
+                         f"{' or '.join(map(str, _HEAD_DIMS))} only")
+    if not 1 <= sk <= _MAX_SEQ:
+        raise ValueError(f"multi_head_attention: Sk={sk} keys; the kernel takes 1 to "
+                         f"{_MAX_SEQ} (longer sequences: ROADMAP B9)")
+    common.check_no_grad("multi_head_attention", q, k, v)
+    if q.dtype not in common.DTYPE_CODES:
+        raise TypeError(f"multi_head_attention: dtype {q.dtype} not supported "
+                        "(the kernels take float32 or bfloat16)")
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"multi_head_attention: operands {t.dtype} on {t.device} and "
+                            f"{q.dtype} on {q.device}")
+    if bias is not None and (bias.shape != (sq, sk) or bias.dtype != torch.float32
+                             or bias.device != q.device or not bias.is_contiguous()):
+        raise ValueError(f"multi_head_attention: bias {bias.dtype} {tuple(bias.shape)} on "
+                         f"{bias.device}; expected contiguous float32 [{sq}, {sk}]")
+    lq, lk, lv = (_core_layout(t) for t in (q, k, v))
+    if None in (lq, lk, lv) or lq[:2] != lk[:2] or lk != lv:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        lq, lk, _ = (_core_layout(t) for t in (q, k, v))
+    batch, heads, q_ld = lq
+    out = torch.empty((batch, sq, heads * dh), dtype=q.dtype, device=q.device)
+    code = common.DTYPE_CODES[q.dtype]
+    common.launch("fern_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq, sk,
+                  heads, dh, q_ld, lk[2], 0, scale, code, code, q.device.index,
+                  common.stream_of(q))
+    if heads == 1:
+        return out.view(b, h, sq, dh)
+    return out.view(b, sq, h, dh).transpose(1, 2)
+
+
+class MHAFunction(torch.autograd.Function):
+    """Forward: kernel B9. Backward: autograd of the `_mha_ref` formula
+    with the scores recomputed (`_mha_pallas_diff_bwd`, `:679-685`); the
+    bias is a constant."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _launch_mha(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, k, v, bias = ctx.saved_tensors
+        saved = [t.detach().requires_grad_(need)
+                 for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+        wanted = [t for t in saved if t.requires_grad]
+        with torch.enable_grad():
+            out = mha_ref(*saved, bias, ctx.scale)
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in saved), None, None)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = False, bias: torch.Tensor | None = None,
+                         scale: float | None = None, dropout_rate: float = 0.0,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
+    """Attention over [B, H, S, Dh] tensors (B9), with an optional
+    additive [Sq, Sk] `bias` shared by every batch row and head and a
+    causal mask over [Sq, Sk] (`:690-744`).
+
+    With `dropout_rate` > 0 and a generator: the `_mha_ref` formula with
+    probability dropout. Otherwise CUDA: the attention core (head dim 64
+    or 80, Sk <= 256), through `MHAFunction` when autograd has to reach
+    an operand; CPU: the plain version."""
+    sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
+    if scale is None:
+        scale = dh ** -0.5
+    bias32 = shared_bias(causal, bias, sq, sk, q.device)
+    if dropout_rate > 0.0 and generator is not None:
+        return mha_ref(q, k, v, bias32, scale, dropout_rate, generator)
+    if not common.is_cuda(q):
+        return mha_plain(q, k, v, bias32, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = MHAFunction.apply(q, k, v, bias32, scale)
+    else:
+        out = _launch_mha(q, k, v, bias32, scale)
+    multi_head_attention.launches += 1
+    return out
+
+
+multi_head_attention.launches = 0
 
 
 # --- B3: packed-qkv self-attention ---------------------------------------

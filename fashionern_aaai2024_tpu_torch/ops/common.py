@@ -45,11 +45,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, y, rows, width, eps, dtype, device, stream
     "fern_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    # a, bt, bias, res, c, m, n, k, act, dtype, device, stream
-    "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, causal, scale,
-    # dtype, out_dtype, device, stream
-    "fern_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # a, bt, bias, res, c, m, n, k, ldc, act, dtype, device, stream
+    "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, bias, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, causal,
+    # scale, dtype, out_dtype, device, stream
+    "fern_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                       _P),
+    # a, bt, partials, m, n, k, k_per, device, stream
+    "fern_gemm_f32_partials": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # h, hp, splits, bh, wo, bo, text, image, out, m, d, hd, dtype, device, stream
+    "fern_combiner_gate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, gamma, beta, q, scale, rows, width, eps, dtype, device, stream
     "fern_ln_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, q, scale, rows, width, groups, device, stream
@@ -64,7 +69,7 @@ _SIGNATURES = {
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2}
+ACT_CODES = {None: 0, "quick_gelu": 1, "gelu": 2, "relu": 3}
 
 
 def _sources(csrc_dir: Path) -> list[Path]:
@@ -240,13 +245,16 @@ def launch_layer_norm(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
 
 
 def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-                residual: torch.Tensor | None = None,
-                activation: str | None = None) -> torch.Tensor:
+                residual: torch.Tensor | None = None, activation: str | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """GEMM kernel: [res +] cast(act(a @ weight.T + bias)).
 
     a [M, K]; weight [N, K] (torch Linear layout); bias [N]; residual
     [M, N]. K and N must be multiples of 8 (16-byte vector loads and
-    stores). Its callers have passed `check_cuda_operands`."""
+    stores). `out`: an [M, N] view with unit column stride and a row
+    stride that is a multiple of 8, 16-byte aligned (a column slice of a
+    wider buffer, as kernel B12's concat halves), written in place of a
+    new tensor. Its callers have passed `check_cuda_operands`."""
     m, k = a.shape
     n = weight.shape[0]
     if weight.shape[1] != k:
@@ -257,13 +265,18 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
         raise ValueError(f"gemm: bias {tuple(bias.shape)} for N={n}")
     if residual is not None and residual.shape != (m, n):
         raise ValueError(f"gemm: residual {tuple(residual.shape)} for ({m}, {n})")
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    elif (out.shape != (m, n) or out.dtype != a.dtype or out.device != a.device
+          or out.stride(1) != 1 or out.stride(0) % 8 or out.data_ptr() % 16):
+        raise ValueError(f"gemm: out {out.dtype} {tuple(out.shape)} at strides "
+                         f"{out.stride()} for ({m}, {n}) {a.dtype}")
     launch("fern_gemm", a.data_ptr(), weight.data_ptr(),
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),
-           c.data_ptr(), m, n, k, ACT_CODES[activation], DTYPE_CODES[a.dtype],
-           a.device.index, stream_of(a))
-    return c
+           out.data_ptr(), m, n, k, out.stride(0), ACT_CODES[activation],
+           DTYPE_CODES[a.dtype], a.device.index, stream_of(a))
+    return out
 
 
 def launch_ln_quant(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -63,10 +63,18 @@ class InferenceAPI:
         return torch.cat([g for g, _ in out]), torch.cat([t for _, t in out])
 
     @torch.inference_mode()
-    def encode_text(self, token_ids) -> tuple[torch.Tensor, torch.Tensor]:
-        """int [N, L] -> (global [N, d], seq [N, L, d])."""
-        out = [self.model.encode_text(self._to_device(token_ids[s]))
-               for s in self._slices(len(token_ids))]
+    def encode_text(self, token_ids, visual_emb=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """int [N, L] -> (global [N, d], seq [N, L, d]). `visual_emb`, the
+        reference patch features [N, P, d], is required on a TME model
+        (cast to fp32 first, as JAX does; the model raises without it) and
+        ignored on a vanilla one (`evaluate.py:192-207`)."""
+        if not self.model.clip_config.text.tme:
+            visual_emb = None
+        out = [self.model.encode_text(
+            self._to_device(token_ids[s]),
+            visual_emb=None if visual_emb is None else self._to_device(visual_emb[s],
+                                                                       torch.float32))
+            for s in self._slices(len(token_ids))]
         return torch.cat([g for g, _ in out]), torch.cat([t for _, t in out])
 
     @torch.inference_mode()

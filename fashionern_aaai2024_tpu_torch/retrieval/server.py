@@ -6,9 +6,13 @@ the image tower (ViT-B-16 or RN50x4), refines it through the ERN index
 tower and builds the
 index; `query` answers composed queries (reference image name + caption)
 along the JAX service's multi-dispatch path (`server.py:291-296`): text
-tower, DVR query tower, exact top-k (over an int8 gallery when the API
-was built with `quantize_gallery`, `server.py:119-121`). Results have
-the JAX service's `_format_results` shape.
+tower (with TME on a TME model), DVR query tower, exact top-k (over an
+int8 gallery when the API was built with `quantize_gallery`,
+`server.py:119-121`). Results have the JAX service's `_format_results`
+shape. The text tower gets the request rows' reference patches, as the
+one-dispatch program gives them to a TME model (`evaluate.py:309-317`);
+the JAX multi-dispatch fallback omits them and fails on a TME model
+(ROADMAP C7).
 
 Not ported yet: the one-dispatch serve program, live adds
 (`--capacity`), the HTTP handler and the micro-batcher.
@@ -61,9 +65,9 @@ class RetrievalService:
         ids = self.api.tokenize(list(captions))
         rows = torch.as_tensor([self.rows[r] for r in ref_names],
                                device=self.gallery.features.device)
-        text_g, text_seq = self.api.encode_text(ids)
-        preds = self.api.query(self.gallery.features[rows],
-                               self.gallery.local_features[rows], text_g, text_seq)
+        ref_patch = self.gallery.local_features[rows]
+        text_g, text_seq = self.api.encode_text(ids, visual_emb=ref_patch)
+        preds = self.api.query(self.gallery.features[rows], ref_patch, text_g, text_seq)
         scores, idx = self.index.search(preds, k=min(k, self.gallery_size))
         latency = time.perf_counter() - t0
         names = np.asarray(self.gallery.names, dtype=object)

@@ -10,7 +10,9 @@ JAX counterpart: `fashionern_aaai2024_tpu/train/checkpoint.py`
     parameters and BatchNorm buffers, Adam's state) to `path` on every
     call, and the frozen CLIP towers to `path + ".frozen"` once per run;
     `frozen="full"` writes one file with both. `restore_state` reads
-    either.
+    either. The mutable part records whether the model has TME, and a
+    restore into a model that differs raises (the ERN trees differ; the
+    JAX CLI checks the same flag, `cli/main.py:366-371`).
   * `save_params` / `restore_params`: a state_dict alone (the best
     model: the ERN parameters and buffers, as the reference's
     `state_dict()` holds them, `run/train/train_fiq.py:174-175`).
@@ -37,6 +39,7 @@ from fashionern_aaai2024_tpu_torch.train.state import CIRTrainState
 
 def _mutable(state: CIRTrainState) -> dict:
     return {"step": state.step, "seed": state.seed,
+            "tme": bool(state.model.clip_config.text.tme),
             "ern": state.model.ern.state_dict(),
             "optimizer": state.optimizer.state_dict()}
 
@@ -78,6 +81,11 @@ def restore_state(path: str, state: CIRTrainState) -> CIRTrainState:
     device = state.device
     saved = torch.load(path, map_location=device, weights_only=True)
     fpath = path + ".frozen"
+    tme = bool(state.model.clip_config.text.tme)
+    if "tme" in saved and bool(saved["tme"]) != tme:
+        raise ValueError(f"{path}: the checkpoint was trained with tme={bool(saved['tme'])} "
+                         f"but the model is built with tme={tme}; build the model with the "
+                         "flag the training run used (the ERN parameter trees differ)")
     if "clip" not in saved:
         saved.update(torch.load(fpath, map_location=device, weights_only=True))
     state.model.clip.load_state_dict(saved["clip"])

@@ -25,9 +25,10 @@ loss as a 0-d tensor on the device, so nothing synchronizes with the
 host.
 
 The phases are marked with `torch.profiler.record_function`
-("train_step/towers", "train_step/fusion_forward", "train_step/bbc_loss",
-"train_step/adam") for a profiler's split of a step; outside a profiler
-they cost a few microseconds each. The backward has no span: autograd
+("train_step/towers", "train_step/tme" on a TME model,
+"train_step/fusion_forward", "train_step/bbc_loss", "train_step/adam")
+for a profiler's split of a step; outside a profiler they cost a few
+microseconds each. The backward has no span: autograd
 runs it on its own thread, outside any span of this one, so a split
 counts it as the step's device time less the spans'.
 """
@@ -124,12 +125,17 @@ def _normalized(t: torch.Tensor) -> torch.Tensor:
 def build_cached_image_train_step(model: ComposedCIRModel, schedule: Callable[[int], float],
                                   **kwargs: Any):
     """Train step on cached raw CLIP image globals with online text
-    encoding (`step.py:174`). Batch keys: ref_feats, tar_feats [B, d];
-    text_ids [B, L]; ref_patch, tar_patch [B, 13, d]."""
+    encoding (`step.py:174`), TME included on a TME model (conditioned on
+    ref_patch, `step.py:192-193`). Batch keys: ref_feats, tar_feats
+    [B, d]; text_ids [B, L]; ref_patch, tar_patch [B, 13, d]."""
 
     def forward(mdl: ComposedCIRModel, batch: dict, generator: torch.Generator):
         with torch.no_grad(), record_function("train_step/towers"):
-            text_feats, text_seq = mdl.encode_text(batch["text_ids"])
+            text_feats, text_seq = mdl.clip.encode_text(batch["text_ids"])
+        if mdl.clip_config.text.tme:
+            with record_function("train_step/tme"):
+                text_feats, text_seq = mdl.enhance_text(batch["text_ids"], text_seq,
+                                                        batch["ref_patch"])
         with record_function("train_step/fusion_forward"):
             return mdl.train_features(
                 batch["ref_feats"].float(), batch["ref_patch"], text_feats.float(),
@@ -142,8 +148,9 @@ def build_cached_image_train_step(model: ComposedCIRModel, schedule: Callable[[i
 def build_feature_train_step(model: ComposedCIRModel, schedule: Callable[[int], float],
                              **kwargs: Any):
     """Train step over pre-extracted CLIP features, no tower in the step
-    (`step.py:226`). Batch keys: ref_feats, ref_patch, text_feats,
-    text_seq_feats, tar_feats, tar_patch."""
+    (`step.py:226`); TME is bypassed, as in JAX (`step.py:229-236`): the
+    text features are taken as given. Batch keys: ref_feats, ref_patch,
+    text_feats, text_seq_feats, tar_feats, tar_patch."""
 
     def forward(mdl: ComposedCIRModel, batch: dict, generator: torch.Generator):
         with record_function("train_step/fusion_forward"):

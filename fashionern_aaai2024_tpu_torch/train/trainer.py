@@ -13,8 +13,8 @@ state).
 Differences from the JAX Trainer:
   * `device` in place of `mesh`. A mesh of more than one device, and
     therefore "global" negatives across devices, raise
-    `NotImplementedError` (ROADMAP A8); so do `tme` (A5) and any dataset
-    class or dataset evaluator the port does not have yet (A9): pass
+    `NotImplementedError` (ROADMAP A8); so does any dataset class or
+    dataset evaluator the port does not have yet (A9): pass
     `train_dataset` and `validator`.
   * The model carries its weights: pass a `ComposedCIRModel`, or the
     Trainer builds one with seeded random weights
@@ -98,7 +98,7 @@ class TrainConfig:
     quantize_towers: bool = False           # int8 frozen towers (kernels B5 / B6)
     ckpt_every_steps: int | None = None     # periodic resume checkpoint (kill-safety)
     prefetch_batches: int = 2               # host->device prefetch depth (0 = serial feed)
-    tme: bool = False                       # not ported (ROADMAP A5)
+    tme: bool = False                       # TME text-enhancement module (trains)
     validate_200k: bool = False             # opt-in in-training validation for fashion200k
 
 
@@ -171,8 +171,6 @@ class Trainer:
             raise NotImplementedError(
                 "training on a mesh of more than one device is not ported yet "
                 "(ROADMAP.md A8)")
-        if cfg.tme:
-            raise NotImplementedError("TME is not ported yet (ROADMAP.md A5)")
         if cfg.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be 'fp32' or 'bf16', got {cfg.precision!r}")
         if tokenizer is None:
@@ -188,9 +186,13 @@ class Trainer:
             # the towers are frozen and run under torch.no_grad(), so the
             # forward-only int8 kernels serve the train step too
             clip_cfg = get_clip_config(cfg.clip_model_name, cfg.activation,
-                                       quantize_mlp=True if cfg.quantize_towers else None)
+                                       quantize_mlp=True if cfg.quantize_towers else None,
+                                       tme=cfg.tme)
             model = random_init_(ComposedCIRModel(clip_cfg, patch_num=cfg.patch_num),
                                  torch.Generator().manual_seed(cfg.seed))
+        elif model.clip_config.text.tme != cfg.tme:
+            raise ValueError(f"TrainConfig(tme={cfg.tme}) with a model built with "
+                             f"tme={model.clip_config.text.tme}")
         self.model = model.to(self.device)
         self.clip_cfg = model.clip_config
         self.tokenizer = tokenizer

@@ -41,6 +41,16 @@ in another order). The small RN50x4-shaped ResNet tower (tests/test_clip.py
 RN_SMALL), card against CPU in fp32 with TF32 off, at atol 1e-4: cuDNN
 and the CPU's convolutions sum in other orders through 14 convolutions.
 
+B9 (`multi_head_attention`) at the tolerances above, at TME's shapes
+(77 text tokens against 13 patches, 8 heads of 64 and 80) read through
+head views of [B, S, H*Dh] rows and from contiguous [B, H, S, Dh], with a
+causal + arbitrary bias where Sq != Sk, and at 256 keys; its autograd
+Function against the plain version's autograd at rtol 1e-4 and an atol
+of 1e-5 times the largest gradient element. B12 (`combiner_apply`) at
+d = 512 and 640 and M = 1, 33, 128 and 1024 (fp32: 8, 8, 5 and 1 K
+slices of the hidden product at d = 512, 7, 7, 4 and 1 at 640), at the
+tolerances above.
+
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
 1e-6, into about 1e-4 on a score); gradients through the autograd
@@ -54,6 +64,7 @@ import pytest
 import torch
 
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
@@ -400,3 +411,101 @@ def test_int8_wrappers_refuse_operands_that_require_grad(device):
     with torch.no_grad():
         Q.int8_attention_subblock(x, ln, zeros, *qkv, torch.zeros(3 * w, device=device), *out,
                                   zeros, 2)
+
+
+# --- B9 and B12 ----------------------------------------------------------
+
+# (batch, heads, sq, sk, head dim, layout, causal, bias): TME at d = 512
+# and 640 on head views of the projections, the same as contiguous
+# [B, H, S, Dh], a causal + biased case with Sq != Sk, the largest key count
+MHA_SHAPES = [(4, 8, 77, 13, 64, "rows", False, False), (4, 8, 77, 13, 80, "rows", False, False),
+              (2, 8, 77, 13, 64, "contiguous", False, False),
+              (2, 2, 13, 9, 80, "rows", True, True), (2, 2, 5, 256, 64, "contiguous", False, True)]
+
+
+def _mha_operands(g, b, h, sq, sk, dh, layout, dtype, device):
+    def one(s):
+        t = _t(g, (b, s, h * dh), 1.0, dtype, device).view(b, s, h, dh).transpose(1, 2)
+        return t.contiguous() if layout == "contiguous" else t
+    return one(sq), one(sk), one(sk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,dh,layout,causal,with_bias", MHA_SHAPES)
+def test_mha_kernel_matches_plain(device, dtype, b, h, sq, sk, dh, layout, causal, with_bias):
+    g = np.random.default_rng(20)
+    q, k, v = _mha_operands(g, b, h, sq, sk, dh, layout, dtype, device)
+    bias = _t(g, (sq, sk), 2.0, torch.float32, device) if with_bias else None
+    n0 = A.multi_head_attention.launches
+    got = A.multi_head_attention(q, k, v, causal=causal, bias=bias)
+    torch.cuda.synchronize()
+    assert A.multi_head_attention.launches == n0 + 1
+    assert got.shape == (b, h, sq, dh)
+    want = A.mha_plain(q, k, v, A.shared_bias(causal, bias, sq, sk, device))
+    _close(got, want, dtype)
+
+
+def test_mha_autograd_matches_plain_autograd(device):
+    g = np.random.default_rng(21)
+    q0, k0, v0 = _mha_operands(g, 4, 8, 77, 13, 64, "rows", torch.float32, device)
+    up = _t(g, (4, 8, 77, 64), 1.0, torch.float32, device)
+    ours = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
+    plain = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
+    n0 = A.multi_head_attention.launches
+    (A.multi_head_attention(*ours) * up).sum().backward()
+    assert A.multi_head_attention.launches == n0 + 1
+    (A.mha_plain(*plain) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_mha_kernel_rejects_what_it_does_not_take(device):
+    z = torch.zeros(2, 2, 9, 96, device=device)
+    with pytest.raises(ValueError, match="head dim"):
+        A.multi_head_attention(z, z, z)
+    q = torch.zeros(2, 2, 9, 64, device=device)
+    kv = torch.zeros(2, 2, 300, 64, device=device)
+    with pytest.raises(ValueError, match="Sk=300"):
+        A.multi_head_attention(q, kv, kv)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        A._launch_mha(q.requires_grad_(), kv[:, :, :9], kv[:, :, :9], None, 0.125)
+
+
+def _combiner(d, dtype, device, seed):
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    gen = torch.Generator().manual_seed(seed)
+    m = CombinerSimple(d)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            std = 0.02 if name.endswith("bias") else p.shape[1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return m.to(device, dtype).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 640])
+@pytest.mark.parametrize("m", [1, 33, 128, 1024])
+def test_combiner_kernel_matches_plain(device, dtype, d, m):
+    g = np.random.default_rng(22)
+    module = _combiner(d, dtype, device, seed=d)
+    img, txt = _t(g, (m, d), 1.0, dtype, device), _t(g, (m, d), 1.0, dtype, device)
+    n0 = Cb.combiner_apply.launches
+    with torch.no_grad():
+        got = module(img, txt)
+        torch.cuda.synchronize()
+        assert Cb.combiner_apply.launches == n0 + 1
+        _close(got, Cb.combiner_apply_plain(img, txt, module), dtype)
+
+
+def test_combiner_kernel_rejects_what_it_does_not_take(device):
+    module = _combiner(512, torch.float32, device, seed=1)
+    x = torch.randn(4, 512, device=device)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        Cb.combiner_apply(x, x, module)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="mixed dtypes"):
+            Cb.combiner_apply(x.bfloat16(), x.bfloat16(), module)
+        with pytest.raises(ValueError, match="expected two"):
+            Cb.combiner_apply(x, x[:2], module)

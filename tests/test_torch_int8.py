@@ -437,7 +437,7 @@ def test_trainer_builds_int8_towers_for_quantize_towers(tmp_path, monkeypatch):
     trains: the towers run the int8 blocks under `torch.no_grad()`."""
     seen = []
 
-    def get_config(name, activation=None, quantize_mlp=None):
+    def get_config(name, activation=None, quantize_mlp=None, tme=None):
         seen.append(quantize_mlp)
         cfg = small_config(torch_config)
         return dataclasses.replace(cfg, quantize_mlp=bool(quantize_mlp))

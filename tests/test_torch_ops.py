@@ -6,7 +6,12 @@ as the JAX tests run them (`force_pallas=True, interpret=True`); exact
 GELU against `_mlp_ref(activation="gelu")`. B7
 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and B11
 (`layer_norm`) against `_qkv_fused_pallas`, `_packed_cross_pallas` and
-`_layer_norm_pallas` with `interpret=True`, at head dim 64 and 80. Kernel B4 (`bbc_rowloss`)
+`_layer_norm_pallas` with `interpret=True`, at head dim 64 and 80. B9
+(`multi_head_attention`) against `multi_head_attention(force_pallas=True,
+interpret=True)` (the `_mha_pallas` kernel) with no bias, causal, an
+arbitrary bias and Sq != Sk, and its autograd Function against `jax.vjp`
+of `_mha_ref`; B12 (`combiner_apply`) against `combiner_apply(
+force_pallas=True, interpret=True)` and the flax `CombinerSimple`. Kernel B4 (`bbc_rowloss`)
 against `_bbc_rowloss_pallas(..., interpret=True)` and `_bbc_rowloss_ref`,
 and its autograd against `jax.grad` of the custom-VJP `_bbc_mean_loss`.
 The same numpy inputs feed both sides.
@@ -31,10 +36,12 @@ import torch
 import jax
 
 from fashionern_aaai2024_tpu.ops import attention as JA
+from fashionern_aaai2024_tpu.ops import combiner as JCb
 from fashionern_aaai2024_tpu.ops import layernorm as JLN
 from fashionern_aaai2024_tpu.ops import losses as JL
 from fashionern_aaai2024_tpu.ops import mlp as JM
 from fashionern_aaai2024_tpu_torch.ops import attention as TA
+from fashionern_aaai2024_tpu_torch.ops import combiner as TCb
 from fashionern_aaai2024_tpu_torch.ops import common as TCm
 from fashionern_aaai2024_tpu_torch.ops import layernorm as TLN
 from fashionern_aaai2024_tpu_torch.ops import losses as TL
@@ -410,3 +417,147 @@ def test_no_grad_guard_names_the_operand():
     with torch.no_grad():
         TCm.check_no_grad("gemm", torch.zeros(4), w)
     TCm.check_no_grad("gemm", torch.zeros(4), w.detach(), None)
+
+
+# --- B9: [B, H, S, Dh] attention with a shared bias ----------------------
+
+# (sq, sk, causal, bias): none, causal, an arbitrary bias with Sq != Sk
+# (TME's 77 text tokens against 13 patches), and causal + bias, Sq != Sk
+MHA_CASES = [(9, 9, False, False), (9, 9, True, False), (77, 13, False, True),
+             (13, 9, True, True)]
+
+
+def _mha_inputs(b, h, sq, sk, dh, with_bias, seed):
+    g = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v = (g.standard_normal((b, h, s, dh)).astype(f) for s in (sq, sk, sk))
+    bias = (2 * g.standard_normal((sq, sk))).astype(f) if with_bias else None
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("sq,sk,causal,with_bias", MHA_CASES)
+def test_mha_plain_matches_pallas(dtype, dh, sq, sk, causal, with_bias):
+    q, k, v, bias = _mha_inputs(2, 2, sq, sk, dh, with_bias, seed=60 + sq + dh)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    jb = None if bias is None else jnp.asarray(bias)
+    tb = None if bias is None else torch.from_numpy(bias)
+    want = JA.multi_head_attention(jq, jk, jv, causal=causal, bias=jb, force_pallas=True,
+                                   interpret=True)
+    got = TA.multi_head_attention(tq, tk, tv, causal=causal, bias=tb)
+    _close(want, got, dtype)
+    torch.testing.assert_close(got, TA.mha_plain(
+        tq, tk, tv, TA.shared_bias(causal, tb, sq, sk, "cpu")), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sq,sk,causal,with_bias", MHA_CASES)
+def test_mha_autograd_matches_jax_vjp(monkeypatch, sq, sk, causal, with_bias):
+    """B9's autograd Function (the CUDA path, its launch replaced here by
+    the plain version, returning the kernel's strided view) and the CPU
+    path's autograd both give `jax.vjp` of `_mha_ref`'s gradients."""
+    def plain_launch(q, k, v, bias, scale):
+        b, h, s, dh = q.shape
+        out = TA.mha_plain(q, k, v, bias, scale)
+        return out.transpose(1, 2).contiguous().view(b, s, h, dh).transpose(1, 2)
+
+    monkeypatch.setattr(TA, "_launch_mha", plain_launch)
+    q, k, v, bias = _mha_inputs(2, 3, sq, sk, 64, with_bias, seed=70 + sq)
+    up = np.random.default_rng(71).standard_normal((2, 3, sq, 64)).astype(np.float32)
+    tb = TA.shared_bias(causal, None if bias is None else torch.from_numpy(bias), sq, sk, "cpu")
+    # `_mha_pallas_diff_bwd`: zeros where there is no mask
+    jbias = jnp.zeros((sq, sk)) if tb is None else jnp.asarray(tb.numpy())
+    _, vjp = jax.vjp(lambda q_, k_, v_: JA._mha_ref(q_, k_, v_, jbias[None, None], 64 ** -0.5),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(up))
+    for path in ("function", "plain"):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        if path == "function":
+            out = TA.MHAFunction.apply(*ts, tb, 64 ** -0.5)
+        else:
+            out = TA.multi_head_attention(*ts, causal=causal,
+                                          bias=None if bias is None else torch.from_numpy(bias))
+        (out * torch.from_numpy(up)).sum().backward()
+        for t, w in zip(ts, want):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-5 * np.abs(np.asarray(w)).max(), err_msg=path)
+
+
+def test_mha_core_layouts():
+    """The kernel reads [B, H, S, Dh] operands through their strides: a
+    head view of [B, S, H*Dh] rows (TME's projections) as (B, H, H*Dh),
+    contiguous as (B*H, 1, Dh), a head view of packed [B, S, 2W] kv at
+    its row stride; a permuted layout is refused (and copied)."""
+    x = torch.zeros(2, 7, 4 * 64)
+    rows = x.view(2, 7, 4, 64).transpose(1, 2)
+    assert TA._core_layout(rows) == (2, 4, 256)
+    assert TA._core_layout(rows.contiguous()) == (8, 1, 64)
+    kv = torch.zeros(2, 5, 2 * 256)
+    assert TA._core_layout(kv[..., 256:].view(2, 5, 4, 64).transpose(1, 2)) == (2, 4, 512)
+    assert TA._core_layout(torch.zeros(2, 64, 7, 4).permute(0, 3, 2, 1)) is None
+    one = torch.zeros(3, 1, 1, 80)
+    assert TA._core_layout(one) == (3, 1, 80)
+
+
+# --- B12: the sigma-gated combiner ---------------------------------------
+
+
+def _combiner_pair(d, dtype, seed):
+    from fashionern_aaai2024_tpu.models.ern.fusion import CombinerSimple as JaxCombiner
+    from fashionern_aaai2024_tpu_torch.models import convert
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    g = np.random.default_rng(seed)
+    img = g.standard_normal((10, d)).astype(np.float32)
+    txt = g.standard_normal((10, d)).astype(np.float32)
+    jm = JaxCombiner(d)
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(seed), img, txt))
+    tm = CombinerSimple(d)
+    tm.load_state_dict({k[2:]: t for k, t in convert._combiner(v["params"], "m").items()})
+    return jm, v, tm.to(DTYPES[dtype][1]).eval(), img, txt
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [16, 24])
+def test_combiner_plain_matches_pallas(dtype, d):
+    jm, v, tm, img, txt = _combiner_pair(d, dtype, seed=80 + d)
+    jd = DTYPES[dtype][0]
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jd), v["params"])
+    (jimg, timg), (jtxt, ttxt) = _pair(img, dtype), _pair(txt, dtype)
+    want = JCb.combiner_apply(jimg, jtxt, params, force_pallas=True, interpret=True)
+    with torch.no_grad():
+        got = TCb.combiner_apply(timg, ttxt, tm)
+        _close(want, got, dtype)
+        assert got.dtype == timg.dtype
+        torch.testing.assert_close(tm(timg, ttxt), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [16, 24])
+def test_combiner_matches_flax_module(d):
+    jm, v, tm, img, txt = _combiner_pair(d, "fp32", seed=90 + d)
+    want = jm.apply(v, img, txt)
+    with torch.no_grad():
+        _close(want, TCb.combiner_apply(torch.from_numpy(img), torch.from_numpy(txt), tm),
+               "fp32")
+
+
+@pytest.mark.parametrize("m,d,splits", [(1, 512, 8), (33, 512, 8), (128, 512, 5), (128, 640, 4),
+                                         (1024, 512, 1), (1024, 640, 1), (4, 3, 1)])
+def test_combiner_split_k_covers_k(m, d, splits):
+    """B12's fp32 hidden product ([m, 8d] x [8d, 8d]) on a card of 132
+    SMs: the K slices are whole k tiles and cover K exactly once."""
+    k = n = 8 * d
+    k_per, got = TCb._split_k(m, n, k, 132)
+    assert got == splits and k_per % 16 == 0
+    assert (got - 1) * k_per < k <= got * k_per
+
+
+def test_cpu_tensors_take_the_plain_versions_of_b9_b12():
+    _, _, tm, img, txt = _combiner_pair(16, "fp32", seed=99)
+    q, k, v, _ = _mha_inputs(1, 2, 5, 7, 64, False, seed=98)
+    before = (TA.multi_head_attention.launches, TCb.combiner_apply.launches)
+    with torch.no_grad():
+        TCb.combiner_apply(torch.from_numpy(img), torch.from_numpy(txt), tm)
+    TA.multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert (TA.multi_head_attention.launches, TCb.combiner_apply.launches) == before
+    assert TCm.LIBRARY._lib is None

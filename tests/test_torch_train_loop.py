@@ -10,6 +10,7 @@ trip. The data modules (`Loader`, the caption randomizers,
 copies, which they must equal.
 """
 
+import dataclasses
 import json
 import os
 import random
@@ -69,9 +70,11 @@ class SyntheticRelativeDataset:
         return self.items[i]
 
 
-def _model(seed=0):
-    return random_init_(ComposedCIRModel(small_config(torch_config)),
-                        torch.Generator().manual_seed(seed))
+def _model(seed=0, tme=False):
+    cfg = small_config(torch_config)
+    if tme:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, tme=True))
+    return random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(seed))
 
 
 def _trainer(tmp_path, *, record_losses=None, validator=None, model_seed=0, **overrides):
@@ -80,7 +83,8 @@ def _trainer(tmp_path, *, record_losses=None, validator=None, model_seed=0, **ov
                 print_frequency=1000, eval_batch_size=4)
     base.update(overrides)
     plugin = DatasetPlugin("synthetic", lambda c: SyntheticRelativeDataset(), _fiq_captions)
-    tr = Trainer(TrainConfig(**base), device="cpu", model=_model(model_seed),
+    tr = Trainer(TrainConfig(**base), device="cpu",
+                 model=_model(model_seed, tme=base.get("tme", False)),
                  train_dataset=SyntheticRelativeDataset(), validator=validator,
                  plugin=plugin, tokenizer=crc_tokenizer)
     if record_losses is not None:
@@ -218,11 +222,29 @@ def test_best_checkpointer(tmp_path):
     assert ckpt.load_meta(bc.best_path) == {"init_seed": 1, "metric": 11.0}
 
 
-@pytest.mark.parametrize("overrides,item", [
-    pytest.param(dict(tme=True), "A5", id="overrides1-A5")])
-def test_trainer_raises_on_what_is_not_ported(tmp_path, overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _trainer(tmp_path, **overrides)
+@pytest.mark.parametrize("cache_features", [False, True])
+def test_trainer_trains_with_tme(tmp_path, cache_features):
+    """`TrainConfig(tme=True)` trains: TME's parameters move (the
+    out-projection included), CLIP does not, the losses are finite, and
+    the best checkpoint's sidecar records tme. A model built without TME
+    is refused."""
+    losses = []
+    tr = _trainer(tmp_path, record_losses=losses, tme=True, cache_features=cache_features,
+                  validator=lambda api: (1.0, {}))
+    tme_before = {n: p.detach().clone() for n, p in tr.model.ern.TME.named_parameters()}
+    clip_before = {k: v.clone() for k, v in tr.model.clip.state_dict().items()}
+    tr.train()
+    assert len(losses) == tr.steps_per_epoch and np.all(np.isfinite(losses))
+    for n, p in tr.model.ern.TME.named_parameters():
+        assert not torch.equal(p.detach(), tme_before[n]), n
+    for k, v in tr.model.clip.state_dict().items():
+        assert torch.equal(v, clip_before[k]), k
+    assert ckpt.load_meta(tr.best.best_path)["tme"] is True
+    with pytest.raises(ValueError, match="tme"):
+        Trainer(TrainConfig(tme=True, num_workers=0, ckpt_dir=str(tmp_path)), device="cpu",
+                model=_model(), train_dataset=SyntheticRelativeDataset(),
+                plugin=DatasetPlugin("s", lambda c: None, _fiq_captions),
+                tokenizer=crc_tokenizer)
 
 
 def test_trainer_raises_on_a_mesh_and_on_missing_datasets(tmp_path):
