@@ -17,12 +17,16 @@ Phases (each raises on failure; nothing is caught):
      events, median of 25) beside one PyTorch library call computing the
      same function (`library_ms`, a yardstick the port never calls) and the
      card's bound for the work (`bound_ms`);
-  3. the slice: ViT-B-16 at full width with seeded weights under the
-     bf16 serve policy, a RetrievalService over a 512-item synthetic
-     gallery, 8 single queries and one 32-query batch at k=10, launch
-     counts of every kernel on that run (B1-B3 in the towers, B7 and B8
-     in the DVR query tower, B11 at every standalone LayerNorm), and the
-     card's embeddings held against the port's fp32 plain run on the CPU;
+  3. the slice: first the port's BPE tokenizer (merges learned from the
+     phases' captions, the table every phase tokenizes with): the native
+     core's ids against the Python path's, ASCII and non-ASCII captions,
+     and its host time at b = 1 and 32; then ViT-B-16 at full width with
+     seeded weights under the bf16 serve policy, a RetrievalService over
+     a 512-item synthetic gallery, 8 single queries and one 32-query
+     batch at k=10, launch counts of every kernel on that run (B10 in
+     each text-tower block, B1-B3 in the image tower's, B7 and B8 in the
+     DVR query tower, B11 at every standalone LayerNorm), and the card's
+     embeddings held against the port's fp32 plain run on the CPU;
   4. timings: gallery embed + index refine in img/s (bench.py's
      definition: bf16, B=128, best of 3 windows of 20) and query P50
      latency at b=1 and b=32;
@@ -54,15 +58,15 @@ Phases (each raises on failure; nothing is caught):
      the CPU with the plain versions (all-keep dropout on both), then 6
      optimizer steps through `Trainer.train()` over an in-memory
      FashionIQ-shaped dataset (uint8 224² images over a universe of
-     2,048), one validation computing Recall@10 over a 1,024-item
-     gallery, launch counts of every kernel on the steps and on the
+     2,048), one validation through the port's `evaluate_fiq_split`
+     (Recall@10 and @50 over a 1,024-item gallery), launch counts of every kernel on the steps and on the
      validation apart, a frozen CLIP and a moving ERN, step times, and a
      `torch.profiler` split of one more step;
   10. the RN50x4 serve slice: the same run as phases 3 and 4 with RN50x4
       (modified ResNet at base width 80 on 288² images, attention pool
       with 40 heads of 64; text tower 12 x 640; DVR at d = 640 with 8
       heads of 80) over a gallery of 512 items with 13 x 640 patches:
-      launch counts (B1-B3 in the text tower, B8 once per gallery batch
+      launch counts (B10 in the text tower, B8 once per gallery batch
       and once per query call, B7 twice per query call, B11 at ln_final
       and the BERT's LayerNorms), the tower's output norm, card against
       CPU, embed + refine img/s and query P50;
@@ -77,20 +81,34 @@ Phases (each raises on failure; nothing is caught):
       `Trainer.train()` at B = 1024 with step times and launch counts
       (B9 through its autograd Function and one more B11 a step), and a
       profiled step.
-  12. a `torch.profiler` split by kernel of one embed + refine call of
-      each tier (phases 4, 6 and 10), and of one RN50x4 and one TME query
-      at b=32, with the device time of the `record_function` spans (image
+  12. the evaluators: `evaluate_fiq` (three dress types) and
+      `evaluate_cirr` of ViT-B-16 at full width, seeded weights, over
+      in-memory FashionIQ- and CIRR-shaped loaders (galleries of 512,
+      256 queries each, batches of 32), on the card under the bf16 serve
+      policy and on the CPU in fp32 with the plain versions: launch counts
+      on the card, every prediction card against CPU at cosine >= 0.99,
+      and the recall dicts of both;
+  13. a `torch.profiler` split by kernel of one embed + refine call of
+      each tier (phases 4, 6 and 10), of one ViT-B-16 and one RN50x4
+      query at b=1, and of one RN50x4 and one TME query at b=32, with the device time of the `record_function` spans (image
       tower, its trunk and attention pool, index refine; text tower, DVR
       query tower, search). Every profile runs after every host-clock and
       event timing: the profiler slows later launches.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
-and 1024, head dim 64 and 80, fp32 and bf16, and one biased case) and
-B12 (`combiner_apply`) at d = 512 and 640, M = 1, 32, 128 and 1024, fp32
-and bf16, against their plain versions, with the same timings (library
-calls: SDPA with the bias as `attn_mask`; the `F.linear` composition).
-Every eval combiner of every phase runs B12: three per query call, one
-per index refine chunk.
+and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
+bias gradient is held card against plain too) and B12 (`combiner_apply`)
+at d = 512 and 640, M = 1, 32, 128 and 1024, fp32 and bf16, against
+their plain versions, with the same timings (library calls: SDPA with
+the bias as `attn_mask`; the `F.linear` composition). Every eval
+combiner of every phase runs B12: three per query call, one per index
+refine chunk. Last in phase 2, B10 (`transformer_block`, the whole
+block in one launch) against its plain version and bit for bit against
+the B1 + B2 pair it replaces, at the query text towers of ViT-B-16 and
+RN50x4 (b = 1 and 32, bf16 and fp32), the train path's text tower and
+the ViT-B-16 trunk (bf16), timed beside the pair (the A/B its dispatch
+rule reads) and the pair's library compositions; then its autograd
+Function's 13 gradients against the plain version's (fp32, B = 2).
 
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -99,7 +117,9 @@ last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import functools
 import json
 import random
 import statistics
@@ -107,7 +127,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from unittest import mock
 
 import numpy as np
@@ -116,14 +135,17 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP_MEAN, CLIP_STD
+from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import SimpleTokenizer, learn_merges
 from fashionern_aaai2024_tpu_torch.models.composed import (
     ComposedCIRModel,
     apply_precision,
     random_init_,
 )
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import block as TB
 from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
@@ -132,8 +154,7 @@ from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
-from fashionern_aaai2024_tpu_torch.retrieval import metrics
-from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
+from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
 from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
@@ -177,7 +198,7 @@ LN_SHAPES = [("ln_final", dict(rows=32 * 77, w=640, eps=1e-5)),
 BERT_LAYERS = 2
 BERT_LNS = 1 + 2 * BERT_LAYERS
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
-SOT, EOT, CTX = 49406, 49407, 77
+CTX = 77
 CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
             "has a floral print", "is shorter and lighter", "with a collar",
             "less casual and in blue", "has stripes and no logo"]
@@ -187,6 +208,7 @@ B5, B6 = "int8_mlp_subblock (B5)", "int8_attention_subblock (B6)"
 B7, B8, B11 = ("fused_qkv_self_attention (B7)", "packed_kv_cross_attention (B8)",
                "layer_norm (B11)")
 B9, B12 = "multi_head_attention (B9)", "combiner_apply (B12)"
+B10 = "transformer_block (B10)"
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -210,12 +232,15 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/attention.py:84"),
     B12: (Cb.combiner_apply, "fashionern_aaai2024_tpu_torch/csrc",
           "fashionern_aaai2024_tpu/ops/combiner.py:63"),
+    B10: (TB.transformer_block, "fashionern_aaai2024_tpu_torch/csrc/block.cu",
+          "fashionern_aaai2024_tpu/ops/block.py:99"),
 }
 SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
            B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
            B6: ["quant.cu", "qgemm.cu", "attention.cu"], B7: ["gemm.cu", "attention.cu"],
            B8: ["attention.cu"], B11: ["layernorm.cu"], B9: ["attention.cu"],
-           B12: ["gemm.cu", "combiner.cu"]}
+           B12: ["gemm.cu", "combiner.cu"],
+           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "layernorm_row.cuh"]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
@@ -268,21 +293,46 @@ TME_TRAIN_STEPS = 3
 FIQ_CAPTIONS = [("is darker", "has longer sleeves"), ("is red", "more formal"),
                 ("has a floral print", "is shorter"), ("with a collar", "less casual"),
                 ("in blue", "has stripes and no logo"), ("is lighter", "is tighter")]
+# B10 against its plain version and the B1 + B2 pair: the query text
+# towers of both backbones at b = 1 and 32 in bf16 and fp32, the train
+# path's text tower and the ViT-B-16 trunk in bf16
+BLOCK_SHAPES = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
+                for shape in (("text_b1", dict(TEXT, b=1)), ("text_b32", dict(TEXT, b=32)),
+                              *RN_SHAPES[::-1])]
+BLOCK_SHAPES += [(torch.bfloat16, TRAIN_SHAPES[1]), (torch.bfloat16, SHAPES[0])]
+# BlockFunction's 13 gradients against autograd of the plain version, fp32:
+# the same formula summed in another order
+BLOCK_GRAD_COSINE_MIN = 0.99999
+# B9's biased case: the bias gradient of MHAFunction (autograd of the
+# `_mha_ref` formula) against autograd of the plain version: fp32 differs
+# in summation order only; bf16 scores round to bf16 in `_mha_ref`
+MHA_BIAS_GRAD_COSINE_MIN = {torch.float32: 0.99999, torch.bfloat16: 0.99}
+# the evaluation phase: ViT-B-16 over in-memory FashionIQ- and CIRR-shaped
+# loaders (three dress types and CIRR, each a gallery and its queries)
+FIQ_TYPES = ("dress", "shirt", "toptee")
+EVAL_GALLERY, EVAL_QUERIES, CIRR_GROUP = 512, 256, 6
+CIRR_CAPTIONS = ["has two dogs instead of one", "the same bag but in black leather",
+                 "show it from the side", "make the background a beach",
+                 "add a person wearing it", "remove the logo and shorten it"]
+# captions beyond ASCII: the native tokenizer core flags them and the
+# Python path encodes them
+NON_ASCII_CAPTIONS = ["a naïve café-style blouse", "Ⅻ² größer und dunkler",
+                      "更正式 and darker"]
+BPE_MERGES = 200
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def tokenizer(texts, context_length=CTX):
-    """Deterministic stand-in for the CLIP BPE: crc32 word ids in
-    1..49405 between SOT and EOT, zero-padded, so EOT is the argmax."""
-    out = np.zeros((len(texts), context_length), np.int32)
-    for i, t in enumerate(texts):
-        words = [zlib.crc32(w.encode()) % 49405 + 1 for w in t.split()]
-        ids = [SOT] + words[:context_length - 2] + [EOT]
-        out[i, :len(ids)] = ids
-    return out
+@functools.lru_cache(maxsize=None)
+def tokenizer() -> SimpleTokenizer:
+    """The port's CLIP BPE over merges learned from every caption the
+    phases tokenize (`learn_merges`, as `tools/make_fixture.py` writes
+    the tests' table): the CLIP table is not in the repository. Its EOT
+    is the largest id, so the text tower's argmax pooling finds it."""
+    words = CAPTIONS + [c for pair in FIQ_CAPTIONS for c in pair] + CIRR_CAPTIONS
+    return SimpleTokenizer(merges=learn_merges(words + NON_ASCII_CAPTIONS, BPE_MERGES))
 
 
 def median_ms(fn, runs: int = 25) -> float:
@@ -399,6 +449,89 @@ def phase_kernels() -> tuple[dict, list]:
                 f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
         del inputs
     return worst, rows
+
+
+def block_inputs(b: int, s: int, w: int, dtype: torch.dtype, seed: int) -> tuple:
+    """B10's 13 operands: x [b, s, w], both LNs' parameters near (1, 0),
+    the four weights in the torch layout and their biases at std 0.02."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=0.02, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=g)).to(dtype).cuda()
+
+    f = 4 * w
+    ln = lambda: (t(w, scale=0.1, offset=1.0), t(w, scale=0.1))  # noqa: E731
+    return (t(b, s, w, scale=1.0), *ln(), t(3 * w, w), t(3 * w), t(w, w), t(w), *ln(),
+            t(f, w), t(f), t(w, f), t(w))
+
+
+def block_calls(args: tuple, heads: int, causal: bool) -> dict:
+    """B10 (launched whatever the dispatch rule says), its plain version,
+    the B1 + B2 kernel pair it replaces (the A/B the rule reads) and the
+    B1 + B2 library compositions (`library_ms`, never called by the
+    port); quick_gelu, as phase 2 runs B2."""
+    act = "quick_gelu"
+    attn_library = library_call(B1, args[:7], heads, causal)
+
+    def library():
+        return library_call(B2, (attn_library(), *args[7:]), heads, causal)()
+
+    return dict(
+        kernel=lambda: TB._launch_block(*args, heads, causal, act, None, 1e-5),
+        plain=lambda: TB.transformer_block_plain(*args, heads, causal=causal, activation=act),
+        pair=lambda: M.mlp_subblock(A.attention_subblock(*args[:7], heads, causal=causal),
+                                    *args[7:], activation=act),
+        library=library)
+
+
+def phase_block_kernel() -> tuple[float, list, dict]:
+    """B10 against its plain version at BLOCK_SHAPES, and equal to B1 + B2
+    (the same device code), with the timings of each and of the pair;
+    then `BlockFunction`'s gradients against autograd of the plain
+    version."""
+    rows, worst = [], 0.0
+    for dtype, (label, shp) in BLOCK_SHAPES:
+        args = block_inputs(shp["b"], shp["s"], shp["w"], dtype, seed=400 + len(rows))
+        calls = block_calls(args, shp["heads"], shp["causal"])
+        got, want, pair = calls["kernel"](), calls["plain"](), calls["pair"]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if not torch.equal(got, pair):
+            raise AssertionError(f"{B10} {label} {dtype}: differs from B1 + B2 by "
+                                 f"{(got.float() - pair.float()).abs().max().item():.3e}")
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        del got, want, pair
+        f1, n1 = tower_work(B1, shp["b"], shp["s"], shp["w"], shp["heads"], shp["causal"], dtype)
+        f2, _ = tower_work(B2, shp["b"], shp["s"], shp["w"], shp["heads"], shp["causal"], dtype)
+        e, m, w = torch.finfo(dtype).bits // 8, shp["b"] * shp["s"], shp["w"]
+        row = dict(kernel=B10, shape=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
+                   ms=median_ms(calls["kernel"]), plain_ms=median_ms(calls["plain"]),
+                   pair_ms=median_ms(calls["pair"]), library_ms=median_ms(calls["library"]),
+                   rule_takes_b10=TB.use_block_kernel(m),
+                   **bound(f1 + f2, e * (2 * m * w + 12 * w * w + 13 * w), dtype))
+        rows.append(row)
+        log(f"  {B10:32s} {label:11s} {row['dtype']:9s} err {err:.3e}  "
+            f"kernel {row['ms']:.4f} ms  B1 + B2 {row['pair_ms']:.4f} ms  "
+            f"plain {row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the rule takes "
+            f"{'B10' if row['rule_takes_b10'] else 'B1 + B2'}")
+        del args, calls
+        torch.cuda.empty_cache()
+
+    args = block_inputs(2, 77, 512, torch.float32, seed=450)
+    up = torch.randn((2, 77, 512), generator=torch.Generator().manual_seed(451)).cuda()
+    ours = [t.detach().clone().requires_grad_() for t in args]
+    plain = [t.detach().clone().requires_grad_() for t in args]
+    (TB.BlockFunction.apply(*ours, 8, True, "quick_gelu", None, 1e-5) * up).sum().backward()
+    (TB.transformer_block_plain(*plain, 8, causal=True) * up).sum().backward()
+    cos = [F.cosine_similarity(a.grad.flatten().double(), b.grad.flatten().double(),
+                               dim=0).item() for a, b in zip(ours, plain)]
+    log(f"  {B10} BlockFunction fp32 B=2: 13 gradient cosines against the plain "
+        f"version's autograd, min {min(cos):.8f}")
+    if min(cos) < BLOCK_GRAD_COSINE_MIN:
+        raise AssertionError(f"{B10}: BlockFunction gradients {cos}")
+    return worst, rows, dict(gradient_cosines=cos)
 
 
 def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tuple:
@@ -525,6 +658,21 @@ def mha_work(shp: dict, dtype: torch.dtype) -> dict:
                  + (4 * sq * sk if shp.get("bias") else 0), dtype)
 
 
+def mha_bias_grad_cosine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, causal: bool) -> float:
+    """Cosine between B9's bias gradient on the card (`MHAFunction`: the
+    kernel forward, the `_mha_ref` VJP backward) and autograd of the
+    plain version's, under one seeded upstream gradient."""
+    up = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)).cuda()
+    grads = []
+    for fn in (lambda b: A.multi_head_attention(q, k, v, causal=causal, bias=b),
+               lambda b: A.mha_plain(q, k, v, A.shared_bias(causal, b, 77, 13, "cuda"))):
+        b = bias.detach().clone().requires_grad_()
+        (fn(b).float() * up).sum().backward()
+        grads.append(b.grad.flatten().double())
+    return F.cosine_similarity(grads[0], grads[1], dim=0).item()
+
+
 def combiner_module(d: int, dtype: torch.dtype, seed: int):
     """A CombinerSimple with the seeded init of `random_init_`."""
     from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
@@ -592,6 +740,12 @@ def phase_tme_kernels() -> tuple[dict, list]:
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
                        max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
                        library_ms=median_ms(library), **work)
+        if name == B9 and bias is not None:
+            cos = row["bias_grad_cosine"] = mha_bias_grad_cosine(q, k, v, bias, causal)
+            log(f"  {name} {label} {row['dtype']}: bias gradient, card against plain, "
+                f"cosine {cos:.8f}")
+            if cos < MHA_BIAS_GRAD_COSINE_MIN[dtype]:
+                raise AssertionError(f"{name}: the bias gradient disagrees (cosine {cos})")
         rows.append(row)
         log(f"  {name:32s} {label:13s} {row['dtype']:9s} err {err:.3e}  "
             f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
@@ -615,23 +769,36 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(), dim=-1)
 
 
-def serve_launches(cfg, gallery_calls: int, query_calls: int, refine_chunks: int = 1) -> dict:
-    """Expected launches of a serve run: per gallery batch the image tower
-    (ViT: B1-B3 (or B5-B6) in each block, B11 at ln_pre and ln_post;
-    ResNet: B8 at the attention pool); per index refine chunk the index
-    tower's combiner (B12); per query call the text tower (the same in
-    each block, B11 at ln_final), TME on a TME model (B11 at its LN, B9)
-    and the DVR query tower (B7 in each BERT layer, B11 at the BERT's LNs,
-    B8 at MR, B12 in its three combiners)."""
+def serve_launches(cfg, gallery_batches: list[int], query_batches: list[int],
+                   refine_chunks: int = 1) -> dict:
+    """Expected launches of a serve run, from the batch sizes of its
+    gallery and query calls: per gallery batch the image tower (ViT: each
+    block B10 or B1-B3 by `use_block_kernel`, or B5-B6 int8, and B11 at
+    ln_pre and ln_post; ResNet: B8 at the attention pool); per index
+    refine chunk the index tower's combiner (B12); per query call the text
+    tower (each block the same way, B11 at ln_final), TME on a TME model
+    (B11 at its LN, B9) and the DVR query tower (B7 in each BERT layer,
+    B11 at the BERT's LNs, B8 at MR, B12 in its three combiners)."""
     vit = cfg.vision.kind == "vit"
     tme = int(cfg.text.tme)
-    blocks = cfg.text.layers * query_calls + (cfg.vision.layers * gallery_calls if vit else 0)
-    want = dict.fromkeys(INT8_KERNELS if cfg.quantize_mlp else TOWER_KERNELS, blocks)
-    want[B7] = BERT_LAYERS * query_calls
-    want[B8] = query_calls + (0 if vit else gallery_calls)
-    want[B11] = (1 + tme + BERT_LNS) * query_calls + (2 * gallery_calls if vit else 0)
-    want[B9] = tme * query_calls
-    want[B12] = 3 * query_calls + refine_chunks
+    tower = INT8_KERNELS if cfg.quantize_mlp else TOWER_KERNELS
+    want = dict.fromkeys((*tower, B10), 0)
+
+    def tower_blocks(layers: int, rows: int) -> None:
+        for name in ((B10,) if not cfg.quantize_mlp and TB.use_block_kernel(rows) else tower):
+            want[name] += layers
+
+    for b in query_batches:
+        tower_blocks(cfg.text.layers, b * cfg.text.context_length)
+    tokens = (cfg.vision.image_size // cfg.vision.patch_size) ** 2 + 1
+    for b in gallery_batches if vit else ():
+        tower_blocks(cfg.vision.layers, b * tokens)
+    q, gal = len(query_batches), len(gallery_batches)
+    want[B7] = BERT_LAYERS * q
+    want[B8] = q + (0 if vit else gal)
+    want[B11] = (1 + tme + BERT_LNS) * q + (2 * gal if vit else 0)
+    want[B9] = tme * q
+    want[B12] = 3 * q + refine_chunks
     return want
 
 
@@ -645,7 +812,7 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     reference = copy.deepcopy(model).eval()          # fp32, plain versions, CPU
     apply_precision(model, "bf16")
-    api = InferenceAPI(model, tokenizer=tokenizer, device="cuda", batch_size=BATCH,
+    api = InferenceAPI(model, tokenizer=tokenizer(), device="cuda", batch_size=BATCH,
                        quantize_gallery=quantize)
     names, images, patches, batches = make_gallery(cfg.vision.image_size, cfg.feature_dim)
     refs = [names[2 * i] for i in range(8)]          # inside the 16 checked items
@@ -661,7 +828,7 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     run_s = time.perf_counter() - t0
     launches = launch_counts()
 
-    want = serve_launches(cfg, GALLERY // BATCH, len(refs) + 1)
+    want = serve_launches(cfg, [BATCH] * (GALLERY // BATCH), [1] * len(refs) + [32])
     log(f"  main path {run_s:.2f} s; launches {launches} (expected {want}: "
         f"{GALLERY // BATCH} gallery batches, {len(refs) + 1} query calls)")
     tier = "int8 " if quantize else "TME " if tme else ""
@@ -678,12 +845,12 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
             raise AssertionError(f"bad result list: {res}")
 
     # the card's final embeddings against the fp32 plain run on the CPU
-    ref_api = InferenceAPI(reference, tokenizer=tokenizer, device="cpu", batch_size=16)
+    ref_api = InferenceAPI(reference, tokenizer=tokenizer(), device="cpu", batch_size=16)
     g16, _ = ref_api.encode_image(images[:16])
     cpu_gallery = ref_api.refine_gallery(g16, patches[:16])
     card_gallery = service.index.features[:16]
     rows = [service.rows[r] for r in refs]
-    ids = tokenizer(CAPTIONS)
+    ids = tokenizer()(CAPTIONS)
     tg, ts = ref_api.encode_text(ids, visual_emb=patches[rows])
     cpu_query = ref_api.query(g16[rows], patches[rows], tg, ts)
     ctg, cts = api.encode_text(ids, visual_emb=service.gallery.local_features[rows])
@@ -762,9 +929,10 @@ ALL_SPANS = frozenset(EMBED_SPANS + QUERY_SPANS)
 
 def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, object, object]:
     """Embed + refine img/s and query P50s; also returns the embed +
-    refine call and a b=32 query call (its steps in `record_function`
-    spans) for `kernel_split`, which runs after every host-clock
-    measurement of the script (the profiler slows later launches)."""
+    refine call and a query call of a given batch size (its steps in
+    `record_function` spans) for `kernel_split`, which runs after every
+    host-clock measurement of the script (the profiler slows later
+    launches)."""
     g = np.random.default_rng(1)
     b = 128
     cfg = api.model.clip_config
@@ -773,7 +941,7 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
         "cuda", torch.bfloat16)
     patches = torch.from_numpy(
         g.standard_normal((b, 13, cfg.feature_dim)).astype(np.float32)).cuda()
-    bench_api = InferenceAPI(api.model, tokenizer=tokenizer, device="cuda", batch_size=b)
+    bench_api = InferenceAPI(api.model, tokenizer=tokenizer(), device="cuda", batch_size=b)
 
     def embed_and_refine():
         with record_function("embed/image_tower"):
@@ -781,10 +949,10 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
         with record_function("embed/index_refine"):
             return bench_api.refine_gallery(feats, patches)
 
-    def query_b32():
-        rows = torch.arange(32, device="cuda")
+    def query(qb: int = 32):
+        rows = torch.arange(qb, device="cuda")
         with record_function("query/text_tower"):
-            tg, ts = api.encode_text(api.tokenize([CAPTIONS[i % 8] for i in range(32)]),
+            tg, ts = api.encode_text(api.tokenize([CAPTIONS[i % 8] for i in range(qb)]),
                                      visual_emb=service.gallery.local_features[rows])
         with record_function("query/dvr"):
             q = api.query(service.gallery.features[rows], service.gallery.local_features[rows],
@@ -814,7 +982,7 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
         times = [service.query(names[i:i + qb], [CAPTIONS[(i + j) % 8] for j in range(qb)],
                                k=K)[1] for i in range(reps)]
         lat[f"query_p50_ms_b{qb}"] = statistics.median(times) * 1e3
-    return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine, query_b32
+    return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine, query
 
 
 def reset_launches() -> None:
@@ -909,30 +1077,48 @@ class SyntheticFashionIQ:
                 "ref_patch": self.patches[r], "tar_patch": self.patches[t]}
 
 
+@contextlib.contextmanager
+def recorded_predictions():
+    """`evaluate.generate_predictions` as the evaluators call it, with
+    each call's predictions kept on the host in fp32."""
+    preds: list[torch.Tensor] = []
+    real = E.generate_predictions
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        preds.append(out[0].float().cpu())
+        return out
+
+    with mock.patch.object(E, "generate_predictions", spy):
+        yield preds
+
+
 def make_validator(images: np.ndarray, patches: np.ndarray, record: list):
-    """Recall@10 of 256 composed queries over a 1,024-item gallery,
-    through the port's InferenceAPI, RetrievalIndex and metrics; the
-    kernel launches it makes are recorded apart."""
+    """Recall@10 and @50 of 256 composed queries over a 1,024-item gallery
+    through the port's `evaluate_fiq_split`, over FashionIQ-shaped
+    in-memory loaders in batches of 128; the kernel launches it makes are
+    recorded apart."""
     names = [f"img{i:04d}" for i in range(VAL_GALLERY)]
     g = np.random.default_rng(3)
     refs = g.integers(0, VAL_GALLERY, VAL_QUERIES)
     targets = (refs + g.integers(1, VAL_GALLERY, VAL_QUERIES)) % VAL_GALLERY
-    caps = [f"{FIQ_CAPTIONS[i % 6][0]} and {FIQ_CAPTIONS[i % 6][1]}"
-            for i in range(VAL_QUERIES)]
+    step = 128
+    classic = [{"name": names[i:i + step], "image": images[i:i + step],
+                "patch": patches[i:i + step]} for i in range(0, VAL_GALLERY, step)]
+    relative = [{"ref_name": [names[j] for j in refs[i:i + step]],
+                 "tar_name": [names[j] for j in targets[i:i + step]],
+                 "captions": [FIQ_CAPTIONS[j % 6] for j in range(i, i + step)],
+                 "ref_patch": patches[refs[i:i + step]]} for i in range(0, VAL_QUERIES, step)]
 
     def validator(api: InferenceAPI):
         before = launch_counts()
-        gal, _ = api.encode_image(images[:VAL_GALLERY])
-        index = RetrievalIndex(names, api.refine_gallery(gal, patches[:VAL_GALLERY]))
-        tg, ts = api.encode_text(api.tokenize(caps))
-        q = api.query(gal[torch.as_tensor(refs, device=gal.device)], patches[refs], tg, ts)
-        _, idx = index.search(q, k=K)
-        r10 = metrics.recall_at_k(idx, targets, (K,))[K]
+        with recorded_predictions() as preds:
+            r = E.evaluate_fiq_split(api, classic, relative)
         after = launch_counts()
         record.append({name: after[name] - before[name] for name in after})
-        if not torch.isfinite(q).all():
+        if not all(torch.isfinite(p).all() for p in preds):
             raise AssertionError("non-finite validation queries")
-        return r10, {"recall_at10": r10}
+        return r["recall_at10"], r
 
     return validator
 
@@ -962,7 +1148,7 @@ def check_fp32_step(cfg, dataset: SyntheticFashionIQ, card: str) -> dict:
             step = build_train_step(model, cosine_annealing_schedule(TRAIN_LR, 100))
             batch = {"ref_image": torch.from_numpy(raw["ref_image"]),
                      "tar_image": torch.from_numpy(raw["tar_image"]),
-                     "text_ids": torch.from_numpy(tokenizer(caps)).long(),
+                     "text_ids": torch.from_numpy(tokenizer()(caps)).long(),
                      "ref_patch": torch.from_numpy(raw["ref_patch"]),
                      "tar_patch": torch.from_numpy(raw["tar_patch"])}
             _, loss = step(state, {k: v.to(state.device) for k, v in batch.items()})
@@ -1050,7 +1236,7 @@ def phase_train(card: str, tme: bool = False) -> dict:
                                                                     val_launches),
                           plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
                                                _fiq_captions),
-                          tokenizer=tokenizer)
+                          tokenizer=tokenizer())
         clip_before = {k: v.clone() for k, v in model.clip.state_dict().items()}
         ern_before = {n: p.detach().clone() for n, p in model.ern.named_parameters()}
         times, losses = [], []
@@ -1080,7 +1266,8 @@ def phase_train(card: str, tme: bool = False) -> dict:
         if val_launches:
             launches = {name: total[name] - val_launches[0][name] for name in total}
             check_launches("validation", val_launches[0],
-                           serve_launches(cfg, -(-VAL_GALLERY // 128), -(-VAL_QUERIES // 128)))
+                           serve_launches(cfg, [128] * (VAL_GALLERY // 128),
+                                          [128] * (VAL_QUERIES // 128)))
         check_launches(f"{'TME ' if tme else ''}train path", launches,
                        train_launches(steps, tme=tme))
         if len(losses) != steps or not np.all(np.isfinite(losses)):
@@ -1305,7 +1492,7 @@ def phase_int8_train(card: str) -> dict:
         trainer = Trainer(tcfg, device="cuda", train_dataset=dataset,
                           plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
                                                _fiq_captions),
-                          tokenizer=tokenizer)
+                          tokenizer=tokenizer())
         if not trainer.model.clip_config.quantize_mlp:
             raise AssertionError("quantize_towers did not build int8 towers")
         times, losses = [], []
@@ -1336,6 +1523,122 @@ def phase_int8_train(card: str) -> dict:
                 samples_per_s_step2=TRAIN_BATCH / times[-1])
 
 
+def phase_tokenizer() -> dict:
+    """The port's BPE on this machine: the native core's ids equal the
+    Python path's on every phase's captions and on NON_ASCII_CAPTIONS
+    (rows the core flags for the Python path), each row SOT ... EOT; and
+    the host time of one call at b = 1 and 32 (median of 200 after a
+    warm-up call, the core's word cache warm, as a serving host runs)."""
+    tok = tokenizer()
+    texts = (CAPTIONS + [join_fiq_captions(*p) for p in FIQ_CAPTIONS] + CIRR_CAPTIONS
+             + NON_ASCII_CAPTIONS)
+    native, python = tok(texts, CTX), tok.python_ids(texts, CTX)
+    _, flagged = tok._core().encode_batch(NON_ASCII_CAPTIONS, CTX)
+    ends = (native != 0).sum(axis=1) - 1
+    if (not np.array_equal(native, python) or not flagged.all()
+            or (native[:, 0] != tok.sot_token).any()
+            or (native[np.arange(len(texts)), ends] != tok.eot_token).any()):
+        raise AssertionError("the native tokenizer disagrees with the Python path")
+    out = dict(vocab_size=tok.vocab_size, rows_checked=len(texts))
+    for b in (1, 32):
+        caps = [CAPTIONS[i % len(CAPTIONS)] for i in range(b)]
+        tok(caps, CTX)
+        times = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            tok(caps, CTX)
+            times.append(time.perf_counter() - t0)
+        out[f"tokenize_us_b{b}"] = statistics.median(times) * 1e6
+    log(f"  tokenizer: native ids equal the Python path's on {len(texts)} captions "
+        f"({len(NON_ASCII_CAPTIONS)} non-ASCII, flagged); host time of one call "
+        f"{out['tokenize_us_b1']:.1f} us at b=1, {out['tokenize_us_b32']:.1f} us at b=32 "
+        f"(vocabulary {tok.vocab_size})")
+    return out
+
+
+def eval_loaders(side: int, dim: int, prefix: str, seed: int, cirr: bool) -> tuple[list, list]:
+    """In-memory loaders of one evaluator, as lists of batches of BATCH: a
+    gallery of EVAL_GALLERY seeded images (CLIP-normalized) with 13 x dim
+    patches, and EVAL_QUERIES queries whose targets differ from their
+    references, FashionIQ-shaped (two captions) or CIRR-shaped (one
+    caption and six group members: the reference, the target and four
+    others)."""
+    g = np.random.default_rng(seed)
+    names = [f"{prefix}{i:04d}" for i in range(EVAL_GALLERY)]
+    raw = g.random((EVAL_GALLERY, side, side, 3), dtype=np.float32)
+    images = ((raw - CLIP_MEAN) / CLIP_STD).astype(np.float32)
+    patches = g.standard_normal((EVAL_GALLERY, 13, dim)).astype(np.float32)
+    refs = g.integers(0, EVAL_GALLERY, EVAL_QUERIES)
+    tars = (refs + g.integers(1, EVAL_GALLERY, EVAL_QUERIES)) % EVAL_GALLERY
+    classic = [{"name": names[i:i + BATCH], "image": images[i:i + BATCH],
+                "patch": patches[i:i + BATCH]} for i in range(0, EVAL_GALLERY, BATCH)]
+    relative = []
+    for i in range(0, EVAL_QUERIES, BATCH):
+        r, t = refs[i:i + BATCH], tars[i:i + BATCH]
+        batch = {"ref_name": [names[j] for j in r], "tar_name": [names[j] for j in t],
+                 "ref_patch": patches[r]}
+        if cirr:
+            batch["caption"] = [CIRR_CAPTIONS[j % len(CIRR_CAPTIONS)]
+                                for j in range(i, i + len(r))]
+            groups = []
+            for a, b in zip(r, t):
+                others = [j for j in g.permutation(EVAL_GALLERY)[:CIRR_GROUP] if j not in (a, b)]
+                groups.append([names[j] for j in g.permutation([a, b, *others[:CIRR_GROUP - 2]])])
+            batch["group_members"] = groups
+        else:
+            batch["captions"] = [FIQ_CAPTIONS[j % len(FIQ_CAPTIONS)] for j in range(i, i + len(r))]
+        relative.append(batch)
+    return classic, relative
+
+
+def phase_eval(card: str) -> dict:
+    """`evaluate_fiq` (three dress types) and `evaluate_cirr` of ViT-B-16
+    at full width, seeded weights, bf16 serve policy on the card and the
+    same weights in fp32 on the CPU (plain versions), over the same
+    in-memory loaders: launch counts on the card (B10 in every text-tower
+    block at the eval batch of 32), every query's prediction card against
+    CPU at cosine >= 0.99 (phase 3's limit), the recall dicts of both."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
+    reference = copy.deepcopy(model).eval()
+    apply_precision(model, "bf16")
+    side, dim = cfg.vision.image_size, cfg.feature_dim
+    fiq = {dt: eval_loaders(side, dim, dt, seed=20 + i, cirr=False)
+           for i, dt in enumerate(FIQ_TYPES)}
+    cirr = eval_loaders(side, dim, "cirr", seed=30, cirr=True)
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", reference)):
+        api = InferenceAPI(m, tokenizer=tokenizer(), device=dev, batch_size=BATCH)
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_predictions() as preds:
+            fiq_r = E.evaluate_fiq(api, fiq)
+            cirr_r = E.evaluate_cirr(api, *cirr)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(fiq=fiq_r, cirr=cirr_r, preds=preds, launches=launch_counts(),
+                         seconds=time.perf_counter() - t0)
+        log(f"  {dev}: {runs[dev]['seconds']:.1f} s; evaluate_fiq {fiq_r}; "
+            f"evaluate_cirr {cirr_r}")
+    per_eval = serve_launches(cfg, [BATCH] * (EVAL_GALLERY // BATCH),
+                              [BATCH] * (EVAL_QUERIES // BATCH))
+    evaluators = len(FIQ_TYPES) + 1
+    check_launches("evaluation", runs["cuda"]["launches"],
+                   {name: evaluators * n for name, n in per_eval.items()})
+    card_preds, cpu_preds = runs["cuda"].pop("preds"), runs["cpu"].pop("preds")
+    if len(card_preds) != evaluators or len(cpu_preds) != evaluators:
+        raise AssertionError(f"{len(card_preds)} / {len(cpu_preds)} prediction passes")
+    cos = torch.cat([cosine(a, b) for a, b in zip(card_preds, cpu_preds)])
+    log(f"  predictions card bf16 vs CPU fp32 over {len(cos)} queries: cosine min "
+        f"{cos.min().item():.5f} (median {cos.median().item():.5f}); launches "
+        f"{runs['cuda']['launches']} ({card})")
+    if not torch.isfinite(cos).all() or cos.min() < 0.99:
+        raise AssertionError("the card's evaluator predictions disagree with the CPU's")
+    return dict(card=runs["cuda"], cpu=runs["cpu"], launches=runs["cuda"]["launches"],
+                prediction_cosine_min=cos.min().item(),
+                prediction_cosine_median=cos.median().item())
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json-out", help="also write every measurement to this file")
@@ -1357,10 +1660,12 @@ def main() -> None:
     worst, rows = phase_kernels()
     new_worst, new_rows = phase_new_kernels()
     tme_worst, tme_rows = phase_tme_kernels()
+    block_worst, block_rows, block_grad = phase_block_kernel()
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
+    tokenizer_info = phase_tokenizer()
     slice_info, service, api = phase_slice(card)
     log(f"phase 4: timings ({card})")
-    timings, embed_fn, _ = phase_timings(service, api)
+    timings, embed_fn, query_fn = phase_timings(service, api)
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
@@ -1393,8 +1698,10 @@ def main() -> None:
     log(f"  TME query P50 {tme_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{tme_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
     tme_train = phase_train(card, tme=True)
-    log(f"phase 12: profiles of embed + refine, B=128, and of an RN50x4 and a TME query, "
-        f"b=32 ({card})")
+    log(f"phase 12: evaluate_fiq and evaluate_cirr, ViT-B-16, card bf16 and CPU fp32 ({card})")
+    eval_info = phase_eval(card)
+    log(f"phase 13: profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
+        f"and of an RN50x4 and a TME query at b=32 ({card})")
     vit_spans = ("embed/image_tower", "embed/index_refine")
     profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
                  vit_spans),
@@ -1402,6 +1709,10 @@ def main() -> None:
                  "embed_refine_profile", vit_spans),
                 ("RN50x4 bf16 embed + refine", rn_embed_fn, rn_timings, "embed_refine_profile",
                  EMBED_SPANS),
+                ("ViT-B-16 bf16 query b=1", lambda: query_fn(1), timings, "query_b1_profile",
+                 QUERY_SPANS),
+                ("RN50x4 bf16 query b=1", lambda: rn_query_fn(1), rn_timings,
+                 "query_b1_profile", QUERY_SPANS),
                 ("RN50x4 bf16 query b=32", rn_query_fn, rn_timings, "query_b32_profile",
                  QUERY_SPANS),
                 ("ViT-B-16 TME bf16 query b=32", tme_query_fn, tme_timings, "query_b32_profile",
@@ -1429,6 +1740,10 @@ def main() -> None:
     for name, shape, dtype in ((B9, "tme512_b32", "bfloat16"), (B12, "d512_m128", "float32")):
         timed[name] = next(r for r in tme_rows if r["kernel"] == name and
                            r["shape"] == shape and r["dtype"] == dtype)
+    # B10 at the query text tower of ViT-B-16, b = 32, bf16
+    timed[B10] = next(r for r in block_rows
+                      if r["shape"] == "text_b32" and r["dtype"] == "bfloat16")
+    worst[B10] = block_worst
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
     worst.update(int8_worst)
@@ -1439,7 +1754,8 @@ def main() -> None:
                       "int8_train": int8_train["launches"][name],
                       "rn50x4_serve": rn_info["launches"][name],
                       "tme_serve": tme_info["launches"][name],
-                      "tme_train": tme_train["launches"][name]}
+                      "tme_train": tme_train["launches"][name],
+                      "eval": eval_info["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -1457,6 +1773,8 @@ def main() -> None:
                            int8_kernel_rows=int8_rows, int8_slice=int8_info,
                            int8_timings=int8_timings, int8_train=int8_train,
                            rn50x4_slice=rn_info, rn50x4_timings=rn_timings,
+                           block_kernel_rows=block_rows, block_gradients=block_grad,
+                           tokenizer=tokenizer_info, evaluation=eval_info,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,12 +9,13 @@
 //
 // Bound: device-memory bandwidth. It reads x once from DRAM (the second
 // and third passes hit L1) and writes y once: 2 x rows x W x sizeof(T).
-// Design: one warp per row, so the mean and variance reductions are
-// warp shuffles with no shared memory and no block barrier. Two-pass
-// variance (mean of squared deviations), as the Pallas kernel computes
-// it; y is rounded to the storage type before the GEMM reads it.
+// Design: one warp per row (`layernorm_row.cuh`, which kernel B10 runs
+// too), so the mean and variance reductions are warp shuffles with no
+// shared memory and no block barrier. Two-pass variance (mean of squared
+// deviations), as the Pallas kernel computes it; y is rounded to the
+// storage type before the GEMM reads it.
 
-#include "common.cuh"
+#include "layernorm_row.cuh"
 
 namespace fern {
 
@@ -24,23 +25,9 @@ __global__ void layernorm_kernel(const T* __restrict__ x, const T* __restrict__ 
                                  int rows, int width, float eps) {
   const int warps = blockDim.x / 32;
   const int row = blockIdx.x * warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* xr = x + (size_t)row * width;
-  T* yr = y + (size_t)row * width;
-  float s = 0.f;
-  for (int c = lane; c < width; c += 32) s += to_f(xr[c]);
-  const float mean = warp_sum(s) / width;
-  float v = 0.f;
-  for (int c = lane; c < width; c += 32) {
-    const float d = to_f(xr[c]) - mean;
-    v += d * d;
-  }
-  const float inv = rsqrtf(warp_sum(v) / width + eps);
-  for (int c = lane; c < width; c += 32) {
-    const float d = to_f(xr[c]) - mean;
-    yr[c] = from_f<T>(d * inv * to_f(g[c]) + to_f(b[c]));
-  }
+  layernorm_row(x + (size_t)row * width, g, b, y + (size_t)row * width, width, eps,
+                threadIdx.x % 32);
 }
 
 template <typename T>

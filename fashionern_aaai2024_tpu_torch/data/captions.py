@@ -1,17 +1,22 @@
-"""Train-time caption augmentation.
+"""Caption processing and augmentation.
 
-A copy of the train-side functions of `fashionern_aaai2024_tpu/data/captions.py`,
-kept in the port so that it imports nothing of the JAX package. Exact
-ports of the reference's text-side behavior: they define the training
-distribution, so semantics are preserved verbatim (sources in each
-function). The eval-side and Fashion200k helpers come with the dataset
-classes and evaluators that call them (ROADMAP A9).
+A copy of `fashionern_aaai2024_tpu/data/captions.py`, kept in the port so
+that it imports nothing of the JAX package. Exact ports of the
+reference's text-side behavior: they define the training distribution
+and the eval inputs, so semantics are preserved verbatim (sources in
+each function).
 """
 
 from __future__ import annotations
 
 import random
 from typing import List, Sequence
+
+
+def join_fiq_captions(cap1: str, cap2: str) -> str:
+    """Eval-time deterministic join: "Cap1 and cap2"
+    (`run/valid/validate_fiq.py:75-79`)."""
+    return f"{cap1.strip('.?, ').capitalize()} and {cap2.strip('.?, ')}"
 
 
 def generate_randomized_fiq_caption(
@@ -40,3 +45,27 @@ def generate_randomized_fiq_caption(
 def generate_shoes_caption(flattened_captions: Sequence[str]) -> List[str]:
     """Strip + capitalize (`utils/utils.py:126-130`)."""
     return [c.strip(".?, ").capitalize() for c in flattened_captions]
+
+
+def caption_post_process(s: str) -> str:
+    """Fashion200k caption cleanup (`dataloader/fashion200k_patch.py:52-54`)."""
+    return (s.strip().replace(".", "dotmark").replace("?", "questionmark")
+            .replace("&", "andmark").replace("*", "starmark"))
+
+
+def get_different_word(source_caption: str, target_caption: str) -> tuple[str, str, str]:
+    """First word unique to each caption -> "replace X with Y" modifier
+    (`dataloader/fashion200k_patch.py:39-49`)."""
+    source_words = source_caption.split()
+    target_words = target_caption.split()
+    source_word = source_words[-1] if source_words else ""
+    for w in source_words:
+        if w not in target_words:
+            source_word = w
+            break
+    target_word = target_words[-1] if target_words else ""
+    for w in target_words:
+        if w not in source_words:
+            target_word = w
+            break
+    return source_word, target_word, f"replace {source_word} with {target_word}"

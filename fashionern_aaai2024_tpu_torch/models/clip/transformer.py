@@ -5,11 +5,13 @@ open_clip's `ResidualAttentionBlock`:
 
     x = x + attn(ln_1(x));  x = x + mlp(ln_2(x)),  mlp = c_fc -> act -> c_proj
 
-Each block calls kernel B1 (`ops.attention.attention_subblock`) and then
-kernel B2 (`ops.mlp.mlp_subblock`). That is all the JAX package's
-`ops/block.py` does at head dim 64 (`block.py:217-226`: its whole-block
-kernel B10 is off by dispatch), so `ops/block.py` is not ported as a
-module. Parameter names follow open_clip (`resblocks.{i}.attn.in_proj_weight`,
+A float block dispatches as the JAX block does (`transformer.py:114-127`):
+at head dim 64 and W % 128 == 0 (the ViT-B-16 trunk and the text towers
+of ViT-B-16 and RN50x4) it calls `ops.block.transformer_block`, which
+runs the whole block as kernel B10 where its rule says so and otherwise
+kernel B1 (`ops.attention.attention_subblock`) then kernel B2
+(`ops.mlp.mlp_subblock`); every other shape calls B1 then B2. Parameter
+names follow open_clip (`resblocks.{i}.attn.in_proj_weight`,
 `.ln_1.weight`, `.mlp.c_fc.weight`, ...), the names that
 `models/clip/convert.py:45 _resblock` reads.
 
@@ -40,6 +42,7 @@ from fashionern_aaai2024_tpu_torch.ops.attention import (
     attention_subblock,
     fused_qkv_self_attention,
 )
+from fashionern_aaai2024_tpu_torch.ops.block import transformer_block
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 from fashionern_aaai2024_tpu_torch.ops.mlp import mlp_subblock
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
@@ -48,7 +51,7 @@ from fashionern_aaai2024_tpu_torch.ops.qmlp import int8_attention_subblock, int8
 
 class _AttentionParams(nn.Module):
     """`nn.MultiheadAttention`'s parameter layout: packed in-projection
-    [3W, W] + out_proj Linear. The forward is kernel B1."""
+    [3W, W] + out_proj Linear."""
 
     def __init__(self, width: int):
         super().__init__()
@@ -101,6 +104,13 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, W]
         if self.quantize:
             return self._forward_int8(x)
+        if x.shape[-1] // self.heads == 64 and x.shape[-1] % 128 == 0:
+            return transformer_block(
+                x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
+                self.attn.in_proj_bias, self.attn.out_proj.weight, self.attn.out_proj.bias,
+                self.ln_2.weight, self.ln_2.bias, self.mlp["c_fc"].weight,
+                self.mlp["c_fc"].bias, self.mlp["c_proj"].weight, self.mlp["c_proj"].bias,
+                self.heads, causal=self.causal, activation=self.activation, eps=self.ln_1.eps)
         x = attention_subblock(
             x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
             self.attn.in_proj_bias, self.attn.out_proj.weight, self.attn.out_proj.bias,

@@ -29,7 +29,8 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     launches the attention core on the operands' own strides (a head view
     of [B, S, H*Dh] rows, or contiguous [B, H, S, Dh]), through
     `MHAFunction` when a gradient is wanted (TME trains through it; its
-    backward is the `_mha_ref` VJP, as `_mha_pallas_diff_bwd`, `:679`).
+    backward is the `_mha_ref` VJP, bias included, as
+    `_mha_pallas_diff_bwd`, `:679`).
     JAX's dispatch gates the kernel to Sk >= 512 or Dh % 128 == 0
     (`:739`), 128-lane padding on the TPU; Hopper has no such limit, so
     here it runs at TME's shapes.
@@ -232,7 +233,7 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
     if not 1 <= sk <= _MAX_SEQ:
         raise ValueError(f"multi_head_attention: Sk={sk} keys; the kernel takes 1 to "
                          f"{_MAX_SEQ} (longer sequences: ROADMAP B9)")
-    common.check_no_grad("multi_head_attention", q, k, v)
+    common.check_no_grad("multi_head_attention", q, k, v, bias)
     if q.dtype not in common.DTYPE_CODES:
         raise TypeError(f"multi_head_attention: dtype {q.dtype} not supported "
                         "(the kernels take float32 or bfloat16)")
@@ -262,8 +263,9 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
 
 class MHAFunction(torch.autograd.Function):
     """Forward: kernel B9. Backward: autograd of the `_mha_ref` formula
-    with the scores recomputed (`_mha_pallas_diff_bwd`, `:679-685`); the
-    bias is a constant."""
+    with the scores recomputed (`_mha_pallas_diff_bwd`, `:679-685`),
+    including the bias's gradient: dS summed over the batch and the
+    heads, as the JAX VJP gives it."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -274,14 +276,14 @@ class MHAFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        q, k, v, bias = ctx.saved_tensors
-        saved = [t.detach().requires_grad_(need)
-                 for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
-        wanted = [t for t in saved if t.requires_grad]
+        saved = [None if t is None else t.detach().requires_grad_(need)
+                 for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+        wanted = [t for t in saved if t is not None and t.requires_grad]
         with torch.enable_grad():
-            out = mha_ref(*saved, bias, ctx.scale)
+            out = mha_ref(*saved, ctx.scale)
         grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in saved), None, None)
+        return (*(next(grads) if t is not None and t.requires_grad else None for t in saved),
+                None)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -304,7 +306,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return mha_ref(q, k, v, bias32, scale, dropout_rate, generator)
     if not common.is_cuda(q):
         return mha_plain(q, k, v, bias32, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, bias32)):
         out = MHAFunction.apply(q, k, v, bias32, scale)
     else:
         out = _launch_mha(q, k, v, bias32, scale)

@@ -66,6 +66,10 @@ _SIGNATURES = {
     # pred, tar, row, part_m, part_l, diag, B, d, temp, splits,
     # tiles_per_split, device, stream
     "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    # x, ln1_w, ln1_b, in_w, in_b, out_w, out_b, ln2_w, ln2_b, fc_w, fc_b,
+    # proj_w, proj_b, workspace, barrier, out, batch, seq, width, ffn, heads,
+    # causal, scale, eps, act, dtype, device, stream
+    "fern_block": (*(_P,) * 16, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,11 +1,13 @@
 """Gallery embedding + retrieval index.
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/engine.py`:
-`GalleryFeatures`, `embed_gallery` (`:74`) and the exact tier of
-`RetrievalIndex` (`:136-214`), fp32 or int8 (`quantize=True`,
-`--quantize-gallery`). `embed_gallery` is serial here: the JAX version's
-prefetch thread, approximate top-k (and with it `calibrate_approx`) and
-mesh sharding are not ported yet.
+`names_to_ids` (`:27`), `GalleryFeatures`, `embed_gallery` (`:74`) and
+the exact tier of `RetrievalIndex` (`:136-235`), fp32 or int8
+(`quantize=True`, `--quantize-gallery`), with the name ids, top-k ids,
+member scores and row lookups the evaluators use. `embed_gallery` is
+serial here: the JAX version's prefetch thread, approximate top-k (and
+with it `calibrate_approx`) and mesh sharding are not ported yet
+(ROADMAP A1, A8).
 
 Features stay on the model's device as fp32 tensors, so a query's
 reference-row gather and the search run there without a host round
@@ -25,6 +27,17 @@ from fashionern_aaai2024_tpu_torch.ops.quant import (
     quantize_rows,
 )
 from fashionern_aaai2024_tpu_torch.ops.similarity import blocked_top_k_similarity
+
+
+def names_to_ids(names: Sequence[str]) -> tuple[np.ndarray, dict[str, int]]:
+    """Dense int ids for gallery names. Duplicate names (Fashion200k
+    caption-id galleries) share an id, which is exactly the
+    multi-positive semantics."""
+    vocab: dict[str, int] = {}
+    ids = np.empty(len(names), np.int32)
+    for i, n in enumerate(names):
+        ids[i] = vocab.setdefault(n, len(vocab))
+    return ids, vocab
 
 
 @dataclasses.dataclass
@@ -62,6 +75,8 @@ class RetrievalIndex:
 
     def __init__(self, names: Sequence[str], features: torch.Tensor, quantize: bool = False):
         self.names = list(names)
+        self.ids, self.vocab = names_to_ids(self.names)
+        self._rows: dict[str, int] | None = None
         self.quantized = quantize
         self.features_q = self.scales = None
         if quantize:
@@ -81,3 +96,23 @@ class RetrievalIndex:
             q = torch.as_tensor(query_features).to(self.features.device)
             scores, idx = blocked_top_k_similarity(q, self.features, k=k, chunk=chunk)
         return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def topk_ids(self, indices: np.ndarray) -> np.ndarray:
+        """Gallery row indices -> name ids (for the recall metrics)."""
+        return self.ids[indices]
+
+    def scores_for(self, query_features: torch.Tensor, member_rows: np.ndarray) -> np.ndarray:
+        """Similarity of each query to a small per-query member set (CIRR
+        subset recall) from the fp32 features; member_rows [Q, G] -> [Q, G]."""
+        q = torch.as_tensor(query_features).to(self.features.device, torch.float32)
+        members = self.features[torch.as_tensor(member_rows, device=self.features.device)]
+        return torch.einsum("qd,qgd->qg", q, members).cpu().numpy()
+
+    def row_of(self, name: str) -> int:
+        """The first row named `name` (list.index semantics, for the
+        Fashion200k duplicate-name case)."""
+        if self._rows is None:
+            self._rows = {}
+            for i, n in enumerate(self.names):
+                self._rows.setdefault(n, i)
+        return self._rows[name]

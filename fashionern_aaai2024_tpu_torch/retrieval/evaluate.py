@@ -1,25 +1,41 @@
-"""The inference API over a composed model.
+"""The inference API over a composed model, and the dataset evaluators.
 
-JAX counterpart: `fashionern_aaai2024_tpu/retrieval/evaluate.py`
-`InferenceAPI` (`:39`): `encode_image`, `encode_text`, `query`,
-`refine_gallery` and `tokenize`, and `last_wins_rows`.
-The dataset evaluators, `build_serve_fn` (the one-dispatch serve program)
-and the mesh path are not ported yet.
+JAX counterpart: `fashionern_aaai2024_tpu/retrieval/evaluate.py`:
+`InferenceAPI` (`:39`: `encode_image`, `encode_text`, `query`,
+`refine_gallery`, `tokenize`, `gallery_encode_fn`), `last_wins_rows`,
+and the evaluators of `:752-922`, the reference's `compute_*_val_metrics`
+pipelines: embed the gallery (global features and the 13 patch features
+of every item), tokenize the captions, run the text tower and the DVR
+query tower against the raw reference features (looked up by name, the
+last duplicate winning), refine the gallery through the index tower,
+take the exact top-k, and score Recall@K (`retrieval/metrics.py`).
+`build_serve_fn` (the one-dispatch serve program) and the mesh path are
+not ported yet (ROADMAP A1, A8).
 
 The batch wrappers take host arrays or tensors and run in slices of
 `batch_size`. JAX padded the last slice to keep one compiled program;
 eager PyTorch compiles nothing per shape, so the last slice runs at its
-own size. Outputs are tensors on the API's device.
+own size. Outputs are tensors on the API's device. The evaluators take
+any iterables of batch dicts as loaders (`data/loader.py Loader`, or a
+list of batches).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
+from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
+from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel
+from fashionern_aaai2024_tpu_torch.retrieval import metrics as M
+from fashionern_aaai2024_tpu_torch.retrieval.engine import (
+    GalleryFeatures,
+    RetrievalIndex,
+    embed_gallery,
+)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -34,20 +50,22 @@ def resolve_device(device: torch.device | str) -> torch.device:
 class InferenceAPI:
     """Batched forwards of a composed model in eval mode."""
 
-    def __init__(self, model: ComposedCIRModel, *, tokenizer: Callable,
-                 device: torch.device | str, batch_size: int = 32,
+    def __init__(self, model: ComposedCIRModel, *, tokenizer: Callable | None = None,
+                 device: torch.device | str = "cuda", batch_size: int = 32,
                  context_length: int = 77, quantize_gallery: bool = False):
         """`tokenizer`: callable (captions, context_length) -> int32
-        [B, L]. The CLIP BPE table is not in the repository, so there is
-        no default. `quantize_gallery`: the services built on this API
-        store the refined gallery int8 for the top-k search
-        (`--quantize-gallery`, `ops/quant.py`)."""
+        [B, L]; by default the port's CLIP BPE (`models/clip/tokenizer.py
+        tokenize`), which finds its table at the first call
+        (`default_bpe_path`) or raises FileNotFoundError there.
+        `quantize_gallery`: the services built on this API store the
+        refined gallery int8 for the top-k search (`--quantize-gallery`,
+        `ops/quant.py`)."""
         self.device = resolve_device(device)
         self.quantize_gallery = quantize_gallery
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.context_length = context_length
-        self._tokenizer = tokenizer
+        self._tokenizer = tokenizer if tokenizer is not None else tokenize
 
     def _slices(self, n: int):
         return (slice(i, i + self.batch_size) for i in range(0, n, self.batch_size))
@@ -104,8 +122,151 @@ class InferenceAPI:
     def tokenize(self, captions: Sequence[str]) -> np.ndarray:
         return self._tokenizer(captions, self.context_length)
 
+    def gallery_encode_fn(self) -> Callable:
+        """The image encoder `engine.embed_gallery` takes: an image batch
+        -> (global, tokens) on the API's device."""
+        return self.encode_image
+
 
 def last_wins_rows(names: Sequence[str]) -> dict[str, int]:
     """name -> gallery row, duplicates resolved to the last occurrence
     (the reference's `dict(zip(names, features))` semantics)."""
     return {n: i for i, n in enumerate(names)}
+
+
+def generate_predictions(api: InferenceAPI, relative_loader: Iterable[dict],
+                         caption_fn: Callable[[dict], list[str]], gallery: GalleryFeatures,
+                         collect: Sequence[str] = (),
+                         ref_key: str = "ref_name") -> tuple[torch.Tensor, dict[str, list]]:
+    """Query pass (the reference's `generate_*_val_predictions`). Returns
+    (predictions [Q, d] on the API's device, {key: list} for every
+    `collect` key)."""
+    rows = last_wins_rows(gallery.names)
+    preds: list[torch.Tensor] = []
+    meta: dict[str, list] = {k: [] for k in collect}
+    for batch in relative_loader:
+        ids = api.tokenize(caption_fn(batch))
+        tg, tseq = api.encode_text(ids, visual_emb=batch["ref_patch"])
+        ref_rows = torch.as_tensor([rows[r] for r in batch[ref_key]],
+                                   device=gallery.features.device)
+        preds.append(api.query(gallery.features[ref_rows], batch["ref_patch"], tg, tseq))
+        for k in collect:
+            meta[k].extend(batch[k])
+    return torch.cat(preds), meta
+
+
+def _search_ids(api: InferenceAPI, gallery: GalleryFeatures, preds: torch.Tensor,
+                k: int) -> tuple[RetrievalIndex, np.ndarray]:
+    """Refine the gallery, index it, and return the top-k name ids of
+    every prediction. (The JAX evaluator calibrates its approximate tier
+    here, `calibrate_approx`; the port has the exact tier only, where
+    that is a no-op.)"""
+    refined = api.refine_gallery(gallery.features, gallery.local_features)
+    index = RetrievalIndex(gallery.names, refined, quantize=api.quantize_gallery)
+    _, idx = index.search(preds, k=min(k, len(gallery.names)))
+    return index, index.topk_ids(idx)
+
+
+def fiq_caption_fn(batch: dict) -> list[str]:
+    return [join_fiq_captions(c[0], c[1]) for c in batch["captions"]]
+
+
+def plain_caption_fn(batch: dict) -> list[str]:
+    return list(batch["caption"])
+
+
+def evaluate_fiq_split(api: InferenceAPI, classic_loader: Iterable[dict],
+                       relative_loader: Iterable[dict],
+                       ks: tuple[int, ...] = (10, 50)) -> dict:
+    """One dress type (the reference's `compute_fiq_val_metrics`,
+    `validate_fiq.py:11-47`); also the VAL protocol with its longer K
+    list (`test_val.py:58-67`)."""
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    preds, meta = generate_predictions(api, relative_loader, fiq_caption_fn, gallery,
+                                       collect=("tar_name",))
+    index, topk_ids = _search_ids(api, gallery, preds, max(ks))
+    r = M.recall_at_k(topk_ids, M.names_to_id_array(meta["tar_name"], index.vocab), ks)
+    out = {f"recall_at{k}": r[k] for k in ks}
+    out["avg"] = float(np.mean(list(r.values())))
+    return out
+
+
+def evaluate_shoes(api: InferenceAPI, classic_loader: Iterable[dict],
+                   relative_loader: Iterable[dict]) -> dict:
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
+                                       collect=("tar_name",))
+    index, topk_ids = _search_ids(api, gallery, preds, 50)
+    return M.fiq_metrics(topk_ids, M.names_to_id_array(meta["tar_name"], index.vocab))
+
+
+def evaluate_fashion200k(api: InferenceAPI, classic_loader: Iterable[dict],
+                         relative_loader: Iterable[dict]) -> dict:
+    """Gallery names are caption ids: duplicate ids encode the
+    multi-positive semantics (`test_200k.py:53-60`)."""
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
+                                       collect=("tar_id",), ref_key="ref_id")
+    index, topk_ids = _search_ids(api, gallery, preds, 50)
+    return M.fashion200k_metrics(topk_ids, M.names_to_id_array(meta["tar_id"], index.vocab))
+
+
+def evaluate_cirr(api: InferenceAPI, classic_loader: Iterable[dict],
+                  relative_loader: Iterable[dict]) -> dict:
+    """The CIRR suite on the val split: R@K with the reference image
+    dropped from the ranking, and subset recall among the 6 group
+    members (`validate_cirr.py:11-126`)."""
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
+                                       collect=("tar_name", "ref_name", "group_members"))
+    index, topk_ids = _search_ids(api, gallery, preds, 51)
+    rows = last_wins_rows(gallery.names)
+    member_rows = np.asarray([[rows[m] for m in g] for g in meta["group_members"]])
+    return M.cirr_metrics(topk_ids, M.names_to_id_array(meta["ref_name"], index.vocab),
+                          M.names_to_id_array(meta["tar_name"], index.vocab),
+                          index.scores_for(preds, member_rows), index.ids[member_rows])
+
+
+def generate_cirr_submission(api: InferenceAPI, classic_loader: Iterable[dict],
+                             relative_loader: Iterable[dict]) -> dict:
+    """CIRR test1 split, whose targets are unpublished: the official
+    submission payloads, per pair_id the top-50 gallery names (reference
+    image removed) and the top-3 among the group members."""
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
+                                       collect=("pair_id", "ref_name", "group_members"))
+    refined = api.refine_gallery(gallery.features, gallery.local_features)
+    index = RetrievalIndex(gallery.names, refined)
+    _, idx = index.search(preds, k=min(51, len(gallery.names)))
+    rows = last_wins_rows(gallery.names)
+    ranking: dict[str, list[str]] = {}
+    subset: dict[str, list[str]] = {}
+    for qi, pair_id in enumerate(meta["pair_id"]):
+        ref = meta["ref_name"][qi]
+        ranking[str(pair_id)] = [gallery.names[j] for j in idx[qi]
+                                 if gallery.names[j] != ref][:50]
+        members = meta["group_members"][qi]
+        member_rows = np.asarray([rows[m] for m in members])
+        scores = index.scores_for(preds[qi:qi + 1], member_rows[None])[0]
+        subset[str(pair_id)] = [members[j] for j in np.argsort(-scores)
+                                if members[j] != ref][:3]
+    return {
+        "recall_submission": {"version": "rc2", "metric": "recall", **ranking},
+        "recall_subset_submission": {"version": "rc2", "metric": "recall_subset", **subset},
+    }
+
+
+def evaluate_fiq(api: InferenceAPI, loaders_by_type: dict[str, tuple]) -> dict:
+    """Every dress type: per-type recalls and the reference's selection
+    metric, the mean of (R@10 + R@50) / 2 (`train_fiq.py:158-169`)."""
+    out: dict = {}
+    r10, r50 = [], []
+    for dt, (classic, relative) in loaders_by_type.items():
+        r = evaluate_fiq_split(api, classic, relative)
+        out[dt] = r
+        r10.append(r["recall_at10"])
+        r50.append(r["recall_at50"])
+    out["mean_recall_at10"] = float(np.mean(r10))
+    out["mean_recall_at50"] = float(np.mean(r50))
+    out["avg"] = (out["mean_recall_at10"] + out["mean_recall_at50"]) / 2
+    return out

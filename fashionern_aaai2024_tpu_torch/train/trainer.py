@@ -44,6 +44,7 @@ from fashionern_aaai2024_tpu_torch.data.captions import (
 from fashionern_aaai2024_tpu_torch.data.loader import Loader
 from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
+from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI, resolve_device
 from fashionern_aaai2024_tpu_torch.train.checkpoint import (
@@ -135,7 +136,9 @@ def _unported_dataset(cfg: TrainConfig):
 
 def _unported_validator(cfg: TrainConfig):
     raise NotImplementedError(
-        f"the {cfg.dataset} evaluator is not ported yet (ROADMAP.md A9): pass validator")
+        f"the {cfg.dataset} validation set (its dataset class) is not ported yet "
+        "(ROADMAP.md A9): pass validator, e.g. one that runs retrieval/evaluate.py's "
+        "evaluator over in-memory loaders")
 
 
 def _200k_validator(cfg: TrainConfig):
@@ -165,17 +168,15 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, *, device: torch.device | str = "cuda",
                  mesh=None, model: ComposedCIRModel | None = None, train_dataset=None,
                  validator=None, plugin: DatasetPlugin | None = None, tokenizer=None):
-        """Every heavyweight piece is injectable; `tokenizer` is required
-        (the CLIP BPE table is not in the repository)."""
+        """Every heavyweight piece is injectable; `tokenizer` defaults to
+        the port's CLIP BPE (`models/clip/tokenizer.py tokenize`), which
+        raises FileNotFoundError at its first call when no table is found."""
         if mesh is not None and _mesh_size(mesh) > 1:
             raise NotImplementedError(
                 "training on a mesh of more than one device is not ported yet "
                 "(ROADMAP.md A8)")
         if cfg.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be 'fp32' or 'bf16', got {cfg.precision!r}")
-        if tokenizer is None:
-            raise ValueError("a tokenizer is required: the CLIP BPE table is not in the "
-                             "repository")
         self.cfg = cfg
         if plugin is None and cfg.dataset not in PLUGINS:
             raise ValueError(
@@ -195,7 +196,7 @@ class Trainer:
                              f"tme={model.clip_config.text.tme}")
         self.model = model.to(self.device)
         self.clip_cfg = model.clip_config
-        self.tokenizer = tokenizer
+        self.tokenizer = tokenizer if tokenizer is not None else tokenize
 
         self.train_dataset = (train_dataset if train_dataset is not None
                               else self.plugin.make_train_dataset(cfg))

@@ -509,3 +509,91 @@ def test_combiner_kernel_rejects_what_it_does_not_take(device):
             Cb.combiner_apply(x.bfloat16(), x.bfloat16(), module)
         with pytest.raises(ValueError, match="expected two"):
             Cb.combiner_apply(x, x[:2], module)
+
+
+def _block_args(g, b, s, w, dtype, device):
+    f = 4 * w
+    return (_t(g, (b, s, w), 1.0, dtype, device),
+            _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device),
+            _t(g, (3 * w, w), 0.02, dtype, device), _t(g, (3 * w,), 0.02, dtype, device),
+            _t(g, (w, w), 0.02, dtype, device), _t(g, (w,), 0.02, dtype, device),
+            _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device),
+            _t(g, (f, w), 0.02, dtype, device), _t(g, (f,), 0.02, dtype, device),
+            _t(g, (w, f), 0.02, dtype, device), _t(g, (w,), 0.02, dtype, device))
+
+
+# (batch, seq, width, heads, causal): the text towers of ViT-B-16 and
+# RN50x4 at b = 1 and 4, the ViT-B-16 trunk
+BLOCK_SHAPES = [(1, 77, 512, 8, True), (4, 77, 512, 8, True), (1, 77, 640, 10, True),
+                (4, 77, 640, 10, True), (2, 197, 768, 12, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("b,s,w,heads,causal", BLOCK_SHAPES)
+def test_block_kernel_matches_plain(device, dtype, activation, b, s, w, heads, causal):
+    """Kernel B10 (one launch) against its plain version (B1's then B2's
+    rounding points), and against B1 + B2 launched one after the other,
+    which run the same device code."""
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    args = _block_args(np.random.default_rng(30), b, s, w, dtype, device)
+    n0 = B.transformer_block.launches
+    got = B._launch_block(*args, heads, causal, activation, None, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, B.transformer_block_plain(*args, heads, causal=causal, activation=activation),
+           dtype)
+    pair = M.mlp_subblock(A.attention_subblock(*args[:7], heads, causal=causal), *args[7:],
+                          activation=activation)
+    torch.testing.assert_close(got, pair, atol=0, rtol=0)
+    B.transformer_block(*args, heads, causal=causal, activation=activation)
+    assert B.transformer_block.launches == n0 + 1
+
+
+def test_block_function_gradients_match_plain_autograd(device):
+    """`BlockFunction` (forward: B10) against autograd of the plain
+    version, fp32, text tower shape at B = 2: all 13 gradients."""
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    g = np.random.default_rng(31)
+    args = _block_args(g, 2, 77, 512, torch.float32, device)
+    up = _t(g, (2, 77, 512), 1.0, torch.float32, device)
+    ours = [t.detach().clone().requires_grad_() for t in args]
+    plain = [t.detach().clone().requires_grad_() for t in args]
+    n0 = B.transformer_block.launches
+    (B.transformer_block(*ours, 8, causal=True) * up).sum().backward()
+    assert B.transformer_block.launches == n0 + 1
+    (B.transformer_block_plain(*plain, 8, causal=True) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_block_kernel_rejects_what_it_does_not_take(device):
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    args = _block_args(np.random.default_rng(32), 1, 77, 512, torch.float32, device)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        B._launch_block(args[0].bfloat16(), *args[1:], 8, True, "gelu", None, 1e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        B._launch_block(*args, 4, True, "gelu", None, 1e-5)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        B._launch_block(args[0].requires_grad_(), *args[1:], 8, True, "gelu", None, 1e-5)
+
+
+def test_mha_autograd_gives_the_bias_gradient(device):
+    """B9's autograd Function returns the gradient of an additive bias
+    that requires grad (ROADMAP C9), equal to the plain version's."""
+    g = np.random.default_rng(23)
+    q0, k0, v0 = _mha_operands(g, 4, 8, 77, 13, 64, "rows", torch.float32, device)
+    b0 = _t(g, (77, 13), 2.0, torch.float32, device)
+    up = _t(g, (4, 8, 77, 64), 1.0, torch.float32, device)
+    ours = [t.detach().clone().requires_grad_() for t in (q0, k0, v0, b0)]
+    plain = [t.detach().clone().requires_grad_() for t in (q0, k0, v0, b0)]
+    n0 = A.multi_head_attention.launches
+    (A.multi_head_attention(*ours[:3], bias=ours[3]) * up).sum().backward()
+    assert A.multi_head_attention.launches == n0 + 1
+    (A.mha_plain(*plain) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * b.grad.abs().max().item())

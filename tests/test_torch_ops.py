@@ -483,6 +483,37 @@ def test_mha_autograd_matches_jax_vjp(monkeypatch, sq, sk, causal, with_bias):
                                        atol=1e-5 * np.abs(np.asarray(w)).max(), err_msg=path)
 
 
+def test_mha_function_gives_the_bias_gradient(monkeypatch):
+    """B9's autograd Function, its launch replaced by `mha_ref`, returns
+    the gradients of q, k, v and an additive [Sq, Sk] bias that requires
+    grad (dS summed over the batch and the heads, as `_mha_pallas_diff_bwd`
+    gives it), equal to autograd of `mha_plain`; `multi_head_attention`
+    takes the Function when only the bias requires grad."""
+    monkeypatch.setattr(TA, "_launch_mha", lambda q, k, v, bias, scale: TA.mha_ref(
+        q, k, v, bias, scale))
+    q, k, v, bias = _mha_inputs(2, 3, 7, 5, 64, True, seed=72)
+    # upstream gradient at std 0.1: every gradient element stays below 1,
+    # where two fp32 summation orders differ by ~1e-7, inside atol 1e-6
+    up = torch.from_numpy(0.1 * np.random.default_rng(73).standard_normal((2, 3, 7, 64)).astype(
+        np.float32))
+    grads = {}
+    for path in ("function", "plain"):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
+        fn = TA.MHAFunction.apply if path == "function" else TA.mha_plain
+        (fn(*ts, 64 ** -0.5) * up).sum().backward()
+        grads[path] = [t.grad for t in ts]
+    for got, want in zip(grads["function"], grads["plain"]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert grads["function"][3].abs().max() > 1e-2
+    calls = []
+    monkeypatch.setattr(TA.MHAFunction, "apply", lambda *a: calls.append(a) or TA.mha_ref(
+        *a))
+    monkeypatch.setattr(TA.common, "is_cuda", lambda t: True)
+    tb = torch.from_numpy(bias).requires_grad_()
+    TA.multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)), bias=tb)
+    assert len(calls) == 1 and calls[0][3].requires_grad
+
+
 def test_mha_core_layouts():
     """The kernel reads [B, H, S, Dh] operands through their strides: a
     head view of [B, S, H*Dh] rows (TME's projections) as (B, H, H*Dh),
