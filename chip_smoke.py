@@ -85,10 +85,27 @@ Phases (each raises on failure; nothing is caught):
       `evaluate_cirr` of ViT-B-16 at full width, seeded weights, over
       in-memory FashionIQ- and CIRR-shaped loaders (galleries of 512,
       256 queries each, batches of 32), on the card under the bf16 serve
-      policy and on the CPU in fp32 with the plain versions: launch counts
-      on the card, every prediction card against CPU at cosine >= 0.99,
-      and the recall dicts of both;
-  13. a `torch.profiler` split by kernel of one embed + refine call of
+      policy and, for the first 64 queries of every evaluator over a
+      gallery cut to the images they name, on the CPU in fp32 with the
+      plain versions: launch counts on the card, every CPU query's
+      prediction card against CPU at cosine >= 0.99, and the recall dicts
+      of both;
+  13. the attention experiment (X1-X4, `ops/attn_experiment.py`, the
+      port of `benchmarks/attn_experiment.py`) at its full shapes (the
+      ViT-B-16 attention layer at B = 128: 12 heads of 64, 197 tokens,
+      padded to 208 / 256 rows and 128 lanes for X1, 208 rows for X2):
+      X1 at every G of its sweep and X2 at every gb, X3 and X4, each in
+      fp32 and bf16 against its plain version, timed beside it and
+      beside a library composition (SDPA with the bias as `attn_mask`,
+      with `F.linear` / `F.layer_norm` around it for X3 and X4); B9
+      (`multi_head_attention`) through the grouped kernel at 300, 512
+      and 1024 keys, head dims 128 and 64, biased and causal cases (with
+      the bias gradient of `MHAFunction`); then the experiment's runner
+      (`python -m fashionern_aaai2024_tpu_torch.benchmarks.attn_experiment
+      --all`, its fp32 checks, its bf16 G / gb sweeps and library
+      times) with launch counts set to 0 just before and held to
+      `experiment_launches` just after;
+  14. a `torch.profiler` split by kernel of one embed + refine call of
       each tier (phases 4, 6 and 10), of one ViT-B-16 and one RN50x4
       query at b=1, and of one RN50x4 and one TME query at b=32, with the device time of the `record_function` spans (image
       tower, its trunk and attention pool, index refine; text tower, DVR
@@ -135,6 +152,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from fashionern_aaai2024_tpu_torch.benchmarks import attn_experiment as XD
 from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP_MEAN, CLIP_STD
@@ -145,6 +163,7 @@ from fashionern_aaai2024_tpu_torch.models.composed import (
     random_init_,
 )
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import attn_experiment as XA
 from fashionern_aaai2024_tpu_torch.ops import block as TB
 from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
@@ -209,6 +228,7 @@ B7, B8, B11 = ("fused_qkv_self_attention (B7)", "packed_kv_cross_attention (B8)"
                "layer_norm (B11)")
 B9, B12 = "multi_head_attention (B9)", "combiner_apply (B12)"
 B10 = "transformer_block (B10)"
+X1, X2, X3, X4 = ("mha_grouped (X1)", "mha_packed (X2)", "qkvattn (X3)", "attnblock (X4)")
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -228,22 +248,32 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/attention.py:264"),
     B11: (LN.layer_norm, "fashionern_aaai2024_tpu_torch/csrc/layernorm.cu",
           "fashionern_aaai2024_tpu/ops/layernorm.py:46"),
-    B9: (A.multi_head_attention, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
+    B9: (A.multi_head_attention, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:84"),
     B12: (Cb.combiner_apply, "fashionern_aaai2024_tpu_torch/csrc",
           "fashionern_aaai2024_tpu/ops/combiner.py:63"),
     B10: (TB.transformer_block, "fashionern_aaai2024_tpu_torch/csrc/block.cu",
           "fashionern_aaai2024_tpu/ops/block.py:99"),
+    X1: (XA.mha_grouped, "fashionern_aaai2024_tpu_torch/csrc/attention_grouped.cu",
+         "benchmarks/attn_experiment.py:50"),
+    X2: (XA.mha_packed, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
+         "benchmarks/attn_experiment.py:168"),
+    X3: (XA.qkvattn, "fashionern_aaai2024_tpu_torch/csrc", "benchmarks/attn_experiment.py:257"),
+    X4: (XA.attnblock, "fashionern_aaai2024_tpu_torch/csrc", "benchmarks/attn_experiment.py:364"),
 }
 SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
            B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
            B6: ["quant.cu", "qgemm.cu", "attention.cu"], B7: ["gemm.cu", "attention.cu"],
-           B8: ["attention.cu"], B11: ["layernorm.cu"], B9: ["attention.cu"],
+           B8: ["attention.cu"], B11: ["layernorm.cu"],
+           B9: ["attention.cu", "attention_grouped.cu"],
            B12: ["gemm.cu", "combiner.cu"],
-           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "layernorm_row.cuh"]}
+           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "layernorm_row.cuh"],
+           X1: ["attention_grouped.cu"], X2: ["attention.cu"], X3: ["gemm.cu", "attention.cu"],
+           X4: ["layernorm.cu", "gemm.cu", "attention.cu"]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
+EXPERIMENT_KERNELS = (X1, X2, X3, X4)
 # int8 kernels against their plain versions: an int8 code that the two
 # summation orders round to neighbouring values moves the outputs that
 # depend on it by about one quantization step of a product, at most
@@ -310,6 +340,11 @@ MHA_BIAS_GRAD_COSINE_MIN = {torch.float32: 0.99999, torch.bfloat16: 0.99}
 # the evaluation phase: ViT-B-16 over in-memory FashionIQ- and CIRR-shaped
 # loaders (three dress types and CIRR, each a gallery and its queries)
 FIQ_TYPES = ("dress", "shirt", "toptee")
+# the CPU leg of the evaluation phase (fp32 plain versions, the run's
+# slowest phase) runs every evaluator on its first CPU_QUERIES queries
+# over a gallery cut to the images they name (`cpu_loaders`): the image
+# embeds (~35 GFLOP an image against ~6 a query) take most of its time
+CPU_QUERIES = 64
 EVAL_GALLERY, EVAL_QUERIES, CIRR_GROUP = 512, 256, 6
 CIRR_CAPTIONS = ["has two dogs instead of one", "the same bag but in black leather",
                  "show it from the side", "make the background a beach",
@@ -319,6 +354,18 @@ CIRR_CAPTIONS = ["has two dogs instead of one", "the same bag but in black leath
 NON_ASCII_CAPTIONS = ["a naïve café-style blouse", "Ⅻ² größer und dunkler",
                       "更正式 and darker"]
 BPE_MERGES = 200
+# B9 through the grouped kernel (head dims other than 64 / 80, more than
+# 256 keys): TME-like cross-attention (8 heads, 77 queries) against 300,
+# 512 and 1024 keys at head dim 128 and 64, and causal self-attention at
+# 512 and 1024 tokens; biased cases also hold the bias gradient
+MHA_LONG_SHAPES = [
+    ("sk300_dh128", dict(b=32, h=8, sq=77, sk=300, dh=128, bias=True)),
+    ("sk512_dh128", dict(b=32, h=8, sq=77, sk=512, dh=128)),
+    ("sk1024_dh128", dict(b=8, h=8, sq=77, sk=1024, dh=128, bias=True)),
+    ("sk300_dh64", dict(b=32, h=8, sq=77, sk=300, dh=64, bias=True)),
+    ("self512_dh64_causal", dict(b=8, h=8, sq=512, sk=512, dh=64, causal=True)),
+    ("self1024_dh128_causal", dict(b=4, h=8, sq=1024, sk=1024, dh=128, causal=True,
+                                   bias=True))]
 
 
 def log(msg: str) -> None:
@@ -664,9 +711,10 @@ def mha_bias_grad_cosine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel forward, the `_mha_ref` VJP backward) and autograd of the
     plain version's, under one seeded upstream gradient."""
     up = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)).cuda()
+    sq, sk = q.shape[2], k.shape[2]
     grads = []
     for fn in (lambda b: A.multi_head_attention(q, k, v, causal=causal, bias=b),
-               lambda b: A.mha_plain(q, k, v, A.shared_bias(causal, b, 77, 13, "cuda"))):
+               lambda b: A.mha_plain(q, k, v, A.shared_bias(causal, b, sq, sk, "cuda"))):
         b = bias.detach().clone().requires_grad_()
         (fn(b).float() * up).sum().backward()
         grads.append(b.grad.flatten().double())
@@ -752,6 +800,241 @@ def phase_tme_kernels() -> tuple[dict, list]:
             f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
     return worst, rows
+
+
+# --- the attention experiment: X1-X4, and B9 through the grouped kernel ---
+
+
+def experiment_inputs(name: str, dtype: torch.dtype, seed: int) -> tuple:
+    """X1-X4's operands at the experiment's full shapes (B = 128, 12 heads
+    of 64): X1 padded q [1536, 208, 128], k and v [1536, 256, 128], zero
+    past 197 rows and 64 lanes, its fp32 [208, 256] bias masking the
+    padded keys and, in row 3, every key; X2 packed qkv [128, 208, 2304]
+    (zero past 197 rows) with its [208, 208] padding bias; X3 / X4 x
+    [128, 197, 768], the torch-layout weights at std 0.02 (LN near
+    (1, 0)) and an arbitrary fp32 [197, 197] bias."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=g)).to(dtype).cuda()
+
+    def padding_bias(sk):
+        bias = torch.zeros((XA.SP, sk))
+        bias[:, XA.S:] = A.NEG_INF
+        return bias
+
+    b, w = XA.B, XA.W
+    if name == X1:
+        ops = []
+        for rows in (XA.SP, XA.SKP, XA.SKP):
+            x = torch.zeros((b * XA.H, rows, XA.DP))
+            x[:, :XA.S, :XA.DH] = torch.randn((b * XA.H, XA.S, XA.DH), generator=g)
+            ops.append(x.to(dtype).cuda())
+        bias = padding_bias(XA.SKP)
+        bias[3] = A.NEG_INF
+        return (*ops, bias.cuda())
+    if name == X2:
+        qkv = t(b, XA.SP, 3 * w)
+        qkv[:, XA.S:] = 0
+        return qkv, padding_bias(XA.SP).cuda()
+    x = t(b, XA.S, w)
+    bias = torch.randn((XA.S, XA.S), generator=g).cuda()
+    if name == X3:
+        return x, t(3 * w, w, scale=0.02), t(3 * w, scale=0.02), bias
+    return (x, t(w, scale=0.1, offset=1.0), t(w, scale=0.1), t(3 * w, w, scale=0.02),
+            t(3 * w, scale=0.02), t(w, w, scale=0.02), t(w, scale=0.02), bias)
+
+
+def experiment_work(name: str, dtype: torch.dtype) -> dict:
+    """Bound of one X1-X4 call at the experiment's shapes: every input
+    read once (the fp32 bias too) and the output written once; FLOPs:
+    4·N·Sq·Sk·D for the attention (X1 on its padded operands, as the
+    kernel is asked), plus 6·m·W² (X3) or 8·m·W² (X4) for the
+    projections, at the dtype's peak."""
+    e = torch.finfo(dtype).bits // 8
+    b, h, s, w = XA.B, XA.H, XA.S, XA.W
+    if name == X1:
+        bh = b * h
+        return bound(4 * bh * XA.SP * XA.SKP * XA.DP,
+                     e * bh * XA.DP * (2 * XA.SP + 2 * XA.SKP) + 4 * XA.SP * XA.SKP, dtype)
+    if name == X2:
+        return bound(4 * b * XA.SP * XA.SP * w, e * b * XA.SP * 4 * w + 4 * XA.SP * XA.SP,
+                     dtype)
+    m, attn, bias_bytes = b * s, 4 * b * s * s * w, 4 * s * s
+    if name == X3:
+        return bound(6 * m * w * w + attn, e * (2 * m * w + 3 * w * w + 3 * w) + bias_bytes,
+                     dtype)
+    return bound(8 * m * w * w + attn, e * (2 * m * w + 4 * w * w + 6 * w) + bias_bytes, dtype)
+
+
+def experiment_calls(name: str, args: tuple, per_program: int):
+    """(kernel, plain version, library call) of X1-X4; X1 and X2 with
+    `per_program` pairs / images a program. The library calls (SDPA with
+    the bias as `attn_mask`, with `F.linear` / `F.layer_norm` around it)
+    are never called by the port."""
+    scale = XA.DH ** -0.5
+    sdpa = XD.sdpa_with_bias
+    if name == X1:
+        q, k, v, bias = args
+        return (lambda: XA.mha_grouped(q, k, v, bias, scale, per_program),
+                lambda: XA.mha_grouped_plain(q, k, v, bias, scale, per_program),
+                lambda: sdpa(q, k, v, bias, scale))
+    if name == X2:
+        qkv, bias = args
+        return (lambda: XA.mha_packed(qkv, bias, scale, per_program),
+                lambda: XA.mha_packed_plain(qkv, bias, scale, per_program),
+                lambda: sdpa(*qkv.split(XA.W, dim=-1), bias, scale, heads=XA.H))
+    if name == X3:
+        x, wq, bq, bias = args
+
+        def library():
+            return sdpa(*F.linear(x, wq, bq).split(XA.W, dim=-1), bias, scale, heads=XA.H)
+        return (lambda: XA.qkvattn(x, wq, bq, bias, scale),
+                lambda: XA.qkvattn_plain(x, wq, bq, bias, scale), library)
+    x, g_, be, wq, bq, wo, bo, bias = args
+
+    def library():
+        y = F.layer_norm(x, (XA.W,), g_, be, XA.LN_EPS)
+        o = sdpa(*F.linear(y, wq, bq).split(XA.W, dim=-1), bias, scale, heads=XA.H)
+        return x + F.linear(o, wo, bo)
+    return (lambda: XA.attnblock(x, g_, be, wq, bq, wo, bo, bias, scale),
+            lambda: XA.attnblock_plain(x, g_, be, wq, bq, wo, bo, bias, scale), library)
+
+
+def mha_long_case(shp: dict, dtype: torch.dtype, seed: int):
+    """B9 operands for the grouped kernel: head views [B, H, S, Dh] of
+    [B, S, H*Dh] projections, and a shared fp32 [Sq, Sk] bias when the
+    case has one."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, dh = shp["b"], shp["h"], shp["dh"]
+
+    def view(s):
+        t = torch.randn((b, s, h * dh), generator=g).to(dtype).cuda()
+        return t.view(b, s, h, dh).transpose(1, 2)
+
+    bias = 2 * torch.randn((shp["sq"], shp["sk"]), generator=g) if shp.get("bias") else None
+    return view(shp["sq"]), view(shp["sk"]), view(shp["sk"]), (
+        None if bias is None else bias.cuda())
+
+
+def mha_long_work(shp: dict, dtype: torch.dtype) -> dict:
+    """Bound of one B9 call on the grouped kernel: 4·B·H·pairs·Dh FLOPs
+    (causal: only the unmasked pairs), q, k, v, the bias and the output
+    once each."""
+    e = torch.finfo(dtype).bits // 8
+    b, h, sq, sk, dh = shp["b"], shp["h"], shp["sq"], shp["sk"], shp["dh"]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if shp.get("causal") else sq * sk
+    return bound(4 * b * h * pairs * dh, e * 2 * b * h * dh * (sq + sk)
+                 + (4 * sq * sk if shp.get("bias") else 0), dtype)
+
+
+def check_row(name: str, label: str, dtype: torch.dtype, kernel, plain, library,
+              work: dict) -> dict:
+    """The kernel against its plain version at the dtype's tolerance, and
+    the kernel's, the plain version's and the library call's times."""
+    with torch.no_grad():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
+                   ms=median_ms(kernel), plain_ms=median_ms(plain),
+                   library_ms=median_ms(library), **work)
+    log(f"  {name:32s} {label:21s} {row['dtype']:9s} err {err:.3e}  "
+        f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+        f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_experiment_kernels() -> tuple[dict, list]:
+    """X1 (at every G of the experiment's sweep), X2 (at every gb), X3 and
+    X4 at the experiment's shapes, then B9 through the grouped kernel
+    (`MHA_LONG_SHAPES`, with the bias gradient of the biased cases),
+    each in fp32 and bf16 against its plain version."""
+    rows, worst = [], {name: 0.0 for name in (*EXPERIMENT_KERNELS, B9)}
+    bh = XA.B * XA.H
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, sweep in ((X1, [g for g in XD.GROUPS if bh % g == 0]),
+                            (X2, [g for g in XD.IMAGE_GROUPS if XA.B % g == 0]),
+                            (X3, [1]), (X4, [1])):
+            args = experiment_inputs(name, dtype, seed=400 + len(rows))
+            _, plain, library = experiment_calls(name, args, sweep[0])
+            work = experiment_work(name, dtype)
+            with torch.no_grad():
+                want = plain().float()
+                # the plain version and the library call do not depend on G / gb
+                plain_ms, library_ms = median_ms(plain), median_ms(library)
+                for per_program in sweep:
+                    kernel = experiment_calls(name, args, per_program)[0]
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+                    err = (got.float() - want).abs().max().item()
+                    del got
+                    label = {X1: f"G={per_program}",
+                             X2: f"gb={per_program}"}.get(name, f"B={XA.B}")
+                    row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                               max_abs_err=err, ms=median_ms(kernel), plain_ms=plain_ms,
+                               library_ms=library_ms, **work)
+                    log(f"  {name:32s} {label:21s} {row['dtype']:9s} err {err:.3e}  "
+                        f"kernel {row['ms']:.4f} ms  plain {plain_ms:.4f} ms  "
+                        f"library {library_ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                        f"({row['bound_by']})")
+                    worst[name] = max(worst[name], err)
+                    rows.append(row)
+            del args, want
+    for label, shp in MHA_LONG_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = mha_long_case(shp, dtype, seed=500 + len(rows))
+            causal = shp.get("causal", False)
+            bias32 = A.shared_bias(causal, bias, shp["sq"], shp["sk"], "cuda")
+            row = check_row(
+                B9, label, dtype,
+                lambda: A.multi_head_attention(q, k, v, causal=causal, bias=bias),
+                lambda: A.mha_plain(q, k, v, bias32),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=None if bias32 is None else bias32.to(dtype)),
+                mha_long_work(shp, dtype))
+            if bias is not None:
+                cos = row["bias_grad_cosine"] = mha_bias_grad_cosine(q, k, v, bias, causal)
+                log(f"  {B9} {label} {row['dtype']}: bias gradient, card against plain, "
+                    f"cosine {cos:.8f}")
+                if cos < MHA_BIAS_GRAD_COSINE_MIN[dtype]:
+                    raise AssertionError(f"{B9}: the bias gradient disagrees (cosine {cos})")
+            worst[B9] = max(worst[B9], row["max_abs_err"])
+            rows.append(row)
+            del q, k, v, bias, bias32
+    return worst, rows
+
+
+def experiment_launches() -> dict:
+    """Launches of `python -m ...benchmarks.attn_experiment --all` at the
+    experiment's shapes: each kernel once in its fp32 check (X2 once
+    more in X3's two-stage comparison), then two warm-up calls and
+    WINDOWS x ITERS timed calls at every G / gb that divides its count
+    (X1, X2) or once (X3, X4). X2-X4 run B3, B7 and B1 with the bias, so
+    each of their launches counts one of those too (and B1's one of B3)."""
+    timed = 2 + XD.WINDOWS * XD.ITERS
+    bh = XA.B * XA.H
+    want = {X1: 1 + timed * sum(bh % g == 0 for g in XD.GROUPS),
+            X2: 2 + timed * sum(XA.B % g == 0 for g in XD.IMAGE_GROUPS),
+            X3: 1 + timed, X4: 1 + timed}
+    return {**want, B3: want[X2] + want[X4], B7: want[X3], B1: want[X4]}
+
+
+def phase_experiment(card: str) -> dict:
+    """The attention experiment's runner, `--all`, at its full shapes (the
+    main path of X1-X4): every launch count set to 0 just before, read
+    just after, and held to `experiment_launches`."""
+    reset_launches()
+    results = XD.main(["--all"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches("attention experiment", launches, experiment_launches())
+    log(f"  launches {dict((n, launches[n]) for n in EXPERIMENT_KERNELS)} ({card})")
+    return dict(results=results, launches=launches)
 
 
 def make_gallery(side: int = 224, dim: int = 512, seed: int = 0):
@@ -1591,13 +1874,33 @@ def eval_loaders(side: int, dim: int, prefix: str, seed: int, cirr: bool) -> tup
     return classic, relative
 
 
+def cpu_loaders(classic: list, relative: list, queries: int) -> tuple[list, list]:
+    """An evaluator's loaders cut for the CPU leg: its first `queries`
+    queries (whole batches) and its gallery cut to the images they name
+    (references, targets, CIRR group members), in gallery order, in
+    batches of BATCH. A query's prediction reads only its reference's
+    gallery row, so it is the one the card makes on the whole loaders."""
+    relative = relative[:queries // BATCH]
+    named = {n for batch in relative for key in ("ref_name", "tar_name") for n in batch[key]}
+    named |= {n for batch in relative for group in batch.get("group_members", ())
+              for n in group}
+    keep = [np.array([n in named for n in batch["name"]]) for batch in classic]
+    names = [n for batch in classic for n in batch["name"] if n in named]
+    images = np.concatenate([batch["image"][k] for batch, k in zip(classic, keep)])
+    patches = np.concatenate([batch["patch"][k] for batch, k in zip(classic, keep)])
+    cut = [{"name": names[i:i + BATCH], "image": images[i:i + BATCH],
+            "patch": patches[i:i + BATCH]} for i in range(0, len(names), BATCH)]
+    return cut, relative
+
+
 def phase_eval(card: str) -> dict:
     """`evaluate_fiq` (three dress types) and `evaluate_cirr` of ViT-B-16
     at full width, seeded weights, bf16 serve policy on the card and the
-    same weights in fp32 on the CPU (plain versions), over the same
-    in-memory loaders: launch counts on the card (B10 in every text-tower
-    block at the eval batch of 32), every query's prediction card against
-    CPU at cosine >= 0.99 (phase 3's limit), the recall dicts of both."""
+    same weights in fp32 on the CPU (plain versions; every evaluator on
+    its first CPU_QUERIES queries, `cpu_loaders`): launch counts on the card
+    (B10 in every text-tower block at the eval batch of 32), every CPU
+    query's prediction card against CPU at cosine >= 0.99 (phase 3's
+    limit), the recall dicts of both."""
     cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     reference = copy.deepcopy(model).eval()
@@ -1606,14 +1909,19 @@ def phase_eval(card: str) -> dict:
     fiq = {dt: eval_loaders(side, dim, dt, seed=20 + i, cirr=False)
            for i, dt in enumerate(FIQ_TYPES)}
     cirr = eval_loaders(side, dim, "cirr", seed=30, cirr=True)
+    cpu_fiq = {dt: cpu_loaders(*fiq[dt], CPU_QUERIES) for dt in FIQ_TYPES}
+    cpu_cirr = cpu_loaders(*cirr, CPU_QUERIES)
+    log(f"  CPU leg: {CPU_QUERIES} queries of each evaluator over galleries of "
+        f"{[sum(len(b['name']) for b in c) for c, _ in (*cpu_fiq.values(), cpu_cirr)]}")
     runs = {}
-    for dev, m in (("cuda", model), ("cpu", reference)):
+    for dev, m, fiq_l, cirr_l in (("cuda", model, fiq, cirr),
+                                  ("cpu", reference, cpu_fiq, cpu_cirr)):
         api = InferenceAPI(m, tokenizer=tokenizer(), device=dev, batch_size=BATCH)
         reset_launches()
         t0 = time.perf_counter()
         with recorded_predictions() as preds:
-            fiq_r = E.evaluate_fiq(api, fiq)
-            cirr_r = E.evaluate_cirr(api, *cirr)
+            fiq_r = E.evaluate_fiq(api, fiq_l)
+            cirr_r = E.evaluate_cirr(api, *cirr_l)
         if dev == "cuda":
             torch.cuda.synchronize()
         runs[dev] = dict(fiq=fiq_r, cirr=cirr_r, preds=preds, launches=launch_counts(),
@@ -1626,9 +1934,11 @@ def phase_eval(card: str) -> dict:
     check_launches("evaluation", runs["cuda"]["launches"],
                    {name: evaluators * n for name, n in per_eval.items()})
     card_preds, cpu_preds = runs["cuda"].pop("preds"), runs["cpu"].pop("preds")
-    if len(card_preds) != evaluators or len(cpu_preds) != evaluators:
+    if (len(card_preds) != evaluators or len(cpu_preds) != evaluators
+            or any(len(b) != CPU_QUERIES for b in cpu_preds)):
         raise AssertionError(f"{len(card_preds)} / {len(cpu_preds)} prediction passes")
-    cos = torch.cat([cosine(a, b) for a, b in zip(card_preds, cpu_preds)])
+    # each evaluator's first CPU_QUERIES predictions, card against CPU
+    cos = torch.cat([cosine(a[:CPU_QUERIES], b) for a, b in zip(card_preds, cpu_preds)])
     log(f"  predictions card bf16 vs CPU fp32 over {len(cos)} queries: cosine min "
         f"{cos.min().item():.5f} (median {cos.median().item():.5f}); launches "
         f"{runs['cuda']['launches']} ({card})")
@@ -1700,7 +2010,11 @@ def main() -> None:
     tme_train = phase_train(card, tme=True)
     log(f"phase 12: evaluate_fiq and evaluate_cirr, ViT-B-16, card bf16 and CPU fp32 ({card})")
     eval_info = phase_eval(card)
-    log(f"phase 13: profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
+    log(f"phase 13: the attention experiment: X1-X4 and B9's grouped route against their "
+        f"plain versions, then its runner, --all, at B={XA.B} ({card})")
+    exp_worst, exp_rows = phase_experiment_kernels()
+    experiment = phase_experiment(card)
+    log(f"phase 14: profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
         f"and of an RN50x4 and a TME query at b=32 ({card})")
     vit_spans = ("embed/image_tower", "embed/index_refine")
     profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
@@ -1749,20 +2063,27 @@ def main() -> None:
     worst.update(int8_worst)
     worst.update(new_worst)
     worst.update(tme_worst)
+    worst[B9] = max(worst[B9], exp_worst.pop(B9))
+    worst.update(exp_worst)
+    # X1 and X2 at their fastest G / gb, X3 and X4, in bf16 at B = 128
+    for name in EXPERIMENT_KERNELS:
+        timed[name] = min((r for r in exp_rows if r["kernel"] == name and
+                           r["dtype"] == "bfloat16"), key=lambda r: r["ms"])
     by_path = {name: {"serve": slice_info["launches"][name], "train": train["launches"][name],
                       "int8_serve": int8_info["launches"][name],
                       "int8_train": int8_train["launches"][name],
                       "rn50x4_serve": rn_info["launches"][name],
                       "tme_serve": tme_info["launches"][name],
                       "tme_train": tme_train["launches"][name],
-                      "eval": eval_info["launches"][name]}
+                      "eval": eval_info["launches"][name],
+                      "attn_experiment": experiment["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                     max_abs_err=worst[name], ms=timed[name]["ms"],
                     plain_ms=timed[name]["plain_ms"], bound_ms=timed[name]["bound_ms"],
                     bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"],
-                    files=SOURCES[name])
+                    at=timed[name]["shape"], files=SOURCES[name])
                for name, (_, src, rep) in KERNELS.items()]
     if args.json_out:
         with open(args.json_out, "w") as f:
@@ -1775,6 +2096,7 @@ def main() -> None:
                            rn50x4_slice=rn_info, rn50x4_timings=rn_timings,
                            block_kernel_rows=block_rows, block_gradients=block_grad,
                            tokenizer=tokenizer_info, evaluation=eval_info,
+                           experiment_kernel_rows=exp_rows, experiment=experiment,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

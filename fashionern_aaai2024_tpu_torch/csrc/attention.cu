@@ -7,7 +7,12 @@
 // inside `_subblock_kernel` (ops/attention.py:496-510), the attention half
 // of `_qkv_fused_kernel` (ops/attention.py:370-384) and
 // `_packed_cross_kernel` / `_packed_cross_pallas` (ops/attention.py:240-283),
-// and `_attn_kernel` / `_mha_pallas` (ops/attention.py:61-110), B9.
+// and `_attn_kernel` / `_mha_pallas` (ops/attention.py:61-110), B9, at head
+// dim 64 / 80 and Sk <= 256 (attention_grouped.cu takes its other shapes);
+// and the attention experiment's `_packed_kernel` / `mha_packed`
+// (benchmarks/attn_experiment.py:147-190, X2: gb images a block) and the
+// attention of `_qkvattn_kernel` and `_attnblock_kernel` (X3, X4), each
+// with a shared [S, S] bias.
 //
 // Layouts: q rows [B, Sq, *] with row stride q_ld, k and v rows
 // [B, Sk, *] with row stride kv_ld, head h at columns h*D .. h*D+D-1 of
@@ -17,9 +22,10 @@
 //   q [B, Sq, W] + kv [B, Sk, 2W]: k = kv, v = kv + W, kv_ld 2W (B8);
 //   [B, H, S, Dh] views of [B, S, H*Dh] rows: heads H, ld H*Dh; and
 //   contiguous [B*H, S, Dh]: heads 1, ld Dh (B9).
-// B9 adds an optional shared [Sq, Sk] fp32 bias (causal with Sq != Sk,
-// padding masks), read into the scores after the scale, where
-// `_attn_kernel` adds it.
+// B9 and X2-X4 add an optional shared [Sq, Sk] fp32 bias (causal with
+// Sq != Sk, padding masks), read into the scores after the scale, where
+// `_attn_kernel` adds it. A block runs one head of `images_per_block`
+// images in turn (1 but for X2's gb).
 // The output is in the operand type or in fp32: kernel B6
 // (`_qattn_kernel`, ops/qmlp.py:186-201) keeps the concatenated heads in
 // fp32 before it quantizes them. Heads are sliced in the kernel, so the
@@ -49,29 +55,31 @@
 
 namespace fern {
 
+// Block (h, y) runs head h of images y*gb .. y*gb+gb-1 in turn.
 template <typename T, typename TO, int D, bool kBias>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, TO* __restrict__ out, int Sq, int Sk, int H,
-                 int q_ld, int kv_ld, int causal, float scale) {
+                 int q_ld, int kv_ld, int causal, float scale, int gb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  attention_rows<T, TO, D, kBias>(smem, q, k, v, bias, out, blockIdx.y, blockIdx.x, 0, Sq, Sq,
-                                  Sk, H, q_ld, kv_ld, causal, scale);
+  for (int i = 0; i < gb; ++i)
+    attention_rows<T, TO, D, kBias>(smem, q, k, v, bias, out, blockIdx.y * gb + i, blockIdx.x,
+                                    0, Sq, Sq, Sk, H, q_ld, kv_ld, causal, scale);
 }
 
 template <typename T, typename TO, int D, bool kBias>
 static cudaError_t launch_kernel(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, int batch, int sq, int sk,
                                  int heads, int q_ld, int kv_ld, int causal, float scale,
-                                 cudaStream_t stream) {
+                                 int gb, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<T, D>(sk);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, TO, D, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(heads, batch);
+  dim3 grid(heads, batch / gb);
   attention_kernel<T, TO, D, kBias><<<grid, kAttnWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<TO*>(out), sq, sk, heads, q_ld, kv_ld, causal, scale);
+      static_cast<TO*>(out), sq, sk, heads, q_ld, kv_ld, causal, scale, gb);
   return cudaGetLastError();
 }
 
@@ -79,28 +87,28 @@ template <typename T, typename TO, int D>
 static cudaError_t launch_attention(const void* q, const void* k, const void* v,
                                     const float* bias, void* out, int batch, int sq, int sk,
                                     int heads, int q_ld, int kv_ld, int causal, float scale,
-                                    cudaStream_t stream) {
+                                    int gb, cudaStream_t stream) {
   if (bias == nullptr)
     return launch_kernel<T, TO, D, false>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                          kv_ld, causal, scale, stream);
+                                          kv_ld, causal, scale, gb, stream);
   return launch_kernel<T, TO, D, true>(q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                       causal, scale, stream);
+                                       causal, scale, gb, stream);
 }
 
 template <int D>
 static cudaError_t dispatch_types(const void* q, const void* k, const void* v,
                                   const float* bias, void* out, int batch, int sq, int sk,
                                   int heads, int q_ld, int kv_ld, int causal, float scale,
-                                  int dtype, int out_dtype, cudaStream_t s) {
+                                  int dtype, int out_dtype, int gb, cudaStream_t s) {
   if (dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
     return launch_attention<bf16, bf16, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                           kv_ld, causal, scale, s);
+                                           kv_ld, causal, scale, gb, s);
   if (dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
     return launch_attention<bf16, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                            kv_ld, causal, scale, s);
+                                            kv_ld, causal, scale, gb, s);
   if (dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
     return launch_attention<float, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                             kv_ld, causal, scale, s);
+                                             kv_ld, causal, scale, gb, s);
   return cudaErrorInvalidValue;
 }
 
@@ -109,22 +117,25 @@ static cudaError_t dispatch_types(const void* q, const void* k, const void* v,
 // q, k, v: the first head's first row of each operand (k and v may point
 // into one packed tensor); bias: null or a contiguous fp32 [sq, sk] added
 // to every head's scores; q_ld / kv_ld: row strides in elements; dtype:
-// the operands' type; out_dtype: the output's, the same or fp32.
+// the operands' type; out_dtype: the output's, the same or fp32;
+// images_per_block: images a block runs in turn (X2's gb), dividing batch.
 extern "C" int fern_attention(const void* q, const void* k, const void* v, const void* bias,
                               void* out, int batch, int sq, int sk, int heads, int head_dim,
                               int q_ld, int kv_ld, int causal, float scale, int dtype,
-                              int out_dtype, int device, void* stream) {
+                              int out_dtype, int images_per_block, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (sk < 1 || sk > fern::kMaxSeq || (causal && sq != sk)) return (int)cudaErrorInvalidValue;
+  const int gb = images_per_block;
+  if (sk < 1 || sk > fern::kMaxSeq || (causal && sq != sk) || gb < 1 || batch % gb)
+    return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (head_dim == 64)
     return (int)fern::dispatch_types<64>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                         causal, scale, dtype, out_dtype, s);
+                                         causal, scale, dtype, out_dtype, gb, s);
   if (head_dim == 80)
     return (int)fern::dispatch_types<80>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                         causal, scale, dtype, out_dtype, s);
+                                         causal, scale, dtype, out_dtype, gb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,10 @@ output is a `clip.*` / `ern.*` state_dict of fp32 CPU tensors, with the
 BatchNorm step counters (`num_batches_tracked`, which reference
 checkpoints carry too) set to 0.
 
+`attn_experiment_params_from_jax` carries the attention experiment's
+weights (`benchmarks/attn_experiment.py`: X3 and X4's [in, out] arrays)
+into the torch layout that `ops/attn_experiment.py` takes.
+
 A TME model's `ern/TME` subtree has no reference names (the reference's
 TME is closed source); it maps onto the port's own `ern.TME.*` names
 (`models/ern/tme.py`): Dense kernels transposed, the attention's
@@ -251,3 +255,31 @@ def load_jax_train_state(state, jax_state, cfg: CLIPConfig):
     state.optimizer.load_state_dict({"state": moments, "param_groups": groups})
     state.step = int(np.asarray(jax_state.step))
     return state
+
+
+# the attention experiment's arguments (`attnblock(x, g_, be, w_qkv, b_qkv,
+# w_out, b_out, ...)`) -> the port's; the two kernels are [in, out]
+_EXPERIMENT_NAMES = {"g_": "g", "be": "be", "w_qkv": "w_qkv", "b_qkv": "b_qkv",
+                     "w_out": "w_out", "b_out": "b_out"}
+_EXPERIMENT_KERNELS = ("w_qkv", "w_out")
+
+
+def attn_experiment_params_from_jax(params: Mapping[str, Any], *,
+                                    dtype: torch.dtype = torch.float32,
+                                    device: torch.device | str = "cpu") -> dict:
+    """The attention experiment's JAX weights (any of `g_`, `be`, `w_qkv`
+    [W, 3W], `b_qkv`, `w_out` [W, W], `b_out`, as numpy or anything
+    `np.asarray` takes, fp32 or bf16) -> the arguments of
+    `ops/attn_experiment.py qkvattn` / `attnblock` (`g`, `be`, `w_qkv`
+    [3W, W], `b_qkv`, `w_out` [W, W], `b_out`) in `dtype` on `device`.
+    Run once, as a checkpoint load, before any timed call."""
+    unknown = set(params) - set(_EXPERIMENT_NAMES)
+    if unknown:
+        raise KeyError(f"attn_experiment_params_from_jax: unknown weights {sorted(unknown)}")
+    out = {}
+    for name, value in params.items():
+        t = _t(value)
+        if name in _EXPERIMENT_KERNELS:
+            t = t.t()
+        out[_EXPERIMENT_NAMES[name]] = t.to(device, dtype).contiguous()
+    return out

@@ -33,7 +33,11 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     `_mha_pallas_diff_bwd`, `:679`).
     JAX's dispatch gates the kernel to Sk >= 512 or Dh % 128 == 0
     (`:739`), 128-lane padding on the TPU; Hopper has no such limit, so
-    here it runs at TME's shapes.
+    here it runs at TME's shapes. Head dims 64 and 80 at Sk <= 256 take
+    the attention core; every other even head dim up to 128, and any Sk,
+    takes the grouped kernel (csrc/attention_grouped.cu, two passes over
+    64-key chunks), so the port runs every shape JAX sends to the Pallas
+    kernel. Head dims above 128 raise.
 
 On the TPU the dispatch chose XLA at the B7, B8 and B9 sites (`:353`,
 `:739`, and the bf16-only gate at `:466` that the fp32 fusion stack never
@@ -43,7 +47,11 @@ follow the Pallas kernels' rounding, not `_mha_ref`'s bf16 scores, so in
 bf16 they differ from JAX's XLA formula (ROADMAP C6); in fp32 they agree.
 
 One core kernel (csrc/attention.cu) serves every layout, at head dim 64
-or 80 and at most 256 keys.
+or 80 and at most 256 keys, with an optional shared fp32 bias and several
+images a block: B3, B7 and B1 take that bias as `attn_bias`, which is how
+the attention experiment's X2-X4 (`ops/attn_experiment.py`) run them; the
+grouped kernel (csrc/attention_grouped.cu) takes the rest of B9 and the
+experiment's X1.
 
 Weights are in the torch layout: in_proj_weight [3W, W] and Linear
 weight [out, in].
@@ -68,6 +76,12 @@ from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm_plain
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 80)
 _MAX_SEQ = 256
+# the grouped kernel: even head dims up to this, any key count
+MAX_GROUPED_HEAD_DIM = 128
+# B9 on the grouped kernel: one (b, h) pair and one 32-row query tile a
+# block, the most blocks for the card's 132 SMs (X1's G sweep: time grows
+# with G past 4, as blocks run out)
+MHA_GROUP = 1
 
 
 def causal_bias(s: int, device: torch.device | str) -> torch.Tensor:
@@ -91,12 +105,14 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
                          causal: bool = False, scale: float | None = None,
-                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                         out_dtype: torch.dtype | None = None,
+                         attn_bias: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Sq, W], k and v [B, Sk, W] -> [B, Sq, W] with the Pallas
     kernels' rounding points (`_packed_kernel` `:124-143`,
-    `_packed_cross_kernel` `:240-259`): fp32 scores and softmax, p / denom
-    cast to the operand dtype, fp32 P.V, output cast to `out_dtype`
-    (default: the operand dtype; B6 keeps it fp32)."""
+    `_packed_cross_kernel` `:240-259`): fp32 scores times the scale plus
+    the optional shared fp32 [Sq, Sk] `attn_bias`, softmax in fp32,
+    p / denom cast to the operand dtype, fp32 P.V, output cast to
+    `out_dtype` (default: the operand dtype; B6 keeps it fp32)."""
     sq, w = q.shape[1], q.shape[2]
     if scale is None:
         scale = (w // heads) ** -0.5
@@ -104,20 +120,35 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
     sc = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     if causal:
         sc = sc + causal_bias(sq, q.device)
+    if attn_bias is not None:
+        sc = sc + attn_bias
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     p = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype).float()
     return _merge_heads(torch.matmul(p, vh).to(out_dtype or q.dtype))
 
 
+def check_shared_bias(name: str, bias: torch.Tensor | None, sq: int, sk: int,
+                      device: torch.device) -> None:
+    """A kernel's shared bias: None, or a contiguous fp32 [Sq, Sk] tensor
+    on the operands' device."""
+    if bias is not None and (bias.shape != (sq, sk) or bias.dtype != torch.float32
+                             or bias.device != device or not bias.is_contiguous()):
+        raise ValueError(f"{name}: bias {bias.dtype} {tuple(bias.shape)} on {bias.device}; "
+                         f"expected contiguous float32 [{sq}, {sk}] on {device}")
+
+
 def _launch_core(name: str, q: torch.Tensor, kv: torch.Tensor, *, w: int, sk: int,
                  heads: int, q_ld: int, kv_ld: int, k_col: int, v_col: int, causal: bool,
-                 scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
+                 scale: float | None, out_dtype: torch.dtype, bias: torch.Tensor | None = None,
+                 images_per_block: int = 1) -> torch.Tensor:
     """The attention core kernel (csrc/attention.cu). q: a checked
     contiguous CUDA tensor whose [B, Sq] rows start with the W query
     columns, at row stride `q_ld`; kv: the same for the Sk key and value
     rows, at row stride `kv_ld`, keys from column `k_col`, values from
-    `v_col` (q and kv may be one tensor). Output [B, Sq, W] in
-    `out_dtype`. Counts nothing: its callers do."""
+    `v_col` (q and kv may be one tensor); `bias`: a shared fp32 [Sq, Sk]
+    added to every head's scores; `images_per_block` images a block,
+    dividing B. Output [B, Sq, W] in `out_dtype`. Counts nothing: its
+    callers do."""
     b, sq = q.shape[0], q.shape[1]
     dh = w // heads
     if dh * heads != w or dh not in _HEAD_DIMS:
@@ -125,29 +156,68 @@ def _launch_core(name: str, q: torch.Tensor, kv: torch.Tensor, *, w: int, sk: in
                          f"{' or '.join(map(str, _HEAD_DIMS))} only")
     if sk > _MAX_SEQ:
         raise ValueError(f"{name}: S={sk} > {_MAX_SEQ} keys")
+    if images_per_block < 1 or b % images_per_block:
+        raise ValueError(f"{name}: {images_per_block} images a block do not divide B={b}")
+    check_shared_bias(name, bias, sq, sk, q.device)
     if scale is None:
         scale = dh ** -0.5
     out = torch.empty((b, sq, w), dtype=out_dtype, device=q.device)
     base, esize = kv.data_ptr(), kv.element_size()
     common.launch("fern_attention", q.data_ptr(), base + esize * k_col, base + esize * v_col,
-                  None, out.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, int(causal), scale,
-                  common.DTYPE_CODES[q.dtype], common.DTYPE_CODES[out_dtype], q.device.index,
+                  None if bias is None else bias.data_ptr(), out.data_ptr(), b, sq, sk, heads,
+                  dh, q_ld, kv_ld, int(causal), scale, common.DTYPE_CODES[q.dtype],
+                  common.DTYPE_CODES[out_dtype], images_per_block, q.device.index,
                   common.stream_of(q))
     return out
 
 
 def launch_attention_core(qkv: torch.Tensor, heads: int, *, causal: bool,
-                          scale: float | None, out_dtype: torch.dtype) -> torch.Tensor:
+                          scale: float | None, out_dtype: torch.dtype,
+                          bias: torch.Tensor | None = None,
+                          images_per_block: int = 1) -> torch.Tensor:
     """The attention core kernel on a checked CUDA packed qkv [B, S, 3W];
-    output in the qkv dtype or fp32 (B6). Counts nothing: its callers
-    (B3, B6, B7) do."""
+    output in the qkv dtype or fp32 (B6); an optional shared fp32 [S, S]
+    bias and several images a block. Counts nothing: its callers (B3, B6,
+    B7) do."""
     w3 = qkv.shape[-1]
     if w3 % 3:
         raise ValueError(f"packed_qkv_self_attention: qkv width {w3} is not 3W")
     w = w3 // 3
     return _launch_core("packed_qkv_self_attention", qkv, qkv, w=w, sk=qkv.shape[1],
                         heads=heads, q_ld=w3, kv_ld=w3, k_col=w, v_col=2 * w, causal=causal,
-                        scale=scale, out_dtype=out_dtype)
+                        scale=scale, out_dtype=out_dtype, bias=bias,
+                        images_per_block=images_per_block)
+
+
+def launch_grouped_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: torch.Tensor | None, *, batch: int, heads: int, dh: int,
+                             sq: int, sk: int, q_ld: int, kv_ld: int, group: int,
+                             split_rows: bool, scale: float) -> torch.Tensor:
+    """The grouped attention kernel (csrc/attention_grouped.cu): the
+    batch * heads (image, head) pairs of q rows [batch, Sq, *] at row
+    stride `q_ld` against k and v rows [batch, Sk, *] at `kv_ld`, head h
+    at columns h*Dh .. h*Dh+Dh-1 (contiguous [BH, S, Dh]: heads 1, ld
+    Dh), `group` pairs a block, each block over every query row of its
+    pairs or, with `split_rows`, over one 32-row tile of them (a grid
+    dimension more); an optional shared fp32 [Sq, Sk] bias. Output
+    [batch, Sq, heads * Dh] in the operands' dtype. The operands are
+    checked CUDA tensors of one dtype. Counts nothing: its callers (B9,
+    X1) do."""
+    if dh % 2 or not 2 <= dh <= MAX_GROUPED_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh}; the kernel takes even head dims up to "
+                         f"{MAX_GROUPED_HEAD_DIM}")
+    if sk < 1:
+        raise ValueError(f"{name}: Sk={sk} keys")
+    if group < 1 or (batch * heads) % group:
+        raise ValueError(f"{name}: group {group} does not divide the {batch * heads} "
+                         "(batch, head) pairs")
+    check_shared_bias(name, bias, sq, sk, q.device)
+    out = torch.empty((batch, sq, heads * dh), dtype=q.dtype, device=q.device)
+    common.launch("fern_attention_grouped", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq, sk,
+                  heads, dh, q_ld, kv_ld, group, int(split_rows), scale,
+                  common.DTYPE_CODES[q.dtype], q.device.index, common.stream_of(q))
+    return out
 
 
 # --- B9: [B, H, S, Dh] attention with a shared bias -----------------------
@@ -217,22 +287,23 @@ def _core_layout(t: torch.Tensor) -> tuple[int, int, int] | None:
 
 def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
                 scale: float) -> torch.Tensor:
-    """Kernel B9: the attention core on [B, H, S, Dh] operands read
-    through their strides (`_core_layout`); operands in any other layout,
-    or in two different ones, are copied to contiguous first. Returns
-    [B, H, Sq, Dh], a view of the kernel's [batch, Sq, heads * Dh]
-    output. Counts nothing: `multi_head_attention` does."""
+    """Kernel B9 on [B, H, S, Dh] operands read through their strides
+    (`_core_layout`); operands in any other layout, or in two different
+    ones, are copied to contiguous first. Head dim 64 or 80 with Sk <=
+    256: the attention core; any other even head dim up to 128, or more
+    keys: the grouped kernel, `MHA_GROUP` pairs and one row tile a
+    block. Returns [B, H, Sq, Dh], a view of the kernel's [batch, Sq,
+    heads * Dh] output. Counts nothing: `multi_head_attention` does."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, dh) or v.shape != k.shape:
         raise ValueError(f"multi_head_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}; expected [B, H, S, Dh] with shared B, H, Dh")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"multi_head_attention: head dim {dh}; the kernel takes head dim "
-                         f"{' or '.join(map(str, _HEAD_DIMS))} only")
-    if not 1 <= sk <= _MAX_SEQ:
-        raise ValueError(f"multi_head_attention: Sk={sk} keys; the kernel takes 1 to "
-                         f"{_MAX_SEQ} (longer sequences: ROADMAP B9)")
+    if dh % 2 or dh > MAX_GROUPED_HEAD_DIM:
+        raise ValueError(f"multi_head_attention: head dim {dh}; the kernels take even head "
+                         f"dims up to {MAX_GROUPED_HEAD_DIM}")
+    if sk < 1:
+        raise ValueError(f"multi_head_attention: Sk={sk} keys")
     common.check_no_grad("multi_head_attention", q, k, v, bias)
     if q.dtype not in common.DTYPE_CODES:
         raise TypeError(f"multi_head_attention: dtype {q.dtype} not supported "
@@ -241,21 +312,24 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"multi_head_attention: operands {t.dtype} on {t.device} and "
                             f"{q.dtype} on {q.device}")
-    if bias is not None and (bias.shape != (sq, sk) or bias.dtype != torch.float32
-                             or bias.device != q.device or not bias.is_contiguous()):
-        raise ValueError(f"multi_head_attention: bias {bias.dtype} {tuple(bias.shape)} on "
-                         f"{bias.device}; expected contiguous float32 [{sq}, {sk}]")
+    check_shared_bias("multi_head_attention", bias, sq, sk, q.device)
     lq, lk, lv = (_core_layout(t) for t in (q, k, v))
     if None in (lq, lk, lv) or lq[:2] != lk[:2] or lk != lv:
         q, k, v = (t.contiguous() for t in (q, k, v))
         lq, lk, _ = (_core_layout(t) for t in (q, k, v))
     batch, heads, q_ld = lq
-    out = torch.empty((batch, sq, heads * dh), dtype=q.dtype, device=q.device)
-    code = common.DTYPE_CODES[q.dtype]
-    common.launch("fern_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq, sk,
-                  heads, dh, q_ld, lk[2], 0, scale, code, code, q.device.index,
-                  common.stream_of(q))
+    if dh in _HEAD_DIMS and sk <= _MAX_SEQ:
+        out = torch.empty((batch, sq, heads * dh), dtype=q.dtype, device=q.device)
+        code = common.DTYPE_CODES[q.dtype]
+        common.launch("fern_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq,
+                      sk, heads, dh, q_ld, lk[2], 0, scale, code, code, 1, q.device.index,
+                      common.stream_of(q))
+    else:
+        out = launch_grouped_attention("multi_head_attention", q, k, v, bias, batch=batch,
+                                       heads=heads, dh=dh, sq=sq, sk=sk, q_ld=q_ld,
+                                       kv_ld=lk[2], group=MHA_GROUP, split_rows=True,
+                                       scale=scale)
     if heads == 1:
         return out.view(b, h, sq, dh)
     return out.view(b, sq, h, dh).transpose(1, 2)
@@ -296,8 +370,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     With `dropout_rate` > 0 and a generator: the `_mha_ref` formula with
     probability dropout. Otherwise CUDA: the attention core (head dim 64
-    or 80, Sk <= 256), through `MHAFunction` when autograd has to reach
-    an operand; CPU: the plain version."""
+    or 80, Sk <= 256) or the grouped kernel (other even head dims up to
+    128, any Sk), through `MHAFunction` when autograd has to reach an
+    operand; CPU: the plain version."""
     sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
     if scale is None:
         scale = dh ** -0.5
@@ -323,24 +398,32 @@ multi_head_attention.launches = 0
 
 def packed_qkv_self_attention_plain(qkv: torch.Tensor, heads: int, *,
                                     causal: bool = False, scale: float | None = None,
-                                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                                    out_dtype: torch.dtype | None = None,
+                                    attn_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of B3 with `_packed_kernel`'s rounding points
     (`:124-143`), output in `out_dtype` (default: the qkv dtype)."""
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     return attention_core_plain(q, k, v, heads, causal=causal, scale=scale,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, attn_bias=attn_bias)
 
 
 def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = False,
-                              scale: float | None = None) -> torch.Tensor:
-    """Self-attention from packed qkv [B, S, 3W] -> [B, S, W] (B3).
+                              scale: float | None = None,
+                              attn_bias: torch.Tensor | None = None,
+                              images_per_block: int = 1) -> torch.Tensor:
+    """Self-attention from packed qkv [B, S, 3W] -> [B, S, W] (B3), with
+    an optional shared fp32 [S, S] `attn_bias` added to every head's
+    scores.
 
-    CUDA: csrc/attention.cu, head dim 64 or 80 and S <= 256 only. CPU:
-    the plain version."""
+    CUDA: csrc/attention.cu, head dim 64 or 80 and S <= 256 only,
+    `images_per_block` images a block (dividing B). CPU: the plain
+    version."""
     if not common.is_cuda(qkv):
-        return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
+        return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale,
+                                               attn_bias=attn_bias)
     common.check_cuda_operands("packed_qkv_self_attention", qkv)
-    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype)
+    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype,
+                                bias=attn_bias, images_per_block=images_per_block)
     packed_qkv_self_attention.launches += 1
     return out
 
@@ -387,34 +470,38 @@ packed_kv_cross_attention.launches = 0
 
 def fused_qkv_self_attention_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                                    heads: int, *, causal: bool = False,
-                                   scale: float | None = None) -> torch.Tensor:
+                                   scale: float | None = None,
+                                   attn_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of B7 with `_qkv_fused_kernel`'s rounding points
     (`:361-384`): the projection in fp32 (true fp32 for fp32 operands, the
     kernel's `Precision.HIGHEST`), the bias added in fp32, the sum cast to
     x.dtype, then the attention core's."""
     qkv = F.linear(x.float(), weight.float(), bias.float()).to(x.dtype)
-    return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
+    return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale,
+                                           attn_bias=attn_bias)
 
 
 def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                             heads: int, *, causal: bool = False,
-                             scale: float | None = None) -> torch.Tensor:
+                             heads: int, *, causal: bool = False, scale: float | None = None,
+                             attn_bias: torch.Tensor | None = None) -> torch.Tensor:
     """QKV projection + self-attention (B7). x [B, S, W], weight [3W, W]
-    (torch layout), bias [3W] -> [B, S, W].
+    (torch layout), bias [3W], an optional shared fp32 [S, S] `attn_bias`
+    on the scores -> [B, S, W].
 
     CUDA: csrc/gemm.cu (GEMM + bias into packed [B, S, 3W] qkv, in
     x.dtype) and then the attention core, head dim 64 or 80 and S <= 256
     only. CPU: the plain version."""
     if not common.is_cuda(x):
         return fused_qkv_self_attention_plain(x, weight, bias, heads, causal=causal,
-                                              scale=scale)
+                                              scale=scale, attn_bias=attn_bias)
     b, s, w = x.shape
     if weight.shape != (3 * w, w) or bias.shape != (3 * w,):
         raise ValueError(f"fused_qkv_self_attention: weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)} for width {w}")
     common.check_cuda_operands("fused_qkv_self_attention", x, weight, bias)
     qkv = common.launch_gemm(x.view(b * s, w), weight, bias).view(b, s, 3 * w)
-    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype)
+    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype,
+                                bias=attn_bias)
     fused_qkv_self_attention.launches += 1
     return out
 
@@ -429,12 +516,14 @@ def attention_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor,
                              ln_bias: torch.Tensor, in_proj_weight: torch.Tensor,
                              in_proj_bias: torch.Tensor, out_weight: torch.Tensor,
                              out_bias: torch.Tensor, heads: int, *, causal: bool = False,
-                             scale: float | None = None, eps: float = 1e-5) -> torch.Tensor:
+                             scale: float | None = None, eps: float = 1e-5,
+                             attn_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of B1 with `_subblock_kernel`'s rounding points
     (`:479-515`)."""
     y = layer_norm_plain(x, ln_weight, ln_bias, eps)
     qkv = F.linear(y.float(), in_proj_weight.float(), in_proj_bias.float()).to(x.dtype)
-    o = packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale)
+    o = packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale,
+                                        attn_bias=attn_bias)
     proj = F.linear(o.float(), out_weight.float(), out_bias.float()).to(x.dtype)
     return x + proj
 
@@ -443,8 +532,10 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
                        in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
                        out_weight: torch.Tensor, out_bias: torch.Tensor, heads: int, *,
                        causal: bool = False, scale: float | None = None,
-                       eps: float = 1e-5) -> torch.Tensor:
-    """x + out_proj(attention(in_proj(LN(x)))) for x [B, S, W] (B1).
+                       eps: float = 1e-5,
+                       attn_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x + out_proj(attention(in_proj(LN(x)))) for x [B, S, W] (B1), with
+    an optional shared fp32 [S, S] `attn_bias` on the scores.
 
     in_proj_weight [3W, W], out_weight [W, W] (torch layout). CUDA:
     LN kernel -> GEMM + bias -> B3 core -> GEMM + bias + residual, all
@@ -453,7 +544,7 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
     if not common.is_cuda(x):
         return attention_subblock_plain(
             x, ln_weight, ln_bias, in_proj_weight, in_proj_bias, out_weight, out_bias,
-            heads, causal=causal, scale=scale, eps=eps)
+            heads, causal=causal, scale=scale, eps=eps, attn_bias=attn_bias)
     b, s, w = x.shape
     if in_proj_weight.shape != (3 * w, w) or out_weight.shape != (w, w):
         raise ValueError(f"attention_subblock: weights {tuple(in_proj_weight.shape)}, "
@@ -463,7 +554,8 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
     x2 = x.view(b * s, w)
     y = common.launch_layer_norm(x2, ln_weight, ln_bias, eps)
     qkv = common.launch_gemm(y, in_proj_weight, in_proj_bias)
-    o = packed_qkv_self_attention(qkv.view(b, s, 3 * w), heads, causal=causal, scale=scale)
+    o = packed_qkv_self_attention(qkv.view(b, s, 3 * w), heads, causal=causal, scale=scale,
+                                  attn_bias=attn_bias)
     out = common.launch_gemm(o.view(b * s, w), out_weight, out_bias, residual=x2)
     attention_subblock.launches += 1
     return out.view(b, s, w)

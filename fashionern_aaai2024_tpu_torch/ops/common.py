@@ -48,9 +48,13 @@ _SIGNATURES = {
     # a, bt, bias, res, c, m, n, k, ldc, act, dtype, device, stream
     "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, bias, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, causal,
-    # scale, dtype, out_dtype, device, stream
+    # scale, dtype, out_dtype, images_per_block, device, stream
     "fern_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                       _P),
+                       _I, _P),
+    # q, k, v, bias, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, group,
+    # split_rows, scale, dtype, device, stream
+    "fern_attention_grouped": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _I, _I, _P),
     # a, bt, partials, m, n, k, k_per, device, stream
     "fern_gemm_f32_partials": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # h, hp, splits, bh, wo, bo, text, image, out, m, d, hd, dtype, device, stream

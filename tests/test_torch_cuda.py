@@ -44,12 +44,20 @@ and the CPU's convolutions sum in other orders through 14 convolutions.
 B9 (`multi_head_attention`) at the tolerances above, at TME's shapes
 (77 text tokens against 13 patches, 8 heads of 64 and 80) read through
 head views of [B, S, H*Dh] rows and from contiguous [B, H, S, Dh], with a
-causal + arbitrary bias where Sq != Sk, and at 256 keys; its autograd
+causal + arbitrary bias where Sq != Sk, and at 256 keys; through the
+grouped kernel (csrc/attention_grouped.cu) at head dims 96 and 128 and at
+300, 512 and 1024 keys; its autograd
 Function against the plain version's autograd at rtol 1e-4 and an atol
 of 1e-5 times the largest gradient element. B12 (`combiner_apply`) at
 d = 512 and 640 and M = 1, 33, 128 and 1024 (fp32: 8, 8, 5 and 1 K
 slices of the hidden product at d = 512, 7, 7, 4 and 1 at 640), at the
 tolerances above.
+
+The attention experiment's X1-X4 (`ops/attn_experiment.py`) at its own
+shapes at batch 2 to 4, at the tolerances above: X1 (the grouped kernel)
+on every row and lane of the padded output, a row whose keys all carry
+the -1e30 bias included, at G of 1 and 8; X2 at gb of 1, 2 and 4; a G or
+gb that does not divide its count raises.
 
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
@@ -417,10 +425,20 @@ def test_int8_wrappers_refuse_operands_that_require_grad(device):
 
 # (batch, heads, sq, sk, head dim, layout, causal, bias): TME at d = 512
 # and 640 on head views of the projections, the same as contiguous
-# [B, H, S, Dh], a causal + biased case with Sq != Sk, the largest key count
+# [B, H, S, Dh], a causal + biased case with Sq != Sk, the largest key
+# count; bias "-inf": -inf on the keys before a row's index, 0 from it on
+# and on the last key (left padding as PyTorch code often writes it: a
+# lane's first keys are masked before it meets a finite one), on both
+# kernels
 MHA_SHAPES = [(4, 8, 77, 13, 64, "rows", False, False), (4, 8, 77, 13, 80, "rows", False, False),
               (2, 8, 77, 13, 64, "contiguous", False, False),
-              (2, 2, 13, 9, 80, "rows", True, True), (2, 2, 5, 256, 64, "contiguous", False, True)]
+              (2, 2, 13, 9, 80, "rows", True, True), (2, 2, 5, 256, 64, "contiguous", False, True),
+              # the grouped kernel: head dim 128 or 96, or more than 256 keys
+              (2, 4, 77, 300, 128, "rows", False, True),
+              (2, 2, 64, 512, 64, "contiguous", True, False),
+              (1, 2, 9, 1024, 96, "rows", False, True), (2, 2, 33, 33, 128, "rows", True, False),
+              (2, 4, 40, 300, 128, "rows", False, "-inf"),
+              (2, 4, 77, 13, 64, "rows", False, "-inf"), (2, 2, 64, 512, 96, "rows", False, "-inf")]
 
 
 def _mha_operands(g, b, h, sq, sk, dh, layout, dtype, device):
@@ -436,11 +454,15 @@ def test_mha_kernel_matches_plain(device, dtype, b, h, sq, sk, dh, layout, causa
     g = np.random.default_rng(20)
     q, k, v = _mha_operands(g, b, h, sq, sk, dh, layout, dtype, device)
     bias = _t(g, (sq, sk), 2.0, torch.float32, device) if with_bias else None
+    if with_bias == "-inf":
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=device).triu()
+        keep[:, -1] = True
+        bias = torch.zeros((sq, sk), device=device).masked_fill(~keep, float("-inf"))
     n0 = A.multi_head_attention.launches
     got = A.multi_head_attention(q, k, v, causal=causal, bias=bias)
     torch.cuda.synchronize()
     assert A.multi_head_attention.launches == n0 + 1
-    assert got.shape == (b, h, sq, dh)
+    assert got.shape == (b, h, sq, dh) and torch.isfinite(got.float()).all()
     want = A.mha_plain(q, k, v, A.shared_bias(causal, bias, sq, sk, device))
     _close(got, want, dtype)
 
@@ -461,13 +483,14 @@ def test_mha_autograd_matches_plain_autograd(device):
 
 
 def test_mha_kernel_rejects_what_it_does_not_take(device):
-    z = torch.zeros(2, 2, 9, 96, device=device)
-    with pytest.raises(ValueError, match="head dim"):
-        A.multi_head_attention(z, z, z)
+    for dh in (160, 127):
+        z = torch.zeros(2, 2, 9, dh, device=device)
+        with pytest.raises(ValueError, match="head dim"):
+            A.multi_head_attention(z, z, z)
     q = torch.zeros(2, 2, 9, 64, device=device)
     kv = torch.zeros(2, 2, 300, 64, device=device)
-    with pytest.raises(ValueError, match="Sk=300"):
-        A.multi_head_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="bias"):
+        A.multi_head_attention(q, kv, kv, bias=torch.zeros(9, 299, device=device))
     with pytest.raises(RuntimeError, match="requires grad"):
         A._launch_mha(q.requires_grad_(), kv[:, :, :9], kv[:, :, :9], None, 0.125)
 
@@ -597,3 +620,117 @@ def test_mha_autograd_gives_the_bias_gradient(device):
     for a, b in zip(ours, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
                                    atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_grouped_mha_autograd_gives_the_bias_gradient(device):
+    """B9 through the grouped kernel (Sk = 300, head dim 128): the
+    autograd Function's gradients of q, k, v and the bias equal the plain
+    version's."""
+    g = np.random.default_rng(24)
+    q0, k0, v0 = _mha_operands(g, 2, 4, 77, 300, 128, "rows", torch.float32, device)
+    b0 = _t(g, (77, 300), 2.0, torch.float32, device)
+    up = _t(g, (2, 4, 77, 128), 1.0, torch.float32, device)
+    ours = [t.detach().clone().requires_grad_() for t in (q0, k0, v0, b0)]
+    plain = [t.detach().clone().requires_grad_() for t in (q0, k0, v0, b0)]
+    n0 = A.multi_head_attention.launches
+    (A.multi_head_attention(*ours[:3], bias=ours[3]) * up).sum().backward()
+    assert A.multi_head_attention.launches == n0 + 1
+    (A.mha_plain(*plain) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+# --- the attention experiment, X1-X4 -------------------------------------
+
+
+def _x1_operands(g, bh, dtype, device):
+    """X1's padded operands: q [BH, 208, 128], k and v [BH, 256, 128],
+    zero past 197 rows and 64 lanes; the fp32 [208, 256] bias masks the
+    padded keys, and row 3 masks every key."""
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as X
+
+    def pad(rows):
+        t = torch.zeros((bh, rows, X.DP))
+        t[:, :X.S, :X.DH] = torch.from_numpy(g.standard_normal((bh, X.S, X.DH)))
+        return t.to(device, dtype)
+
+    bias = torch.zeros((X.SP, X.SKP))
+    bias[:, X.S:] = A.NEG_INF
+    bias[3] = A.NEG_INF
+    return pad(X.SP), pad(X.SKP), pad(X.SKP), bias.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp", [1, 8])
+def test_x1_grouped_kernel_matches_plain(device, dtype, grp):
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as X
+
+    q, k, v, bias = _x1_operands(np.random.default_rng(40), 2 * X.H, dtype, device)
+    n0 = X.mha_grouped.launches
+    got = X.mha_grouped(q, k, v, bias, X.DH ** -0.5, grp)
+    torch.cuda.synchronize()
+    assert X.mha_grouped.launches == n0 + 1
+    assert got.shape == q.shape
+    _close(got, X.mha_grouped_plain(q, k, v, bias, X.DH ** -0.5, grp), dtype)
+    _close(got[:, 3], v.float().mean(dim=1).expand(got.shape[0], -1), dtype)
+    with pytest.raises(ValueError, match="do not divide"):
+        X.mha_grouped(q, k, v, bias, X.DH ** -0.5, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gb", [1, 2, 4])
+def test_x2_packed_kernel_matches_plain(device, dtype, gb):
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as X
+
+    g = np.random.default_rng(41)
+    qkv = _t(g, (4, X.SP, 3 * X.W), 1.0, dtype, device)
+    qkv[:, X.S:] = 0
+    bias = torch.zeros((X.SP, X.SP), device=device)
+    bias[:, X.S:] = A.NEG_INF
+    n0 = X.mha_packed.launches
+    got = X.mha_packed(qkv, bias, X.DH ** -0.5, gb)
+    torch.cuda.synchronize()
+    assert X.mha_packed.launches == n0 + 1
+    _close(got, X.mha_packed_plain(qkv, bias, X.DH ** -0.5, gb), dtype)
+    with pytest.raises(ValueError, match="do not divide"):
+        X.mha_packed(qkv, bias, X.DH ** -0.5, 3)
+
+
+def _x_weights(g, dtype, device, w):
+    return dict(g=_t(g, (w,), 0.1, dtype, device, 1.0), be=_t(g, (w,), 0.1, dtype, device),
+                w_qkv=_t(g, (3 * w, w), 0.02, dtype, device),
+                b_qkv=_t(g, (3 * w,), 0.02, dtype, device),
+                w_out=_t(g, (w, w), 0.02, dtype, device), b_out=_t(g, (w,), 0.02, dtype, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_x3_qkvattn_kernel_matches_plain(device, dtype):
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as X
+
+    g = np.random.default_rng(42)
+    x = _t(g, (2, X.S, X.W), 1.0, dtype, device)
+    p = _x_weights(g, dtype, device, X.W)
+    bias = _t(g, (X.S, X.S), 1.0, torch.float32, device)
+    n0 = X.qkvattn.launches
+    got = X.qkvattn(x, p["w_qkv"], p["b_qkv"], bias, X.DH ** -0.5)
+    torch.cuda.synchronize()
+    assert X.qkvattn.launches == n0 + 1
+    _close(got, X.qkvattn_plain(x, p["w_qkv"], p["b_qkv"], bias, X.DH ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_x4_attnblock_kernel_matches_plain(device, dtype):
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as X
+
+    g = np.random.default_rng(43)
+    x = _t(g, (2, X.S, X.W), 1.0, dtype, device)
+    p = _x_weights(g, dtype, device, X.W)
+    bias = _t(g, (X.S, X.S), 1.0, torch.float32, device)
+    args = (p["g"], p["be"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], bias,
+            X.DH ** -0.5)
+    n0 = X.attnblock.launches
+    got = X.attnblock(x, *args)
+    torch.cuda.synchronize()
+    assert X.attnblock.launches == n0 + 1
+    _close(got, X.attnblock_plain(x, *args), dtype)
