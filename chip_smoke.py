@@ -127,6 +127,18 @@ the ViT-B-16 trunk (bf16), timed beside the pair (the A/B its dispatch
 rule reads) and the pair's library compositions; then its autograd
 Function's 13 gradients against the plain version's (fp32, B = 2).
 
+The bf16 attention kernels run 16-row warp tiles over 16-key tiles on the
+tensor cores, staged by 16-byte (else 4-byte or element) copies, so each
+phase that holds one also holds it, untimed, at the tiles' ragged edges
+(`EDGE_LENGTHS`: 1, 15, 16, 17, 63, 65, 197 rows and keys): phase 2 B3
+(causal, an arbitrary and a -inf left-padding shared bias, two images a
+block), B8 and B9 on the core (head views and contiguous, biased, head
+dims 64 and 80, one view 4 bytes off a 16-byte boundary); phase 5 the
+core's fp32-output instance that B6 runs; phase 13 X2 (unpadded, with a
+-inf padding bias, gb of 1 and 2) and B9 on the grouped kernel at 1, 63,
+64, 65, 300 and 1024 keys, head dims 128 and 96 (16-byte staging) and 34
+(4-byte), causal and with -inf padding.
+
 The line before the last is the kernel summary as one JSON object; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -261,15 +273,20 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     X3: (XA.qkvattn, "fashionern_aaai2024_tpu_torch/csrc", "benchmarks/attn_experiment.py:257"),
     X4: (XA.attnblock, "fashionern_aaai2024_tpu_torch/csrc", "benchmarks/attn_experiment.py:364"),
 }
-SOURCES = {B1: ["layernorm.cu", "gemm.cu", "attention.cu"], B2: ["layernorm.cu", "gemm.cu"],
-           B3: ["attention.cu"], B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
-           B6: ["quant.cu", "qgemm.cu", "attention.cu"], B7: ["gemm.cu", "attention.cu"],
-           B8: ["attention.cu"], B11: ["layernorm.cu"],
-           B9: ["attention.cu", "attention_grouped.cu"],
+# the attention core: attention.cu (fp32 and the C entry), the bf16 kernel
+# in attention_bf16.cuh compiled per head dim, the bodies and the tiles
+CORE = ["attention.cu", "attention_bf16_d64.cu", "attention_bf16_d80.cu", "attention_bf16.cuh",
+        "attention_core.cuh", "attention_mma.cuh"]
+SOURCES = {B1: ["layernorm.cu", "gemm.cu", *CORE], B2: ["layernorm.cu", "gemm.cu"],
+           B3: CORE, B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
+           B6: ["quant.cu", "qgemm.cu", *CORE], B7: ["gemm.cu", *CORE],
+           B8: CORE, B11: ["layernorm.cu"],
+           B9: [*CORE, "attention_grouped.cu"],
            B12: ["gemm.cu", "combiner.cu"],
-           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "layernorm_row.cuh"],
-           X1: ["attention_grouped.cu"], X2: ["attention.cu"], X3: ["gemm.cu", "attention.cu"],
-           X4: ["layernorm.cu", "gemm.cu", "attention.cu"]}
+           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "attention_mma.cuh",
+                 "layernorm_row.cuh"],
+           X1: ["attention_grouped.cu", "attention_mma.cuh"], X2: CORE,
+           X3: ["gemm.cu", *CORE], X4: ["layernorm.cu", "gemm.cu", *CORE]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
@@ -366,6 +383,16 @@ MHA_LONG_SHAPES = [
     ("self512_dh64_causal", dict(b=8, h=8, sq=512, sk=512, dh=64, causal=True)),
     ("self1024_dh128_causal", dict(b=4, h=8, sq=1024, sk=1024, dh=128, causal=True,
                                    bias=True))]
+
+
+# the bf16 attention kernels' ragged edges: rows and keys one short of,
+# at, and one past a 16-row / 16-key tile, and the ViT's 197
+EDGE_LENGTHS = (1, 15, 16, 17, 63, 65, 197)
+# (sq, sk) of the cross layouts: the attention pool's 1 x 82 first
+EDGE_CROSS = [(1, 82), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1), (197, 13), (5, 256)]
+# the grouped kernel's chunk edges and head dims: 16-byte staging at 128
+# and 96, 4-byte at 34 (D % 8 != 0)
+EDGE_GROUPED = [(sk, dh) for sk in (1, 63, 64, 65, 300, 1024) for dh in (128, 96, 34)]
 
 
 def log(msg: str) -> None:
@@ -579,6 +606,71 @@ def phase_block_kernel() -> tuple[float, list, dict]:
     if min(cos) < BLOCK_GRAD_COSINE_MIN:
         raise AssertionError(f"{B10}: BlockFunction gradients {cos}")
     return worst, rows, dict(gradient_cosines=cos)
+
+
+def left_padding_bias(sq: int, sk: int) -> torch.Tensor:
+    """fp32 [sq, sk] on the card: -inf on the keys before a row's index
+    (the last key always kept), 0 elsewhere."""
+    keep = torch.ones((sq, sk), dtype=torch.bool, device="cuda").triu()
+    keep[:, -1] = True
+    return torch.zeros((sq, sk), device="cuda").masked_fill(~keep, float("-inf"))
+
+
+def edge_check(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """One untimed edge case in bf16: finite, and at the bf16 tolerance."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output at an edge case")
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    worst[name] = max(worst.get(name, 0.0), (got.float() - want.float()).abs().max().item())
+
+
+def bf16_view_rows(g: torch.Generator, b: int, s: int, h: int, dh: int, layout: str,
+                   offset: int = 0) -> torch.Tensor:
+    """A bf16 [b, h, s, dh] operand on the card: a head view of [b, s, h*dh]
+    rows (`offset` elements into wider rows), or contiguous."""
+    t = torch.randn((b, s, h * dh + offset), generator=g).to(torch.bfloat16).cuda()
+    t = t[..., offset:].view(b, s, h, dh).transpose(1, 2)
+    return t.contiguous() if layout == "contiguous" else t
+
+
+def phase_edge_kernels() -> dict:
+    """B3, B8 and B9 on the attention core in bf16 at the tiles' ragged
+    edges, against their plain versions (untimed); returns the largest
+    error of each."""
+    worst, g, n = {}, torch.Generator().manual_seed(600), 0
+    with torch.no_grad():
+        for s in EDGE_LENGTHS:
+            for dh in (64, 80):
+                qkv = torch.randn((4, s, 3 * 2 * dh), generator=g).to(torch.bfloat16).cuda()
+                arbitrary = (2 * torch.randn((s, s), generator=g)).cuda()
+                for causal, bias, gb in ((False, None, 1), (True, None, 1),
+                                         (False, arbitrary, 1),
+                                         (False, left_padding_bias(s, s), 2)):
+                    edge_check(worst, B3,
+                               A.packed_qkv_self_attention(qkv, 2, causal=causal, attn_bias=bias,
+                                                           images_per_block=gb),
+                               A.packed_qkv_self_attention_plain(qkv, 2, causal=causal,
+                                                                 attn_bias=bias))
+                    n += 1
+        for sq, sk in EDGE_CROSS:
+            for dh in (64, 80):
+                q = torch.randn((2, sq, 3 * dh), generator=g).to(torch.bfloat16).cuda()
+                kv = torch.randn((2, sk, 6 * dh), generator=g).to(torch.bfloat16).cuda()
+                edge_check(worst, B8, A.packed_kv_cross_attention(q, kv, 3),
+                           A.packed_kv_cross_attention_plain(q, kv, 3))
+                n += 1
+                bias = (2 * torch.randn((sq, sk), generator=g)).cuda()
+                for layout, offset in (("rows", 0), ("contiguous", 0), ("rows", 2)):
+                    q, k, v = (bf16_view_rows(g, 2, t, 3, dh, layout, offset)
+                               for t in (sq, sk, sk))
+                    edge_check(worst, B9, A.multi_head_attention(q, k, v, bias=bias),
+                               A.mha_plain(q, k, v, bias))
+                    n += 1
+    log(f"  edges: {n} bf16 cases of B3, B8 and B9 on the core at Sq / Sk in "
+        f"{EDGE_LENGTHS} and {EDGE_CROSS}, max errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
 
 
 def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tuple:
@@ -1006,6 +1098,29 @@ def phase_experiment_kernels() -> tuple[dict, list]:
             worst[B9] = max(worst[B9], row["max_abs_err"])
             rows.append(row)
             del q, k, v, bias, bias32
+    edge, g, scale = {}, torch.Generator().manual_seed(800), XA.DH ** -0.5
+    with torch.no_grad():
+        # X2 unpadded at the core's edges, with a -inf padding bias
+        for s in EDGE_LENGTHS:
+            qkv = torch.randn((4, s, 3 * XA.W), generator=g).to(torch.bfloat16).cuda()
+            bias = left_padding_bias(s, s)
+            for gb in (1, 2):
+                edge_check(edge, X2, XA.mha_packed(qkv, bias, scale, gb),
+                           XA.mha_packed_plain(qkv, bias, scale, gb))
+        # B9 on the grouped kernel at its chunk edges, both staging widths
+        for sk, dh in EDGE_GROUPED:
+            sq = min(sk, 77)
+            q, k, v = (bf16_view_rows(g, 2, t, 2, dh, "contiguous") for t in (sq, sk, sk))
+            bias = left_padding_bias(sq, sk)
+            edge_check(edge, B9, A.multi_head_attention(q, k, v, bias=bias),
+                       A.mha_plain(q, k, v, bias))
+            q, k, v = (bf16_view_rows(g, 2, sk, 2, dh, "rows") for _ in range(3))
+            edge_check(edge, B9, A.multi_head_attention(q, k, v, causal=True),
+                       A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, "cuda")))
+    log(f"  edges: X2 at S in {EDGE_LENGTHS} (gb 1, 2), B9's grouped route at (Sk, Dh) in "
+        f"{EDGE_GROUPED}: max errors " + ", ".join(f"{k} {v:.3e}" for k, v in edge.items()))
+    for name, err in edge.items():
+        worst[name] = max(worst[name], err)
     return worst, rows
 
 
@@ -1749,6 +1864,19 @@ def phase_int8_kernels() -> tuple[dict, list]:
                 f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
         del inputs
         torch.cuda.empty_cache()
+    # B6's attention core (bf16 operands, fp32 output) at the tiles' edges
+    edge, g = {}, torch.Generator().manual_seed(700)
+    with torch.no_grad():
+        for s in EDGE_LENGTHS:
+            qkv = torch.randn((3, s, 3 * 4 * 64), generator=g).to(torch.bfloat16).cuda()
+            for causal in (False, True):
+                edge_check(edge, B6, A.launch_attention_core(qkv, 4, causal=causal, scale=None,
+                                                             out_dtype=torch.float32),
+                           A.packed_qkv_self_attention_plain(qkv, 4, causal=causal,
+                                                             out_dtype=torch.float32))
+    log(f"  edges: B6's attention core, bf16 in, fp32 out, S in {EDGE_LENGTHS}, causal and "
+        f"not: max error {edge[B6]:.3e}")
+    worst[B6] = max(worst[B6], edge[B6])
     return worst, rows
 
 
@@ -1971,6 +2099,7 @@ def main() -> None:
     new_worst, new_rows = phase_new_kernels()
     tme_worst, tme_rows = phase_tme_kernels()
     block_worst, block_rows, block_grad = phase_block_kernel()
+    edge_worst = phase_edge_kernels()
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     tokenizer_info = phase_tokenizer()
     slice_info, service, api = phase_slice(card)
@@ -2065,6 +2194,8 @@ def main() -> None:
     worst.update(tme_worst)
     worst[B9] = max(worst[B9], exp_worst.pop(B9))
     worst.update(exp_worst)
+    for name, err in edge_worst.items():
+        worst[name] = max(worst[name], err)
     # X1 and X2 at their fastest G / gb, X3 and X4, in bf16 at B = 128
     for name in EXPERIMENT_KERNELS:
         timed[name] = min((r for r in exp_rows if r["kernel"] == name and

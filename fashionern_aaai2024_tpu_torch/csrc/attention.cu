@@ -32,30 +32,55 @@
 // [B, H, S, D] layout is never built in device memory.
 //
 // Bound: at Sk <= 256 the scores of one head fit on chip, so DRAM traffic
-// is only q, k, v in and out once; the limit is shared-memory bandwidth
-// feeding fp32 FMAs (2 x Sq x Sk x D a head). This first version runs on
-// the CUDA cores, not the tensor cores.
-// Design: one block per (head, image), K and V of the head staged in
-// shared memory (the K rows padded to an odd word stride, 33 / 41 words
-// in bf16 and 65 / 81 in fp32 at D = 64 / 80, so that the 32 lanes
-// reading 32 different rows hit 32 banks). One warp per query row: each
-// lane scores up to 8 keys with q held in registers, the softmax
-// reductions are warp shuffles, and each lane then owns pairs of output
-// dims (pair `lane` and, at D = 80, pair `lane + 32` for lanes 0..7) for
-// the P . V sum, which runs over the keys in order. Rounding follows the
-// Pallas kernels: fp32 scores and softmax, probabilities normalized in
-// fp32 and cast to the storage type, fp32 P . V, output cast per head.
-// At the attention pool (Sq = 1) seven of the eight warps only stage K
-// and V: that shape is bound by reading kv once.
+// is only q, k, v in and out once. In bf16 that is the bound (ViT-B-16 at
+// B = 32: 38.7 MB, 0.0116 ms at 3.35 TB/s, against 0.0039 ms of tensor-core
+// work); in fp32 the limit is the rate of fp32 FMAs fed from shared
+// memory (2 x Sq x Sk x D a head, twice).
+//
+// Design, bf16 operands (output bf16, or fp32 for B6): the tensor-core
+// tiles of attention_mma.cuh. A block of up to kMmaWarps warps takes one
+// head of `images_per_block` images and up to kMmaWarps 16-row tiles of
+// its queries, interleaved (block x of a pair's bpp takes the tiles x,
+// x + bpp, ...), so the blocks of a pair get tile counts within one of
+// each other: grid (bpp, heads, images / gb). K and V of the head go to
+// shared memory by 16-byte `cp.async` copies (4-byte, or element copies,
+// when the pointers or strides do not allow 16; `staging_width`), 16-byte
+// rows padded to D + 8 elements so `ldmatrix` is conflict-free. Each warp
+// keeps its rows' scores in registers, takes the row max and sum over its
+// quads, and feeds p / denom, rounded to bf16, from the accumulators
+// straight into the P . V product. The kernel has one instance per count
+// of 32-key pairs (1 .. 8), which scores exactly that many with no branch
+// between them (causal rows score the pairs they need); its code is in
+// attention_bf16.cuh, compiled per head dim in attention_bf16_d64.cu and
+// attention_bf16_d80.cu.
+// The attention pool (Sq = 1, 82 keys) gets blocks of one warp: staging
+// its kv once is the work, and one 16-row tile is 96 mma instructions.
+// Why `mma.sync` and not `wgmma` / TMA: every bf16 shape here is bound by
+// bytes, and `wgmma`'s 64-row tiles would pad 197 rows to 256 and 77 to
+// 128; see ROADMAP.
+//
+// Design, fp32 (the ERN towers' B7 / B8 / B9, the fp32 tiers, TME
+// training; kept bit for bit): one block per (head, image), K
+// and V of the head staged in shared memory (the K rows padded to an odd
+// word stride, 65 / 81 words at D = 64 / 80, so that the 32 lanes reading
+// 32 different rows hit 32 banks). One warp per query row: each lane
+// scores up to 8 keys with q held in registers, the softmax reductions
+// are warp shuffles, and each lane then owns pairs of output dims for the
+// P . V sum, which runs over the keys in order.
+//
+// Rounding follows the Pallas kernels in both: fp32 scores and softmax,
+// probabilities normalized in fp32 and cast to the storage type, fp32
+// P . V, output cast per head.
 
-// The body, `attention_rows`, is in attention_core.cuh: kernel B10
-// (block.cu) runs it too.
+// The bodies are in attention_core.cuh: kernel B10 (block.cu) runs them
+// too.
 
+#include "attention_bf16.cuh"
 #include "attention_core.cuh"
 
 namespace fern {
 
-// Block (h, y) runs head h of images y*gb .. y*gb+gb-1 in turn.
+// fp32: block (h, y) runs head h of images y*gb .. y*gb+gb-1 in turn.
 template <typename T, typename TO, int D, bool kBias>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -100,12 +125,9 @@ static cudaError_t dispatch_types(const void* q, const void* k, const void* v,
                                   const float* bias, void* out, int batch, int sq, int sk,
                                   int heads, int q_ld, int kv_ld, int causal, float scale,
                                   int dtype, int out_dtype, int gb, cudaStream_t s) {
-  if (dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
-    return launch_attention<bf16, bf16, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                           kv_ld, causal, scale, gb, s);
-  if (dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
-    return launch_attention<bf16, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                            kv_ld, causal, scale, gb, s);
+  if (dtype == DTYPE_BF16 && (out_dtype == DTYPE_BF16 || out_dtype == DTYPE_F32))
+    return (D == 64 ? launch_attention_bf16_d64 : launch_attention_bf16_d80)(
+        q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld, causal, scale, out_dtype, gb, s);
   if (dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
     return launch_attention<float, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
                                              kv_ld, causal, scale, gb, s);

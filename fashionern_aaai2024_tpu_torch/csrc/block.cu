@@ -51,6 +51,7 @@ struct BlockArgs {
   T *ln, *qkv, *attn, *y, *hidden, *out;  // workspace (qkv and hidden share) and output
   unsigned* barrier;
   int batch, seq, width, ffn, heads, row_tile, causal, act;
+  int stage;  // bf16: the attention body's staging width of qkv
   float scale, eps;
 };
 
@@ -122,10 +123,16 @@ __global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
   const int units = a.batch * a.heads * tiles;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int bh = u / tiles, row0 = (u % tiles) * a.row_tile;
-    attention_rows<T, T, kBlockHeadDim, false>(
-        smem, a.qkv, a.qkv + W, a.qkv + 2 * W, nullptr, a.attn, bh / a.heads, bh % a.heads,
-        row0, min(a.seq, row0 + a.row_tile), a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal,
-        a.scale);
+    const int row1 = min(a.seq, row0 + a.row_tile);
+    if constexpr (sizeof(T) == 2)
+      attention_tiles_mma<bf16, kBlockHeadDim, false, kMaxSeq / kKeyPair, false>(
+          smem, a.qkv, a.qkv + W, a.qkv + 2 * W, nullptr, a.attn, bh / a.heads, bh % a.heads,
+          row0, kMmaRows, row1, a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal, a.scale,
+          a.stage);
+    else
+      attention_rows<T, T, kBlockHeadDim, false>(
+          smem, a.qkv, a.qkv + W, a.qkv + 2 * W, nullptr, a.attn, bh / a.heads, bh % a.heads,
+          row0, row1, a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal, a.scale);
   }
   grid_barrier(a.barrier);
   block_gemm(smem, a.attn, a.out_w, a.out_b, a.x, a.y, M, W, W, ACT_NONE);
@@ -141,7 +148,9 @@ __global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
 template <typename T>
 static size_t block_smem_bytes(int seq) {
   const size_t tile = sizeof(T) == 2 ? sizeof(Bf16TileSmem) : sizeof(F32TileSmem);
-  const size_t attn = attention_smem_bytes<T, kBlockHeadDim>(seq);
+  const size_t attn = sizeof(T) == 2
+                          ? attention_mma_smem_bytes<kBlockHeadDim>(seq, kThreads / 32)
+                          : attention_smem_bytes<float, kBlockHeadDim>(seq);
   return tile > attn ? tile : attn;
 }
 
@@ -186,12 +195,14 @@ static cudaError_t launch_block(BlockArgs<T> a, int device, cudaStream_t stream)
   const int bm = sizeof(T) == 2 ? kBM : kFBM, bn = sizeof(T) == 2 ? kBN : kFBN;
   const int row_tiles = (M + bm - 1) / bm;
   const int wide = a.ffn > 3 * a.width ? a.ffn : 3 * a.width;
-  // attention units: split each (sequence, head) into row tiles of a
-  // multiple of the warp count when there are fewer pairs than blocks
+  // attention units: split each (sequence, head) into row tiles when there
+  // are fewer pairs than blocks, of a multiple of the body's rows a warp
+  // pass (bf16: a 16-row warp tile; fp32: a row for each of its warps)
   const int pairs = a.batch * a.heads;
   const int per_pair = (resident + pairs - 1) / pairs;
+  const int quantum = sizeof(T) == 2 ? kMmaRows : kAttnWarps;
   int row_tile = (a.seq + per_pair - 1) / per_pair;
-  row_tile = (row_tile + kAttnWarps - 1) / kAttnWarps * kAttnWarps;
+  row_tile = (row_tile + quantum - 1) / quantum * quantum;
   a.row_tile = row_tile < a.seq ? row_tile : a.seq;
   const int units[] = {(M + kThreads / 32 - 1) / (kThreads / 32),
                        row_tiles * ((wide + bn - 1) / bn),
@@ -227,6 +238,7 @@ static cudaError_t run_block(const void* const* w, void* workspace, void* barrie
   a.barrier = static_cast<unsigned*>(barrier);
   a.batch = batch; a.seq = seq; a.width = width; a.ffn = ffn; a.heads = heads;
   a.row_tile = seq; a.causal = causal; a.act = act; a.scale = scale; a.eps = eps;
+  a.stage = staging_width({a.qkv}, {3LL * width, kBlockHeadDim});
   return launch_block<T>(a, device, stream);
 }
 

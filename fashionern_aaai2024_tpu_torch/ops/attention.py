@@ -37,7 +37,9 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     the attention core; every other even head dim up to 128, and any Sk,
     takes the grouped kernel (csrc/attention_grouped.cu, two passes over
     64-key chunks), so the port runs every shape JAX sends to the Pallas
-    kernel. Head dims above 128 raise.
+    kernel. Head dims above 128 raise. In bf16 both kernels run on the
+    tensor cores (16-row warp tiles, `mma.sync`, `cp.async` staging); fp32
+    stays on the CUDA cores.
 
 On the TPU the dispatch chose XLA at the B7, B8 and B9 sites (`:353`,
 `:739`, and the bf16-only gate at `:466` that the fp32 fusion stack never
@@ -78,9 +80,9 @@ _HEAD_DIMS = (64, 80)
 _MAX_SEQ = 256
 # the grouped kernel: even head dims up to this, any key count
 MAX_GROUPED_HEAD_DIM = 128
-# B9 on the grouped kernel: one (b, h) pair and one 32-row query tile a
-# block, the most blocks for the card's 132 SMs (X1's G sweep: time grows
-# with G past 4, as blocks run out)
+# B9 on the grouped kernel: one (b, h) pair and one query row tile (128
+# rows in bf16, 32 in fp32) a block, the most blocks for the card's 132
+# SMs (X1's G sweep: time grows with G past 4, as blocks run out)
 MHA_GROUP = 1
 
 
@@ -198,9 +200,9 @@ def launch_grouped_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: tor
     stride `q_ld` against k and v rows [batch, Sk, *] at `kv_ld`, head h
     at columns h*Dh .. h*Dh+Dh-1 (contiguous [BH, S, Dh]: heads 1, ld
     Dh), `group` pairs a block, each block over every query row of its
-    pairs or, with `split_rows`, over one 32-row tile of them (a grid
-    dimension more); an optional shared fp32 [Sq, Sk] bias. Output
-    [batch, Sq, heads * Dh] in the operands' dtype. The operands are
+    pairs or, with `split_rows`, over one row tile of them (128 rows in
+    bf16, 32 in fp32; a grid dimension more); an optional shared fp32
+    [Sq, Sk] bias. Output [batch, Sq, heads * Dh] in the operands' dtype. The operands are
     checked CUDA tensors of one dtype. Counts nothing: its callers (B9,
     X1) do."""
     if dh % 2 or not 2 <= dh <= MAX_GROUPED_HEAD_DIM:
@@ -315,8 +317,11 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
     check_shared_bias("multi_head_attention", bias, sq, sk, q.device)
     lq, lk, lv = (_core_layout(t) for t in (q, k, v))
     if None in (lq, lk, lv) or lq[:2] != lk[:2] or lk != lv:
+        # dense [B, H, S, Dh]: B*H blocks of S rows of Dh. Not read back
+        # through `_core_layout`: PyTorch leaves the stride of a length-1 S
+        # as it was, which would make a one-row operand look like rows.
         q, k, v = (t.contiguous() for t in (q, k, v))
-        lq, lk, _ = (_core_layout(t) for t in (q, k, v))
+        lq = lk = (b * h, 1, dh)
     batch, heads, q_ld = lq
     if dh in _HEAD_DIMS and sk <= _MAX_SEQ:
         out = torch.empty((batch, sq, heads * dh), dtype=q.dtype, device=q.device)

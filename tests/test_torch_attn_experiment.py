@@ -99,14 +99,28 @@ def test_x1_plain_matches_the_pallas_kernel(dtype, bh, g):
     assert np.abs(np.asarray(want, np.float32)[:, MASKED_ROW]).max() > 1e-3
 
 
+def _left_padding(s: int) -> np.ndarray:
+    """fp32 [s, s]: -inf on the keys before a row's index (the last key
+    always kept), 0 elsewhere."""
+    keep = np.triu(np.ones((s, s), bool))
+    keep[:, -1] = True
+    return np.where(keep, 0.0, -np.inf).astype(np.float32)
+
+
+# X2's -1e30 padding bias, and a -inf left-padding bias (the Pallas
+# kernel takes SP rows only)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("gb", [1, 2])
-def test_x2_plain_matches_the_pallas_kernel(dtype, gb):
+@pytest.mark.parametrize("gb,bias_kind", [
+    pytest.param(1, "padding", id="1"), pytest.param(2, "padding", id="2"),
+    pytest.param(1, "-inf", id="1-left-padding"), pytest.param(2, "-inf", id="2-left-padding")])
+def test_x2_plain_matches_the_pallas_kernel(dtype, gb, bias_kind):
     g = np.random.default_rng(10 + gb)
     qkv = g.standard_normal((2, X.SP, 3 * X.W)).astype(np.float32)
     qkv[:, X.S:] = 0.0
     bias = np.full((X.SP, X.SP), -1e30, np.float32)
     bias[:, :X.S] = 0.0
+    if bias_kind == "-inf":
+        bias = _left_padding(X.SP)
     jqkv, tqkv = _pair(qkv, dtype)
     with pltpu.force_tpu_interpret_mode():
         want = JX.mha_packed(jqkv, jnp.asarray(bias), SCALE, gb)
@@ -192,10 +206,16 @@ def test_converter_gives_the_torch_layout():
 # masked keys come before a row's finite ones)
 LONG_MHA_CASES = [(7, 300, 128, False, True), (9, 300, 128, True, False),
                   (5, 300, 96, False, False), (40, 300, 128, False, "-inf")]
+# the grouped kernel's 64-key chunk and 16-row tile edges on the card, at
+# head dims with 16-byte staging (128, 96) and 4-byte (34: D % 8 != 0)
+LONG_MHA_EDGE_CASES = [(1, 1, 128, False, True), (15, 63, 96, False, "-inf"),
+                       (16, 64, 34, False, True), (17, 65, 128, False, "-inf"),
+                       (63, 63, 34, True, False), (65, 300, 96, True, True),
+                       (1, 1024, 34, False, "-inf")]
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("sq,sk,dh,causal,with_bias", LONG_MHA_CASES)
+@pytest.mark.parametrize("sq,sk,dh,causal,with_bias", LONG_MHA_CASES + LONG_MHA_EDGE_CASES)
 def test_mha_at_long_keys_matches_pallas(dtype, sq, sk, dh, causal, with_bias):
     g = np.random.default_rng(60 + sq)
     q, k, v = (g.standard_normal((2, 2, s, dh)).astype(np.float32) for s in (sq, sk, sk))
@@ -251,6 +271,25 @@ def test_mha_routes_to_the_grouped_kernel(fake_card):
     for dh in (127, 160):
         with pytest.raises(ValueError, match="head dim"):
             run(dh, 13)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 82), (77, 1)])
+def test_mha_reads_one_row_operands_in_one_layout(fake_card, sq, sk):
+    """B9 on contiguous [B, H, S, Dh] operands with one query or one key
+    (not both): PyTorch keeps the stride of a length-1 S as the view had
+    it, so such an operand also looks like a head view of rows; every
+    operand must reach the kernel in the layout of the others, (B*H, 1,
+    Dh)."""
+    b, h, dh = 2, 3, 64
+
+    def operand(s):
+        return torch.zeros(b, s, h * dh).view(b, s, h, dh).transpose(1, 2).contiguous()
+
+    TA._launch_mha(operand(sq), operand(sk), operand(sk), None, 0.1)
+    name, args = fake_card.pop()
+    assert name == "fern_attention"
+    batch, q_sq, q_sk, heads, head_dim, q_ld, kv_ld = args[5:12]
+    assert (batch, q_sq, q_sk, heads, head_dim, q_ld, kv_ld) == (b * h, sq, sk, 1, dh, dh, dh)
 
 
 def test_experiment_wrappers_launch_their_kernels(fake_card):

@@ -59,6 +59,17 @@ on every row and lane of the padded output, a row whose keys all carry
 the -1e30 bias included, at G of 1 and 8; X2 at gb of 1, 2 and 4; a G or
 gb that does not divide its count raises.
 
+The bf16 attention kernels run 16-row warp tiles over 16-key tiles on
+the tensor cores, staged by 16-byte (else 4-byte or element) copies: B3,
+B8, B9 and B6's core at the tiles' ragged edges (1, 15, 16, 17, 63, 65
+and 197 rows and keys) in every layout, causal, with an arbitrary or a
+-inf left-padding bias and two images a block; misaligned head views;
+the grouped kernel at 1-1024 keys with 16-byte (head dims 128, 96) and
+4-byte (34, 126) staging; B10 bit for bit against B1 + B2 at b = 1 and
+32; all at the bf16 tolerance above. One test reads the library's SASS
+(`cuobjdump -sass`): every bf16 instance of the core and the grouped
+kernel issues HMMA and LDGSTS.
+
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
 1e-6, into about 1e-4 on a score); gradients through the autograd
@@ -734,3 +745,177 @@ def test_x4_attnblock_kernel_matches_plain(device, dtype):
     torch.cuda.synchronize()
     assert X.attnblock.launches == n0 + 1
     _close(got, X.attnblock_plain(x, *args), dtype)
+
+
+# --- the bf16 tensor-core tiles of the attention core and the grouped
+# kernel: ragged edges, every layout, both staging widths ---------------
+
+# (sq, sk) of the core's edge cases: 16-row warp tiles and 16-key tiles
+# with one row or key short of, at, and one past a tile, the ViT's 197
+EDGE_LENGTHS = (1, 15, 16, 17, 63, 65, 197)
+CORE_EDGE_CROSS = [(1, 82), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1), (197, 13),
+                   (5, 256), (1, 1)]
+
+
+def _left_padding_bias(sq, sk, device):
+    """-inf on the keys before a row's index (the last key always kept),
+    0 elsewhere: padding as PyTorch code writes it."""
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device).triu()
+    keep[:, -1] = True
+    return torch.zeros((sq, sk), device=device).masked_fill(~keep, float("-inf"))
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("s", EDGE_LENGTHS)
+@pytest.mark.parametrize("variant", ["plain", "causal", "bias", "-inf", "gb2"])
+def test_core_packed_edges_match_plain(device, variant, s, dh):
+    """B3 (packed qkv) in bf16 at the tiles' ragged edges: without a bias,
+    causal, with an arbitrary or a -inf left-padding shared bias, and two
+    images a block."""
+    heads, b = 2, 4
+    g = np.random.default_rng(50 + s)
+    qkv = _t(g, (b, s, 3 * heads * dh), 1.0, torch.bfloat16, device)
+    bias = {"bias": _t(g, (s, s), 2.0, torch.float32, device),
+            "-inf": _left_padding_bias(s, s, device)}.get(variant)
+    causal, gb = variant == "causal", 2 if variant == "gb2" else 1
+    got = A.packed_qkv_self_attention(qkv, heads, causal=causal, attn_bias=bias,
+                                      images_per_block=gb)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, A.packed_qkv_self_attention_plain(qkv, heads, causal=causal, attn_bias=bias),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("sq,sk", CORE_EDGE_CROSS)
+def test_core_cross_edges_match_plain(device, sq, sk, dh):
+    """B8 (q + packed kv) in bf16 at the tiles' ragged edges, the
+    attention pool's 1 x 82 first."""
+    heads, b = 3, 2
+    g = np.random.default_rng(60 + sq + sk)
+    q = _t(g, (b, sq, heads * dh), 1.0, torch.bfloat16, device)
+    kv = _t(g, (b, sk, 2 * heads * dh), 1.0, torch.bfloat16, device)
+    got = A.packed_kv_cross_attention(q, kv, heads)
+    torch.cuda.synchronize()
+    _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["rows", "contiguous"])
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("sq,sk", CORE_EDGE_CROSS)
+def test_core_head_view_edges_match_plain(device, layout, sq, sk, dh):
+    """B9 on the core (head views of [B, S, H*Dh] rows and contiguous
+    [B, H, S, Dh]) in bf16 at the tiles' ragged edges, with a shared
+    bias."""
+    g = np.random.default_rng(70 + sq + sk)
+    q, k, v = _mha_operands(g, 2, 3, sq, sk, dh, layout, torch.bfloat16, device)
+    bias = _t(g, (sq, sk), 2.0, torch.float32, device)
+    got = A.multi_head_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 17, 65, 197])
+def test_core_fp32_output_edges_match_plain(device, s):
+    """The core's bf16-operand, fp32-output instance (B6's attention) at
+    the tiles' ragged edges, causal and not."""
+    g = np.random.default_rng(80 + s)
+    qkv = _t(g, (3, s, 3 * 4 * 64), 1.0, torch.bfloat16, device)
+    for causal in (False, True):
+        got = A.launch_attention_core(qkv, 4, causal=causal, scale=None,
+                                      out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        _close(got, A.packed_qkv_self_attention_plain(qkv, 4, causal=causal,
+                                                      out_dtype=torch.float32),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_misaligned_views_take_the_narrow_staging(device, dh, offset):
+    """Head views whose base is 2 or 4 bytes past a 16-byte boundary (and
+    whose row stride is not a multiple of 8 elements): the launchers
+    stage them with element or 4-byte copies, on the core (head dim 64)
+    and the grouped kernel (128)."""
+    g = np.random.default_rng(90 + dh + offset)
+    b, h, sq, sk = 2, 4, 33, 70
+
+    def view(s):
+        big = _t(g, (b, s, h * dh + offset), 1.0, torch.bfloat16, device)
+        return big[..., offset:].view(b, s, h, dh).transpose(1, 2)
+
+    q, k, v = view(sq), view(sk), view(sk)
+    assert q.data_ptr() % 16 == 2 * offset
+    bias = _t(g, (sq, sk), 2.0, torch.float32, device)
+    got = A.multi_head_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("sk", [1, 63, 64, 65, 300, 1024])
+@pytest.mark.parametrize("dh,width", [(128, 16), (96, 16), (34, 4), (126, 4)])
+def test_grouped_kernel_staging_widths(device, dh, width, sk):
+    """The grouped kernel in bf16 with 16-byte staging (head dims 128,
+    96: D % 8 == 0) and 4-byte staging (34, 126: D % 8 != 0) at chunk
+    edges, with a -inf left-padding bias, and causal at Sq == Sk."""
+    g = np.random.default_rng(100 + sk + dh)
+    sq = min(sk, 77)
+    q, k, v = _mha_operands(g, 2, 2, sq, sk, dh, "contiguous", torch.bfloat16, device)
+    assert ((dh * 2) % 16 == 0) == (width == 16)
+    bias = _left_padding_bias(sq, sk, device)
+    got = A.multi_head_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
+    q, k, v = _mha_operands(g, 2, 2, sk, sk, dh, "rows", torch.bfloat16, device)
+    got = A.multi_head_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(got, A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, device)),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_block_kernel_bf16_equals_the_pair(device, b):
+    """B10 in bf16 at the ViT-B-16 text tower, b = 1 and 32: bit for bit
+    B1 + B2 (both run the tensor-core attention body)."""
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    args = _block_args(np.random.default_rng(33 + b), b, 77, 512, torch.bfloat16, device)
+    got = B._launch_block(*args, 8, True, "quick_gelu", None, 1e-5)
+    pair = M.mlp_subblock(A.attention_subblock(*args[:7], 8, causal=True), *args[7:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pair, atol=0, rtol=0)
+    _close(got, B.transformer_block_plain(*args, 8, causal=True), torch.bfloat16)
+
+
+def _sass_functions(lib_path):
+    """{mangled kernel name: SASS text} of the built library."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def test_bf16_attention_kernels_run_on_tensor_cores_and_cp_async(device):
+    """The bf16 instances of the attention core and of the grouped kernel
+    issue tensor-core products (HMMA) and asynchronous global-to-shared
+    copies (LDGSTS) in their SASS."""
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    for kernel in ("attention_mma_kernel", "grouped_attention_mma_kernel"):
+        found = {k: v for k, v in funcs.items()
+                 if kernel in k and ("grouped" in kernel) == ("grouped" in k)}
+        assert found, f"no {kernel} in the library"
+        for name, sass in found.items():
+            assert "HMMA" in sass and "LDGSTS" in sass, name

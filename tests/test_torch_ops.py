@@ -63,9 +63,16 @@ def _close(jax_out, torch_out, dtype: str):
                                np.asarray(jax_out, np.float32), **DTYPES[dtype][2])
 
 
+# the card kernels' ragged edges: rows and keys one short of, at, and one
+# past a 16-row / 16-key tile of the bf16 tensor-core tiles, and the ViT's
+# 197 (the plain versions the card holds its kernels to, held here to the
+# interpret-mode Pallas kernels)
+EDGE_LENGTHS = [1, 15, 16, 17, 63, 65, 197]
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", [17, 33])
+@pytest.mark.parametrize("s", sorted({17, 33, *EDGE_LENGTHS}))
 def test_packed_qkv_attention_matches_pallas(dtype, causal, s):
     g = np.random.default_rng(7)
     jq, tq = _pair(g.standard_normal((2, s, 3 * 128)).astype(np.float32), dtype)
@@ -171,7 +178,8 @@ def test_layer_norm_matches_jax(dtype):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("dh", [64, 80])
-@pytest.mark.parametrize("sq,sk", [(1, 10), (5, 13)])
+@pytest.mark.parametrize("sq,sk", [(1, 10), (5, 13), (1, 82), (15, 17), (16, 16), (17, 63),
+                                   (63, 65), (65, 1), (197, 13)])
 def test_packed_kv_cross_attention_matches_pallas(dtype, dh, sq, sk):
     g = np.random.default_rng(20 + dh + sq)
     w = 2 * dh
@@ -425,6 +433,10 @@ def test_no_grad_guard_names_the_operand():
 # (TME's 77 text tokens against 13 patches), and causal + bias, Sq != Sk
 MHA_CASES = [(9, 9, False, False), (9, 9, True, False), (77, 13, False, True),
              (13, 9, True, True)]
+# the core's tile edges; bias "-inf": -inf on the keys before a row's
+# index, 0 from it on and on the last key (left padding)
+MHA_EDGE_CASES = [(1, 65, False, "-inf"), (17, 16, False, "-inf"), (63, 63, True, False),
+                  (16, 1, False, True), (65, 197, False, "-inf"), (15, 15, True, True)]
 
 
 def _mha_inputs(b, h, sq, sk, dh, with_bias, seed):
@@ -432,12 +444,16 @@ def _mha_inputs(b, h, sq, sk, dh, with_bias, seed):
     f = np.float32
     q, k, v = (g.standard_normal((b, h, s, dh)).astype(f) for s in (sq, sk, sk))
     bias = (2 * g.standard_normal((sq, sk))).astype(f) if with_bias else None
+    if with_bias == "-inf":
+        keep = np.triu(np.ones((sq, sk), bool))
+        keep[:, -1] = True
+        bias = np.where(keep, 0.0, -np.inf).astype(f)
     return q, k, v, bias
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("dh", [64, 80])
-@pytest.mark.parametrize("sq,sk,causal,with_bias", MHA_CASES)
+@pytest.mark.parametrize("sq,sk,causal,with_bias", MHA_CASES + MHA_EDGE_CASES)
 def test_mha_plain_matches_pallas(dtype, dh, sq, sk, causal, with_bias):
     q, k, v, bias = _mha_inputs(2, 2, sq, sk, dh, with_bias, seed=60 + sq + dh)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
