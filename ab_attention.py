@@ -7,7 +7,7 @@ directory on one CUDA card.
 
     cd <checkout> && python3 <path>/ab_attention.py LABEL
 
-Prints four lines: LABEL and the median over 20 windows (after 5 warm-up
+Prints five lines: LABEL and the median over 20 windows (after 5 warm-up
 calls) of the CUDA-event time of 10 back-to-back calls, divided by 10 (the
 device's time per call where the host keeps ahead of it), of B3 at ViT-B-16 B=32 (bf16 and fp32), text B=32
 (causal, bf16) and ViT-B-16 B=1024 (bf16); X2 (`mha_packed`, the padded
@@ -18,7 +18,12 @@ against [32, 8, 300, 128], an fp32 [77, 300] bias), X1 (`mha_grouped`,
 G=1), all bf16, and SDPA on B3's ViT-B-16 B=32 bf16 operands (the
 library yardstick, never called by the port); the GEMM with a bias at the
 RN50x4 BERT's fused QKV projection (B7, [32*91, 640] x [640, 1920]) and
-the ViT-B-16 c_fc (B2, [32*197, 768] x [768, 3072]); one transformer
+the ViT-B-16 c_fc (B2, [32*197, 768] x [768, 3072]); the bf16 GEMM at
+each product of B1 and B2 (QKV, out-projection + residual, c_fc +
+quick_gelu, c_proj + residual) at ViT-B-16 M = 32 x 197 and 128 x 197
+and at the RN50x4 text tower's c_fc (M = 32 x 77), with TFLOP/s and
+`F.linear`'s time beside each (the yardstick, never called by the
+port); one transformer
 block as B10 (one launch) and as B1 then B2, at the ViT-B-16 text tower
 at b=1 and 32 and the RN50x4 text tower at b=32 (causal, bf16). To
 compare two checkouts, run it in each in turns (parent, change, change,
@@ -52,6 +57,16 @@ SHAPES = (("vit_b32", (32, 197, 768, 12, False), torch.bfloat16),
           ("text_b32", (32, 77, 512, 8, True), torch.bfloat16),
           ("vit_b1024", (1024, 197, 768, 12, False), torch.bfloat16))
 GEMMS = (("bert640_qkv", (32 * 91, 640, 1920)), ("vit_cfc", (32 * 197, 768, 3072)))
+# the bf16 products of B1 and B2 (M, K, N, residual, activation): ViT-B-16
+# at the gallery batch (32 x 197) and the embed batch (128 x 197), the
+# RN50x4 text tower's c_fc at a query batch of 32
+BF16_GEMMS = tuple((f"vit_{name}_m{m}", (m, k, n, res, act))
+                   for m in (32 * 197, 128 * 197)
+                   for name, k, n, res, act in (("qkv", 768, 2304, False, None),
+                                                ("out_proj", 768, 768, True, None),
+                                                ("c_fc", 768, 3072, False, "quick_gelu"),
+                                                ("c_proj", 3072, 768, True, None)))
+BF16_GEMMS += (("rn_text_c_fc_m2464", (32 * 77, 640, 2560, False, "quick_gelu")),)
 BLOCKS = (("text_b1", (1, 77, 512, 8)), ("text_b32", (32, 77, 512, 8)),
           ("rn_text_b32", (32, 77, 640, 10)))
 
@@ -149,6 +164,18 @@ def main() -> None:
         a, w, b = (torch.randn(shape, generator=g).cuda() for shape in ((m, k), (n, k), (n,)))
         out.append(f"{name}/float32 {median_ms(lambda: common.launch_gemm(a, w, b)):.4f}")
     print(label, "fp32 GEMM ms:", "; ".join(out), flush=True)
+    out = []
+    for name, (m, k, n, with_res, act) in BF16_GEMMS:
+        a, w, b, res = (None if shape is None else
+                        (scale * torch.randn(shape, generator=g)).to(torch.bfloat16).cuda()
+                        for shape, scale in (((m, k), 1.0), ((n, k), 0.02), ((n,), 0.02),
+                                             ((m, n) if with_res else None, 1.0)))
+        kernel = median_ms(lambda: common.launch_gemm(a, w, b, residual=res, activation=act))
+        linear = median_ms(lambda: torch.nn.functional.linear(a, w, b))
+        tflops = 2e-9 * m * n * k
+        out.append(f"{name}/bfloat16 {kernel:.4f} ({tflops / kernel:.1f} TFLOP/s; F.linear "
+                   f"{linear:.4f}, {tflops / linear:.1f})")
+    print(label, "bf16 GEMM ms:", "; ".join(out), flush=True)
     if importlib.util.find_spec("fashionern_aaai2024_tpu_torch.ops.attn_experiment") is not None:
         cases = attention_cases(g)
         print(label, "attention ms:", "; ".join(f"{name}/bfloat16 {median_ms(fn):.4f}"

@@ -126,6 +126,14 @@ RN50x4 (b = 1 and 32, bf16 and fp32), the train path's text tower and
 the ViT-B-16 trunk (bf16), timed beside the pair (the A/B its dispatch
 rule reads) and the pair's library compositions; then its autograd
 Function's 13 gradients against the plain version's (fp32, B = 2).
+Then the bf16 GEMM that B1, B2, B7 and B12 run (warpgroup MMA on TMA-fed
+tiles, `csrc/gemm.cu`): at its tiles' edges (M in 1-6,305, N in 8-2,304,
+K in 8-3,072, both tile widths, every epilogue, `out=` column slices)
+against `a.float() @ w.float().T` through the same epilogue, a
+misaligned operand that must raise, and one line per product of B1 and
+B2 at ViT-B-16 M = 6,304 and 25,216 and of the RN50x4 text c_fc at
+M = 2,464: ms (bursts of 10 calls), TFLOP/s, each tile width and
+`F.linear`'s time beside it.
 
 The bf16 attention kernels run 16-row warp tiles over 16-key tiles on the
 tensor cores, staged by 16-byte (else 4-byte or element) copies, so each
@@ -277,16 +285,19 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
 # in attention_bf16.cuh compiled per head dim, the bodies and the tiles
 CORE = ["attention.cu", "attention_bf16_d64.cu", "attention_bf16_d80.cu", "attention_bf16.cuh",
         "attention_core.cuh", "attention_mma.cuh"]
-SOURCES = {B1: ["layernorm.cu", "gemm.cu", *CORE], B2: ["layernorm.cu", "gemm.cu"],
+# the GEMM: gemm.cu (the TMA-fed kernels) on gemm_wgmma.cuh's bf16 body
+# and gemm_tile.cuh's fp32 tile
+GEMM = ["gemm.cu", "gemm_wgmma.cuh", "gemm_tile.cuh"]
+SOURCES = {B1: ["layernorm.cu", *GEMM, *CORE], B2: ["layernorm.cu", *GEMM],
            B3: CORE, B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
-           B6: ["quant.cu", "qgemm.cu", *CORE], B7: ["gemm.cu", *CORE],
+           B6: ["quant.cu", "qgemm.cu", *CORE], B7: [*GEMM, *CORE],
            B8: CORE, B11: ["layernorm.cu"],
            B9: [*CORE, "attention_grouped.cu"],
-           B12: ["gemm.cu", "combiner.cu"],
-           B10: ["block.cu", "gemm_tile.cuh", "attention_core.cuh", "attention_mma.cuh",
-                 "layernorm_row.cuh"],
+           B12: [*GEMM, "combiner.cu"],
+           B10: ["block.cu", "gemm_wgmma.cuh", "gemm_tile.cuh", "attention_core.cuh",
+                 "attention_mma.cuh", "layernorm_row.cuh"],
            X1: ["attention_grouped.cu", "attention_mma.cuh"], X2: CORE,
-           X3: ["gemm.cu", *CORE], X4: ["layernorm.cu", "gemm.cu", *CORE]}
+           X3: [*GEMM, *CORE], X4: ["layernorm.cu", *GEMM, *CORE]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
@@ -393,6 +404,26 @@ EDGE_CROSS = [(1, 82), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1), (197, 13
 # the grouped kernel's chunk edges and head dims: 16-byte staging at 128
 # and 96, 4-byte at 34 (D % 8 != 0)
 EDGE_GROUPED = [(sk, dh) for sk in (1, 63, 64, 65, 300, 1024) for dh in (128, 96, 34)]
+# the bf16 GEMM's tile edges (warpgroup MMA on TMA-fed 128 x 128 / 128 x
+# 256 tiles, 64-deep K tiles): rows around a warpgroup's 64 and the ViT's
+# 197 and 32 x 197 + 1, columns inside and past a tile, K short of, one
+# past and at multiples of a K tile; epilogues cycle through (bias,
+# residual, activation) as B1, B2, B7 and B12 use them
+GEMM_EDGE_M = (1, 15, 63, 64, 65, 197, 6305)
+GEMM_EDGE_N = (8, 72, 200, 640, 2304)
+GEMM_EDGE_K = (8, 40, 776, 3072)
+GEMM_EPILOGUES = ((True, False, None), (False, True, None), (True, True, None),
+                  (True, False, "quick_gelu"), (True, False, "relu"), (False, False, None))
+# the products of B1 and B2 at the ViT-B-16 gallery batch (32 x 197) and
+# the embed batch (128 x 197), and the RN50x4 text tower's c_fc at a
+# query batch of 32: (name, M, K, N, bias, residual, activation)
+GEMM_PRODUCTS = [(f"vit_{name}_m{m}", m, k, n, True, res, act)
+                 for m in (32 * 197, 128 * 197)
+                 for name, k, n, res, act in (("qkv", 768, 2304, False, None),
+                                              ("out_proj", 768, 768, True, None),
+                                              ("c_fc", 768, 3072, False, "quick_gelu"),
+                                              ("c_proj", 3072, 768, True, None))]
+GEMM_PRODUCTS.append(("rn_text_c_fc_m2464", 32 * 77, 640, 2560, True, False, "quick_gelu"))
 
 
 def log(msg: str) -> None:
@@ -671,6 +702,135 @@ def phase_edge_kernels() -> dict:
         f"{EDGE_LENGTHS} and {EDGE_CROSS}, max errors "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
+
+
+def gemm_reference(a: torch.Tensor, w: torch.Tensor, bias, res, activation) -> torch.Tensor:
+    """The bf16 GEMM's function on an fp32 product: bias and activation in
+    fp32, the cast, then the residual added in bf16."""
+    v = a.float() @ w.float().T
+    if bias is not None:
+        v = v + bias.float()
+    if activation == "relu":
+        v = torch.relu(v)
+    elif activation is not None:
+        v = M.act_f32(v, activation)
+    v = v.to(torch.bfloat16)
+    return v if res is None else res + v
+
+
+def gemm_operands(g: torch.Generator, m: int, k: int, n: int, with_bias: bool,
+                  with_res: bool) -> tuple:
+    def t(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(torch.bfloat16).cuda()
+
+    return (t(m, k), t(n, k, scale=0.02), t(n, scale=0.02) if with_bias else None,
+            t(m, n) if with_res else None)
+
+
+def phase_gemm_edges() -> float:
+    """The bf16 GEMM (`launch_gemm`, both tile widths) against
+    `a.float() @ w.float().T` through the same epilogue at every
+    GEMM_EDGE_M x GEMM_EDGE_N x GEMM_EDGE_K (untimed), an `out=` column
+    slice at ldc > N, and a misaligned operand view that must raise;
+    returns the largest error."""
+    g, worst, n = torch.Generator().manual_seed(700), 0.0, 0
+    for i, m in enumerate(GEMM_EDGE_M):
+        for nn in GEMM_EDGE_N:
+            for j, k in enumerate(GEMM_EDGE_K):
+                with_bias, with_res, act = GEMM_EPILOGUES[(i + j) % len(GEMM_EPILOGUES)]
+                a, w, bias, res = gemm_operands(g, m, k, nn, with_bias, with_res)
+                want = gemm_reference(a, w, bias, res, act)
+                for tile in (128, 256):
+                    got = common._gemm(a, w, bias, res, act, None, tile)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+                    worst = max(worst, (got.float() - want.float()).abs().max().item())
+                    n += 1
+    for m, k, nn in ((1, 512, 640), (128, 640, 640), (1024, 512, 512)):
+        a, w, bias, _ = gemm_operands(g, m, k, nn, True, False)
+        cat = torch.full((m, 2 * nn + 8), 7.0, dtype=torch.bfloat16, device="cuda")
+        common.launch_gemm(a, w, bias, activation="relu", out=cat[:, nn:2 * nn])
+        torch.cuda.synchronize()
+        want = gemm_reference(a, w, bias, None, "relu")
+        torch.testing.assert_close(cat[:, nn:2 * nn].float(), want.float(), **TOL[torch.bfloat16])
+        if not ((cat[:, :nn] == 7).all() and (cat[:, 2 * nn:] == 7).all()):
+            raise AssertionError("gemm: an out= column slice wrote outside its columns")
+        worst = max(worst, (cat[:, nn:2 * nn].float() - want.float()).abs().max().item())
+        n += 1
+    flat = torch.zeros(197 * 512 + 8, dtype=torch.bfloat16, device="cuda")
+    try:
+        common.launch_gemm(flat[1:197 * 512 + 1].view(197, 512), w[:, :512].contiguous(), None)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("gemm: a misaligned operand view was launched")
+    log(f"  bf16 GEMM edges: {n} cases (M in {GEMM_EDGE_M}, N in {GEMM_EDGE_N}, K in "
+        f"{GEMM_EDGE_K}, tiles 128 and 256, column slices), max error {worst:.3e}; a "
+        f"misaligned view raises: {refused}")
+    return worst
+
+
+def burst_ms(fn, windows: int = 20, calls: int = 10) -> float:
+    """Median over windows of the CUDA-event time of `calls` back-to-back
+    calls, divided by `calls`: the device's time per call where the host
+    keeps ahead of it (a per-call window would time the host's enqueue
+    of a short kernel)."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def phase_gemm_products(card: str) -> list[dict]:
+    """Each product of B1 and B2 at GEMM_PRODUCTS through `launch_gemm`
+    (its own epilogue) and each tile width, beside `F.linear` with the
+    bias (the yardstick, never called by the port), with TFLOP/s: one
+    line a product."""
+    g, rows = torch.Generator().manual_seed(701), []
+    for name, m, k, n, with_bias, with_res, act in GEMM_PRODUCTS:
+        a, w, bias, res = gemm_operands(g, m, k, n, with_bias, with_res)
+        flops = 2.0 * m * n * k
+        row = dict(product=name, m=m, k=k, n=n,
+                   ms=burst_ms(lambda: common.launch_gemm(a, w, bias, residual=res,
+                                                          activation=act)),
+                   tile128_ms=burst_ms(lambda: common._gemm(a, w, bias, res, act, None, 128)),
+                   tile256_ms=burst_ms(lambda: common._gemm(a, w, bias, res, act, None, 256)),
+                   linear_ms=burst_ms(lambda: F.linear(a, w, bias)))
+        row.update(tflops=flops / row["ms"] / 1e9, linear_tflops=flops / row["linear_ms"] / 1e9)
+        rows.append(row)
+        log(f"  gemm {name:22s} M={m} K={k} N={n}: {row['ms']:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s; tile 128 {row['tile128_ms']:.4f}, tile 256 "
+            f"{row['tile256_ms']:.4f}); F.linear {row['linear_ms']:.4f} ms "
+            f"({row['linear_tflops']:.1f} TFLOP/s) ({card})")
+        del a, w, bias, res
+    # host time of one call: the bf16 path encodes two tensor maps a call,
+    # the fp32 path none (no device sync between calls; tiny shapes)
+    host = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.randn((8, 512), generator=g).to(dtype).cuda()
+        w = torch.randn((512, 512), generator=g).to(dtype).cuda()
+        for _ in range(100):
+            common.launch_gemm(a, w, None)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2000):
+            t0 = time.perf_counter()
+            common.launch_gemm(a, w, None)
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        host[str(dtype).split(".")[1]] = 1e6 * statistics.median(times)
+    rows.append(dict(product="host_us_per_call", **host))
+    log(f"  gemm host time a launch_gemm call (M=8, K=N=512, median of 2000): bf16 "
+        f"{host['bfloat16']:.2f} us (two tensor maps encoded), fp32 {host['float32']:.2f} us")
+    return rows
 
 
 def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tuple:
@@ -2100,6 +2260,8 @@ def main() -> None:
     tme_worst, tme_rows = phase_tme_kernels()
     block_worst, block_rows, block_grad = phase_block_kernel()
     edge_worst = phase_edge_kernels()
+    gemm_worst = phase_gemm_edges()
+    gemm_rows = phase_gemm_products(card)
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     tokenizer_info = phase_tokenizer()
     slice_info, service, api = phase_slice(card)
@@ -2196,6 +2358,9 @@ def main() -> None:
     worst.update(exp_worst)
     for name, err in edge_worst.items():
         worst[name] = max(worst[name], err)
+    # the bf16 GEMM's edge cases: the device code of B1's and B2's products
+    for name in (B1, B2):
+        worst[name] = max(worst[name], gemm_worst)
     # X1 and X2 at their fastest G / gb, X3 and X4, in bf16 at B = 128
     for name in EXPERIMENT_KERNELS:
         timed[name] = min((r for r in exp_rows if r["kernel"] == name and
@@ -2228,6 +2393,7 @@ def main() -> None:
                            block_kernel_rows=block_rows, block_gradients=block_grad,
                            tokenizer=tokenizer_info, evaluation=eval_info,
                            experiment_kernel_rows=exp_rows, experiment=experiment,
+                           gemm_products=gemm_rows, gemm_edge_max_err=gemm_worst,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

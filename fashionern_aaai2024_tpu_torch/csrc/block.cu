@@ -25,8 +25,12 @@
 // residual, LN2, c_fc + bias + activation, c_proj + bias + residual. Each
 // phase walks its work units round-robin over the blocks, with the same
 // device code as the sub-block kernels (`layernorm_row.cuh`,
-// `gemm_tile.cuh`, `attention_core.cuh`), so its results are B1 + B2's
-// bit for bit. The intermediates (LN rows, qkv, the attention output,
+// `gemm_wgmma.cuh` in bf16 and `gemm_tile.cuh` in fp32,
+// `attention_core.cuh`), so its results are B1 + B2's bit for bit: in
+// bf16 a product's 128 x 128 tiles run the GEMM's warpgroup-MMA body
+// (the same `wgmma` instructions in the same k order) on operands that
+// the block's 256 threads stage by cp.async into the same swizzled
+// layout TMA writes for gemm.cu. The intermediates (LN rows, qkv, the attention output,
 // y, the [B*S, F] hidden) go through a workspace the wrapper allocates;
 // at a query's sizes it stays in the 50 MB L2. The grid barrier is the
 // algorithm of cooperative_groups' grid sync on one word the wrapper
@@ -38,11 +42,13 @@
 
 #include "attention_core.cuh"
 #include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 #include "layernorm_row.cuh"
 
 namespace fern {
 
 constexpr int kBlockHeadDim = 64;
+static_assert(kThreads == kConsumerThreads, "B10's blocks are the bf16 tile's two warpgroups");
 
 template <typename T>
 struct BlockArgs {
@@ -80,10 +86,10 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrived) {
 __device__ __forceinline__ void block_gemm(unsigned char* smem, const bf16* A, const bf16* Bt,
                                            const bf16* bias, const bf16* res, bf16* C, int M,
                                            int N, int K, int act) {
-  Bf16TileSmem& sm = *reinterpret_cast<Bf16TileSmem*>(smem);
-  const int tn = (N + kBN - 1) / kBN, tiles = tn * ((M + kBM - 1) / kBM);
+  const int tn = (N + kMmaN - 1) / kMmaN, tiles = tn * ((M + kGemmBM - 1) / kGemmBM);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    gemm_bf16_tile(sm, A, Bt, bias, res, C, M, N, K, N, act, (t / tn) * kBM, (t % tn) * kBN);
+    gemm_bf16_tile(smem, A, Bt, bias, res, C, M, N, K, N, act, (t / tn) * kGemmBM,
+                   (t % tn) * kMmaN);
 }
 
 __device__ __forceinline__ void block_gemm(unsigned char* smem, const float* A,
@@ -111,7 +117,7 @@ __device__ __forceinline__ void block_layernorm(const T* x, const T* g, const T*
 // that another block wrote goes through the read-only cache.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int M = a.batch * a.seq, W = a.width;
 
   block_layernorm(a.x, a.ln1_w, a.ln1_b, a.ln, M, W, a.eps);
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
 
 template <typename T>
 static size_t block_smem_bytes(int seq) {
-  const size_t tile = sizeof(T) == 2 ? sizeof(Bf16TileSmem) : sizeof(F32TileSmem);
+  const size_t tile = sizeof(T) == 2 ? wgmma_tile_smem_bytes() : sizeof(F32TileSmem);
   const size_t attn = sizeof(T) == 2
                           ? attention_mma_smem_bytes<kBlockHeadDim>(seq, kThreads / 32)
                           : attention_smem_bytes<float, kBlockHeadDim>(seq);
@@ -192,7 +198,7 @@ static cudaError_t launch_block(BlockArgs<T> a, int device, cudaStream_t stream)
   cudaError_t err = resident_blocks<T>(device, smem, &resident);
   if (err != cudaSuccess) return err;
   const int M = a.batch * a.seq;
-  const int bm = sizeof(T) == 2 ? kBM : kFBM, bn = sizeof(T) == 2 ? kBN : kFBN;
+  const int bm = sizeof(T) == 2 ? kGemmBM : kFBM, bn = sizeof(T) == 2 ? kMmaN : kFBN;
   const int row_tiles = (M + bm - 1) / bm;
   const int wide = a.ffn > 3 * a.width ? a.ffn : 3 * a.width;
   // attention units: split each (sequence, head) into row tiles when there

@@ -45,8 +45,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, y, rows, width, eps, dtype, device, stream
     "fern_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
-    # a, bt, bias, res, c, m, n, k, ldc, act, dtype, device, stream
-    "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, bt, bias, res, c, m, n, k, ldc, act, dtype, tile, device, stream
+    "fern_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, bias, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, causal,
     # scale, dtype, out_dtype, images_per_block, device, stream
     "fern_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
@@ -259,16 +259,31 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
 
     a [M, K]; weight [N, K] (torch Linear layout); bias [N]; residual
     [M, N]. K and N must be multiples of 8 (16-byte vector loads and
-    stores). `out`: an [M, N] view with unit column stride and a row
-    stride that is a multiple of 8, 16-byte aligned (a column slice of a
-    wider buffer, as kernel B12's concat halves), written in place of a
-    new tensor. Its callers have passed `check_cuda_operands`."""
+    stores, and TMA's 16-byte row strides in bf16), and `a` and `weight`
+    must start on a 16-byte boundary (TMA's rule for a base address; the
+    fp32 tile's 16-byte loads). `out`: an [M, N] view with unit column
+    stride and a row stride that is a multiple of 8, 16-byte aligned (a
+    column slice of a wider buffer, as kernel B12's concat halves),
+    written in place of a new tensor. Its callers have passed
+    `check_cuda_operands`."""
+    return _gemm(a, weight, bias, residual, activation, out, tile=0)
+
+
+def _gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+          residual: torch.Tensor | None, activation: str | None, out: torch.Tensor | None,
+          tile: int) -> torch.Tensor:
+    """`launch_gemm` with the bf16 tile width: 0 for the kernel's rule,
+    128 or 256 to force one (the timings that set the rule)."""
     m, k = a.shape
     n = weight.shape[0]
     if weight.shape[1] != k:
         raise ValueError(f"gemm: a {tuple(a.shape)} vs weight {tuple(weight.shape)}")
     if k % 8 or n % 8:
         raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
+    for name, t in (("a", a), ("weight", weight)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"gemm: {name} {tuple(t.shape)} starts at an address that is "
+                             "not a multiple of 16 bytes")
     if bias is not None and bias.shape != (n,):
         raise ValueError(f"gemm: bias {tuple(bias.shape)} for N={n}")
     if residual is not None and residual.shape != (m, n):
@@ -283,7 +298,7 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),
            out.data_ptr(), m, n, k, out.stride(0), ACT_CODES[activation],
-           DTYPE_CODES[a.dtype], a.device.index, stream_of(a))
+           DTYPE_CODES[a.dtype], tile, a.device.index, stream_of(a))
     return out
 
 

@@ -70,6 +70,16 @@ the grouped kernel at 1-1024 keys with 16-byte (head dims 128, 96) and
 (`cuobjdump -sass`): every bf16 instance of the core and the grouped
 kernel issues HMMA and LDGSTS.
 
+The bf16 GEMM (`ops/common.py launch_gemm`, csrc/gemm.cu on the
+warpgroup-MMA body of gemm_wgmma.cuh) at its tiles' ragged edges, both
+tile widths (128 and 256 columns): M in 1, 15, 63, 64, 65, 197 and
+6,305 rows, N in 8, 72, 200, 640 and 2,304, K in 8, 40, 776 and 3,072,
+with and without bias, residual and quick_gelu / ReLU, and an `out=`
+column slice at ldc > N as kernel B12 writes it, against
+`a.float() @ w.float().T` through the same epilogue at the bf16
+tolerance; a misaligned operand view raises. The SASS test also holds
+the GEMM to HGMMA (wgmma) and UTMALDG (TMA loads), and B10 to HGMMA.
+
 B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
 of 100 turns the fp32 ordering error of a d = 512 dot product, about
 1e-6, into about 1e-4 on a score); gradients through the autograd
@@ -919,3 +929,97 @@ def test_bf16_attention_kernels_run_on_tensor_cores_and_cp_async(device):
         assert found, f"no {kernel} in the library"
         for name, sass in found.items():
             assert "HMMA" in sass and "LDGSTS" in sass, name
+
+
+# the bf16 GEMM's ragged edges: rows one short of, at and one past a
+# warpgroup's 64 and the ViT-B-16 trunk's 197 and 32 x 197 + 1; columns
+# short of, inside and past 128 / 256-wide tiles; K short of, one past and
+# at multiples of the 64-deep K tile
+GEMM_M = (1, 15, 63, 64, 65, 197, 6305)
+GEMM_N = (8, 72, 200, 640, 2304)
+GEMM_K = (8, 40, 776, 3072)
+# (bias, residual, activation): every combination the callers use
+GEMM_EPILOGUES = ((True, False, None), (False, True, None), (True, True, None),
+                  (True, False, "quick_gelu"), (True, False, "relu"), (False, False, None))
+
+
+def _gemm_reference(a, w, bias, res, activation):
+    """The GEMM's epilogue on an fp32 product: bias and activation in
+    fp32, the cast, then the residual added in bf16."""
+    from fashionern_aaai2024_tpu_torch.ops.mlp import act_f32
+
+    v = a.float() @ w.float().T
+    if bias is not None:
+        v = v + bias.float()
+    if activation == "relu":
+        v = torch.relu(v)
+    elif activation is not None:
+        v = act_f32(v, activation)
+    v = v.to(torch.bfloat16)
+    return v if res is None else res + v
+
+
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_bf16_gemm_edges_match_reference(device, m, n):
+    g = np.random.default_rng(1000 * m + n)
+    for i, k in enumerate(GEMM_K):
+        with_bias, with_res, activation = GEMM_EPILOGUES[(GEMM_M.index(m) + i) %
+                                                         len(GEMM_EPILOGUES)]
+        a = _t(g, (m, k), 1.0, torch.bfloat16, device)
+        w = _t(g, (n, k), 0.02, torch.bfloat16, device)
+        bias = _t(g, (n,), 0.02, torch.bfloat16, device) if with_bias else None
+        res = _t(g, (m, n), 1.0, torch.bfloat16, device) if with_res else None
+        want = _gemm_reference(a, w, bias, res, activation)
+        for tile in (128, 256):
+            got = common._gemm(a, w, bias, res, activation, None, tile)
+            torch.cuda.synchronize()
+            _close(got, want, torch.bfloat16)
+        _close(common.launch_gemm(a, w, bias, residual=res, activation=activation), want,
+               torch.bfloat16)
+
+
+def test_bf16_gemm_writes_a_column_slice(device):
+    """`out=` a column slice at ldc > N (B12's concat halves): the slice
+    holds the product, the columns beside it stay as they were."""
+    g = np.random.default_rng(77)
+    for m, k, n in ((1, 512, 640), (197, 640, 640), (1024, 512, 512)):
+        a = _t(g, (m, k), 1.0, torch.bfloat16, device)
+        w = _t(g, (n, k), 0.02, torch.bfloat16, device)
+        bias = _t(g, (n,), 0.02, torch.bfloat16, device)
+        cat = torch.full((m, 2 * n + 8), 7.0, dtype=torch.bfloat16, device=device)
+        common.launch_gemm(a, w, bias, activation="relu", out=cat[:, n:2 * n])
+        torch.cuda.synchronize()
+        _close(cat[:, n:2 * n], _gemm_reference(a, w, bias, None, "relu"), torch.bfloat16)
+        assert (cat[:, :n] == 7).all() and (cat[:, 2 * n:] == 7).all()
+
+
+def test_bf16_gemm_refuses_misaligned_operands(device):
+    """TMA takes 16-byte aligned bases only: a view one element into its
+    storage raises, for either operand, with nothing launched."""
+    a = torch.zeros(197 * 512 + 8, dtype=torch.bfloat16, device=device)
+    w = torch.zeros(640 * 512 + 8, dtype=torch.bfloat16, device=device)
+    good_a, good_w = a[:197 * 512].view(197, 512), w[:640 * 512].view(640, 512)
+    with pytest.raises(ValueError, match="16 bytes"):
+        common.launch_gemm(a[1:197 * 512 + 1].view(197, 512), good_w, None)
+    with pytest.raises(ValueError, match="16 bytes"):
+        common.launch_gemm(good_a, w[1:640 * 512 + 1].view(640, 512), None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        common.launch_gemm(a[:197 * 500].view(197, 500), w[:640 * 500].view(640, 500), None)
+
+
+def test_bf16_gemm_runs_wgmma_fed_by_tma(device):
+    """The bf16 GEMM issues warpgroup MMA (HGMMA) on tiles that TMA loads
+    (UTMALDG) and no WMMA / mma.sync (HMMA); B10's bf16 kernel runs its
+    products on the same HGMMA body."""
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    gemms = {k: v for k, v in funcs.items() if "gemm_bf16_kernel" in k}
+    assert gemms, "no gemm_bf16_kernel in the library"
+    for name, sass in gemms.items():
+        assert "HGMMA" in sass and "UTMALDG" in sass and "HMMA" not in sass, name
+    blocks = {k: v for k, v in funcs.items()
+              if "block_kernel" in k and "bfloat16" in k}
+    assert blocks, "no bf16 block_kernel in the library"
+    for name, sass in blocks.items():
+        assert "HGMMA" in sass, name

@@ -319,6 +319,26 @@ def test_kernel_library_hash_tracks_sources(tmp_path):
     assert lib.library_path() != before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_gemm_refuses_what_tma_cannot_take(dtype):
+    """`launch_gemm` checks its operands before any launch: a view that
+    starts off a 16-byte boundary (TMA's rule for a base address) raises,
+    as do K or N off a multiple of 8 (16-byte row strides); an aligned
+    operand passes the checks (and only then reaches the library)."""
+    a = torch.zeros(77 * 512 + 8, dtype=dtype)
+    w = torch.zeros(640 * 512 + 8, dtype=dtype)
+    good_a, good_w = a[:77 * 512].view(77, 512), w[:640 * 512].view(640, 512)
+    assert good_a.data_ptr() % 16 == 0 and good_w.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="a \\(77, 512\\) starts at an address"):
+        TCm.launch_gemm(a[2:77 * 512 + 2].view(77, 512), good_w, None)
+    with pytest.raises(ValueError, match="weight \\(640, 512\\) starts at an address"):
+        TCm.launch_gemm(good_a, w[1:640 * 512 + 1].view(640, 512), None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        TCm.launch_gemm(a[:77 * 500].view(77, 500), w[:640 * 500].view(640, 500), None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        TCm.launch_gemm(good_a, torch.zeros((644, 512), dtype=dtype), None)
+
+
 # --- B4: the BBC row loss ------------------------------------------------
 
 ROW_TOL = dict(atol=5e-4, rtol=1e-5)
