@@ -7,9 +7,10 @@ directory on one CUDA card.
 
     cd <checkout> && python3 <path>/ab_attention.py LABEL
 
-Prints five lines: LABEL and the median over 20 windows (after 5 warm-up
-calls) of the CUDA-event time of 10 back-to-back calls, divided by 10 (the
-device's time per call where the host keeps ahead of it), of B3 at ViT-B-16 B=32 (bf16 and fp32), text B=32
+Prints one line a group, each starting with LABEL: the median over 20
+windows (after 5 warm-up calls) of the CUDA-event time of 10 back-to-back
+calls, divided by 10 (a burst: the device's time per call where the host
+keeps ahead of it), of B3 at ViT-B-16 B=32 (bf16 and fp32), text B=32
 (causal, bf16) and ViT-B-16 B=1024 (bf16); X2 (`mha_packed`, the padded
 [128, 208, 2304] qkv with its padding bias, gb=1), B8 at the RN50x4
 attention pool ([128, 1, 2560] against [128, 82, 5120], 40 heads), B9
@@ -23,7 +24,14 @@ each product of B1 and B2 (QKV, out-projection + residual, c_fc +
 quick_gelu, c_proj + residual) at ViT-B-16 M = 32 x 197 and 128 x 197
 and at the RN50x4 text tower's c_fc (M = 32 x 77), with TFLOP/s and
 `F.linear`'s time beside each (the yardstick, never called by the
-port); one transformer
+port); kernel B11 (`layer_norm`) at the RN50x4 ln_final (bf16), the DVR
+BERT's LNs (fp32) and the ViT-B-16 ln_pre at B=128 (bf16), and kernel
+B12 (`combiner_apply`, fp32) at d = 512 and 640 and M = 1, 32, 128 and
+1024, each per call (one call between CUDA events, the host's enqueue
+included) and in bursts, beside `F.layer_norm` and the `F.linear`
+combiner; the host µs of one call of `layer_norm`, `combiner_apply` and
+`launch_gemm` in fp32 and bf16 (median of 2,000 calls, no
+synchronisation between them); one transformer
 block as B10 (one launch) and as B1 then B2, at the ViT-B-16 text tower
 at b=1 and 32 and the RN50x4 text tower at b=32 (causal, bf16). To
 compare two checkouts, run it in each in turns (parent, change, change,
@@ -44,6 +52,7 @@ import importlib.util
 import os
 import statistics
 import sys
+import time
 
 import torch
 
@@ -69,6 +78,14 @@ BF16_GEMMS = tuple((f"vit_{name}_m{m}", (m, k, n, res, act))
 BF16_GEMMS += (("rn_text_c_fc_m2464", (32 * 77, 640, 2560, False, "quick_gelu")),)
 BLOCKS = (("text_b1", (1, 77, 512, 8)), ("text_b32", (32, 77, 512, 8)),
           ("rn_text_b32", (32, 77, 640, 10)))
+# B11 at RN50x4 ln_final (bf16), the DVR BERT's LNs (fp32) and the ViT's
+# ln_pre at B = 128 (bf16): (rows, W, eps, dtype)
+LNS = (("ln_final", (32 * 77, 640, 1e-5, torch.bfloat16)),
+       ("bert_ln", (32 * 91, 640, 1e-12, torch.float32)),
+       ("vit_ln_pre", (128 * 197, 768, 1e-5, torch.bfloat16)))
+# B12 at a query's rows (1, 32), an index refine batch (128) and the
+# validation's (1024), d = 512 and 640, fp32 (the ERN stack's type)
+COMBINERS = tuple((d, m) for d in (512, 640) for m in (1, 32, 128, 1024))
 
 
 def attention_cases(g: torch.Generator) -> dict:
@@ -119,6 +136,107 @@ def median_ms(fn, windows: int = 20, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def call_ms(fn, runs: int = 25) -> float:
+    """Median CUDA-event time of one call (its host enqueue included,
+    as `chip_smoke.py median_ms` times a kernel)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Median host time of one call, no synchronisation between calls."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def combiner(d: int, dtype: torch.dtype, g: torch.Generator):
+    """A CombinerSimple with seeded weights (std in^-1/2, biases 0.02)."""
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    m = CombinerSimple(d)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            std = 0.02 if name.endswith("bias") else p.shape[1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=g) * std)
+    return m.to("cuda", dtype).eval()
+
+
+def combiner_library(image, text, module):
+    """The combiner as one `F.linear` composition (the yardstick)."""
+    F = torch.nn.functional
+    layers = (module.text_projection_layer[0], module.image_projection_layer[0],
+              module.dynamic_scalar[0], module.dynamic_scalar[3])
+    tp = F.relu(F.linear(text, layers[0].weight, layers[0].bias))
+    ip = F.relu(F.linear(image, layers[1].weight, layers[1].bias))
+    h = F.relu(F.linear(torch.cat([tp, ip], dim=-1), layers[2].weight, layers[2].bias))
+    sigma = torch.sigmoid(F.linear(h, layers[3].weight, layers[3].bias))
+    return F.normalize(sigma * text + (1.0 - sigma) * image, dim=-1)
+
+
+def ln_and_combiner(label: str, g: torch.Generator) -> None:
+    """B11 and B12: per call (enqueue included) and in bursts, beside
+    their library calls; then the host µs of one call of `layer_norm`,
+    `combiner_apply` and `launch_gemm`."""
+    from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
+    from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
+
+    F = torch.nn.functional
+    out = []
+    for name, (rows, w, eps, dtype) in LNS:
+        x = (2.0 + torch.randn((rows, w), generator=g)).to(dtype).cuda()
+        gam = (1.0 + 0.1 * torch.randn(w, generator=g)).to(dtype).cuda()
+        bet = (0.1 * torch.randn(w, generator=g)).to(dtype).cuda()
+        kernel = lambda: LN.layer_norm(x, gam, bet, eps)
+        library = lambda: F.layer_norm(x, (w,), gam, bet, eps)
+        out.append(f"{name}/{str(dtype)[6:]} call {call_ms(kernel):.4f} burst "
+                   f"{median_ms(kernel):.4f} (F.layer_norm call {call_ms(library):.4f} burst "
+                   f"{median_ms(library):.4f})")
+    print(label, "B11 ms:", "; ".join(out), flush=True)
+    out = []
+    with torch.no_grad():
+        for d, m in COMBINERS:
+            module = combiner(d, torch.float32, g)
+            image, text = (torch.randn((m, d), generator=g).cuda() for _ in range(2))
+            kernel = lambda: Cb.combiner_apply(image, text, module)
+            library = lambda: combiner_library(image, text, module)
+            out.append(f"d{d}_m{m}/float32 call {call_ms(kernel):.4f} burst "
+                       f"{median_ms(kernel):.4f} (F.linear call {call_ms(library):.4f} burst "
+                       f"{median_ms(library):.4f})")
+            del module
+        print(label, "B12 ms:", "; ".join(out), flush=True)
+        out = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = (torch.randn(shape, generator=g).to(dtype).cuda()
+                       for shape in ((8, 640), (640,), (640,)))
+            module = combiner(64, dtype, g)
+            image, text = (torch.randn((1, 64), generator=g).to(dtype).cuda() for _ in range(2))
+            a, wt = (torch.randn(shape, generator=g).to(dtype).cuda()
+                     for shape in ((8, 512), (512, 512)))
+            out.append(f"{str(dtype)[6:]} layer_norm "
+                       f"{host_us(lambda: LN.layer_norm(x, w, b, 1e-5)):.2f} combiner_apply "
+                       f"{host_us(lambda: Cb.combiner_apply(image, text, module)):.2f} "
+                       f"launch_gemm {host_us(lambda: common.launch_gemm(a, wt, None)):.2f}")
+    print(label, "host us a call (median of 2000; LN [8, 640], combiner M=1 d=64, GEMM M=8 "
+          "K=N=512):", "; ".join(out), flush=True)
 
 
 def slices(label: str) -> None:
@@ -176,6 +294,7 @@ def main() -> None:
         out.append(f"{name}/bfloat16 {kernel:.4f} ({tflops / kernel:.1f} TFLOP/s; F.linear "
                    f"{linear:.4f}, {tflops / linear:.1f})")
     print(label, "bf16 GEMM ms:", "; ".join(out), flush=True)
+    ln_and_combiner(label, g)
     if importlib.util.find_spec("fashionern_aaai2024_tpu_torch.ops.attn_experiment") is not None:
         cases = attention_cases(g)
         print(label, "attention ms:", "; ".join(f"{name}/bfloat16 {median_ms(fn):.4f}"

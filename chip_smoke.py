@@ -14,9 +14,13 @@ Phases (each raises on failure; nothing is caught):
      shapes, B8 (packed-kv cross-attention) at the RN50x4 attention pool's
      and the MR cross-attention's, B11 (LayerNorm) at ln_final, the BERT's
      and the ViT's ln_pre, each in bf16 and fp32; with per-call times (CUDA
-     events, median of 25) beside one PyTorch library call computing the
-     same function (`library_ms`, a yardstick the port never calls) and the
-     card's bound for the work (`bound_ms`);
+     events, median of 25, the host's enqueue included) beside one PyTorch
+     library call computing the same function (`library_ms`, a yardstick
+     the port never calls) and the card's bound for the work (`bound_ms`);
+     B11 and B12 also in bursts of 10 calls (`burst_ms`, device time a
+     call) beside their library calls'; and the host µs of one call of
+     `layer_norm`, `combiner_apply` and `launch_gemm` in fp32 and bf16
+     (median of 2,000 calls, no synchronisation between them);
   3. the slice: first the port's BPE tokenizer (merges learned from the
      phases' captions, the table every phase tokenizes with): the native
      core's ids against the Python path's, ASCII and non-ASCII captions,
@@ -117,7 +121,10 @@ and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
 bias gradient is held card against plain too) and B12 (`combiner_apply`)
 at d = 512 and 640, M = 1, 32, 128 and 1024, fp32 and bf16, against
 their plain versions, with the same timings (library calls: SDPA with
-the bias as `attn_mask`; the `F.linear` composition). Every eval
+the bias as `attn_mask`; the `F.linear` composition). B12's fp32
+products run by 3xTF32 on the tensor cores, so its fp32 bound is the
+larger of its bytes and three times its FLOPs at the 495 TFLOP/s TF32
+peak (the 67 TFLOP/s CUDA-core bound is printed beside it). Every eval
 combiner of every phase runs B12: three per query call, one per index
 refine chunk. Last in phase 2, B10 (`transformer_block`, the whole
 block in one launch) against its plain version and bit for bit against
@@ -287,17 +294,18 @@ CORE = ["attention.cu", "attention_bf16_d64.cu", "attention_bf16_d80.cu", "atten
         "attention_core.cuh", "attention_mma.cuh"]
 # the GEMM: gemm.cu (the TMA-fed kernels) on gemm_wgmma.cuh's bf16 body
 # and gemm_tile.cuh's fp32 tile
-GEMM = ["gemm.cu", "gemm_wgmma.cuh", "gemm_tile.cuh"]
-SOURCES = {B1: ["layernorm.cu", *GEMM, *CORE], B2: ["layernorm.cu", *GEMM],
+GEMM = ["gemm.cu", "gemm_wgmma.cuh", "gemm_tile.cuh", "tma.cuh"]
+LN_SRC = ["layernorm.cu", "layernorm_row.cuh"]
+SOURCES = {B1: [*LN_SRC, *GEMM, *CORE], B2: [*LN_SRC, *GEMM],
            B3: CORE, B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
            B6: ["quant.cu", "qgemm.cu", *CORE], B7: [*GEMM, *CORE],
-           B8: CORE, B11: ["layernorm.cu"],
+           B8: CORE, B11: LN_SRC,
            B9: [*CORE, "attention_grouped.cu"],
-           B12: [*GEMM, "combiner.cu"],
+           B12: ["gemm_tf32.cu", *GEMM, "combiner.cu"],
            B10: ["block.cu", "gemm_wgmma.cuh", "gemm_tile.cuh", "attention_core.cuh",
                  "attention_mma.cuh", "layernorm_row.cuh"],
            X1: ["attention_grouped.cu", "attention_mma.cuh"], X2: CORE,
-           X3: [*GEMM, *CORE], X4: ["layernorm.cu", *GEMM, *CORE]}
+           X3: [*GEMM, *CORE], X4: [*LN_SRC, *GEMM, *CORE]}
 TOWER_KERNELS = (B1, B2, B3)
 INT8_KERNELS = (B5, B6)
 NEW_KERNELS = (B7, B8, B11)
@@ -331,6 +339,9 @@ INT8_TRAIN_STEPS = 2
 # CUDA-core rates, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# dense TF32 tensor-core peak (NVIDIA data sheet): B12's fp32 products run
+# as three TF32 passes (3xTF32)
+PEAK_TF32_FLOPS = 495e12
 # B4 at the train path's shape first: its timings go into the kernels line
 BBC_SHAPES = [(1024, 512), (1000, 512), (13, 24), (1024, 640)]
 BBC_TOL = dict(atol=5e-4, rtol=1e-5)
@@ -789,6 +800,18 @@ def burst_ms(fn, windows: int = 20, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def row_extras(row: dict) -> str:
+    """A row's burst times (device time a call) and its bound at the
+    CUDA cores' fp32 rate, where it has them."""
+    text = ""
+    if "burst_ms" in row:
+        text += (f"; bursts: kernel {row['burst_ms']:.4f} ms, library "
+                 f"{row['library_burst_ms']:.4f} ms")
+    if "bound_simt_ms" in row:
+        text += f"; bound at 67 TFLOP/s {row['bound_simt_ms']:.4f} ms"
+    return text
+
+
 def phase_gemm_products(card: str) -> list[dict]:
     """Each product of B1 and B2 at GEMM_PRODUCTS through `launch_gemm`
     (its own epilogue) and each tile width, beside `F.linear` with the
@@ -811,26 +834,50 @@ def phase_gemm_products(card: str) -> list[dict]:
             f"{row['tile256_ms']:.4f}); F.linear {row['linear_ms']:.4f} ms "
             f"({row['linear_tflops']:.1f} TFLOP/s) ({card})")
         del a, w, bias, res
-    # host time of one call: the bf16 path encodes two tensor maps a call,
-    # the fp32 path none (no device sync between calls; tiny shapes)
-    host = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        a = torch.randn((8, 512), generator=g).to(dtype).cuda()
-        w = torch.randn((512, 512), generator=g).to(dtype).cuda()
-        for _ in range(100):
-            common.launch_gemm(a, w, None)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(2000):
-            t0 = time.perf_counter()
-            common.launch_gemm(a, w, None)
-            times.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        host[str(dtype).split(".")[1]] = 1e6 * statistics.median(times)
-    rows.append(dict(product="host_us_per_call", **host))
-    log(f"  gemm host time a launch_gemm call (M=8, K=N=512, median of 2000): bf16 "
-        f"{host['bfloat16']:.2f} us (two tensor maps encoded), fp32 {host['float32']:.2f} us")
     return rows
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Median host time of one call over `calls` calls with no device
+    synchronisation between them (after 100 warm-up calls), in µs."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def phase_host_us(card: str) -> dict:
+    """Host µs of one call of `layer_norm` ([8, 640]), `combiner_apply`
+    (M = 1, d = 64: three launches in fp32, four in bf16) and
+    `launch_gemm` (M = 8, K = N = 512; bf16 encodes two tensor maps a
+    call) in fp32 and bf16, at shapes whose device time stays below the
+    host's so that the queue never fills."""
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    g, out = torch.Generator().manual_seed(702), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b = (torch.randn(shape, generator=g).to(dtype).cuda()
+                   for shape in ((8, 640), (640,), (640,)))
+        module = random_init_(CombinerSimple(64), g).to("cuda", dtype).eval()
+        image, text = (torch.randn((1, 64), generator=g).to(dtype).cuda() for _ in range(2))
+        a, wt = (torch.randn(shape, generator=g).to(dtype).cuda() for shape in ((8, 512),
+                                                                              (512, 512)))
+        with torch.no_grad():
+            out[str(dtype).split(".")[1]] = dict(
+                layer_norm=host_us(lambda: LN.layer_norm(x, w, b, 1e-5)),
+                combiner_apply=host_us(lambda: Cb.combiner_apply(image, text, module)),
+                launch_gemm=host_us(lambda: common.launch_gemm(a, wt, None)))
+    for dtype, us in out.items():
+        log(f"  host time a call, median of 2000 ({dtype}): layer_norm "
+            f"{us['layer_norm']:.2f} us, combiner_apply {us['combiner_apply']:.2f} us, "
+            f"launch_gemm {us['launch_gemm']:.2f} us ({card})")
+    return out
 
 
 def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tuple:
@@ -922,11 +969,13 @@ def phase_new_kernels() -> tuple[dict, list]:
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
                        max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
                        library_ms=median_ms(library), **new_kernel_work(name, shp, dtype))
+            if name == B11:
+                row.update(burst_ms=burst_ms(kernel), library_burst_ms=burst_ms(library))
             rows.append(row)
             log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {err:.3e}  "
                 f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                 f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
+                f"({row['bound_by']})" + row_extras(row))
             del args
     return worst, rows
 
@@ -982,12 +1031,21 @@ def combiner_module(d: int, dtype: torch.dtype, seed: int):
 
 
 def combiner_work(d: int, m: int, dtype: torch.dtype) -> dict:
-    """Bound of one B12 call: 2·M·(8d² + 64d² + 8d) FLOPs at the dtype's
-    peak; the weights (2 x [4d, d], [8d, 8d], [8d], biases), the two
-    input rows and the output row once each."""
+    """Bound of one B12 call: the weights (2 x [4d, d], [8d, 8d], [8d],
+    biases), the two input rows and the output row once each, and
+    2·M·(8d² + 64d² + 8d) FLOPs. bf16: at the bf16 peak. fp32: the least
+    time for fp32-accurate products on the tensor cores, three TF32
+    passes (3xTF32) at the TF32 peak; the same FLOPs at the CUDA cores'
+    67 TFLOP/s stay beside it (`bound_simt_ms`)."""
     e = torch.finfo(dtype).bits // 8
     weights = 8 * d * d + 8 * d + 64 * d * d + 8 * d + 8 * d + 1
-    return bound(2 * m * (8 * d * d + 64 * d * d + 8 * d), e * (weights + 3 * m * d), dtype)
+    flops, nbytes = 2 * m * (8 * d * d + 64 * d * d + 8 * d), e * (weights + 3 * m * d)
+    if dtype != torch.float32:
+        return bound(flops, nbytes, dtype)
+    ops_ms, bytes_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_simt_ms=bound(flops, nbytes, dtype)["bound_ms"])
 
 
 def combiner_library(image: torch.Tensor, text: torch.Tensor, module) -> torch.Tensor:
@@ -1040,6 +1098,8 @@ def phase_tme_kernels() -> tuple[dict, list]:
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
                        max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
                        library_ms=median_ms(library), **work)
+            if name == B12:
+                row.update(burst_ms=burst_ms(kernel), library_burst_ms=burst_ms(library))
         if name == B9 and bias is not None:
             cos = row["bias_grad_cosine"] = mha_bias_grad_cosine(q, k, v, bias, causal)
             log(f"  {name} {label} {row['dtype']}: bias gradient, card against plain, "
@@ -1050,7 +1110,7 @@ def phase_tme_kernels() -> tuple[dict, list]:
         log(f"  {name:32s} {label:13s} {row['dtype']:9s} err {err:.3e}  "
             f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
             f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']})" + row_extras(row))
     return worst, rows
 
 
@@ -2262,6 +2322,7 @@ def main() -> None:
     edge_worst = phase_edge_kernels()
     gemm_worst = phase_gemm_edges()
     gemm_rows = phase_gemm_products(card)
+    host = phase_host_us(card)
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
     tokenizer_info = phase_tokenizer()
     slice_info, service, api = phase_slice(card)
@@ -2394,6 +2455,7 @@ def main() -> None:
                            tokenizer=tokenizer_info, evaluation=eval_info,
                            experiment_kernel_rows=exp_rows, experiment=experiment,
                            gemm_products=gemm_rows, gemm_edge_max_err=gemm_worst,
+                           host_us_per_call=host,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

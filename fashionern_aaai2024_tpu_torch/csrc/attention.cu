@@ -145,7 +145,7 @@ extern "C" int fern_attention(const void* q, const void* k, const void* v, const
                               void* out, int batch, int sq, int sk, int heads, int head_dim,
                               int q_ld, int kv_ld, int causal, float scale, int dtype,
                               int out_dtype, int images_per_block, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   const int gb = images_per_block;
   if (sk < 1 || sk > fern::kMaxSeq || (causal && sq != sk) || gb < 1 || batch % gb)

@@ -502,7 +502,7 @@ extern "C" int fern_attention_grouped(const void* q, const void* k, const void* 
                                       int heads, int head_dim, int q_ld, int kv_ld, int group,
                                       int split_rows, float scale, int dtype, int device,
                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   const long long pairs = (long long)batch * heads;
   if (sk < 1 || head_dim < 2 || head_dim > 128 || head_dim % 2 || group < 1 ||

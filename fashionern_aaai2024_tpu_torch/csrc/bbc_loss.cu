@@ -166,7 +166,7 @@ __global__ void bbc_combine_kernel(const float* __restrict__ part_m,
 extern "C" int fern_bbc_rowloss(const void* pred, const void* tar, void* row, void* part_m,
                                 void* part_l, void* diag, int B, int d, float temp,
                                 int splits, int tiles_per_split, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
   const int n_tiles = (B + fern::kBbcTile - 1) / fern::kBbcTile;

@@ -103,13 +103,14 @@ __device__ __forceinline__ void block_gemm(unsigned char* smem, const float* A,
                   0, K);
 }
 
+// Kernel B11's row routine, chosen by the same rule (`layernorm_rows`),
+// each warp walking rows with a grid stride.
 template <typename T>
 __device__ __forceinline__ void block_layernorm(const T* x, const T* g, const T* b, T* y,
                                                 int rows, int width, float eps) {
   constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < rows; r += gridDim.x * kWarps)
-    layernorm_row(x + (size_t)r * width, g, b, y + (size_t)r * width, width, eps, lane);
+  layernorm_rows(x, g, b, y, rows, width, eps, blockIdx.x * kWarps + threadIdx.x / 32,
+                 gridDim.x * kWarps, threadIdx.x % 32);
 }
 
 // The arguments travel by value in one struct: no pointer here is a
@@ -262,7 +263,7 @@ extern "C" int fern_block(const void* x, const void* ln1_w, const void* ln1_b,
                           int batch, int seq, int width, int ffn, int heads, int causal,
                           float scale, float eps, int act, int dtype, int device,
                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (width != heads * fern::kBlockHeadDim || seq < 1 || seq > fern::kMaxSeq || width % 8 ||
       ffn % 8 || ffn < 8)

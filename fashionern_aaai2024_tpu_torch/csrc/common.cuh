@@ -10,6 +10,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace fern {
 
 enum DType : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
@@ -64,6 +66,31 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ---- host side of every C entry point ----------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// Makes `device` current, unless it already is: the first step of every
+// C entry point, which launches from the caller's thread.
+inline cudaError_t use_device(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// SM count of a device (in range: `use_device` checked it), read once.
+inline int sm_count(int device) {
+  static std::atomic<int> sms[kMaxDevices];
+  int n = sms[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    sms[device].store(n, std::memory_order_relaxed);
+  }
+  return n;
 }
 
 // 16-byte asynchronous copy to shared memory; with pred false the 16

@@ -29,26 +29,20 @@
 // (three stages, two blocks an SM, so one block's epilogue overlaps the
 // other's products) or 256 (four stages, one block an SM), by
 // `pick_tile`; `fern_gemm`'s `tile` argument forces either. fp32: SIMT
-// FMA 64 x 64 tiles, full fp32, as the fp32 parity tier needs. A split-K
-// entry (`fern_gemm_f32_partials`) writes one fp32 partial product per
-// slice of K for kernel B12's hidden layer, where a few row tiles against
-// a deep K would leave most SMs idle or waiting on memory.
+// FMA 64 x 64 tiles, full fp32, as the fp32 parity tier needs (kernel
+// B12's fp32 products run on the tensor cores instead, by 3xTF32 in
+// gemm_tf32.cu).
 
-#include <cuda.h>
-
-#include <atomic>
 #include <mutex>
 
 #include "gemm_tile.cuh"
 #include "gemm_wgmma.cuh"
+#include "tma.cuh"
 
 namespace fern {
 
 constexpr int kProducerWarp = kConsumerThreads / 32;  // warp 8
 constexpr int kGemmThreads = kConsumerThreads + 32;
-// A wait longer than this many SM clock cycles (~10 s) means a copy or a
-// release never came: the kernel traps (a launch error) instead of hanging.
-constexpr long long kWaitTimeout = 1LL << 34;
 
 // A tile width, the ring's depth and the blocks an SM holds.
 template <int BN, int STAGES, int BLOCKS>
@@ -60,46 +54,6 @@ struct GemmConfig {
   // scratch), 2 x STAGES mbarriers
   static constexpr size_t kSmem = 1024 + kData + 2 * STAGES * sizeof(uint64_t);
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > kWaitTimeout) __trap();
-  }
-}
-// One box of a 2-D tensor map (coordinates: k, row) into shared memory,
-// completing `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
-                                         int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
-      : "memory");
-}
 
 // The output tile at rows blockIdx.y * 128.., columns blockIdx.x * BN..
 template <int BN, int STAGES, int BLOCKS>
@@ -168,64 +122,21 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// blockIdx.z takes K slice [kz0, kz1) and writes its own [M, ldc] C.
+// The fp32 SIMT tile at rows blockIdx.y * 64.., columns blockIdx.x * 64..
 __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
                 const float* __restrict__ bias, const float* __restrict__ res,
-                float* __restrict__ C, int M, int N, int K, int ldc, int act, int k_per) {
+                float* __restrict__ C, int M, int N, int K, int ldc, int act) {
   __shared__ __align__(16) F32TileSmem sm;
-  const int kz0 = blockIdx.z * k_per, kz1 = min(K, kz0 + k_per);
-  gemm_f32_tile(sm, A, Bt, bias, res, C + (size_t)blockIdx.z * M * ldc, M, N, K, ldc, act,
-                blockIdx.y * kFBM, blockIdx.x * kFBN, kz0, kz1);
-}
-
-// cuTensorMapEncodeTiled from the driver, found once through the
-// runtime (no link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
+  gemm_f32_tile(sm, A, Bt, bias, res, C, M, N, K, ldc, act, blockIdx.y * kFBM,
+                blockIdx.x * kFBN, 0, K);
 }
 
 // The tensor map of a row-major bf16 [rows, k] matrix read in boxes of
 // box_rows x 64, in the 128-byte swizzle, zero past its edges.
 static cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kGemmBK, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-constexpr int kMaxDevices = 64;
-
-// SM count of a device, read once.
-static int sm_count(int device) {
-  static std::atomic<int> sms[kMaxDevices];
-  int n = sms[device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    sms[device].store(n, std::memory_order_relaxed);
-  }
-  return n;
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), ptr, rows, k, kGemmBK,
+                  box_rows);
 }
 
 // Tile width of the rule, from the two widths' times on an H100 at the
@@ -277,7 +188,7 @@ static cudaError_t launch_bf16(const void* a, const void* bt, const void* bias, 
 extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const void* res,
                          void* c, int m, int n, int k, int ldc, int act, int dtype, int tile,
                          int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (ldc < n) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
@@ -286,7 +197,7 @@ extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const 
     const unsigned long long addr =
         reinterpret_cast<unsigned long long>(a) | reinterpret_cast<unsigned long long>(bt) |
         reinterpret_cast<unsigned long long>(c);
-    if (addr % 16 || k % 8 || n % 8 || ldc % 8 || device < 0 || device >= fern::kMaxDevices)
+    if (addr % 16 || k % 8 || n % 8 || ldc % 8)
       return (int)cudaErrorInvalidValue;
     if (tile == 0) tile = fern::pick_tile(m, n, k, fern::sm_count(device));
     switch (tile) {
@@ -305,25 +216,8 @@ extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const 
     fern::gemm_f32_kernel<<<grid, fern::kThreads, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(bt),
         static_cast<const float*>(bias), static_cast<const float*>(res),
-        static_cast<float*>(c), m, n, k, ldc, act, k);
+        static_cast<float*>(c), m, n, k, ldc, act);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// fp32 split-K product without epilogue: partials [ceil(k / k_per), m, n],
-// slice z = a[:, z*k_per : (z+1)*k_per] . bt[:, same]^T. k_per: a
-// multiple of 16 (the k tile).
-extern "C" int fern_gemm_f32_partials(const void* a, const void* bt, void* partials, int m,
-                                      int n, int k, int k_per, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (k_per < fern::kFBK || k_per % fern::kFBK) return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
-  dim3 grid((n + fern::kFBN - 1) / fern::kFBN, (m + fern::kFBM - 1) / fern::kFBM,
-            (k + k_per - 1) / k_per);
-  fern::gemm_f32_kernel<<<grid, fern::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(bt), nullptr, nullptr,
-      static_cast<float*>(partials), m, n, k, n, fern::ACT_NONE, k_per);
-  return (int)cudaGetLastError();
 }

@@ -216,7 +216,7 @@ extern "C" int fern_qgemm(const void* a, int lda, const void* bt, int ldb, const
                           int a_scale_stride, const void* b_scale, const void* bias,
                           const void* partial, const void* res, void* c, int m, int n, int k,
                           int act, int dtype, int out_f32, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (k % 16 || lda % 16 || ldb % 16 ||
       (out_f32 && dtype == fern::DTYPE_BF16 && res != nullptr))

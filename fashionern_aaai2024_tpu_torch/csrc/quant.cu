@@ -105,7 +105,7 @@ quant_groups_kernel(const float* __restrict__ x, signed char* __restrict__ q,
 extern "C" int fern_ln_quant(const void* x, const void* g, const void* b, void* q, void* scale,
                              int rows, int width, float eps, int dtype, int device,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -131,7 +131,7 @@ extern "C" int fern_ln_quant(const void* x, const void* g, const void* b, void* 
 
 extern "C" int fern_quant_groups(const void* x, void* q, void* scale, int rows, int width,
                                  int groups, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (groups <= 0 || width % groups) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;

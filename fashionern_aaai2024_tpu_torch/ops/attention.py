@@ -168,7 +168,7 @@ def _launch_core(name: str, q: torch.Tensor, kv: torch.Tensor, *, w: int, sk: in
     common.launch("fern_attention", q.data_ptr(), base + esize * k_col, base + esize * v_col,
                   None if bias is None else bias.data_ptr(), out.data_ptr(), b, sq, sk, heads,
                   dh, q_ld, kv_ld, int(causal), scale, common.DTYPE_CODES[q.dtype],
-                  common.DTYPE_CODES[out_dtype], images_per_block, q.device.index,
+                  common.DTYPE_CODES[out_dtype], images_per_block, q.get_device(),
                   common.stream_of(q))
     return out
 
@@ -218,7 +218,7 @@ def launch_grouped_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: tor
     common.launch("fern_attention_grouped", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq, sk,
                   heads, dh, q_ld, kv_ld, group, int(split_rows), scale,
-                  common.DTYPE_CODES[q.dtype], q.device.index, common.stream_of(q))
+                  common.DTYPE_CODES[q.dtype], q.get_device(), common.stream_of(q))
     return out
 
 
@@ -328,7 +328,7 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
         code = common.DTYPE_CODES[q.dtype]
         common.launch("fern_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       None if bias is None else bias.data_ptr(), out.data_ptr(), batch, sq,
-                      sk, heads, dh, q_ld, lk[2], 0, scale, code, code, 1, q.device.index,
+                      sk, heads, dh, q_ld, lk[2], 0, scale, code, code, 1, q.get_device(),
                       common.stream_of(q))
     else:
         out = launch_grouped_attention("multi_head_attention", q, k, v, bias, batch=batch,

@@ -126,7 +126,7 @@ def _launch_block(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
     common.launch("fern_block", *ptrs, workspace.data_ptr(),
                   _barrier(x.device, stream).data_ptr(), out.data_ptr(), b, s, w, f, heads,
                   int(causal), scale, eps, common.ACT_CODES[activation],
-                  common.DTYPE_CODES[x.dtype], x.device.index, stream)
+                  common.DTYPE_CODES[x.dtype], x.get_device(), stream)
     return out
 
 

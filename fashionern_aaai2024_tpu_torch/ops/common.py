@@ -19,6 +19,7 @@ anything but 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,8 +56,9 @@ _SIGNATURES = {
     # split_rows, scale, dtype, device, stream
     "fern_attention_grouped": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _I, _P),
-    # a, bt, partials, m, n, k, k_per, device, stream
-    "fern_gemm_f32_partials": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a0, b0, bias0, a1, b1, bias1, c, problems, m, n, k, ldc, act, k_per,
+    # device, stream
+    "fern_gemm_tf32": (*(_P,) * 7, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # h, hp, splits, bh, wo, bo, text, image, out, m, d, hd, dtype, device, stream
     "fern_combiner_gate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, gamma, beta, q, scale, rows, width, eps, dtype, device, stream
@@ -166,16 +168,35 @@ class KernelLibrary:
 
 LIBRARY = KernelLibrary()
 
+# name -> the library's C entry point with its argtypes, bound once by
+# the first launch of the process (`_bind`): a launch is a dict lookup
+# and the ctypes call, with no `LIBRARY.load()` or CDLL lookup.
+_ENTRY: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _bind() -> dict[str, ctypes._CFuncPtr]:
+    lib = LIBRARY.load()
+    _ENTRY.update((name, getattr(lib, name)) for name in _SIGNATURES)
+    return _ENTRY
+
 
 def launch(name: str, *args) -> None:
     """Call one C entry point of the library and raise on a CUDA error."""
-    err = getattr(LIBRARY.load(), name)(*args)
+    err = (_ENTRY or _bind())[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's CUDA device, read
+    without building a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
@@ -191,10 +212,14 @@ def check_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
         return
     for t in tensors:
         if t is not None and t.requires_grad:
-            raise RuntimeError(
-                f"{name}: an operand of shape {tuple(t.shape)} requires grad, but the "
-                "CUDA kernel has no backward; run it under torch.no_grad() or "
-                "detach the operand")
+            _raise_requires_grad(name, t)
+
+
+def _raise_requires_grad(name: str, t: torch.Tensor) -> None:
+    raise RuntimeError(
+        f"{name}: an operand of shape {tuple(t.shape)} requires grad, but the "
+        "CUDA kernel has no backward; run it under torch.no_grad() or "
+        "detach the operand")
 
 
 def check_int8_operands(name: str, device: torch.device, *pairs: torch.Tensor) -> None:
@@ -211,44 +236,50 @@ def check_int8_operands(name: str, device: torch.device, *pairs: torch.Tensor) -
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is not contiguous")
 
 
-def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+def check_cuda_operands(name: str, *tensors: torch.Tensor) -> int:
     """Every operand on one CUDA device, contiguous, in a dtype the
     kernels take (fp32 or bf16), all of one dtype, and none that needs
-    a gradient (`check_no_grad`)."""
-    check_no_grad(name, *tensors)
+    a gradient (`check_no_grad`): one pass over cheap attributes.
+    Returns the device index."""
     first = tensors[0]
-    if first.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {first.dtype} not supported "
+    dtype, device = first.dtype, first.get_device()
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
                         "(the kernels take float32 or bfloat16)")
+    grad = torch.is_grad_enabled()
     for t in tensors:
-        if t.device != first.device:
+        if grad and t.requires_grad:
+            _raise_requires_grad(name, t)
+        if t.get_device() != device:
             raise ValueError(f"{name}: operands on {t.device} and {first.device}")
-        if t.dtype != first.dtype:
-            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {first.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
                              "is not contiguous")
+    return device
 
 
 def is_cuda(t: torch.Tensor) -> bool:
     """Dispatch rule of every op in the port: CUDA tensors launch the
     kernel, CPU tensors take the plain version, anything else raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def launch_layer_norm(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def launch_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    """LN kernel on a contiguous [rows, W] CUDA tensor (kernel B11, and a
-    piece of B1/B2); its callers have passed `check_cuda_operands`."""
-    rows, width = x2.shape
-    y = torch.empty_like(x2)
-    launch("fern_layernorm", x2.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-           y.data_ptr(), rows, width, eps, DTYPE_CODES[x2.dtype],
-           x2.device.index, stream_of(x2))
+    """LN kernel over the rows of a contiguous [..., W] CUDA tensor
+    (kernel B11, and a piece of B1/B2), as one flat [rows, W] buffer: no
+    view is taken. Its callers have passed `check_cuda_operands`."""
+    width = x.shape[-1]
+    y = torch.empty_like(x)
+    launch("fern_layernorm", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+           y.data_ptr(), x.numel() // width if width else 0, width, eps,
+           DTYPE_CODES[x.dtype], x.get_device(), stream_of(x))
     return y
 
 
@@ -275,13 +306,14 @@ def _gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     """`launch_gemm` with the bf16 tile width: 0 for the kernel's rule,
     128 or 256 to force one (the timings that set the rule)."""
     m, k = a.shape
-    n = weight.shape[0]
-    if weight.shape[1] != k:
+    n, kw = weight.shape
+    if kw != k:
         raise ValueError(f"gemm: a {tuple(a.shape)} vs weight {tuple(weight.shape)}")
     if k % 8 or n % 8:
         raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
-    for name, t in (("a", a), ("weight", weight)):
-        if t.data_ptr() % 16:
+    a_ptr, w_ptr = a.data_ptr(), weight.data_ptr()
+    for name, t, ptr in (("a", a, a_ptr), ("weight", weight, w_ptr)):
+        if ptr % 16:
             raise ValueError(f"gemm: {name} {tuple(t.shape)} starts at an address that is "
                              "not a multiple of 16 bytes")
     if bias is not None and bias.shape != (n,):
@@ -290,15 +322,16 @@ def _gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
         raise ValueError(f"gemm: residual {tuple(residual.shape)} for ({m}, {n})")
     if out is None:
         out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    elif (out.shape != (m, n) or out.dtype != a.dtype or out.device != a.device
-          or out.stride(1) != 1 or out.stride(0) % 8 or out.data_ptr() % 16):
-        raise ValueError(f"gemm: out {out.dtype} {tuple(out.shape)} at strides "
-                         f"{out.stride()} for ({m}, {n}) {a.dtype}")
-    launch("fern_gemm", a.data_ptr(), weight.data_ptr(),
-           None if bias is None else bias.data_ptr(),
-           None if residual is None else residual.data_ptr(),
-           out.data_ptr(), m, n, k, out.stride(0), ACT_CODES[activation],
-           DTYPE_CODES[a.dtype], tile, a.device.index, stream_of(a))
+        ldc = n
+    else:
+        ldc = out.stride(0)
+        if (out.shape != (m, n) or out.dtype != a.dtype or out.get_device() != a.get_device()
+                or out.stride(1) != 1 or ldc % 8 or out.data_ptr() % 16):
+            raise ValueError(f"gemm: out {out.dtype} {tuple(out.shape)} at strides "
+                             f"{out.stride()} for ({m}, {n}) {a.dtype}")
+    launch("fern_gemm", a_ptr, w_ptr, None if bias is None else bias.data_ptr(),
+           None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k, ldc,
+           ACT_CODES[activation], DTYPE_CODES[a.dtype], tile, a.get_device(), stream_of(a))
     return out
 
 
@@ -310,7 +343,7 @@ def launch_ln_quant(x2: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     q = torch.empty((rows, width), dtype=torch.int8, device=x2.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     launch("fern_ln_quant", x2.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
-           scale.data_ptr(), rows, width, eps, DTYPE_CODES[x2.dtype], x2.device.index,
+           scale.data_ptr(), rows, width, eps, DTYPE_CODES[x2.dtype], x2.get_device(),
            stream_of(x2))
     return q, scale
 
@@ -325,7 +358,7 @@ def launch_quant_groups(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, tor
     q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows, groups), dtype=torch.float32, device=x.device)
     launch("fern_quant_groups", x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, width,
-           groups, x.device.index, stream_of(x))
+           groups, x.get_device(), stream_of(x))
     return q, scale
 
 
@@ -366,5 +399,5 @@ def launch_qgemm(a: torch.Tensor, a_scale: torch.Tensor, weight: torch.Tensor,
            None if partial is None else partial.data_ptr(),
            None if residual is None else residual.data_ptr(), c.data_ptr(), m, n, k1 - k0,
            ACT_CODES[activation], DTYPE_CODES[io_dtype], int(out_dtype == torch.float32),
-           a.device.index, stream_of(a))
+           a.get_device(), stream_of(a))
     return c

@@ -9,9 +9,10 @@ x.dtype: eps 1e-5 in the CLIP towers, 1e-12 in the mini-BERT.
 ln_post, the text tower's ln_final and the BERT's embedding LN and its
 two post-LNs per layer. (The LNs inside B1, B2, B5 and B6 are pieces of
 those kernels.) On the TPU its dispatch kept XLA (`:92`); here a CUDA
-tensor launches `csrc/layernorm.cu` (one warp per row, two-pass
-variance, as `_ln_kernel`) over [rows, W] for any row count, and a CPU
-tensor takes `layer_norm_plain`.
+tensor launches `csrc/layernorm.cu` over its rows, seen as one flat
+[rows, W] buffer (no view is taken), for any row count and width: one
+warp a row with the row in registers (`csrc/layernorm_row.cuh`), and a
+CPU tensor takes `layer_norm_plain`.
 
 The BERT's LNs carry gradients in the train step, so there the CUDA
 launch goes through `LayerNormFunction`, a `torch.autograd.Function`
@@ -44,8 +45,7 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             eps: float) -> torch.Tensor:
     common.check_cuda_operands("layer_norm", x, weight, bias)
-    width = x.shape[-1]
-    return common.launch_layer_norm(x.view(-1, width), weight, bias, eps).view(x.shape)
+    return common.launch_layer_norm(x, weight, bias, eps)
 
 
 class LayerNormFunction(torch.autograd.Function):
@@ -81,7 +81,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if weight.shape != (width,) or bias.shape != (width,):
         raise ValueError(f"layer_norm: weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)} for width {width}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
         out = LayerNormFunction.apply(x, weight, bias, eps)
     else:
         out = _launch(x, weight, bias, eps)

@@ -62,14 +62,13 @@ def bbc_rowloss(pred: torch.Tensor, tar: torch.Tensor,
                         f"and {tar.dtype}")
     common.check_cuda_operands("bbc_rowloss", pred, tar)
     b, d = pred.shape
-    splits, per_split = split_plan(
-        b, torch.cuda.get_device_properties(pred.device).multi_processor_count)
+    splits, per_split = split_plan(b, common.sm_count(pred.get_device()))
     row = torch.empty((b,), dtype=torch.float32, device=pred.device)
     scratch = torch.empty((2 * splits + 1, b), dtype=torch.float32, device=pred.device)
     common.launch("fern_bbc_rowloss", pred.data_ptr(), tar.data_ptr(), row.data_ptr(),
                   scratch[:splits].data_ptr(), scratch[splits:2 * splits].data_ptr(),
                   scratch[2 * splits].data_ptr(), b, d, temp, splits, per_split,
-                  pred.device.index, common.stream_of(pred))
+                  pred.get_device(), common.stream_of(pred))
     bbc_rowloss.launches += 1
     return row
 

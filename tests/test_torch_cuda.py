@@ -34,10 +34,14 @@ control that rounds the activations to bf16 before quantizing (fp32
 limits `chip_smoke.py` holds the serve shapes to.
 
 B7 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and
-B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B11's
-autograd Function against the plain version's autograd at rtol 1e-5 and
-an atol of 1e-5 times the largest gradient element (two fp32 reductions
-in another order). The small RN50x4-shaped ResNet tower (tests/test_clip.py
+B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B11
+also at widths 512-1280, 100 and 642 (every vector instance and the
+general one) and 1 to 25,216 rows, with a SASS check for its 16-byte
+loads and stores, and B10 bit for bit against B1 + B2 at W = 640 and
+768 (B10's LN phases run B11's row routine); B11's autograd Function
+against the plain version's autograd at rtol 1e-5 and an atol of 1e-5
+times the largest gradient element (two fp32 reductions in another
+order). The small RN50x4-shaped ResNet tower (tests/test_clip.py
 RN_SMALL), card against CPU in fp32 with TF32 off, at atol 1e-4: cuDNN
 and the CPU's convolutions sum in other orders through 14 convolutions.
 
@@ -49,9 +53,11 @@ grouped kernel (csrc/attention_grouped.cu) at head dims 96 and 128 and at
 300, 512 and 1024 keys; its autograd
 Function against the plain version's autograd at rtol 1e-4 and an atol
 of 1e-5 times the largest gradient element. B12 (`combiner_apply`) at
-d = 512 and 640 and M = 1, 33, 128 and 1024 (fp32: 8, 8, 5 and 1 K
-slices of the hidden product at d = 512, 7, 7, 4 and 1 at 640), at the
-tolerances above.
+d = 512 and 640 and M = 1, 2, 33, 63, 64, 65, 128, 129 and 1024 (fp32:
+the products by 3xTF32 on the tensor cores, the hidden product in 4 K
+slices up to M = 128, 2 at 129 and 1 at 1024 at d = 512; 3, 1 and 1 at
+640), at the tolerances above; a SASS check holds its fp32 GEMM to tf32 HGMMA fed
+by UTMALDG.
 
 The attention experiment's X1-X4 (`ops/attn_experiment.py`) at its own
 shapes at batch 2 to 4, at the tolerances above: X1 (the grouped kernel)
@@ -245,6 +251,48 @@ def test_layer_norm_autograd_matches_plain_autograd(device):
     plain = [t.clone().requires_grad_() for t in (x0, *ln0)]
     (LN.layer_norm(*ours, 1e-12) * up).sum().backward()
     (LN.layer_norm_plain(*plain, 1e-12) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+# B11's instances: one warp a row in registers, 16-byte vectors, by
+# vectors a lane (bf16 512 / 640 / 768 / 1024 / 1280: 2, 3, 3, 4, 5; fp32:
+# 4, 5, 6, 8, and 1280 past the largest instance), and the general one
+# (widths not a multiple of a vector: bf16 100, both 642)
+LN_WIDTHS = (512, 640, 768, 1024, 1280, 100, 642)
+LN_ROWS = (1, 7, 2464, 25216)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", LN_WIDTHS)
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_instances_match_plain(device, dtype, w, rows):
+    """Every width and row count through B11's kernel instances (the
+    grid-stride walk at 25,216 rows included), and at 7 rows an operand
+    view one element past a 16-byte boundary (the general instance)."""
+    g = np.random.default_rng(rows + w)
+    x = _t(g, (rows, w), 1.0, dtype, device, offset=2.0)
+    ln_w, ln_b = _t(g, (w,), 0.1, dtype, device, 1.0), _t(g, (w,), 0.1, dtype, device)
+    _close(LN.layer_norm(x, ln_w, ln_b, 1e-5), LN.layer_norm_plain(x, ln_w, ln_b, 1e-5), dtype)
+    if rows == 7:
+        flat = torch.cat([x.flatten(), x.flatten()[:1]])
+        view = flat[1:].view(rows, w)
+        _close(LN.layer_norm(view, ln_w, ln_b, 1e-5),
+               LN.layer_norm_plain(view, ln_w, ln_b, 1e-5), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", [512, 768, 642])
+def test_layer_norm_autograd_matches_plain_autograd_at_every_instance(device, w):
+    g = np.random.default_rng(w)
+    x0 = _t(g, (3, 17, w), 1.0, torch.float32, device)
+    ln0 = (_t(g, (w,), 0.1, torch.float32, device, 1.0), _t(g, (w,), 0.1, torch.float32, device))
+    up = _t(g, (3, 17, w), 1.0, torch.float32, device)
+    ours = [t.clone().requires_grad_() for t in (x0, *ln0)]
+    plain = [t.clone().requires_grad_() for t in (x0, *ln0)]
+    (LN.layer_norm(*ours, 1e-5) * up).sum().backward()
+    (LN.layer_norm_plain(*plain, 1e-5) * up).sum().backward()
     for a, b in zip(ours, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
                                    atol=1e-5 * b.grad.abs().max().item())
@@ -540,6 +588,23 @@ def test_combiner_kernel_matches_plain(device, dtype, d, m):
         got = module(img, txt)
         torch.cuda.synchronize()
         assert Cb.combiner_apply.launches == n0 + 1
+        _close(got, Cb.combiner_apply_plain(img, txt, module), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 640])
+@pytest.mark.parametrize("m", [1, 2, 63, 64, 65, 128, 129, 1024])
+def test_combiner_kernel_matches_plain_at_the_tile_edges(device, dtype, d, m):
+    """B12 at rows around a warpgroup's 64 and the 128-row tile: fp32 runs
+    the 3xTF32 products (the hidden product split over K into 4 / 3 slices
+    at M <= 128 for d = 512 / 640, into 2 / 1 at M = 129, not at M =
+    1024), at the fp32 tolerance."""
+    g = np.random.default_rng(m + d)
+    module = _combiner(d, dtype, device, seed=d + 1)
+    img, txt = _t(g, (m, d), 1.0, dtype, device), _t(g, (m, d), 1.0, dtype, device)
+    with torch.no_grad():
+        got = Cb.combiner_apply(img, txt, module)
+        torch.cuda.synchronize()
         _close(got, Cb.combiner_apply_plain(img, txt, module), dtype)
 
 
@@ -1023,3 +1088,45 @@ def test_bf16_gemm_runs_wgmma_fed_by_tma(device):
     assert blocks, "no bf16 block_kernel in the library"
     for name, sass in blocks.items():
         assert "HGMMA" in sass, name
+
+
+def test_b12_fp32_runs_3xtf32_wgmma_and_b11_vector_loads(device):
+    """B12's fp32 GEMM issues its products as tf32 warpgroup MMA (HGMMA
+    ... TF32) on tiles that TMA loads (UTMALDG); every vector instance of
+    B11's kernel loads and stores 16 bytes a lane (LDG.E.128, STG.E.128)."""
+    import re
+
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    tf32 = {k: v for k, v in funcs.items() if "gemm_tf32_kernel" in k}
+    assert tf32, "no gemm_tf32_kernel in the library"
+    for name, sass in tf32.items():
+        # the products; ptxas also places a no-op HGMMA (RZ operands,
+        # gdesc[URZ]) where a warpgroup commits an empty group
+        hgmma = [line for line in sass.splitlines()
+                 if "HGMMA" in line and "gdesc[URZ]" not in line]
+        other = [line.strip() for line in hgmma if "TF32" not in line]
+        assert hgmma and not other, (name, other[:4])
+        assert "UTMALDG" in sass and "HMMA" not in sass, name
+    lns = {k: v for k, v in funcs.items()
+           if "layernorm_kernel" in k and re.search(r"Li[1-8]E", k)}
+    assert len(lns) == 16, sorted(lns)
+    for name, sass in lns.items():
+        assert "LDG.E.128" in sass and "STG.E.128" in sass, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,causal", [(1, 77, 640, 10, True),
+                                                (2, 197, 768, 12, False)])
+def test_block_kernel_equals_the_pair_at_the_ln_widths(device, dtype, b, s, w, heads, causal):
+    """B10's LN phases run B11's row routine, chosen by the same rule: at
+    the RN50x4 text width and the ViT width (other vector instances than
+    the 512 of `test_block_kernel_bf16_equals_the_pair`), B10 stays bit
+    for bit B1 + B2."""
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    args = _block_args(np.random.default_rng(w + b), b, s, w, dtype, device)
+    got = B._launch_block(*args, heads, causal, "quick_gelu", None, 1e-5)
+    pair = M.mlp_subblock(A.attention_subblock(*args[:7], heads, causal=causal), *args[7:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pair, atol=0, rtol=0)

@@ -608,15 +608,102 @@ def test_combiner_matches_flax_module(d):
                "fp32")
 
 
-@pytest.mark.parametrize("m,d,splits", [(1, 512, 8), (33, 512, 8), (128, 512, 5), (128, 640, 4),
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 by masking, as `cvt.rna.tf32.f32` rounds: to
+    nearest, ties away from zero (adding half of the 13 dropped mantissa
+    bits to the magnitude, then clearing them)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _linear_tf32(x, w, b, passes: int):
+    """x @ w.T + b with tf32 operands: one pass (hi . hi) or the 3xTF32
+    split of `csrc/gemm_tf32.cu` (lo . hi + hi . lo + hi . hi, fp32 sums)."""
+    xh, wh = _tf32(x), _tf32(w)
+    if passes == 1:
+        return xh @ wh.T + b
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    return xl @ wh.T + xh @ wl.T + xh @ wh.T + b
+
+
+def _combiner_tf32(image, text, module, passes: int):
+    """`combiner_apply_plain` in fp32 with its three products emulated in
+    tf32 (the gate's dot product stays fp32, as in `csrc/combiner.cu`)."""
+    wt, bt, wi, bi, wh, bh, wo, bo = TCb._weights(module)
+    cat = torch.cat([torch.relu(_linear_tf32(text, wt, bt, passes)),
+                     torch.relu(_linear_tf32(image, wi, bi, passes))], dim=-1)
+    h = torch.relu(_linear_tf32(cat, wh, bh, passes))
+    sigma = torch.sigmoid(torch.nn.functional.linear(h, wo, bo))
+    out = sigma * text + (1.0 - sigma) * image
+    return out / torch.sqrt(torch.sum(out * out, dim=-1, keepdim=True)).clamp_min(TCb.NORM_EPS)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """The emulation's rounding on values that pin it down: exact tf32
+    values stay, a value one ulp (of fp32) past a tie rounds to the
+    nearer, a tie rounds away from zero in both signs."""
+    step = 2.0 ** -10  # tf32's ulp at 1.0
+    x = torch.tensor([1.0, 1.0 + step, 1.0 + step / 2, -(1.0 + step / 2),
+                      1.0 + step / 2 - 2.0 ** -23])
+    want = torch.tensor([1.0, 1.0 + step, 1.0 + step, -(1.0 + step), 1.0])
+    torch.testing.assert_close(_tf32(x), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [512, 640])
+def test_combiner_3xtf32_meets_the_fp32_tolerance(d):
+    """B12's fp32 arithmetic on the card, emulated here at the combiner's
+    widths (64 rows, JAX's own init): 3xTF32 products hold the JAX
+    `combiner_apply` at the fp32 tolerance (atol 2e-5), while one tf32
+    pass does not, so the check can tell the two apart."""
+    from fashionern_aaai2024_tpu.models.ern.fusion import CombinerSimple as JaxCombiner
+    from fashionern_aaai2024_tpu_torch.models import convert
+    from fashionern_aaai2024_tpu_torch.models.ern.fusion import CombinerSimple
+
+    g = np.random.default_rng(d)
+    img = g.standard_normal((64, d)).astype(np.float32)
+    txt = g.standard_normal((64, d)).astype(np.float32)
+    v = jax.tree_util.tree_map(np.asarray,
+                               JaxCombiner(d).init(jax.random.PRNGKey(d), img, txt))
+    tm = CombinerSimple(d).eval()
+    tm.load_state_dict({k[2:]: t for k, t in convert._combiner(v["params"], "m").items()})
+    want = JCb.combiner_apply(jnp.asarray(img), jnp.asarray(txt), v["params"])
+    with torch.no_grad():
+        image, text = torch.from_numpy(img), torch.from_numpy(txt)
+        _close(want, _combiner_tf32(image, text, tm, passes=3), "fp32")
+        one_pass = _combiner_tf32(image, text, tm, passes=1).numpy()
+    assert np.abs(one_pass - np.asarray(want)).max() > 2e-5
+
+
+@pytest.mark.parametrize("m,d,splits", [(1, 512, 4), (33, 512, 4), (128, 512, 4), (128, 640, 3),
                                          (1024, 512, 1), (1024, 640, 1), (4, 3, 1)])
 def test_combiner_split_k_covers_k(m, d, splits):
     """B12's fp32 hidden product ([m, 8d] x [8d, 8d]) on a card of 132
-    SMs: the K slices are whole k tiles and cover K exactly once."""
+    SMs: split only where its 128 x 128 tiles leave SMs idle; the K
+    slices are whole k tiles and cover K exactly once."""
     k = n = 8 * d
-    k_per, got = TCb._split_k(m, n, k, 132)
-    assert got == splits and k_per % 16 == 0
+    k_per = TCb.hidden_k_slice(m, n, k, 132)
+    got = -(-k // k_per)
+    assert got == splits and k_per % 32 == 0
     assert (got - 1) * k_per < k <= got * k_per
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+def test_combiner_k_slices_cover_k_at_every_row_count(sms):
+    """`hidden_k_slice` over every row count to 2,048 at the combiner's
+    widths and a few others: whole 32-deep K tiles, no slice empty or
+    past K, no slice shallower than 8 K tiles unless K is, and never more
+    blocks than the SMs hold when the product is split."""
+    for d in (8, 64, 512, 640):
+        k = n = 8 * d
+        tiles_n = -(-n // 128)
+        for m in range(1, 2049):
+            k_per = TCb.hidden_k_slice(m, n, k, sms)
+            splits = -(-k // k_per)
+            starts = [z * k_per for z in range(splits)]
+            assert k_per % 32 == 0 and all(s0 < k for s0 in starts)
+            assert sum(min(k, s0 + k_per) - s0 for s0 in starts) == k
+            if splits > 1:
+                assert k_per >= 8 * 32
+                assert -(-m // 128) * tiles_n * splits <= sms
 
 
 def test_cpu_tensors_take_the_plain_versions_of_b9_b12():
