@@ -1,9 +1,9 @@
 """Times the attention core (kernel B3, `packed_qkv_self_attention`),
 the attention kernels beside it (X2, B8, B9's grouped route, X1), the
-fp32 SIMT GEMM (`ops/common.py launch_gemm`, which the fp32 tiers of
-B1, B2 and B7 and kernel B12 share) and the whole-block kernel B10
-against the B1 + B2 pair it replaces, of the checkout in the current
-directory on one CUDA card.
+fp32 GEMM (`ops/common.py launch_gemm`, which the fp32 tiers of B1, B2
+and B7 share), the fp32 kernels on it (B7, and B1, B2 and B10 in fp32),
+kernel B4 and the whole-block kernel B10 against the B1 + B2 pair it
+replaces, of the checkout in the current directory on one CUDA card.
 
     cd <checkout> && python3 <path>/ab_attention.py LABEL
 
@@ -17,9 +17,18 @@ attention pool ([128, 1, 2560] against [128, 82, 5120], 40 heads), B9
 through the grouped kernel at sk300_dh128 (head views [32, 8, 77, 128]
 against [32, 8, 300, 128], an fp32 [77, 300] bias), X1 (`mha_grouped`,
 G=1), all bf16, and SDPA on B3's ViT-B-16 B=32 bf16 operands (the
-library yardstick, never called by the port); the GEMM with a bias at the
-RN50x4 BERT's fused QKV projection (B7, [32*91, 640] x [640, 1920]) and
-the ViT-B-16 c_fc (B2, [32*197, 768] x [768, 3072]); the bf16 GEMM at
+library yardstick, never called by the port); the fp32 GEMM with a bias
+at the DVR BERT's fused QKV projection (B7: [32*91, 640] x [640, 1920],
+[32*91, 512] x [512, 1536], and both at b = 1, 91 rows), the text
+tower's c_proj at b = 1 and QKV at b = 32 and the ViT-B-16 c_fc (B2,
+[32*197, 768] x [768, 3072]), each also at every tile width of the
+3xTF32 GEMM where the checkout has one; B7 in fp32 at bert640 and
+bert512, b = 32 and 1, per call and in bursts, beside F.linear + SDPA,
+and its projection and attention core apart in bursts; B4 at (1024,
+512), (1000, 512) and (1024, 640) per call and in bursts beside
+`F.cross_entropy` over the logits; B1, B2 and B10 in fp32 in bursts at
+`chip_smoke.py` phase 2's fp32 shapes (ViT-B-16 B=32 for B1 and B2; the
+text towers of ViT-B-16 and RN50x4 at b = 32 and 1 for all three); the bf16 GEMM at
 each product of B1 and B2 (QKV, out-projection + residual, c_fc +
 quick_gelu, c_proj + residual) at ViT-B-16 M = 32 x 197 and 128 x 197
 and at the RN50x4 text tower's c_fc (M = 32 x 77), with TFLOP/s and
@@ -43,9 +52,9 @@ without `ops/block.py` prints no B10 line, one without
     cd <checkout> && python3 <path>/ab_attention.py LABEL --slices
 
 runs instead the checkout's own `chip_smoke.py` serve slices of ViT-B-16
-(bf16, then int8 towers and gallery) with their embed + refine img/s and
-query P50s (phases 3-4, 6), and its train slice's step time at B=1024
-(phase 9), and prints them on one line.
+(bf16, then int8 towers and gallery) and of RN50x4 (bf16) with their
+embed + refine img/s and query P50s (phases 3-4, 6, 10), and its train
+slice's step time at B=1024 (phase 9), and prints them on one line.
 """
 
 import importlib.util
@@ -65,7 +74,20 @@ SHAPES = (("vit_b32", (32, 197, 768, 12, False), torch.bfloat16),
           ("vit_b32", (32, 197, 768, 12, False), torch.float32),
           ("text_b32", (32, 77, 512, 8, True), torch.bfloat16),
           ("vit_b1024", (1024, 197, 768, 12, False), torch.bfloat16))
-GEMMS = (("bert640_qkv", (32 * 91, 640, 1920)), ("vit_cfc", (32 * 197, 768, 3072)))
+GEMMS = (("bert640_qkv", (32 * 91, 640, 1920)), ("bert512_qkv", (32 * 91, 512, 1536)),
+         ("bert640_qkv_b1", (91, 640, 1920)), ("bert512_qkv_b1", (91, 512, 1536)),
+         ("text_cproj_b1", (77, 2048, 512)), ("text_qkv_b32", (32 * 77, 512, 1536)),
+         ("vit_cfc", (32 * 197, 768, 3072)))
+# B7 in fp32: the DVR BERT at d = 640 (8 heads of 80) and 512, b = 32 and 1
+BERTS = (("bert640", (32, 91, 640, 8)), ("bert512", (32, 91, 512, 8)),
+         ("bert640_b1", (1, 91, 640, 8)), ("bert512_b1", (1, 91, 512, 8)))
+# B4 at the train batch (d = 512 and 640) and a ragged one
+BBCS = ((1024, 512), (1000, 512), (1024, 640))
+# B1, B2 and B10 in fp32 at chip_smoke.py phase 2's fp32 shapes (b, s, w,
+# heads, causal); B10 at the text towers only (its head dim and S)
+F32_TOWERS = (("vit_b32", (32, 197, 768, 12, False)), ("text_b32", (32, 77, 512, 8, True)),
+              ("text_b1", (1, 77, 512, 8, True)), ("rn_text_b32", (32, 77, 640, 10, True)),
+              ("rn_text_b1", (1, 77, 640, 10, True)))
 # the bf16 products of B1 and B2 (M, K, N, residual, activation): ViT-B-16
 # at the gallery batch (32 x 197) and the embed batch (128 x 197), the
 # RN50x4 text tower's c_fc at a query batch of 32
@@ -239,8 +261,63 @@ def ln_and_combiner(label: str, g: torch.Generator) -> None:
           "K=N=512):", "; ".join(out), flush=True)
 
 
+def fp32_kernels(label: str, g: torch.Generator) -> None:
+    """B7 and B4 per call and in bursts beside their library calls, B7's
+    two launches apart, then B1, B2 and B10 in fp32 in bursts."""
+    F = torch.nn.functional
+    from fashionern_aaai2024_tpu_torch.ops import losses as L
+
+    out = []
+    for name, (b, s, w, heads) in BERTS:
+        x = torch.randn((b, s, w), generator=g).cuda()
+        wt, bias = ((0.02 * torch.randn(shape, generator=g)).cuda()
+                    for shape in ((3 * w, w), (3 * w,)))
+        kernel = lambda: A.fused_qkv_self_attention(x, wt, bias, heads)
+
+        def library():
+            qkv = F.linear(x, wt, bias).view(b, s, 3, heads, w // heads).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(*qkv).transpose(1, 2).reshape(b, s, w)
+
+        qkv = common.launch_gemm(x.view(b * s, w), wt, bias).view(b, s, 3 * w)
+        gemm = median_ms(lambda: common.launch_gemm(x.view(b * s, w), wt, bias))
+        core = median_ms(lambda: A.packed_qkv_self_attention(qkv, heads))
+        out.append(f"{name}/float32 call {call_ms(kernel):.4f} burst {median_ms(kernel):.4f} "
+                   f"(projection {gemm:.4f}, core {core:.4f}; F.linear + SDPA call "
+                   f"{call_ms(library):.4f} burst {median_ms(library):.4f})")
+    print(label, "B7 ms:", "; ".join(out), flush=True)
+    out = []
+    for b, d in BBCS:
+        pred, tar = (F.normalize(torch.randn((b, d), generator=g), dim=-1).cuda()
+                     for _ in range(2))
+        labels = torch.arange(b, device="cuda")
+        kernel = lambda: L.bbc_rowloss(pred, tar)
+        library = lambda: F.cross_entropy(100.0 * pred @ tar.t(), labels, reduction="none")
+        out.append(f"b{b}_d{d}/float32 call {call_ms(kernel):.4f} burst {median_ms(kernel):.4f} "
+                   f"(F.cross_entropy call {call_ms(library):.4f} burst "
+                   f"{median_ms(library):.4f})")
+    print(label, "B4 ms:", "; ".join(out), flush=True)
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    out = []
+    for name, (b, s, w, heads, causal) in F32_TOWERS:
+        f = 4 * w
+        shapes = ((b, s, w), (w,), (w,), (3 * w, w), (3 * w,), (w, w), (w,), (w,), (w,),
+                  (f, w), (f,), (w, f), (w,))
+        args = [(0.02 * torch.randn(shape, generator=g)).cuda() for shape in shapes]
+        args[0] = args[0] * 50.0
+        b1 = median_ms(lambda: A.attention_subblock(*args[:7], heads, causal=causal))
+        b2 = median_ms(lambda: M.mlp_subblock(args[0], *args[7:]))
+        text = f"{name}/float32 B1 {b1:.4f} B2 {b2:.4f}"
+        if causal:
+            b10 = median_ms(lambda: B._launch_block(*args, heads, True, "quick_gelu", None, 1e-5))
+            text += f" B10 {b10:.4f}"
+        out.append(text)
+        del args
+    print(label, "fp32 towers ms (bursts):", "; ".join(out), flush=True)
+
+
 def slices(label: str) -> None:
-    """The checkout's chip_smoke.py phases 3-4, 6 and 9 (ViT-B-16)."""
+    """The checkout's chip_smoke.py phases 3-4, 6, 9 and 10."""
     import chip_smoke as cs
 
     card = cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -249,8 +326,9 @@ def slices(label: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for tier, quantize in (("bf16", False), ("int8", True)):
-        _, service, api = cs.phase_slice(card, quantize=quantize)
+    for tier, model, quantize in (("bf16", "ViT-B-16", False), ("int8", "ViT-B-16", True),
+                                  ("rn50x4 bf16", "RN50x4", False)):
+        _, service, api = cs.phase_slice(card, model_name=model, quantize=quantize)
         timings = cs.phase_timings(service, api)[0]
         out[tier] = (timings["embed_refine_img_per_s"], timings["query_p50_ms_b1"],
                      timings["query_p50_ms_b32"])
@@ -280,8 +358,15 @@ def main() -> None:
     out = []
     for name, (m, k, n) in GEMMS:
         a, w, b = (torch.randn(shape, generator=g).cuda() for shape in ((m, k), (n, k), (n,)))
-        out.append(f"{name}/float32 {median_ms(lambda: common.launch_gemm(a, w, b)):.4f}")
+        text = f"{name}/float32 {median_ms(lambda: common.launch_gemm(a, w, b)):.4f}"
+        if hasattr(common, "f32_tile"):  # the 3xTF32 GEMM: each tile width apart
+            widths = ", ".join(
+                f"tile {t} {median_ms(lambda: common._gemm(a, w, b, None, None, None, t)):.4f}"
+                for t in (32, 64, 128))
+            text += f" ({widths}; the rule's {common.f32_tile(m, n, common.sm_count(0))})"
+        out.append(text)
     print(label, "fp32 GEMM ms:", "; ".join(out), flush=True)
+    fp32_kernels(label, g)
     out = []
     for name, (m, k, n, with_res, act) in BF16_GEMMS:
         a, w, b, res = (None if shape is None else

@@ -11,9 +11,10 @@ Phases (each raises on failure; nothing is caught):
      serve path's shapes in bf16 and fp32 (ViT-B-16, and the text towers
      of ViT-B-16 and RN50x4) and at the train path's (the frozen towers at
      B = 1024) in bf16; B7 (QKV projection + attention) at the DVR BERT's
-     shapes, B8 (packed-kv cross-attention) at the RN50x4 attention pool's
-     and the MR cross-attention's, B11 (LayerNorm) at ln_final, the BERT's
-     and the ViT's ln_pre, each in bf16 and fp32; with per-call times (CUDA
+     shapes (b = 32 and 1), B8 (packed-kv cross-attention) at the RN50x4
+     attention pool's and the MR cross-attention's, B11 (LayerNorm) at
+     ln_final, the BERT's and the ViT's ln_pre, each in bf16 and fp32;
+     with per-call times (CUDA
      events, median of 25, the host's enqueue included) beside one PyTorch
      library call computing the same function (`library_ms`, a yardstick
      the port never calls) and the card's bound for the work (`bound_ms`);
@@ -52,8 +53,8 @@ Phases (each raises on failure; nothing is caught):
      the top-10 overlap with phase 3's bf16 service;
   7. kernel B4 (the BBC row loss) against its plain version at
      (1024, 512), (1000, 512), (13, 24) and (1024, 640), fp32, with the
-     same timings and `F.cross_entropy` over the logits as its library
-     call;
+     same timings, bursts beside `F.cross_entropy` over the logits (its
+     library call), and a TF32 bound (3xTF32) beside the 67 TFLOP/s one;
   8. the int8 train slice: 2 steps of `Trainer.train()` at B = 1024 with
      `quantize_towers=True`, launch counts and step times;
   9. the train slice: ViT-B-16 at full width, seeded weights, the bf16
@@ -140,7 +141,15 @@ against `a.float() @ w.float().T` through the same epilogue, a
 misaligned operand that must raise, and one line per product of B1 and
 B2 at ViT-B-16 M = 6,304 and 25,216 and of the RN50x4 text c_fc at
 M = 2,464: ms (bursts of 10 calls), TFLOP/s, each tile width and
-`F.linear`'s time beside it.
+`F.linear`'s time beside it. The fp32 GEMM that B1, B2, B7 and B12 run
+in fp32 (3xTF32 warpgroup MMA on TMA-fed tiles, `csrc/gemm_tf32.cu`) at
+its tiles' edges too (M in 1-1,024 around 64 and 128, N in 8-1,920, K in
+8-3,072, each tile width and the rule's, which must give the same bits,
+every epilogue, `out=` column slices) against an fp32 product at the fp32
+tolerance, with a misaligned operand that must raise. B7 and B4 also run
+in bursts beside their library calls, with a TF32 bound (three passes at
+495 TFLOP/s) beside the 67 TFLOP/s one, and B7 at b = 32 is split into
+its projection and its attention core (`gemm_ms`, `core_ms`).
 
 The bf16 attention kernels run 16-row warp tiles over 16-key tiles on the
 tensor cores, staged by 16-byte (else 4-byte or element) copies, so each
@@ -228,9 +237,12 @@ TRAIN_SHAPES = [("vit_b1024", dict(VIT, b=1024)), ("text_b1024", dict(TEXT, b=10
 RN_TEXT = dict(s=77, w=640, heads=10, causal=True)
 RN_SHAPES = [("rn_text_b32", dict(RN_TEXT, b=32)), ("rn_text_b1", dict(RN_TEXT, b=1))]
 RN_TRAIN_SHAPES = [("rn_text_b1024", dict(RN_TEXT, b=1024))]
-# B7: the DVR BERT (S = 1 + 13 + 77) at d = 640 (8 heads of 80) and 512
+# B7: the DVR BERT (S = 1 + 13 + 77) at d = 640 (8 heads of 80) and 512,
+# at the query batches b = 32 and 1
 BERT_SHAPES = [("bert640", dict(b=32, s=91, w=640, heads=8)),
-               ("bert512", dict(b=32, s=91, w=512, heads=8))]
+               ("bert512", dict(b=32, s=91, w=512, heads=8)),
+               ("bert640_b1", dict(b=1, s=91, w=640, heads=8)),
+               ("bert512_b1", dict(b=1, s=91, w=512, heads=8))]
 # B8: the RN50x4 attention pool (40 heads of 64) and the MR cross-attention
 CROSS_SHAPES = [("attnpool", dict(b=128, sq=1, sk=82, w=2560, heads=40)),
                 ("mr640", dict(b=32, sq=77, sk=13, w=640, heads=8)),
@@ -292,18 +304,19 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
 # in attention_bf16.cuh compiled per head dim, the bodies and the tiles
 CORE = ["attention.cu", "attention_bf16_d64.cu", "attention_bf16_d80.cu", "attention_bf16.cuh",
         "attention_core.cuh", "attention_mma.cuh"]
-# the GEMM: gemm.cu (the TMA-fed kernels) on gemm_wgmma.cuh's bf16 body
-# and gemm_tile.cuh's fp32 tile
-GEMM = ["gemm.cu", "gemm_wgmma.cuh", "gemm_tile.cuh", "tma.cuh"]
+# the GEMM: gemm.cu (bf16, on gemm_wgmma.cuh's body) and gemm_tf32.cu
+# (fp32, on gemm_tf32.cuh's 3xTF32 body), both fed by tma.cuh's ring
+TF32 = ["gemm_tf32.cuh", "gemm_wgmma.cuh", "tma.cuh"]
+GEMM = ["gemm.cu", "gemm_tf32.cu", *TF32]
 LN_SRC = ["layernorm.cu", "layernorm_row.cuh"]
 SOURCES = {B1: [*LN_SRC, *GEMM, *CORE], B2: [*LN_SRC, *GEMM],
-           B3: CORE, B4: ["bbc_loss.cu"], B5: ["quant.cu", "qgemm.cu"],
+           B3: CORE, B4: ["bbc_loss.cu", *TF32], B5: ["quant.cu", "qgemm.cu"],
            B6: ["quant.cu", "qgemm.cu", *CORE], B7: [*GEMM, *CORE],
            B8: CORE, B11: LN_SRC,
            B9: [*CORE, "attention_grouped.cu"],
-           B12: ["gemm_tf32.cu", *GEMM, "combiner.cu"],
-           B10: ["block.cu", "gemm_wgmma.cuh", "gemm_tile.cuh", "attention_core.cuh",
-                 "attention_mma.cuh", "layernorm_row.cuh"],
+           B12: [*GEMM, "combiner.cu"],
+           B10: ["block.cu", *TF32[:2], "attention_core.cuh", "attention_mma.cuh",
+                 "layernorm_row.cuh"],
            X1: ["attention_grouped.cu", "attention_mma.cuh"], X2: CORE,
            X3: [*GEMM, *CORE], X4: [*LN_SRC, *GEMM, *CORE]}
 TOWER_KERNELS = (B1, B2, B3)
@@ -339,8 +352,9 @@ INT8_TRAIN_STEPS = 2
 # CUDA-core rates, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# dense TF32 tensor-core peak (NVIDIA data sheet): B12's fp32 products run
-# as three TF32 passes (3xTF32)
+# dense TF32 tensor-core peak (NVIDIA data sheet): the fp32 products (the
+# fp32 GEMM of B1, B2, B7 and B12, B10's fp32 phases, B4's scores) run as
+# three TF32 passes (3xTF32)
 PEAK_TF32_FLOPS = 495e12
 # B4 at the train path's shape first: its timings go into the kernels line
 BBC_SHAPES = [(1024, 512), (1000, 512), (13, 24), (1024, 640)]
@@ -487,6 +501,17 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS[dtype], 1e3 * nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def tf32_bound(flops: float, nbytes: float) -> dict:
+    """Least time of fp32 work whose products run at fp32 accuracy on the
+    tensor cores: three TF32 passes (3xTF32) of its FLOPs at the TF32
+    peak, or its bytes at the HBM rate; the same FLOPs at the CUDA cores'
+    67 TFLOP/s stay beside it (`bound_simt_ms`)."""
+    ops_ms, bytes_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_simt_ms=bound(flops, nbytes, torch.float32)["bound_ms"])
 
 
 def tower_work(name: str, b: int, s: int, w: int, heads: int, causal: bool,
@@ -781,6 +806,80 @@ def phase_gemm_edges() -> float:
     return worst
 
 
+# the fp32 GEMM's tile edges (3xTF32 warpgroup MMA on TMA-fed 128 x 32 /
+# 64 / 128 tiles, 32-deep K tiles): rows around a warpgroup's 64 and a
+# block tile's 128, B7's 91 and 1,024; columns inside and past each
+# width and B7's 1,920; K short of, one past and at multiples of a K tile
+F32_EDGE_M = (1, 63, 64, 65, 91, 127, 128, 129, 1024)
+F32_EDGE_N = (8, 72, 200, 640, 1920)
+F32_EDGE_K = (8, 40, 776, 3072)
+F32_EPILOGUES = GEMM_EPILOGUES + ((True, False, "gelu"),)
+
+
+def f32_gemm_reference(a: torch.Tensor, w: torch.Tensor, bias, res, activation):
+    """The fp32 GEMM's function in full fp32: bias, activation, residual."""
+    v = a @ w.T
+    if bias is not None:
+        v = v + bias
+    if activation == "relu":
+        v = torch.relu(v)
+    elif activation is not None:
+        v = M.act_f32(v, activation)
+    return v if res is None else res + v
+
+
+def phase_f32_gemm_edges() -> float:
+    """The fp32 GEMM (`launch_gemm` on fp32 operands, the rule's tile and
+    each width forced) against an fp32 product through the same epilogue
+    at every F32_EDGE_M x F32_EDGE_N x F32_EDGE_K (untimed), the two
+    widths equal bit for bit, an `out=` column slice at ldc > N, and a
+    misaligned operand view that must raise; returns the largest error."""
+    g, worst, n = torch.Generator().manual_seed(703), 0.0, 0
+
+    def t(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).cuda()
+
+    for i, m in enumerate(F32_EDGE_M):
+        for nn in F32_EDGE_N:
+            for j, k in enumerate(F32_EDGE_K):
+                with_bias, with_res, act = F32_EPILOGUES[(i + j) % len(F32_EPILOGUES)]
+                a, w = t(m, k), t(nn, k, scale=0.02)
+                bias = t(nn, scale=0.02) if with_bias else None
+                res = t(m, nn) if with_res else None
+                want = f32_gemm_reference(a, w, bias, res, act)
+                got = [common.launch_gemm(a, w, bias, residual=res, activation=act)]
+                got += [common._gemm(a, w, bias, res, act, None, tile) for tile in (32, 64, 128)]
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got[0], want, **TOL[torch.float32])
+                if not all(torch.equal(got[0], other) for other in got[1:]):
+                    raise AssertionError(f"fp32 gemm M={m} N={nn} K={k}: the tile widths "
+                                         "differ")
+                worst = max(worst, (got[0] - want).abs().max().item())
+                n += 1
+    for m, k, nn in ((1, 512, 640), (91, 640, 1920), (1024, 512, 512)):
+        a, w, bias = t(m, k), t(nn, k, scale=0.02), t(nn, scale=0.02)
+        cat = torch.full((m, 2 * nn + 8), 7.0, device="cuda")
+        common.launch_gemm(a, w, bias, activation="relu", out=cat[:, nn:2 * nn])
+        torch.cuda.synchronize()
+        want = f32_gemm_reference(a, w, bias, None, "relu")
+        torch.testing.assert_close(cat[:, nn:2 * nn], want, **TOL[torch.float32])
+        if not ((cat[:, :nn] == 7).all() and (cat[:, 2 * nn:] == 7).all()):
+            raise AssertionError("fp32 gemm: an out= column slice wrote outside its columns")
+        worst = max(worst, (cat[:, nn:2 * nn] - want).abs().max().item())
+        n += 1
+    flat = torch.zeros(91 * 640 + 4, device="cuda")
+    try:
+        common.launch_gemm(flat[1:91 * 640 + 1].view(91, 640), t(1920, 640), None)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("fp32 gemm: a misaligned operand view was launched")
+    log(f"  fp32 GEMM edges: {n} cases (M in {F32_EDGE_M}, N in {F32_EDGE_N}, K in "
+        f"{F32_EDGE_K}, tiles 32, 64, 128 and the rule's, equal bit for bit, column slices), max "
+        f"error {worst:.3e}; a misaligned view raises: {refused}")
+    return worst
+
+
 def burst_ms(fn, windows: int = 20, calls: int = 10) -> float:
     """Median over windows of the CUDA-event time of `calls` back-to-back
     calls, divided by `calls`: the device's time per call where the host
@@ -801,14 +900,17 @@ def burst_ms(fn, windows: int = 20, calls: int = 10) -> float:
 
 
 def row_extras(row: dict) -> str:
-    """A row's burst times (device time a call) and its bound at the
-    CUDA cores' fp32 rate, where it has them."""
+    """A row's burst times (device time a call), its bound at the CUDA
+    cores' fp32 rate and B7's split, where it has them."""
     text = ""
     if "burst_ms" in row:
         text += (f"; bursts: kernel {row['burst_ms']:.4f} ms, library "
                  f"{row['library_burst_ms']:.4f} ms")
     if "bound_simt_ms" in row:
         text += f"; bound at 67 TFLOP/s {row['bound_simt_ms']:.4f} ms"
+    if "gemm_burst_ms" in row:
+        text += (f"; split (bursts): projection {row['gemm_burst_ms']:.4f} ms, attention core "
+                 f"{row['core_burst_ms']:.4f} ms")
     return text
 
 
@@ -900,14 +1002,15 @@ def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tu
 def new_kernel_work(name: str, shp: dict, dtype: torch.dtype) -> dict:
     """Bound of one B7 / B8 / B11 call: every input read once and the
     output written once. B7: the projection's 6·m·w² and the attention's
-    4·b·s²·w FLOPs at the dtype's peak; B8: 4·b·sq·sk·w; B11: its ~8
-    fp32 operations an element, on the CUDA cores (67 TFLOP/s)."""
+    4·b·s²·w FLOPs at the dtype's peak (fp32: `tf32_bound`, the 67
+    TFLOP/s bound beside it); B8: 4·b·sq·sk·w; B11: its ~8 fp32
+    operations an element, on the CUDA cores (67 TFLOP/s)."""
     e = torch.finfo(dtype).bits // 8
     w = shp["w"]
     if name == B7:
         b, s = shp["b"], shp["s"]
-        return bound(6 * b * s * w * w + 4 * b * s * s * w,
-                     e * (2 * b * s * w + 3 * w * w + 3 * w), dtype)
+        work = (6 * b * s * w * w + 4 * b * s * s * w, e * (2 * b * s * w + 3 * w * w + 3 * w))
+        return tf32_bound(*work) if dtype == torch.float32 else bound(*work, dtype)
     if name == B8:
         b, sq, sk = shp["b"], shp["sq"], shp["sk"]
         return bound(4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w), dtype)
@@ -951,6 +1054,19 @@ def new_kernel_calls(name: str, args: tuple, shp: dict):
             lambda: F.layer_norm(x, (shp["w"],), g, b_, eps))
 
 
+def b7_split(args: tuple, shp: dict) -> dict:
+    """B7's time split into its two launches, in bursts: the projection
+    (`launch_gemm` + bias into packed qkv) and the attention core on that
+    qkv."""
+    x, wt, bias = args
+    b, s, w = x.shape
+    qkv = common.launch_gemm(x.view(b * s, w), wt, bias).view(b, s, 3 * w)
+    return dict(gemm_burst_ms=burst_ms(lambda: common.launch_gemm(x.view(b * s, w), wt, bias)),
+                core_burst_ms=burst_ms(lambda: A.launch_attention_core(
+                    qkv, shp["heads"], causal=False, scale=None, out_dtype=x.dtype,
+                    bias=None)))
+
+
 def phase_new_kernels() -> tuple[dict, list]:
     """B7, B8 and B11 against their plain versions, bf16 and fp32."""
     rows, worst = [], {name: 0.0 for name in NEW_KERNELS}
@@ -969,8 +1085,10 @@ def phase_new_kernels() -> tuple[dict, list]:
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
                        max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
                        library_ms=median_ms(library), **new_kernel_work(name, shp, dtype))
-            if name == B11:
+            if name in (B7, B11):
                 row.update(burst_ms=burst_ms(kernel), library_burst_ms=burst_ms(library))
+            if name == B7:
+                row.update(b7_split(args, shp))
             rows.append(row)
             log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {err:.3e}  "
                 f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
@@ -1040,12 +1158,7 @@ def combiner_work(d: int, m: int, dtype: torch.dtype) -> dict:
     e = torch.finfo(dtype).bits // 8
     weights = 8 * d * d + 8 * d + 64 * d * d + 8 * d + 8 * d + 1
     flops, nbytes = 2 * m * (8 * d * d + 64 * d * d + 8 * d), e * (weights + 3 * m * d)
-    if dtype != torch.float32:
-        return bound(flops, nbytes, dtype)
-    ops_ms, bytes_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS, 1e3 * nbytes / PEAK_BYTES
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                bound_simt_ms=bound(flops, nbytes, dtype)["bound_ms"])
+    return tf32_bound(flops, nbytes) if dtype == torch.float32 else bound(flops, nbytes, dtype)
 
 
 def combiner_library(image: torch.Tensor, text: torch.Tensor, module) -> torch.Tensor:
@@ -1658,17 +1771,19 @@ def phase_bbc() -> list[dict]:
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **BBC_TOL)
         labels = torch.arange(b, device="cuda")
-        flops, nbytes = L.bbc_flops_bytes(b, d)
+        kernel = lambda: L.bbc_rowloss(pred, tar)  # noqa: E731
+        library = lambda: F.cross_entropy(100.0 * pred @ tar.t(), labels,  # noqa: E731
+                                          reduction="none")
         row = dict(shape=[b, d], max_abs_err=(got - want).abs().max().item(),
-                   ms=median_ms(lambda: L.bbc_rowloss(pred, tar)),
+                   ms=median_ms(kernel),
                    plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar)),
-                   library_ms=median_ms(lambda: F.cross_entropy(
-                       100.0 * pred @ tar.t(), labels, reduction="none")),
-                   **bound(flops, nbytes, torch.float32))
+                   library_ms=median_ms(library), burst_ms=burst_ms(kernel),
+                   library_burst_ms=burst_ms(library), **tf32_bound(*L.bbc_flops_bytes(b, d)))
         rows.append(row)
         log(f"  {B4} B={b:5d} d={d:4d} err {row['max_abs_err']:.3e}  kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library "
-            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            + row_extras(row))
     return rows
 
 
@@ -2321,6 +2436,7 @@ def main() -> None:
     block_worst, block_rows, block_grad = phase_block_kernel()
     edge_worst = phase_edge_kernels()
     gemm_worst = phase_gemm_edges()
+    f32_gemm_worst = phase_f32_gemm_edges()
     gemm_rows = phase_gemm_products(card)
     host = phase_host_us(card)
     log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
@@ -2419,9 +2535,11 @@ def main() -> None:
     worst.update(exp_worst)
     for name, err in edge_worst.items():
         worst[name] = max(worst[name], err)
-    # the bf16 GEMM's edge cases: the device code of B1's and B2's products
+    # the GEMMs' edge cases: the device code of B1's and B2's products (and
+    # of B7's projection in fp32)
     for name in (B1, B2):
-        worst[name] = max(worst[name], gemm_worst)
+        worst[name] = max(worst[name], gemm_worst, f32_gemm_worst)
+    worst[B7] = max(worst[B7], f32_gemm_worst)
     # X1 and X2 at their fastest G / gb, X3 and X4, in bf16 at B = 128
     for name in EXPERIMENT_KERNELS:
         timed[name] = min((r for r in exp_rows if r["kernel"] == name and
@@ -2455,6 +2573,7 @@ def main() -> None:
                            tokenizer=tokenizer_info, evaluation=eval_info,
                            experiment_kernel_rows=exp_rows, experiment=experiment,
                            gemm_products=gemm_rows, gemm_edge_max_err=gemm_worst,
+                           f32_gemm_edge_max_err=f32_gemm_worst,
                            host_us_per_call=host,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")

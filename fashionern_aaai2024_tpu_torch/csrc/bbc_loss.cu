@@ -3,49 +3,58 @@
 //
 //     row[i] = logsumexp_j(temp * p_i . t_j) - temp * p_i . t_i,
 //
-// for pred, tar [B, d] fp32 (contiguous) and row [B] fp32.
+// for pred, tar [B, d] fp32 (contiguous, d % 4 == 0, 16-byte aligned: the
+// wrapper pads and copies where they are not) and row [B] fp32.
 //
 // Replaces: `_bbc_rowloss_pallas` (fashionern_aaai2024_tpu/ops/losses.py:55,
 // kernel body `_bbc_fwd_kernel` at :33). Like the Pallas kernel it never
-// writes the [B, B] logits to device memory: each block forms a tile of
-// scores in registers and folds it into a running max and sum per row
+// writes the [B, B] logits to device memory: each block forms tiles of
+// scores in registers and folds each into a running max and sum per row
 // (the online log-sum-exp). The Pallas kernel padded B to 128 and d to
 // 128 in device memory (:59-60) and masked the padded target columns
-// (:44); here the ragged edges in B and d are masked inside the kernel
-// and nothing is padded.
+// (:44); here TMA zero-fills rows and columns past the matrices, and the
+// columns past B are masked to -inf in the epilogue (a zero-filled column
+// would enter the sum as a score of 0).
 //
-// Bound: operations. 2 B^2 d flops on CUDA cores in full fp32 (no TF32,
-// so the scores keep fp32 accuracy before the x100 temperature), against
-// (2 B d + B) x 4 bytes. At B = 1024, d = 512: 1.07 GFLOP and 4.2 MB, so
-// about 16 us at the H100 SXM's 67 TFLOP/s fp32 rate (NVIDIA data sheet),
-// far above the 1.3 us the bytes need at 3.35 TB/s.
-//
-// Design, first version (simple and right; not tuned):
-//   * pass 1, `bbc_partial_kernel`: grid (row tiles of 64, column
-//     splits). A block of 256 threads owns 64 query rows and a run of
-//     64-wide column tiles of tar. Per column tile it streams 16-deep
-//     slices of pred and tar through shared memory and each thread
-//     accumulates a 4 x 4 micro-tile of scores with fp32 FMAs; the
-//     scores then update the thread's running (max, sum) per row, and
-//     the thread that holds the diagonal score writes it out. After the
-//     last tile the 16 threads that share a row merge their (max, sum)
-//     with shuffles and write one partial per (split, row).
+// Bound: operations. 2 B^2 d flops at fp32 accuracy: three TF32 passes
+// on the tensor cores (6 B^2 d at 495 TFLOP/s: 6.5 us at B = 1024,
+// d = 512), against (2 B d + B) x 4 bytes (4.2 MB, 1.3 us at 3.35 TB/s).
+// Scores are multiplied by temp = 100 before the exponential, so one tf32
+// pass (about three decimal digits) would not hold the fp32 tolerance.
+// Design: the 3xTF32 body of `gemm_tf32.cuh` on the TMA ring, pred rows
+// as A (split in registers), tar rows as B (split into shared memory),
+// the reduction over d.
+//   * pass 1, `bbc_partial_kernel`: grid (row tiles of 128, column
+//     splits). A block of 256 threads (two warpgroups of 64 rows) owns
+//     128 query rows and a run of 64-wide column tiles of tar; the
+//     (pred, tar) K tiles of every column tile stream in turn through a
+//     five-stage TMA ring. Per column tile the block forms the 128 x 64
+//     scores (`tf32_ktiles`), then, in registers: multiply by temp, mask columns >= B to -inf, take
+//     each row's tile max across the four lanes that share a row of the
+//     m64n64k8 fragment (two shuffles), one exponential a score against
+//     that max, and merge the tile's (max, sum) into the row's running
+//     pair once a tile (the four lanes hold the same max, each its own
+//     part of the sum); the thread that holds a diagonal score writes it
+//     out. After the last tile the four lanes add their sums and write one
+//     partial per (split, row).
 //   * pass 2, `bbc_combine_kernel`: one thread per row merges the
 //     splits' partials into the log-sum-exp and subtracts the diagonal.
 //   Splitting the columns over blocks keeps the card busy at B = 1024,
-//   where 64-row tiles alone would give 16 blocks for 132 SMs; the
-//   split count comes from the wrapper (ops/losses.py), which allocates
-//   the [splits, B] partials.
+//   where 128-row tiles alone would give 8 blocks for 132 SMs; the
+//   split count comes from the wrapper (ops/losses.py `split_plan`),
+//   which allocates the [splits, B] partials.
 
 #include <math.h>
 
-#include "common.cuh"
+#include <mutex>
+
+#include "gemm_tf32.cuh"
+#include "tma.cuh"
 
 namespace fern {
 
-constexpr int kBbcTile = 64;     // rows and columns of one score tile
-constexpr int kBbcDepth = 16;    // d-slice staged in shared memory
-constexpr int kBbcThreads = 256; // 16 x 16 threads, 4 x 4 scores each
+constexpr int kBbcBN = 64;  // columns of one score tile
+using BbcRing = TfRing<kBbcBN, kTfStages>;
 
 // Merge the (max, sum-of-exp) pair (m2, l2) into (m, l).
 __device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
@@ -55,93 +64,70 @@ __device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2
   m = mn;
 }
 
-__global__ void __launch_bounds__(kBbcThreads)
-bbc_partial_kernel(const float* __restrict__ pred, const float* __restrict__ tar,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ diag, int B, int d, float temp,
-                   int tiles_per_split) {
-  __shared__ float ps[kBbcDepth][kBbcTile + 1];
-  __shared__ float ts[kBbcDepth][kBbcTile + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // column group: columns tx + 16 j
-  const int ty = tid / 16;  // row group: rows ty + 16 i
-  const int row0 = blockIdx.x * kBbcTile;
-  const int n_col_tiles = (B + kBbcTile - 1) / kBbcTile;
+__global__ void __launch_bounds__(kTfThreads, 1)
+bbc_partial_kernel(const __grid_constant__ CUtensorMap map_p,
+                   const __grid_constant__ CUtensorMap map_t, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ diag, int B, int d,
+                   float temp, int tiles_per_split) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* operands = smem + BbcRing::kRing;
+  const uint32_t full = smem_addr(operands + 2 * BbcRing::kOperandBytes);
+  const int row0 = blockIdx.x * kTfBM;
+  const int n_col_tiles = (B + kBbcBN - 1) / kBbcBN;
   const int ct_begin = blockIdx.y * tiles_per_split;
   const int ct_end = min(n_col_tiles, ct_begin + tiles_per_split);
+  const int kt_count = (d + kTfBK - 1) / kTfBK;
+  const int total = (ct_end - ct_begin) * kt_count;
+  // K tile j of the block: d-slice j % kt_count of column tile j / kt_count
+  const auto load = [&](int j, uint32_t dst, uint32_t bar) {
+    const int kt = j % kt_count, ct = ct_begin + j / kt_count;
+    tma_load(&map_p, dst, bar, kt * kTfBK, row0);
+    tma_load(&map_t, dst + kTfTileABytes, bar, kt * kTfBK, ct * kBbcBN);
+  };
+  tf32_ring_start<kBbcBN, kTfStages>(total, smem, full, load);
 
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-
+  // this thread's rows r and r + 8 of the m64n64k8 fragment, and its
+  // columns 8j + 2(t%4) and the next of each n8 block j
+  const int t = threadIdx.x % 128;
+  const int r = row0 + (threadIdx.x / 128) * kWgRows + 16 * (t / 32) + (t % 32) / 4;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int ct = ct_begin; ct < ct_end; ++ct) {
-    const int col0 = ct * kBbcTile;
-    float acc[4][4];
+    float acc[kBbcBN / 2];
+    tf32_ktiles<kBbcBN, kTfStages, true>(acc, (ct - ct_begin) * kt_count, kt_count, total, smem,
+                                    operands, full, load);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      float s[kBbcBN / 4];
+      float mt = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kBbcDepth) {
-      // 64 x 16 elements of each operand, 4 per thread; consecutive
-      // threads read consecutive k of one row
+      for (int j = 0; j < kBbcBN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = tid + e * kBbcThreads;
-        const int r = idx / kBbcDepth;
-        const int k = idx % kBbcDepth;
-        const int gk = k0 + k;
-        const int pr = row0 + r;
-        const int tc = col0 + r;
-        ps[k][r] = (pr < B && gk < d) ? pred[(size_t)pr * d + gk] : 0.f;
-        ts[k][r] = (tc < B && gk < d) ? tar[(size_t)tc * d + gk] : 0.f;
-      }
-      __syncthreads();
+        for (int e = 0; e < 2; ++e) {
+          const int col = ct * kBbcBN + 8 * j + 2 * (t % 4) + e;
+          const float v = col < B ? temp * acc[4 * j + 2 * h + e] : -INFINITY;
+          if (row == col && row < B) diag[row] = v;
+          s[2 * j + e] = v;
+          mt = fmaxf(mt, v);
+        }
+      // the tile's row max: the four lanes of a row are l, l^1, l^2, l^3
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      float lt = 0.f;
 #pragma unroll
-      for (int k = 0; k < kBbcDepth; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = ps[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ts[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c >= B) continue;  // ragged edge: no target there
-        const float s = temp * acc[i][j];
-        if (r == c) diag[r] = s;
-        lse_merge(m[i], l[i], s, 1.f);
-      }
+      for (int e = 0; e < kBbcBN / 4; ++e) lt += expf(s[e] - mt);
+      lse_merge(m[h], l[h], mt, lt);
     }
   }
-
-  // the 16 threads of one row group are 16 consecutive lanes of a warp
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], o, 16);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[i], o, 16);
-      lse_merge(m[i], l[i], m2, l2);
-    }
-    const int r = row0 + ty + 16 * i;
-    if (tx == 0 && r < B) {
-      part_m[(size_t)blockIdx.y * B + r] = m[i];
-      part_l[(size_t)blockIdx.y * B + r] = l[i];
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = r + 8 * h;
+    if (t % 4 == 0 && row < B) {
+      part_m[(size_t)blockIdx.y * B + row] = m[h];
+      part_l[(size_t)blockIdx.y * B + row] = l[h];
     }
   }
 }
@@ -160,8 +146,9 @@ __global__ void bbc_combine_kernel(const float* __restrict__ part_m,
 
 }  // namespace fern
 
-// pred, tar [B, d] fp32; row [B] fp32; part_m, part_l [splits, B] and
-// diag [B] fp32 scratch. Every split must own at least one column tile:
+// pred, tar [B, d] fp32 at 16-byte aligned addresses, d % 4 == 0 (TMA's
+// rules); row [B] fp32; part_m, part_l [splits, B] and diag [B] fp32
+// scratch. Every split must own at least one 64-wide column tile:
 // splits == ceil(ceil(B / 64) / tiles_per_split).
 extern "C" int fern_bbc_rowloss(const void* pred, const void* tar, void* row, void* part_m,
                                 void* part_l, void* diag, int B, int d, float temp,
@@ -169,16 +156,36 @@ extern "C" int fern_bbc_rowloss(const void* pred, const void* tar, void* row, vo
   cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  const int n_tiles = (B + fern::kBbcTile - 1) / fern::kBbcTile;
-  if (d <= 0 || tiles_per_split <= 0 ||
+  const int n_tiles = (B + fern::kBbcBN - 1) / fern::kBbcBN;
+  const unsigned long long addr =
+      reinterpret_cast<unsigned long long>(pred) | reinterpret_cast<unsigned long long>(tar);
+  if (d <= 0 || d % 4 || addr % 16 || tiles_per_split <= 0 ||
       splits != (n_tiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
+  static std::mutex mu;
+  static bool opted[fern::kMaxDevices] = {};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!opted[device]) {
+      err = cudaFuncSetAttribute(fern::bbc_partial_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)fern::BbcRing::kSmem);
+      if (err != cudaSuccess) return (int)err;
+      opted[device] = true;
+    }
+  }
+  CUtensorMap map_p, map_t;
+  err = fern::tile_map(&map_p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), pred, B, d,
+                       fern::kTfBK, fern::kTfBM);
+  if (err != cudaSuccess) return (int)err;
+  err = fern::tile_map(&map_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), tar, B, d,
+                       fern::kTfBK, fern::kBbcBN);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles, splits);
-  fern::bbc_partial_kernel<<<grid, fern::kBbcThreads, 0, s>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(tar),
-      static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(diag),
-      B, d, temp, tiles_per_split);
+  const dim3 grid((B + fern::kTfBM - 1) / fern::kTfBM, splits);
+  fern::bbc_partial_kernel<<<grid, fern::kTfThreads, fern::BbcRing::kSmem, s>>>(
+      map_p, map_t, static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(diag), B, d, temp, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fern::bbc_combine_kernel<<<(B + 255) / 256, 256, 0, s>>>(

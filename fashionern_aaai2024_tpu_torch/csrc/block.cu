@@ -25,13 +25,17 @@
 // residual, LN2, c_fc + bias + activation, c_proj + bias + residual. Each
 // phase walks its work units round-robin over the blocks, with the same
 // device code as the sub-block kernels (`layernorm_row.cuh`,
-// `gemm_wgmma.cuh` in bf16 and `gemm_tile.cuh` in fp32,
-// `attention_core.cuh`), so its results are B1 + B2's bit for bit: in
-// bf16 a product's 128 x 128 tiles run the GEMM's warpgroup-MMA body
-// (the same `wgmma` instructions in the same k order) on operands that
-// the block's 256 threads stage by cp.async into the same swizzled
-// layout TMA writes for gemm.cu. The intermediates (LN rows, qkv, the attention output,
-// y, the [B*S, F] hidden) go through a workspace the wrapper allocates;
+// `gemm_wgmma.cuh` in bf16 and `gemm_tf32.cuh` in fp32,
+// `attention_core.cuh`), so its results are B1 + B2's bit for bit: a
+// product's tiles run the GEMM's warpgroup-MMA body (the same `wgmma`
+// instructions in the same k order). In bf16 the 128 x 128 tiles are
+// staged by the block's 256 threads with cp.async into the swizzled
+// layout TMA writes for gemm.cu; in fp32 they come through gemm_tf32.cu's
+// own TMA ring (`tf32_ktiles`, tensor maps `launch_block` encodes),
+// 128 x 32, 64 or 128 (the narrowest whose tiles the grid's blocks take
+// in one round, as the bits do not depend on the width). The
+// intermediates (LN rows, qkv, the attention output, y, the [B*S, F]
+// hidden) go through a workspace the wrapper allocates;
 // at a query's sizes it stays in the 50 MB L2. The grid barrier is the
 // algorithm of cooperative_groups' grid sync on one word the wrapper
 // keeps per (device, stream): each barrier flips its top bit and leaves
@@ -41,17 +45,26 @@
 #include <vector>
 
 #include "attention_core.cuh"
-#include "gemm_tile.cuh"
+#include "gemm_tf32.cuh"
 #include "gemm_wgmma.cuh"
 #include "layernorm_row.cuh"
 
 namespace fern {
 
 constexpr int kBlockHeadDim = 64;
-static_assert(kThreads == kConsumerThreads, "B10's blocks are the bf16 tile's two warpgroups");
+constexpr int kThreads = kConsumerThreads;  // the GEMM tiles' two warpgroups
+static_assert(kGemmBM == kTfBM, "both dtypes' GEMM tiles are 128 rows");
+
+// fp32: the tensor maps of the four products' operands (QKV, out-projection,
+// c_fc, c_proj: A, then B) and each product's output tile width.
+struct F32Products {
+  CUtensorMap a[4], b[4];
+  int tile[4];
+};
 
 template <typename T>
 struct BlockArgs {
+  F32Products f32;  // fp32 only
   const T *x, *ln1_w, *ln1_b, *in_w, *in_b, *out_w, *out_b;
   const T *ln2_w, *ln2_b, *fc_w, *fc_b, *proj_w, *proj_b;
   T *ln, *qkv, *attn, *y, *hidden, *out;  // workspace (qkv and hidden share) and output
@@ -83,24 +96,60 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrived) {
 }
 
 // One product of the block, its output tiles walked round-robin.
-__device__ __forceinline__ void block_gemm(unsigned char* smem, const bf16* A, const bf16* Bt,
-                                           const bf16* bias, const bf16* res, bf16* C, int M,
-                                           int N, int K, int act) {
+__device__ __forceinline__ void block_gemm(unsigned char* smem, const F32Products&, int,
+                                           const bf16* A, const bf16* Bt, const bf16* bias,
+                                           const bf16* res, bf16* C, int M, int N, int K,
+                                           int act) {
   const int tn = (N + kMmaN - 1) / kMmaN, tiles = tn * ((M + kGemmBM - 1) / kGemmBM);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x)
     gemm_bf16_tile(smem, A, Bt, bias, res, C, M, N, K, N, act, (t / tn) * kGemmBM,
                    (t % tn) * kMmaN);
 }
 
-__device__ __forceinline__ void block_gemm(unsigned char* smem, const float* A,
-                                           const float* Bt, const float* bias,
+template <int BN>
+__device__ __forceinline__ void block_gemm_tf32(unsigned char* smem_raw,
+                                                const CUtensorMap* map_a,
+                                                const CUtensorMap* map_b, const float* bias,
+                                                const float* res, float* C, int M, int N,
+                                                int K, int act) {
+  using Ring = TfRing<BN, kTfStages>;
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* operands = smem + Ring::kRing;
+  const uint32_t full = smem_addr(operands + 2 * Ring::kOperandBytes);
+  const int tn = (N + BN - 1) / BN, tiles = tn * ((M + kTfBM - 1) / kTfBM);
+  const int kt_count = (K + kTfBK - 1) / kTfBK;
+  // the phase before wrote shared memory, and the blocks wrote this
+  // product's A, through the generic proxy: both before TMA's reads
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int bm = (t / tn) * kTfBM, bn = (t % tn) * BN;
+    const auto load = [&](int j, uint32_t dst, uint32_t bar) {
+      tma_load(map_a, dst, bar, j * kTfBK, bm);
+      tma_load(map_b, dst + kTfTileABytes, bar, j * kTfBK, bn);
+    };
+    __syncthreads();  // every thread is past its last wait on the ring
+    tf32_ring_start<BN, kTfStages>(kt_count, smem, full, load);
+    float acc[BN / 2];
+    tf32_ktiles<BN, kTfStages, true>(acc, 0, kt_count, kt_count, smem, operands, full, load);
+    tf32_epilogue_act<BN>(acc, bias, res, C, M, N, N, act, bm + (threadIdx.x / 128) * kWgRows,
+                          bn, threadIdx.x % 128);
+  }
+}
+
+__device__ __forceinline__ void block_gemm(unsigned char* smem, const F32Products& f32, int p,
+                                           const float*, const float*, const float* bias,
                                            const float* res, float* C, int M, int N, int K,
                                            int act) {
-  F32TileSmem& sm = *reinterpret_cast<F32TileSmem*>(smem);
-  const int tn = (N + kFBN - 1) / kFBN, tiles = tn * ((M + kFBM - 1) / kFBM);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    gemm_f32_tile(sm, A, Bt, bias, res, C, M, N, K, N, act, (t / tn) * kFBM, (t % tn) * kFBN,
-                  0, K);
+  switch (f32.tile[p]) {
+    case 32:
+      block_gemm_tf32<32>(smem, &f32.a[p], &f32.b[p], bias, res, C, M, N, K, act);
+      break;
+    case 64:
+      block_gemm_tf32<64>(smem, &f32.a[p], &f32.b[p], bias, res, C, M, N, K, act);
+      break;
+    default:
+      block_gemm_tf32<128>(smem, &f32.a[p], &f32.b[p], bias, res, C, M, N, K, act);
+  }
 }
 
 // Kernel B11's row routine, chosen by the same rule (`layernorm_rows`),
@@ -115,16 +164,17 @@ __device__ __forceinline__ void block_layernorm(const T* x, const T* g, const T*
 
 // The arguments travel by value in one struct: no pointer here is a
 // `const __restrict__` kernel parameter, so no load of an intermediate
-// that another block wrote goes through the read-only cache.
+// that another block wrote goes through the read-only cache. The struct
+// is a grid constant: TMA reads its tensor maps where they lie.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
+__global__ void __launch_bounds__(kThreads) block_kernel(const __grid_constant__ BlockArgs<T> a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const int M = a.batch * a.seq, W = a.width;
 
   block_layernorm(a.x, a.ln1_w, a.ln1_b, a.ln, M, W, a.eps);
   grid_barrier(a.barrier);
-  block_gemm(smem, a.ln, a.in_w, a.in_b, static_cast<const T*>(nullptr), a.qkv, M, 3 * W, W,
-             ACT_NONE);
+  block_gemm(smem, a.f32, 0, a.ln, a.in_w, a.in_b, static_cast<const T*>(nullptr), a.qkv, M,
+             3 * W, W, ACT_NONE);
   grid_barrier(a.barrier);
   const int tiles = (a.seq + a.row_tile - 1) / a.row_tile;
   const int units = a.batch * a.heads * tiles;
@@ -142,19 +192,20 @@ __global__ void __launch_bounds__(kThreads) block_kernel(const BlockArgs<T> a) {
           row0, row1, a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal, a.scale);
   }
   grid_barrier(a.barrier);
-  block_gemm(smem, a.attn, a.out_w, a.out_b, a.x, a.y, M, W, W, ACT_NONE);
+  block_gemm(smem, a.f32, 1, a.attn, a.out_w, a.out_b, a.x, a.y, M, W, W, ACT_NONE);
   grid_barrier(a.barrier);
   block_layernorm(a.y, a.ln2_w, a.ln2_b, a.ln, M, W, a.eps);
   grid_barrier(a.barrier);
-  block_gemm(smem, a.ln, a.fc_w, a.fc_b, static_cast<const T*>(nullptr), a.hidden, M, a.ffn, W,
-             a.act);
+  block_gemm(smem, a.f32, 2, a.ln, a.fc_w, a.fc_b, static_cast<const T*>(nullptr), a.hidden, M,
+             a.ffn, W, a.act);
   grid_barrier(a.barrier);
-  block_gemm(smem, a.hidden, a.proj_w, a.proj_b, a.y, a.out, M, W, a.ffn, ACT_NONE);
+  block_gemm(smem, a.f32, 3, a.hidden, a.proj_w, a.proj_b, a.y, a.out, M, W, a.ffn, ACT_NONE);
 }
 
 template <typename T>
 static size_t block_smem_bytes(int seq) {
-  const size_t tile = sizeof(T) == 2 ? wgmma_tile_smem_bytes() : sizeof(F32TileSmem);
+  const size_t tile =
+      sizeof(T) == 2 ? wgmma_tile_smem_bytes() : TfRing<kMmaN, kTfStages>::kSmem;
   const size_t attn = sizeof(T) == 2
                           ? attention_mma_smem_bytes<kBlockHeadDim>(seq, kThreads / 32)
                           : attention_smem_bytes<float, kBlockHeadDim>(seq);
@@ -199,8 +250,10 @@ static cudaError_t launch_block(BlockArgs<T> a, int device, cudaStream_t stream)
   cudaError_t err = resident_blocks<T>(device, smem, &resident);
   if (err != cudaSuccess) return err;
   const int M = a.batch * a.seq;
-  const int bm = sizeof(T) == 2 ? kGemmBM : kFBM, bn = sizeof(T) == 2 ? kMmaN : kFBN;
-  const int row_tiles = (M + bm - 1) / bm;
+  // 128-row tiles in both dtypes (kGemmBM == kTfBM); fp32's narrowest is
+  // 32 columns wide
+  const int row_tiles = (M + kGemmBM - 1) / kGemmBM;
+  const int narrowest = sizeof(T) == 2 ? kMmaN : 32;
   const int wide = a.ffn > 3 * a.width ? a.ffn : 3 * a.width;
   // attention units: split each (sequence, head) into row tiles when there
   // are fewer pairs than blocks, of a multiple of the body's rows a warp
@@ -212,11 +265,30 @@ static cudaError_t launch_block(BlockArgs<T> a, int device, cudaStream_t stream)
   row_tile = (row_tile + quantum - 1) / quantum * quantum;
   a.row_tile = row_tile < a.seq ? row_tile : a.seq;
   const int units[] = {(M + kThreads / 32 - 1) / (kThreads / 32),
-                       row_tiles * ((wide + bn - 1) / bn),
+                       row_tiles * ((wide + narrowest - 1) / narrowest),
                        pairs * ((a.seq + a.row_tile - 1) / a.row_tile)};
   int grid = 1;
   for (int u : units) grid = u > grid ? u : grid;
   grid = grid < resident ? grid : resident;
+  if constexpr (sizeof(T) == 4) {
+    // each product: the narrowest tile whose tiles the blocks take in one
+    // round (else 128), and the tensor maps of A [M, K] and B [N, K]
+    const int W = a.width, F = a.ffn;
+    const void* A[4] = {a.ln, a.attn, a.ln, a.hidden};
+    const void* Bt[4] = {a.in_w, a.out_w, a.fc_w, a.proj_w};
+    const int N[4] = {3 * W, W, F, W}, K[4] = {W, W, W, F};
+    for (int p = 0; p < 4; ++p) {
+      int bn = 32;
+      while (bn < 128 && row_tiles * ((N[p] + bn - 1) / bn) > grid) bn *= 2;
+      a.f32.tile[p] = bn;
+      err = tile_map(&a.f32.a[p], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), A[p], M, K[p],
+                     kTfBK, kTfBM);
+      if (err != cudaSuccess) return err;
+      err = tile_map(&a.f32.b[p], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), Bt[p], N[p],
+                     K[p], kTfBK, bn);
+      if (err != cudaSuccess) return err;
+    }
+  }
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)block_kernel<T>, dim3(grid),
                                     dim3(kThreads), args, smem, stream);

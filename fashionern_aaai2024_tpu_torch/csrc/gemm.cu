@@ -1,6 +1,6 @@
-// GEMM with a fused epilogue: C = [res +] cast(act(A . Bt^T + bias)).
+// The bf16 GEMM with a fused epilogue: C = [res +] cast(act(A . Bt^T + bias)).
 //
-// The four products inside kernels B1 and B2: the QKV projection and the
+// The four products inside kernels B1 and B2 in bf16: the QKV projection and the
 // out-projection + residual of `_subblock_kernel`
 // (fashionern_aaai2024_tpu/ops/attention.py:491-515), and c_fc +
 // activation and c_proj + residual of `_mlp_kernel` (ops/mlp.py:100-115).
@@ -28,14 +28,11 @@
 // before; the epilogue goes through the ring, turned scratch. BN = 128
 // (three stages, two blocks an SM, so one block's epilogue overlaps the
 // other's products) or 256 (four stages, one block an SM), by
-// `pick_tile`; `fern_gemm`'s `tile` argument forces either. fp32: SIMT
-// FMA 64 x 64 tiles, full fp32, as the fp32 parity tier needs (kernel
-// B12's fp32 products run on the tensor cores instead, by 3xTF32 in
-// gemm_tf32.cu).
+// `pick_tile`; `fern_gemm`'s `tile` argument forces either. The fp32
+// products of the same kernels run by 3xTF32 in gemm_tf32.cu.
 
 #include <mutex>
 
-#include "gemm_tile.cuh"
 #include "gemm_wgmma.cuh"
 #include "tma.cuh"
 
@@ -122,16 +119,6 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// The fp32 SIMT tile at rows blockIdx.y * 64.., columns blockIdx.x * 64..
-__global__ void __launch_bounds__(kThreads)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
-                const float* __restrict__ bias, const float* __restrict__ res,
-                float* __restrict__ C, int M, int N, int K, int ldc, int act) {
-  __shared__ __align__(16) F32TileSmem sm;
-  gemm_f32_tile(sm, A, Bt, bias, res, C, M, N, K, ldc, act, blockIdx.y * kFBM,
-                blockIdx.x * kFBN, 0, K);
-}
-
 // The tensor map of a row-major bf16 [rows, k] matrix read in boxes of
 // box_rows x 64, in the 128-byte swizzle, zero past its edges.
 static cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
@@ -181,10 +168,11 @@ static cudaError_t launch_bf16(const void* a, const void* bt, const void* bias, 
 }  // namespace fern
 
 // ldc: C's row stride in elements (n for a contiguous C; a multiple of
-// 8 in bf16, for the 16-byte stores). bf16 takes a and bt at 16-byte
-// aligned addresses with k % 8 == 0 (TMA's rule for a base and a row
-// stride) and refuses anything else; `tile`: 0 for the rule, or 128 /
-// 256 to force that tile width (bf16 only; timings of the two).
+// 8, for the 16-byte stores). Takes a and bt at 16-byte aligned
+// addresses with k % 8 == 0 (TMA's rule for a base and a row stride) and
+// refuses anything else; `tile`: 0 for the rule, or 128 / 256 to force
+// that tile width (timings of the two). dtype: bf16 only (fp32 products
+// go to `fern_gemm_tf32`).
 extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const void* res,
                          void* c, int m, int n, int k, int ldc, int act, int dtype, int tile,
                          int device, void* stream) {
@@ -193,31 +181,20 @@ extern "C" int fern_gemm(const void* a, const void* bt, const void* bias, const 
   if (ldc < n) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fern::DTYPE_BF16) {
-    const unsigned long long addr =
-        reinterpret_cast<unsigned long long>(a) | reinterpret_cast<unsigned long long>(bt) |
-        reinterpret_cast<unsigned long long>(c);
-    if (addr % 16 || k % 8 || n % 8 || ldc % 8)
+  const unsigned long long addr =
+      reinterpret_cast<unsigned long long>(a) | reinterpret_cast<unsigned long long>(bt) |
+      reinterpret_cast<unsigned long long>(c);
+  if (dtype != fern::DTYPE_BF16 || addr % 16 || k % 8 || n % 8 || ldc % 8)
+    return (int)cudaErrorInvalidValue;
+  if (tile == 0) tile = fern::pick_tile(m, n, k, fern::sm_count(device));
+  switch (tile) {
+    case 128:
+      return (int)fern::launch_bf16<128, 3, 2>(a, bt, bias, res, c, m, n, k, ldc, act, device,
+                                               s);
+    case 256:
+      return (int)fern::launch_bf16<256, 4, 1>(a, bt, bias, res, c, m, n, k, ldc, act, device,
+                                               s);
+    default:
       return (int)cudaErrorInvalidValue;
-    if (tile == 0) tile = fern::pick_tile(m, n, k, fern::sm_count(device));
-    switch (tile) {
-      case 128:
-        return (int)fern::launch_bf16<128, 3, 2>(a, bt, bias, res, c, m, n, k, ldc, act, device,
-                                                 s);
-      case 256:
-        return (int)fern::launch_bf16<256, 4, 1>(a, bt, bias, res, c, m, n, k, ldc, act, device,
-                                                 s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
   }
-  if (dtype == fern::DTYPE_F32) {
-    dim3 grid((n + fern::kFBN - 1) / fern::kFBN, (m + fern::kFBM - 1) / fern::kFBM);
-    fern::gemm_f32_kernel<<<grid, fern::kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(bt),
-        static_cast<const float*>(bias), static_cast<const float*>(res),
-        static_cast<float*>(c), m, n, k, ldc, act);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
 }

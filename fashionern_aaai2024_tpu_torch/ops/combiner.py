@@ -42,8 +42,10 @@ import torch.nn.functional as F
 from fashionern_aaai2024_tpu_torch.ops import common
 
 NORM_EPS = 1e-12
-# gemm_tf32.cu's output tile and K tile; a K slice of the split hidden
-# product is at least _MIN_SLICE_TILES K tiles deep
+# gemm_tf32.cu's output tile (B12 runs the 128-wide one, without the
+# K-tile fold: its products feed an L2-normalized row) and K tile; a K
+# slice of the split hidden product is at least _MIN_SLICE_TILES K tiles
+# deep
 _TILE, _K_TILE, _MIN_SLICE_TILES = 128, 32, 8
 
 
@@ -127,15 +129,15 @@ def combiner_apply(image: torch.Tensor, text: torch.Tensor, module) -> torch.Ten
         cat = work.data_ptr()
         h = cat + 4 * m * 2 * p
         relu = common.ACT_CODES["relu"]
-        common.launch("fern_gemm_tf32", *ptrs[:6], cat, 2, m, p, d, 2 * p, relu,
-                      -(-d // _K_TILE) * _K_TILE, device, stream)
+        common.launch("fern_gemm_tf32", *ptrs[:6], None, cat, 2, m, p, d, 2 * p, relu,
+                      -(-d // _K_TILE) * _K_TILE, _TILE, 0, device, stream)
         if splits == 1:
-            common.launch("fern_gemm_tf32", cat, ptrs[6], ptrs[7], None, None, None, h, 1, m,
-                          hd, 2 * p, hd, relu, k_per, device, stream)
+            common.launch("fern_gemm_tf32", cat, ptrs[6], ptrs[7], None, None, None, None, h, 1,
+                          m, hd, 2 * p, hd, relu, k_per, _TILE, 0, device, stream)
             h_ptr, hp_ptr = h, None
         else:
-            common.launch("fern_gemm_tf32", cat, ptrs[6], None, None, None, None, h, 1, m, hd,
-                          2 * p, hd, common.ACT_CODES[None], k_per, device, stream)
+            common.launch("fern_gemm_tf32", cat, ptrs[6], None, None, None, None, None, h, 1, m,
+                          hd, 2 * p, hd, common.ACT_CODES[None], k_per, _TILE, 0, device, stream)
             h_ptr, hp_ptr = None, h
     else:
         cat = torch.empty((m, 2 * p), dtype=image.dtype, device=image.device)

@@ -56,9 +56,9 @@ _SIGNATURES = {
     # split_rows, scale, dtype, device, stream
     "fern_attention_grouped": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _I, _P),
-    # a0, b0, bias0, a1, b1, bias1, c, problems, m, n, k, ldc, act, k_per,
-    # device, stream
-    "fern_gemm_tf32": (*(_P,) * 7, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a0, b0, bias0, a1, b1, bias1, res, c, problems, m, n, k, ldc, act,
+    # k_per, tile, fold, device, stream
+    "fern_gemm_tf32": (*(_P,) * 8, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # h, hp, splits, bh, wo, bo, text, image, out, m, d, hd, dtype, device, stream
     "fern_combiner_gate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, gamma, beta, q, scale, rows, width, eps, dtype, device, stream
@@ -289,22 +289,49 @@ def launch_gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     """GEMM kernel: [res +] cast(act(a @ weight.T + bias)).
 
     a [M, K]; weight [N, K] (torch Linear layout); bias [N]; residual
-    [M, N]. K and N must be multiples of 8 (16-byte vector loads and
-    stores, and TMA's 16-byte row strides in bf16), and `a` and `weight`
-    must start on a 16-byte boundary (TMA's rule for a base address; the
-    fp32 tile's 16-byte loads). `out`: an [M, N] view with unit column
-    stride and a row stride that is a multiple of 8, 16-byte aligned (a
-    column slice of a wider buffer, as kernel B12's concat halves),
-    written in place of a new tensor. Its callers have passed
-    `check_cuda_operands`."""
+    [M, N]. bf16 runs `csrc/gemm.cu` (bf16 warpgroup MMA), fp32
+    `csrc/gemm_tf32.cu` (3xTF32 warpgroup MMA, fp32 accuracy), both fed
+    by TMA. K and N must be multiples of 8 (16-byte vector stores, and
+    TMA's 16-byte row strides), and `a` and `weight` must start on a
+    16-byte boundary (TMA's rule for a base address). `out`: an [M, N]
+    view with unit column stride and a row stride that is a multiple of
+    8, 16-byte aligned (a column slice of a wider buffer, as kernel B12's
+    concat halves), written in place of a new tensor. Its callers have
+    passed `check_cuda_operands`."""
     return _gemm(a, weight, bias, residual, activation, out, tile=0)
+
+
+# The fp32 GEMM's tile widths (csrc/gemm_tf32.cu), each with the time of
+# its 128-row tile against a 128-wide one's: a K tile's wgmmas and split
+# of B shrink with the width, its A split and ring step do not (read by
+# `ab_attention.py` on an H100 at 77-6,304 rows: 64 wide 0.59-0.64, 32
+# wide 0.41-0.48 a wave).
+_F32_TILE_ROWS, _F32_K_TILE = 128, 32
+_F32_TILES = ((128, 1.0), (64, 0.6), (32, 0.45))
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_tile(m: int, n: int, sms: int) -> int:
+    """Output tile width of the fp32 GEMM [m, k] x [n, k]^T on a card of
+    `sms` SMs (one block an SM): the width whose waves of tiles, each at
+    its relative cost (`_F32_TILES`), take least time, the wider on a tie.
+    Small M fills more SMs with narrow tiles (B7's b = 1: 91 rows, 60
+    blocks 32 wide against 15 blocks 128 wide); large M keeps 128."""
+    rows = -(-m // _F32_TILE_ROWS)
+
+    def waves_time(tile: tuple[int, float]) -> float:
+        bn, cost = tile
+        return -(-(rows * -(-n // bn)) // sms) * cost
+
+    return min(_F32_TILES, key=waves_time)[0]
 
 
 def _gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
           residual: torch.Tensor | None, activation: str | None, out: torch.Tensor | None,
           tile: int) -> torch.Tensor:
-    """`launch_gemm` with the bf16 tile width: 0 for the kernel's rule,
-    128 or 256 to force one (the timings that set the rule)."""
+    """`launch_gemm` with the tile width: 0 for the rule (bf16: the
+    kernel's `pick_tile`; fp32: `f32_tile`), or one to force (bf16: 128
+    or 256; fp32: 32, 64 or 128), for the timings that set the rules."""
     m, k = a.shape
     n, kw = weight.shape
     if kw != k:
@@ -329,9 +356,17 @@ def _gemm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                 or out.stride(1) != 1 or ldc % 8 or out.data_ptr() % 16):
             raise ValueError(f"gemm: out {out.dtype} {tuple(out.shape)} at strides "
                              f"{out.stride()} for ({m}, {n}) {a.dtype}")
-    launch("fern_gemm", a_ptr, w_ptr, None if bias is None else bias.data_ptr(),
-           None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k, ldc,
-           ACT_CODES[activation], DTYPE_CODES[a.dtype], tile, a.get_device(), stream_of(a))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    res_ptr = None if residual is None else residual.data_ptr()
+    device = a.get_device()
+    if a.dtype == torch.float32:
+        launch("fern_gemm_tf32", a_ptr, w_ptr, bias_ptr, None, None, None, res_ptr,
+               out.data_ptr(), 1, m, n, k, ldc, ACT_CODES[activation],
+               max(_F32_K_TILE, -(-k // _F32_K_TILE) * _F32_K_TILE),
+               tile or f32_tile(m, n, sm_count(device)), 1, device, stream_of(a))
+    else:
+        launch("fern_gemm", a_ptr, w_ptr, bias_ptr, res_ptr, out.data_ptr(), m, n, k, ldc,
+               ACT_CODES[activation], DTYPE_CODES[a.dtype], tile, device, stream_of(a))
     return out
 
 

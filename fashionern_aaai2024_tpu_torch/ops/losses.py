@@ -7,8 +7,9 @@ arange(B), mean cross-entropy, negatives local to the device's batch.
   * `bbc_rowloss` (B4, TPU kernel `_bbc_rowloss_pallas`, `:55`, kernel
     body `:33`): one fp32 row loss per query,
     logsumexp_j(temp · p_i·t_j) − temp · p_i·t_i. On a CUDA tensor it
-    launches `csrc/bbc_loss.cu`, which keeps the [B, B] logits out of
-    device memory as the Pallas kernel did; on a CPU tensor it takes
+    launches `csrc/bbc_loss.cu` (the scores by 3xTF32 on the tensor
+    cores, fp32-accurate), which keeps the [B, B] logits out of device
+    memory as the Pallas kernel did; on a CPU tensor it takes
     `bbc_rowloss_plain`, the `_bbc_rowloss_ref` formula (`:76`) in fp32.
   * `BBCMeanLoss`, the `torch.autograd.Function` of `_bbc_mean_loss`
     (`:83-110`): the forward is `bbc_rowloss` (the kernel on the card),
@@ -29,7 +30,8 @@ import torch
 from fashionern_aaai2024_tpu_torch.ops import common
 
 TEMPERATURE = 100.0
-_TILE = 64  # rows and columns of one score tile in csrc/bbc_loss.cu
+# rows and columns of one score tile in csrc/bbc_loss.cu
+_ROW_TILE, _COL_TILE = 128, 64
 
 
 def bbc_rowloss_plain(pred: torch.Tensor, tar: torch.Tensor,
@@ -40,12 +42,21 @@ def bbc_rowloss_plain(pred: torch.Tensor, tar: torch.Tensor,
 
 
 def split_plan(b: int, sms: int) -> tuple[int, int]:
-    """(column splits, column tiles per split) of the kernel's grid: about
-    two blocks per SM, every split owning at least one 64-wide tile."""
-    tiles = -(-b // _TILE)
-    want = min(tiles, max(1, -(-2 * sms // tiles)))
+    """(column splits, column tiles per split) of the kernel's grid of
+    128-row tiles x splits: one block an SM, no more blocks than SMs
+    unless the row tiles alone exceed them, every split owning at least
+    one 64-wide column tile."""
+    rows, tiles = -(-b // _ROW_TILE), -(-b // _COL_TILE)
+    want = min(tiles, max(1, sms // rows))
     per_split = -(-tiles // want)
     return -(-tiles // per_split), per_split
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A fresh (aligned) [B, width] copy of t [B, d], zero past column d."""
+    out = torch.zeros((t.shape[0], width), dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def bbc_rowloss(pred: torch.Tensor, tar: torch.Tensor,
@@ -62,6 +73,11 @@ def bbc_rowloss(pred: torch.Tensor, tar: torch.Tensor,
                         f"and {tar.dtype}")
     common.check_cuda_operands("bbc_rowloss", pred, tar)
     b, d = pred.shape
+    if d % 4 or pred.data_ptr() % 16 or tar.data_ptr() % 16:
+        # TMA's rules (16-byte row strides and bases): zero columns leave
+        # every score as it is, as the Pallas kernel pads d to 128
+        pred, tar = (_padded(t, d + -d % 4) for t in (pred, tar))
+        d += -d % 4
     splits, per_split = split_plan(b, common.sm_count(pred.get_device()))
     row = torch.empty((b,), dtype=torch.float32, device=pred.device)
     scratch = torch.empty((2 * splits + 1, b), dtype=torch.float32, device=pred.device)

@@ -236,11 +236,13 @@ def test_mha_at_long_keys_matches_pallas(dtype, sq, sk, dh, causal, with_bias):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """Every tensor counts as a CUDA tensor and every launch is recorded
-    (name, arguments) instead of run: the wrappers' plumbing on the CPU."""
+    """Every tensor counts as a CUDA tensor of a 132-SM card and every
+    launch is recorded (name, arguments) instead of run: the wrappers'
+    plumbing on the CPU."""
     calls = []
     monkeypatch.setattr(common, "is_cuda", lambda t: True)
     monkeypatch.setattr(common, "stream_of", lambda t: 0)
+    monkeypatch.setattr(common, "sm_count", lambda device: 132)
     monkeypatch.setattr(common, "launch", lambda name, *args: calls.append((name, args)))
     return calls
 
@@ -294,9 +296,9 @@ def test_mha_reads_one_row_operands_in_one_layout(fake_card, sq, sk):
 
 def test_experiment_wrappers_launch_their_kernels(fake_card):
     """X1 launches the grouped kernel with its G; X2 the core with its gb
-    and bias; X3 GEMM then the core; X4 LN, GEMM, core, GEMM; a G or gb
-    that does not divide raises before any launch; each wrapper counts
-    one launch a call."""
+    and bias; X3 GEMM then the core; X4 LN, GEMM, core, GEMM (fp32: the
+    3xTF32 GEMM); a G or gb that does not divide raises before any
+    launch; each wrapper counts one launch a call."""
     n = {fn: fn.launches for fn in (X.mha_grouped, X.mha_packed, X.qkvattn, X.attnblock)}
     q, k, v, bias = (torch.from_numpy(a) for a in _x1_inputs(8, seed=0))
     X.mha_grouped(q, k, v, bias, SCALE, 4)
@@ -320,14 +322,14 @@ def test_experiment_wrappers_launch_their_kernels(fake_card):
     x = torch.zeros(2, X.S, X.W)
     sbias = torch.zeros(X.S, X.S)
     X.qkvattn(x, p["w_qkv"], p["b_qkv"], sbias, SCALE)
-    assert [c[0] for c in fake_card] == ["fern_gemm", "fern_attention"]
+    assert [c[0] for c in fake_card] == ["fern_gemm_tf32", "fern_attention"]
     assert fake_card[1][1][3] == sbias.data_ptr() and fake_card[1][1][16] == 1
     fake_card.clear()
     X.attnblock(x, p["g"], p["be"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], sbias,
                 SCALE)
-    assert [c[0] for c in fake_card] == ["fern_layernorm", "fern_gemm", "fern_attention",
-                                         "fern_gemm"]
-    assert fake_card[3][1][3] == x.data_ptr()  # the residual
+    assert [c[0] for c in fake_card] == ["fern_layernorm", "fern_gemm_tf32", "fern_attention",
+                                         "fern_gemm_tf32"]
+    assert fake_card[3][1][6] == x.data_ptr()  # the residual
     for fn, calls in ((X.mha_grouped, 1), (X.mha_packed, 1), (X.qkvattn, 1), (X.attnblock, 1)):
         assert fn.launches == n[fn] + calls
 

@@ -86,9 +86,21 @@ column slice at ldc > N as kernel B12 writes it, against
 tolerance; a misaligned operand view raises. The SASS test also holds
 the GEMM to HGMMA (wgmma) and UTMALDG (TMA loads), and B10 to HGMMA.
 
-B4 (`bbc_rowloss`): row losses at atol 5e-4, rtol 1e-5 (the temperature
-of 100 turns the fp32 ordering error of a d = 512 dot product, about
-1e-6, into about 1e-4 on a score); gradients through the autograd
+The fp32 GEMM (fp32 `launch_gemm`, csrc/gemm_tf32.cu on the 3xTF32 body
+of gemm_tf32.cuh: B1, B2 and B7 in fp32) at its tiles' edges, every tile
+width (32, 64, 128 and the rule's): M in 1-1,024 around 64 and 128 and
+B7's 91, N in 8-1,920, K in 8-3,072, every epilogue (bias, residual,
+quick_gelu, gelu, ReLU), an `out=` column slice, against an fp32 product
+at the fp32 tolerance, the widths equal bit for bit; a misaligned operand
+view raises. A SASS test holds the GEMM, B4 and B10's fp32 instance to
+tf32 HGMMA on UTMALDG-loaded tiles, with no FFMA between the GEMM's or
+B4's first and last HGMMA.
+
+B4 (`bbc_rowloss`, 3xTF32 scores): row losses at atol 5e-4, rtol 1e-5
+(the temperature of 100 turns the fp32 ordering error of a d = 512 dot
+product, about 1e-6, into about 1e-4 on a score), at B = 1-1,024 around
+the 64-wide column and 128-row tiles and d = 24, 30 (padded), 512 and
+640, and on a misaligned view (copied); gradients through the autograd
 Function against the plain version's autograd at rtol 1e-4 and an atol
 of 5e-5 times the largest gradient element (the fp32 rounding of scores
 near 75 reaches the softmax as a relative error of about 1e-5).
@@ -352,8 +364,12 @@ def _bbc_inputs(b, d, device, seed=3):
     return unit(pred), unit(tar)
 
 
-@pytest.mark.parametrize("d", [24, 512, 640])
-@pytest.mark.parametrize("b", [1, 13, 128, 200, 1024])
+# B4's tile edges: rows around a warpgroup's 64 and a block tile's 128,
+# columns around the 64-wide score tiles, the train batch (1,024) and a
+# ragged one (1,000); d below one 32-deep K tile, the real widths, and
+# one d % 4 != 0 (the wrapper pads it with zero columns)
+@pytest.mark.parametrize("d", [24, 30, 512, 640])
+@pytest.mark.parametrize("b", [1, 13, 63, 64, 65, 127, 128, 129, 200, 1000, 1024])
 def test_bbc_rowloss_kernel_matches_plain(device, b, d):
     pred, tar = _bbc_inputs(b, d, device)
     n0 = L.bbc_rowloss.launches
@@ -361,6 +377,26 @@ def test_bbc_rowloss_kernel_matches_plain(device, b, d):
     torch.cuda.synchronize()
     assert L.bbc_rowloss.launches == n0 + 1
     torch.testing.assert_close(got, L.bbc_rowloss_plain(pred, tar), atol=5e-4, rtol=1e-5)
+
+
+def test_bbc_rowloss_pads_what_tma_cannot_take(device):
+    """Operands TMA cannot read as they are (d % 4 != 0, or a view that
+    starts off a 16-byte boundary) are copied into zero-padded aligned
+    buffers: the row losses still match the plain version's."""
+    pred, tar = _bbc_inputs(129, 513, device, seed=5)
+    n0 = L.bbc_rowloss.launches
+    torch.testing.assert_close(L.bbc_rowloss(pred, tar), L.bbc_rowloss_plain(pred, tar),
+                               atol=5e-4, rtol=1e-5)
+    flat_p = torch.zeros(129 * 512 + 1, device=device)
+    flat_t = torch.zeros(129 * 512 + 1, device=device)
+    p, t = flat_p[1:].view(129, 512), flat_t[1:].view(129, 512)
+    p.copy_(pred[:, :512])
+    t.copy_(tar[:, :512])
+    assert p.data_ptr() % 16 and t.data_ptr() % 16
+    got = L.bbc_rowloss(p, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, L.bbc_rowloss_plain(p, t), atol=5e-4, rtol=1e-5)
+    assert L.bbc_rowloss.launches == n0 + 2
 
 
 @pytest.mark.parametrize("b,d", [(13, 24), (200, 512), (1024, 512)])
@@ -1088,6 +1124,117 @@ def test_bf16_gemm_runs_wgmma_fed_by_tma(device):
     assert blocks, "no bf16 block_kernel in the library"
     for name, sass in blocks.items():
         assert "HGMMA" in sass, name
+
+
+# the fp32 GEMM (3xTF32 warpgroup MMA, csrc/gemm_tf32.cu) at its tiles'
+# edges: rows one short of, at and one past a warpgroup's 64 and a block
+# tile's 128, B7's 91 query rows and 1,024; columns inside and past the
+# 32-, 64- and 128-wide tiles and B7's 1,920; K short of, one past and at
+# multiples of the 32-deep K tile, and c_proj's 3,072
+F32_GEMM_M = (1, 63, 64, 65, 91, 127, 128, 129, 1024)
+F32_GEMM_N = (8, 72, 200, 640, 1920)
+F32_GEMM_K = (8, 40, 776, 3072)
+F32_GEMM_EPILOGUES = GEMM_EPILOGUES + ((True, False, "gelu"),)
+
+
+def _f32_gemm_reference(a, w, bias, res, activation):
+    """The fp32 GEMM's function in full fp32: bias, activation, residual."""
+    from fashionern_aaai2024_tpu_torch.ops.mlp import act_f32
+
+    v = a @ w.T
+    if bias is not None:
+        v = v + bias
+    if activation == "relu":
+        v = torch.relu(v)
+    elif activation is not None:
+        v = act_f32(v, activation)
+    return v if res is None else res + v
+
+
+@pytest.mark.parametrize("n", F32_GEMM_N)
+@pytest.mark.parametrize("m", F32_GEMM_M)
+def test_f32_gemm_edges_match_reference(device, m, n):
+    """Every tile width (32, 64, 128 and the rule's) against an fp32
+    product through the same epilogue at the fp32 tolerance; the widths
+    give the same bits (the sums' order does not depend on the width)."""
+    g = np.random.default_rng(2000 * m + n)
+    for i, k in enumerate(F32_GEMM_K):
+        with_bias, with_res, activation = F32_GEMM_EPILOGUES[(F32_GEMM_M.index(m) + i) %
+                                                             len(F32_GEMM_EPILOGUES)]
+        a = _t(g, (m, k), 1.0, torch.float32, device)
+        w = _t(g, (n, k), 0.02, torch.float32, device)
+        bias = _t(g, (n,), 0.02, torch.float32, device) if with_bias else None
+        res = _t(g, (m, n), 1.0, torch.float32, device) if with_res else None
+        want = _f32_gemm_reference(a, w, bias, res, activation)
+        got = {tile: common._gemm(a, w, bias, res, activation, None, tile)
+               for tile in (32, 64, 128)}
+        rule = common.launch_gemm(a, w, bias, residual=res, activation=activation)
+        torch.cuda.synchronize()
+        _close(got[128], want, torch.float32)
+        for other in (got[32], got[64], rule):
+            torch.testing.assert_close(other, got[128], atol=0, rtol=0)
+
+
+def test_f32_gemm_writes_a_column_slice(device):
+    """`out=` a column slice at ldc > N in fp32: the slice holds the
+    product, the columns beside it stay as they were."""
+    g = np.random.default_rng(78)
+    for m, k, n in ((1, 512, 640), (91, 640, 1920), (1024, 512, 512)):
+        a = _t(g, (m, k), 1.0, torch.float32, device)
+        w = _t(g, (n, k), 0.02, torch.float32, device)
+        bias = _t(g, (n,), 0.02, torch.float32, device)
+        cat = torch.full((m, 2 * n + 8), 7.0, device=device)
+        common.launch_gemm(a, w, bias, activation="relu", out=cat[:, n:2 * n])
+        torch.cuda.synchronize()
+        _close(cat[:, n:2 * n], _f32_gemm_reference(a, w, bias, None, "relu"), torch.float32)
+        assert (cat[:, :n] == 7).all() and (cat[:, 2 * n:] == 7).all()
+
+
+def test_f32_gemm_refuses_misaligned_operands(device):
+    """TMA takes 16-byte aligned bases only, in fp32 too: a view one
+    element into its storage raises, for either operand."""
+    a = torch.zeros(91 * 640 + 4, device=device)
+    w = torch.zeros(1920 * 640 + 4, device=device)
+    good_a, good_w = a[:91 * 640].view(91, 640), w[:1920 * 640].view(1920, 640)
+    with pytest.raises(ValueError, match="16 bytes"):
+        common.launch_gemm(a[1:91 * 640 + 1].view(91, 640), good_w, None)
+    with pytest.raises(ValueError, match="16 bytes"):
+        common.launch_gemm(good_a, w[1:1920 * 640 + 1].view(1920, 640), None)
+
+
+def _hgmma_lines(sass):
+    """The product instructions of a kernel's SASS: ptxas also places a
+    no-op HGMMA (RZ operands, gdesc[URZ]) where a warpgroup commits an
+    empty group."""
+    return [line.strip() for line in sass.splitlines()
+            if "HGMMA" in line and "gdesc[URZ]" not in line]
+
+
+def test_fp32_gemm_b4_and_b10_run_3xtf32_wgmma(device):
+    """The fp32 GEMM (every tile width and activation), B4 and B10's fp32
+    instance issue their products as tf32 warpgroup MMA (HGMMA ... TF32)
+    on TMA-loaded tiles (UTMALDG); and no FFMA lies between the first and
+    the last HGMMA of the GEMM or of B4 (no SIMT main loop left)."""
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    found = {k: v for k, v in funcs.items() if "gemm_tf32_kernel" in k or "bbc_partial" in k}
+    assert len([k for k in found if "gemm_tf32_kernel" in k]) == 14, sorted(found)
+    assert any("bbc_partial" in k for k in found), sorted(found)
+    for name, sass in found.items():
+        hgmma = _hgmma_lines(sass)
+        assert hgmma and all("TF32" in line for line in hgmma), (name, hgmma[:4])
+        assert "UTMALDG" in sass and "HMMA" not in sass, name
+        lines = sass.splitlines()
+        first = next(i for i, line in enumerate(lines) if "HGMMA" in line)
+        last = max(i for i, line in enumerate(lines) if "HGMMA" in line)
+        assert not any("FFMA" in line for line in lines[first:last]), name
+    blocks = {k: v for k, v in funcs.items()
+              if "block_kernel" in k and "bfloat16" not in k}
+    assert blocks, "no fp32 block_kernel in the library"
+    for name, sass in blocks.items():
+        hgmma = _hgmma_lines(sass)
+        assert hgmma and all("TF32" in line for line in hgmma), (name, hgmma[:4])
+        assert "UTMALDG" in sass, name
 
 
 def test_b12_fp32_runs_3xtf32_wgmma_and_b11_vector_loads(device):

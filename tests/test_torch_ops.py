@@ -412,11 +412,101 @@ def test_bbc_global_negatives():
 @pytest.mark.parametrize("sms", [1, 132])
 def test_bbc_split_plan_covers_every_tile(b, sms):
     """The kernel's C entry point refuses a plan where a split owns no
-    column tile; every plan the wrapper makes passes that check."""
+    64-wide column tile; every plan the wrapper makes passes that check,
+    and its grid of 128-row tiles x splits holds no more blocks than the
+    SMs (one block an SM) unless the row tiles alone exceed them."""
     splits, per_split = TL.split_plan(b, sms)
-    tiles = -(-b // 64)
+    tiles, rows = -(-b // 64), -(-b // 128)
     assert splits == -(-tiles // per_split)
     assert (splits - 1) * per_split < tiles <= splits * per_split
+    assert rows * splits <= max(sms, rows)
+
+
+def _bbc_rowloss_tf32(pred: torch.Tensor, tar: torch.Tensor, passes: int) -> torch.Tensor:
+    """B4's arithmetic on the card, emulated: the scores p_i . t_j from
+    tf32 operands (one pass, or the 3xTF32 split of `csrc/gemm_tf32.cuh`),
+    times the temperature, then the row's log-sum-exp minus its diagonal
+    in fp32."""
+    s = TL.TEMPERATURE * _linear_tf32(pred, tar, 0.0, passes)
+    return torch.logsumexp(s, dim=-1) - torch.diagonal(s)
+
+
+@pytest.mark.parametrize("b,d", [(128, 512), (200, 640)])
+def test_bbc_rowloss_3xtf32_meets_the_row_tolerance(b, d):
+    """3xTF32 scores hold JAX's `_bbc_rowloss_ref` and the interpret-mode
+    `_bbc_rowloss_pallas` at ROW_TOL, while one tf32 pass does not: the
+    temperature of 100 turns tf32's ~1e-3 relative error of a score into
+    more than the 5e-4 the row losses allow."""
+    pred, tar = _bbc_inputs(b, d, seed=14)
+    ref = np.asarray(JL._bbc_rowloss_ref(jnp.asarray(pred), jnp.asarray(tar), 100.0))
+    pallas = np.asarray(JL._bbc_rowloss_pallas(jnp.asarray(pred), jnp.asarray(tar), 100.0,
+                                               interpret=True))
+    tp, tt = torch.from_numpy(pred), torch.from_numpy(tar)
+    three = _bbc_rowloss_tf32(tp, tt, passes=3).numpy()
+    one = _bbc_rowloss_tf32(tp, tt, passes=1).numpy()
+    for want in (ref, pallas):
+        np.testing.assert_allclose(three, want, **ROW_TOL)
+        assert np.any(np.abs(one - want) > ROW_TOL["atol"] + ROW_TOL["rtol"] * np.abs(want))
+
+
+def _gemm_inputs(m, k, n, seed):
+    """a [m, k] around N(0, 1), weight [k, n] (the JAX layout) and bias at
+    std 0.05."""
+    g = np.random.default_rng(seed)
+    f = np.float32
+    return (g.standard_normal((m, k)).astype(f), (0.05 * g.standard_normal((k, n))).astype(f),
+            (0.05 * g.standard_normal(n)).astype(f))
+
+
+@pytest.mark.parametrize("d,dh", [(512, 64), (640, 80)])
+def test_fused_qkv_3xtf32_projection_meets_the_fp32_tolerance(d, dh):
+    """B7 at the DVR BERT's widths (d = 512 / 640, 8 heads of 64 / 80, 91
+    tokens): the QKV projection emulated as the fp32 GEMM runs it on the
+    card (3xTF32), then the plain attention core, holds the interpret-mode
+    `_qkv_fused_pallas` at the fp32 tolerance; one tf32 pass does not."""
+    s, heads = 91, d // dh
+    x, w, b = _gemm_inputs(2 * s, d, 3 * d, seed=d)
+    want = np.asarray(JA._qkv_fused_pallas(jnp.asarray(x.reshape(2, s, d)), jnp.asarray(w),
+                                           jnp.asarray(b), jnp.zeros((s, s), jnp.float32),
+                                           dh ** -0.5, heads, interpret=True))
+    got = {}
+    for passes in (3, 1):
+        qkv = _linear_tf32(torch.from_numpy(x), torch.from_numpy(w).t().contiguous(),
+                           torch.from_numpy(b), passes)
+        got[passes] = TA.packed_qkv_self_attention_plain(qkv.view(2, s, 3 * d), heads).numpy()
+    np.testing.assert_allclose(got[3], want, atol=2e-5, rtol=0)
+    assert np.abs(got[1] - want).max() > 2e-5
+
+
+@pytest.mark.parametrize("w,heads", [(512, 8), (768, 12)])
+def test_subblocks_3xtf32_products_meet_the_fp32_tolerance(w, heads):
+    """B1 and B2 at the towers' real widths (W = 512 / 768, hidden 2,048 /
+    3,072; c_proj's K = 3,072 is the deepest fp32 product), 5 tokens: the
+    four products emulated as the fp32 GEMM runs them (3xTF32), with the
+    plain LN, attention core and quick_gelu between them, hold the
+    interpret-mode Pallas sub-blocks at the fp32 tolerance; one tf32 pass
+    does not."""
+    s, f = 5, 4 * w
+    attn = _subblock_inputs(s, w=w, seed=w)
+    mlp = _mlp_inputs(s, w=w, f=f, seed=w + 1)
+    jattn = JA.attention_subblock(*(jnp.asarray(a) for a in attn), heads, causal=True,
+                                  force_pallas=True, interpret=True)
+    jmlp = JM.mlp_subblock(*(jnp.asarray(a) for a in mlp), activation="quick_gelu",
+                           force_pallas=True, interpret=True)
+    for passes, holds in ((3, True), (1, False)):
+        x, g_, b_, wqkv, bqkv, wo, bo = (torch.from_numpy(a) for a in attn)
+        lin = lambda v, wt, bias: _linear_tf32(v, wt.t().contiguous(), bias, passes)  # noqa: E731
+        x2 = x.view(-1, w)
+        qkv = lin(TLN.layer_norm_plain(x2, g_, b_, 1e-5), wqkv, bqkv)
+        o = TA.packed_qkv_self_attention_plain(qkv.view(2, s, 3 * w), heads, causal=True)
+        got_attn = (x2 + lin(o.view(-1, w), wo, bo)).view(2, s, w).numpy()
+        x, g_, b_, wfc, bfc, wp, bp = (torch.from_numpy(a) for a in mlp)
+        x2 = x.view(-1, w)
+        h = TM.act_f32(lin(TLN.layer_norm_plain(x2, g_, b_, 1e-5), wfc, bfc), "quick_gelu")
+        got_mlp = (x2 + lin(h, wp, bp)).view(2, s, w).numpy()
+        for got, want in ((got_attn, jattn), (got_mlp, jmlp)):
+            err = np.abs(got - np.asarray(want)).max()
+            assert (err <= 2e-5) == holds, (passes, err)
 
 
 def test_plain_path_keeps_autograd():
