@@ -11,7 +11,9 @@ Prints one line a group, each starting with LABEL: the median over 20
 windows (after 5 warm-up calls) of the CUDA-event time of 10 back-to-back
 calls, divided by 10 (a burst: the device's time per call where the host
 keeps ahead of it), of B3 at ViT-B-16 B=32 (bf16 and fp32), text B=32
-(causal, bf16) and ViT-B-16 B=1024 (bf16); X2 (`mha_packed`, the padded
+(causal, bf16) and ViT-B-16 B=1024 (bf16); in fp32, B8 at the MR
+cross-attention (b = 32 and 1) and the RN50x4 attention pool, B9 at TME
+with a bias and X1 at G=1, each beside SDPA; X2 (`mha_packed`, the padded
 [128, 208, 2304] qkv with its padding bias, gb=1), B8 at the RN50x4
 attention pool ([128, 1, 2560] against [128, 82, 5120], 40 heads), B9
 through the grouped kernel at sk300_dh128 (head views [32, 8, 77, 128]
@@ -55,6 +57,11 @@ runs instead the checkout's own `chip_smoke.py` serve slices of ViT-B-16
 (bf16, then int8 towers and gallery) and of RN50x4 (bf16) with their
 embed + refine img/s and query P50s (phases 3-4, 6, 10), and its train
 slice's step time at B=1024 (phase 9), and prints them on one line.
+
+    cd <checkout> && python3 <path>/ab_attention.py LABEL --bodies
+
+times instead the two fp32 attention bodies of this checkout (the core's
+kernel and the grouped kernel) side by side at the core's fp32 sites.
 """
 
 import importlib.util
@@ -143,6 +150,108 @@ def attention_cases(g: torch.Generator) -> dict:
         "x1_g1": lambda: XA.mha_grouped(*x1, x1_bias, scale, 1),
         "sdpa_vit_b32": lambda: torch.nn.functional.scaled_dot_product_attention(*vit),
     }
+
+
+def fp32_attention(label: str, g: torch.Generator) -> None:
+    """The fp32 attention sites in bursts, each beside SDPA on the same
+    operands (the library yardstick): B8 at the MR cross-attention (b = 32
+    and 1, 77 rows against 13 keys, 8 heads of 80) and the RN50x4
+    attention pool, B9 at TME's [32, 8, 77, 64] x 13 keys with a bias, X1
+    at G=1 on its padded operands."""
+    from fashionern_aaai2024_tpu_torch.ops import attn_experiment as XA
+
+    F = torch.nn.functional
+
+    def t(*shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    def heads(x, h):
+        b, s, w = x.shape
+        return x.view(b, s, h, w // h).transpose(1, 2)
+
+    cases = {}
+    for name, (b, sq, sk, w, h) in (("b8_mr640_b32", (32, 77, 13, 640, 8)),
+                                    ("b8_mr640_b1", (1, 77, 13, 640, 8)),
+                                    ("b8_attnpool", (128, 1, 82, 2560, 40))):
+        q, kv = t(b, sq, w), t(b, sk, 2 * w)
+        cases[name] = ((lambda q=q, kv=kv, h=h: A.packed_kv_cross_attention(q, kv, h)),
+                       (lambda q=q, kv=kv, h=h, w=w: F.scaled_dot_product_attention(
+                           heads(q, h), heads(kv[..., :w], h), heads(kv[..., w:], h))))
+    q, k, v = (heads(t(32, s, 512), 8) for s in (77, 13, 13))
+    bias = 2 * t(77, 13)
+    cases["b9_tme512_b32"] = (lambda: A.multi_head_attention(q, k, v, bias=bias),
+                              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    x1 = [torch.zeros((XA.B * XA.H, rows, XA.DP), device="cuda")
+          for rows in (XA.SP, XA.SKP, XA.SKP)]
+    for op in x1:
+        op[:, :XA.S, :XA.DH] = t(XA.B * XA.H, XA.S, XA.DH)
+    x1_bias = torch.zeros((XA.SP, XA.SKP), device="cuda")
+    x1_bias[:, XA.S:] = -1e30
+    scale = XA.DH ** -0.5
+    cases["x1_g1"] = (lambda: XA.mha_grouped(*x1, x1_bias, scale, 1),
+                      lambda: F.scaled_dot_product_attention(
+                          *(o[:, None] for o in x1), attn_mask=x1_bias, scale=scale))
+    print(label, "fp32 attention ms (bursts; SDPA):", "; ".join(
+        f"{name}/float32 {median_ms(kernel):.4f} ({median_ms(library):.4f})"
+        for name, (kernel, library) in cases.items()), flush=True)
+
+
+# the fp32 sites of the attention core, as (name, (b, sq, sk, heads, dh,
+# causal, bias, layout)): B3 at ViT-B-16 B=32, B7's core at bert640 b = 1
+# and 32, B1's core (and B10's attention phase) at the text tower b = 1
+# and 32, B8 at MR b = 32 and the RN50x4 pool, B9 at TME with a bias
+CORE_F32_SITES = (("b3_vit_b32", (32, 197, 197, 12, 64, False, False, "packed")),
+                  ("b7_core_bert640_b1", (1, 91, 91, 8, 80, False, False, "packed")),
+                  ("b7_core_bert640_b32", (32, 91, 91, 8, 80, False, False, "packed")),
+                  ("b1_core_text_b1", (1, 77, 77, 8, 64, True, False, "packed")),
+                  ("b1_core_text_b32", (32, 77, 77, 8, 64, True, False, "packed")),
+                  ("b8_mr640_b32", (32, 77, 13, 8, 80, False, False, "cross")),
+                  ("b8_attnpool", (128, 1, 82, 40, 64, False, False, "cross")),
+                  ("b9_tme512_b32", (32, 77, 13, 8, 64, False, True, "heads")))
+
+
+def fp32_bodies(label: str, g: torch.Generator) -> None:
+    """The two fp32 attention bodies at the core's fp32 sites, in bursts:
+    the core's kernel (one pass over a whole staged head; `fern_attention`)
+    and the grouped kernel (two passes over 32-key chunks, `split_rows`,
+    one pair a block; `fern_attention_grouped`), each launched through its
+    C entry point with no wrapper around it, on the same operands and
+    layouts into a preallocated output (a causal row set: the core's
+    causal flag, the grouped kernel's -1e30 bias); with the largest
+    difference of their outputs."""
+    code, dev = common.DTYPE_CODES[torch.float32], torch.cuda.current_device()
+    stream = common.stream_of(torch.empty(0, device="cuda"))
+    out = []
+    for name, (b, sq, sk, heads, dh, causal, with_bias, layout) in CORE_F32_SITES:
+        w = heads * dh
+        if layout == "packed":
+            qkv = torch.randn((b, sq, 3 * w), generator=g).cuda()
+            q, k, v, q_ld, kv_ld = qkv, qkv[..., w:], qkv[..., 2 * w:], 3 * w, 3 * w
+        elif layout == "cross":
+            q, kv = (torch.randn(shape, generator=g).cuda() for shape in ((b, sq, w),
+                                                                          (b, sk, 2 * w)))
+            k, v, q_ld, kv_ld = kv, kv[..., w:], w, 2 * w
+        else:
+            q, k, v = (torch.randn((b, s, w), generator=g).cuda() for s in (sq, sk, sk))
+            q_ld = kv_ld = w
+        bias = (2 * torch.randn((sq, sk), generator=g)).cuda() if with_bias else None
+        shared = A.shared_bias(True, None, sq, sk, "cuda") if causal else bias
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        got, want = (torch.empty((b, sq, w), device="cuda") for _ in range(2))
+        core = lambda: common.launch(
+            "fern_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias),
+            got.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, int(causal), dh ** -0.5, code,
+            code, 1, dev, stream)
+        grouped = lambda: common.launch(
+            "fern_attention_grouped", q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(shared),
+            want.data_ptr(), b, sq, sk, heads, dh, q_ld, kv_ld, 1, 1, dh ** -0.5, code, dev,
+            stream)
+        core()
+        grouped()
+        diff = (got - want).abs().max().item()
+        out.append(f"{name}/float32 core {median_ms(core):.4f} grouped {median_ms(grouped):.4f} "
+                   f"(max diff {diff:.2e})")
+    print(label, "fp32 attention bodies ms (bursts):", "; ".join(out), flush=True)
 
 
 def median_ms(fn, windows: int = 20, calls: int = 10) -> float:
@@ -349,6 +458,9 @@ def main() -> None:
         slices(label)
         return
     g = torch.Generator().manual_seed(0)
+    if "--bodies" in sys.argv[2:]:
+        fp32_bodies(label, g)
+        return
     out = []
     for shape, (b, s, w, heads, causal), dtype in SHAPES:
         qkv = torch.randn((b, s, 3 * w), generator=g).to(dtype).cuda()
@@ -367,6 +479,7 @@ def main() -> None:
         out.append(text)
     print(label, "fp32 GEMM ms:", "; ".join(out), flush=True)
     fp32_kernels(label, g)
+    fp32_attention(label, g)
     out = []
     for name, (m, k, n, with_res, act) in BF16_GEMMS:
         a, w, b, res = (None if shape is None else

@@ -148,23 +148,30 @@ its tiles' edges too (M in 1-1,024 around 64 and 128, N in 8-1,920, K in
 every epilogue, `out=` column slices) against an fp32 product at the fp32
 tolerance, with a misaligned operand that must raise. B7 and B4 also run
 in bursts beside their library calls, with a TF32 bound (three passes at
-495 TFLOP/s) beside the 67 TFLOP/s one, and B7 at b = 32 is split into
-its projection and its attention core (`gemm_ms`, `core_ms`).
+495 TFLOP/s) beside the 67 TFLOP/s one, and B7 is split into its
+projection and its attention core (bursts; the core beside SDPA on the
+same qkv and its own bound). Every fp32 attention row (B1 and B3 in the
+towers, B7-B9, X1-X4) runs on 3xTF32 tensor-core tiles, so its bound is
+the TF32 one too.
 
-The bf16 attention kernels run 16-row warp tiles over 16-key tiles on the
-tensor cores, staged by 16-byte (else 4-byte or element) copies, so each
-phase that holds one also holds it, untimed, at the tiles' ragged edges
+The attention kernels run 16-row warp tiles on the tensor cores (bf16:
+16-key tiles; fp32: 3xTF32 8-key tiles in 32-key groups), staged by
+16-byte (else 4-byte or, in bf16, element) copies, so each phase that
+holds one also holds it, untimed, at the tiles' ragged edges
 (`EDGE_LENGTHS`: 1, 15, 16, 17, 63, 65, 197 rows and keys): phase 2 B3
 (causal, an arbitrary and a -inf left-padding shared bias, two images a
 block), B8 and B9 on the core (head views and contiguous, biased, head
-dims 64 and 80, one view 4 bytes off a 16-byte boundary); phase 5 the
-core's fp32-output instance that B6 runs; phase 13 X2 (unpadded, with a
--inf padding bias, gb of 1 and 2) and B9 on the grouped kernel at 1, 63,
-64, 65, 300 and 1024 keys, head dims 128 and 96 (16-byte staging) and 34
-(4-byte), causal and with -inf padding.
+dims 64 and 80, one view two elements off a 16-byte boundary), each in
+bf16 and fp32; phase 5 the core's fp32-output instance that B6 runs;
+phase 13 X2 (unpadded, with a -inf padding bias, gb of 1 and 2) and B9
+on the grouped kernel at 1, 63, 64, 65, 300 and 1024 keys, head dims
+128 and 96 (16-byte staging) and 34 (4-byte), causal and with -inf
+padding, in bf16 and fp32.
 
-The line before the last is the kernel summary as one JSON object; the
-last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
+The line before the last is the kernel summary as one JSON object (the
+fp32 instances of B3, B7, B8, B9 and X1 under `fp32_rows`, each with its
+plain, library and TF32 bound times); the last line is `{"ok": true,
+"device": {...}}`. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -514,6 +521,12 @@ def tf32_bound(flops: float, nbytes: float) -> dict:
                 bound_simt_ms=bound(flops, nbytes, torch.float32)["bound_ms"])
 
 
+def dtype_bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict:
+    """`tf32_bound` for fp32 work (its products run by 3xTF32 on the
+    tensor cores), `bound` for other types."""
+    return tf32_bound(flops, nbytes) if dtype == torch.float32 else bound(flops, nbytes, dtype)
+
+
 def tower_work(name: str, b: int, s: int, w: int, heads: int, causal: bool,
                dtype: torch.dtype) -> tuple[float, float]:
     """(flops, bytes) of one B1 / B2 / B3 call: every input read once and
@@ -583,7 +596,7 @@ def phase_kernels() -> tuple[dict, list]:
                        plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)),
                        library_ms=median_ms(library_call(name, args, shp["heads"],
                                                          shp["causal"])),
-                       **bound(flops, nbytes, dtype))
+                       **dtype_bound(flops, nbytes, dtype))
             rows.append(row)
             log(f"  {name:32s} {label:10s} {row['dtype']:9s} err {err:.3e}  "
                 f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
@@ -683,58 +696,64 @@ def left_padding_bias(sq: int, sk: int) -> torch.Tensor:
     return torch.zeros((sq, sk), device="cuda").masked_fill(~keep, float("-inf"))
 
 
-def edge_check(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """One untimed edge case in bf16: finite, and at the bf16 tolerance."""
+def edge_check(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor,
+               dtype: torch.dtype = torch.bfloat16) -> None:
+    """One untimed edge case: finite, and at the tolerance of its operands'
+    `dtype` (bf16 unless said), not of its output's: B6's core takes bf16
+    operands, rounds p to bf16 and writes fp32, and is held to bf16's."""
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output at an edge case")
-    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     worst[name] = max(worst.get(name, 0.0), (got.float() - want.float()).abs().max().item())
 
 
-def bf16_view_rows(g: torch.Generator, b: int, s: int, h: int, dh: int, layout: str,
-                   offset: int = 0) -> torch.Tensor:
-    """A bf16 [b, h, s, dh] operand on the card: a head view of [b, s, h*dh]
-    rows (`offset` elements into wider rows), or contiguous."""
-    t = torch.randn((b, s, h * dh + offset), generator=g).to(torch.bfloat16).cuda()
+def view_rows(g: torch.Generator, b: int, s: int, h: int, dh: int, layout: str,
+              offset: int = 0, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A [b, h, s, dh] operand on the card, bf16 unless `dtype` says: a head
+    view of [b, s, h*dh] rows (`offset` elements into wider rows), or
+    contiguous."""
+    t = torch.randn((b, s, h * dh + offset), generator=g).to(dtype).cuda()
     t = t[..., offset:].view(b, s, h, dh).transpose(1, 2)
     return t.contiguous() if layout == "contiguous" else t
 
 
 def phase_edge_kernels() -> dict:
-    """B3, B8 and B9 on the attention core in bf16 at the tiles' ragged
-    edges, against their plain versions (untimed); returns the largest
-    error of each."""
+    """B3, B8 and B9 on the attention core at the tiles' ragged edges, in
+    bf16 and fp32 (its 3xTF32 tiles), against their plain versions
+    (untimed); returns the largest error of each."""
     worst, g, n = {}, torch.Generator().manual_seed(600), 0
     with torch.no_grad():
-        for s in EDGE_LENGTHS:
-            for dh in (64, 80):
-                qkv = torch.randn((4, s, 3 * 2 * dh), generator=g).to(torch.bfloat16).cuda()
-                arbitrary = (2 * torch.randn((s, s), generator=g)).cuda()
-                for causal, bias, gb in ((False, None, 1), (True, None, 1),
-                                         (False, arbitrary, 1),
-                                         (False, left_padding_bias(s, s), 2)):
-                    edge_check(worst, B3,
-                               A.packed_qkv_self_attention(qkv, 2, causal=causal, attn_bias=bias,
-                                                           images_per_block=gb),
-                               A.packed_qkv_self_attention_plain(qkv, 2, causal=causal,
-                                                                 attn_bias=bias))
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in EDGE_LENGTHS:
+                for dh in (64, 80):
+                    qkv = torch.randn((4, s, 3 * 2 * dh), generator=g).to(dtype).cuda()
+                    arbitrary = (2 * torch.randn((s, s), generator=g)).cuda()
+                    for causal, bias, gb in ((False, None, 1), (True, None, 1),
+                                             (False, arbitrary, 1),
+                                             (False, left_padding_bias(s, s), 2)):
+                        edge_check(worst, B3,
+                                   A.packed_qkv_self_attention(qkv, 2, causal=causal,
+                                                               attn_bias=bias,
+                                                               images_per_block=gb),
+                                   A.packed_qkv_self_attention_plain(qkv, 2, causal=causal,
+                                                                     attn_bias=bias), dtype)
+                        n += 1
+            for sq, sk in EDGE_CROSS:
+                for dh in (64, 80):
+                    q = torch.randn((2, sq, 3 * dh), generator=g).to(dtype).cuda()
+                    kv = torch.randn((2, sk, 6 * dh), generator=g).to(dtype).cuda()
+                    edge_check(worst, B8, A.packed_kv_cross_attention(q, kv, 3),
+                               A.packed_kv_cross_attention_plain(q, kv, 3), dtype)
                     n += 1
-        for sq, sk in EDGE_CROSS:
-            for dh in (64, 80):
-                q = torch.randn((2, sq, 3 * dh), generator=g).to(torch.bfloat16).cuda()
-                kv = torch.randn((2, sk, 6 * dh), generator=g).to(torch.bfloat16).cuda()
-                edge_check(worst, B8, A.packed_kv_cross_attention(q, kv, 3),
-                           A.packed_kv_cross_attention_plain(q, kv, 3))
-                n += 1
-                bias = (2 * torch.randn((sq, sk), generator=g)).cuda()
-                for layout, offset in (("rows", 0), ("contiguous", 0), ("rows", 2)):
-                    q, k, v = (bf16_view_rows(g, 2, t, 3, dh, layout, offset)
-                               for t in (sq, sk, sk))
-                    edge_check(worst, B9, A.multi_head_attention(q, k, v, bias=bias),
-                               A.mha_plain(q, k, v, bias))
-                    n += 1
-    log(f"  edges: {n} bf16 cases of B3, B8 and B9 on the core at Sq / Sk in "
+                    bias = (2 * torch.randn((sq, sk), generator=g)).cuda()
+                    for layout, offset in (("rows", 0), ("contiguous", 0), ("rows", 2)):
+                        q, k, v = (view_rows(g, 2, t, 3, dh, layout, offset, dtype)
+                                   for t in (sq, sk, sk))
+                        edge_check(worst, B9, A.multi_head_attention(q, k, v, bias=bias),
+                                   A.mha_plain(q, k, v, bias), dtype)
+                        n += 1
+    log(f"  edges: {n} cases of B3, B8 and B9 on the core (bf16 and fp32) at Sq / Sk in "
         f"{EDGE_LENGTHS} and {EDGE_CROSS}, max errors "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
@@ -910,7 +929,8 @@ def row_extras(row: dict) -> str:
         text += f"; bound at 67 TFLOP/s {row['bound_simt_ms']:.4f} ms"
     if "gemm_burst_ms" in row:
         text += (f"; split (bursts): projection {row['gemm_burst_ms']:.4f} ms, attention core "
-                 f"{row['core_burst_ms']:.4f} ms")
+                 f"{row['core_burst_ms']:.4f} ms (SDPA {row['core_library_burst_ms']:.4f} ms, "
+                 f"bound {row['core_bound_ms']:.4f} ms)")
     return text
 
 
@@ -1010,10 +1030,10 @@ def new_kernel_work(name: str, shp: dict, dtype: torch.dtype) -> dict:
     if name == B7:
         b, s = shp["b"], shp["s"]
         work = (6 * b * s * w * w + 4 * b * s * s * w, e * (2 * b * s * w + 3 * w * w + 3 * w))
-        return tf32_bound(*work) if dtype == torch.float32 else bound(*work, dtype)
+        return dtype_bound(*work, dtype)
     if name == B8:
         b, sq, sk = shp["b"], shp["sq"], shp["sk"]
-        return bound(4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w), dtype)
+        return dtype_bound(4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w), dtype)
     rows = shp["rows"]
     return bound(8 * rows * w, e * (2 * rows * w + 2 * w), torch.float32)
 
@@ -1057,14 +1077,19 @@ def new_kernel_calls(name: str, args: tuple, shp: dict):
 def b7_split(args: tuple, shp: dict) -> dict:
     """B7's time split into its two launches, in bursts: the projection
     (`launch_gemm` + bias into packed qkv) and the attention core on that
-    qkv."""
+    qkv, the core beside SDPA on the same qkv (its library call) and its
+    bound (4·b·s²·w FLOPs; qkv read once, the output written once)."""
     x, wt, bias = args
     b, s, w = x.shape
+    heads = shp["heads"]
     qkv = common.launch_gemm(x.view(b * s, w), wt, bias).view(b, s, 3 * w)
+    core_bound = dtype_bound(4 * b * s * s * w, x.element_size() * 4 * b * s * w, x.dtype)
     return dict(gemm_burst_ms=burst_ms(lambda: common.launch_gemm(x.view(b * s, w), wt, bias)),
                 core_burst_ms=burst_ms(lambda: A.launch_attention_core(
-                    qkv, shp["heads"], causal=False, scale=None, out_dtype=x.dtype,
-                    bias=None)))
+                    qkv, heads, causal=False, scale=None, out_dtype=x.dtype, bias=None)),
+                core_library_burst_ms=burst_ms(lambda: sdpa_heads(
+                    qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:], heads)),
+                core_bound_ms=core_bound["bound_ms"], core_bound_by=core_bound["bound_by"])
 
 
 def phase_new_kernels() -> tuple[dict, list]:
@@ -1120,8 +1145,8 @@ def mha_work(shp: dict, dtype: torch.dtype) -> dict:
     e = torch.finfo(dtype).bits // 8
     b, d, sq, sk = shp["b"], shp["d"], 77, 13
     pairs = sum(min(i + 1, sk) for i in range(sq)) if shp.get("causal") else sq * sk
-    return bound(4 * b * pairs * d, e * (2 * b * sq * d + 2 * b * sk * d)
-                 + (4 * sq * sk if shp.get("bias") else 0), dtype)
+    return dtype_bound(4 * b * pairs * d, e * (2 * b * sq * d + 2 * b * sk * d)
+                       + (4 * sq * sk if shp.get("bias") else 0), dtype)
 
 
 def mha_bias_grad_cosine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1280,16 +1305,18 @@ def experiment_work(name: str, dtype: torch.dtype) -> dict:
     b, h, s, w = XA.B, XA.H, XA.S, XA.W
     if name == X1:
         bh = b * h
-        return bound(4 * bh * XA.SP * XA.SKP * XA.DP,
-                     e * bh * XA.DP * (2 * XA.SP + 2 * XA.SKP) + 4 * XA.SP * XA.SKP, dtype)
+        return dtype_bound(4 * bh * XA.SP * XA.SKP * XA.DP,
+                           e * bh * XA.DP * (2 * XA.SP + 2 * XA.SKP) + 4 * XA.SP * XA.SKP,
+                           dtype)
     if name == X2:
-        return bound(4 * b * XA.SP * XA.SP * w, e * b * XA.SP * 4 * w + 4 * XA.SP * XA.SP,
-                     dtype)
+        return dtype_bound(4 * b * XA.SP * XA.SP * w,
+                           e * b * XA.SP * 4 * w + 4 * XA.SP * XA.SP, dtype)
     m, attn, bias_bytes = b * s, 4 * b * s * s * w, 4 * s * s
     if name == X3:
-        return bound(6 * m * w * w + attn, e * (2 * m * w + 3 * w * w + 3 * w) + bias_bytes,
-                     dtype)
-    return bound(8 * m * w * w + attn, e * (2 * m * w + 4 * w * w + 6 * w) + bias_bytes, dtype)
+        return dtype_bound(6 * m * w * w + attn,
+                           e * (2 * m * w + 3 * w * w + 3 * w) + bias_bytes, dtype)
+    return dtype_bound(8 * m * w * w + attn, e * (2 * m * w + 4 * w * w + 6 * w) + bias_bytes,
+                       dtype)
 
 
 def experiment_calls(name: str, args: tuple, per_program: int):
@@ -1349,8 +1376,8 @@ def mha_long_work(shp: dict, dtype: torch.dtype) -> dict:
     e = torch.finfo(dtype).bits // 8
     b, h, sq, sk, dh = shp["b"], shp["h"], shp["sq"], shp["sk"], shp["dh"]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if shp.get("causal") else sq * sk
-    return bound(4 * b * h * pairs * dh, e * 2 * b * h * dh * (sq + sk)
-                 + (4 * sq * sk if shp.get("bias") else 0), dtype)
+    return dtype_bound(4 * b * h * pairs * dh, e * 2 * b * h * dh * (sq + sk)
+                       + (4 * sq * sk if shp.get("bias") else 0), dtype)
 
 
 def check_row(name: str, label: str, dtype: torch.dtype, kernel, plain, library,
@@ -1440,18 +1467,24 @@ def phase_experiment_kernels() -> tuple[dict, list]:
             for gb in (1, 2):
                 edge_check(edge, X2, XA.mha_packed(qkv, bias, scale, gb),
                            XA.mha_packed_plain(qkv, bias, scale, gb))
-        # B9 on the grouped kernel at its chunk edges, both staging widths
-        for sk, dh in EDGE_GROUPED:
-            sq = min(sk, 77)
-            q, k, v = (bf16_view_rows(g, 2, t, 2, dh, "contiguous") for t in (sq, sk, sk))
-            bias = left_padding_bias(sq, sk)
-            edge_check(edge, B9, A.multi_head_attention(q, k, v, bias=bias),
-                       A.mha_plain(q, k, v, bias))
-            q, k, v = (bf16_view_rows(g, 2, sk, 2, dh, "rows") for _ in range(3))
-            edge_check(edge, B9, A.multi_head_attention(q, k, v, causal=True),
-                       A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, "cuda")))
+        # B9 on the grouped kernel at its chunk edges, both staging widths,
+        # bf16 and fp32
+        for dtype in (torch.bfloat16, torch.float32):
+            for sk, dh in EDGE_GROUPED:
+                sq = min(sk, 77)
+                q, k, v = (view_rows(g, 2, t, 2, dh, "contiguous", dtype=dtype)
+                           for t in (sq, sk, sk))
+                bias = left_padding_bias(sq, sk)
+                edge_check(edge, B9, A.multi_head_attention(q, k, v, bias=bias),
+                           A.mha_plain(q, k, v, bias), dtype)
+                q, k, v = (view_rows(g, 2, sk, 2, dh, "rows", dtype=dtype)
+                           for _ in range(3))
+                edge_check(edge, B9, A.multi_head_attention(q, k, v, causal=True),
+                           A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, "cuda")),
+                           dtype)
     log(f"  edges: X2 at S in {EDGE_LENGTHS} (gb 1, 2), B9's grouped route at (Sk, Dh) in "
-        f"{EDGE_GROUPED}: max errors " + ", ".join(f"{k} {v:.3e}" for k, v in edge.items()))
+        f"{EDGE_GROUPED} (bf16 and fp32): max errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in edge.items()))
     for name, err in edge.items():
         worst[name] = max(worst[name], err)
     return worst, rows
@@ -2208,7 +2241,8 @@ def phase_int8_kernels() -> tuple[dict, list]:
                 edge_check(edge, B6, A.launch_attention_core(qkv, 4, causal=causal, scale=None,
                                                              out_dtype=torch.float32),
                            A.packed_qkv_self_attention_plain(qkv, 4, causal=causal,
-                                                             out_dtype=torch.float32))
+                                                             out_dtype=torch.float32),
+                           torch.bfloat16)
     log(f"  edges: B6's attention core, bf16 in, fp32 out, S in {EDGE_LENGTHS}, causal and "
         f"not: max error {edge[B6]:.3e}")
     worst[B6] = max(worst[B6], edge[B6])
@@ -2560,6 +2594,20 @@ def main() -> None:
                     bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"],
                     at=timed[name]["shape"], files=SOURCES[name])
                for name, (_, src, rep) in KERNELS.items()]
+    # the fp32 instances of the attention kernels (3xTF32 tiles) at their
+    # sites: B3 at ViT-B-16 B=32, B7 at the DVR BERT (with its core apart),
+    # B8 at the MR rows and the pool, B9 at TME, X1 at every G
+    fp32_sites = {B3: [r for r in rows if r["kernel"] == B3 and r["shape"] == "vit_b32"],
+                  B7: [r for r in new_rows if r["kernel"] == B7 and "640" in r["shape"]],
+                  B8: [r for r in new_rows if r["kernel"] == B8],
+                  B9: [r for r in tme_rows if r["kernel"] == B9],
+                  X1: [r for r in exp_rows if r["kernel"] == X1]}
+    fp32_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by", "core_burst_ms", "core_library_burst_ms", "core_bound_ms")
+    for entry in kernels:
+        if entry["name"] in fp32_sites:
+            entry["fp32_rows"] = [{k: r[k] for k in fp32_keys if k in r}
+                                  for r in fp32_sites[entry["name"]] if r["dtype"] == "float32"]
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(dict(card=card, kernel_rows=rows, new_kernel_rows=new_rows,

@@ -119,10 +119,12 @@ def _padded_bias(sq: int, sk: int, dev: torch.device) -> torch.Tensor:
 
 def sdpa_with_bias(q, k, v, bias, scale, heads=None):
     """SDPA with `bias` as `attn_mask` (the library yardstick, never
-    called by the port): q, k, v [N, S, D], or [B, S, W] split into
-    `heads`."""
+    called by the port): q, k, v [N, S, D] (as N x 1 heads: a 3-D call
+    takes SDPA's math path, the 4-D one its fused kernels), or [B, S, W]
+    split into `heads`."""
     if heads is None:
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(q.dtype), scale=scale)
+        return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                              attn_mask=bias.to(q.dtype), scale=scale)[:, 0]
     split = [t.unflatten(-1, (heads, t.shape[-1] // heads)).transpose(1, 2) for t in (q, k, v)]
     o = F.scaled_dot_product_attention(*split, attn_mask=bias.to(q.dtype), scale=scale)
     return o.transpose(1, 2).flatten(2)

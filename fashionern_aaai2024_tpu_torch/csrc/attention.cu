@@ -34,8 +34,9 @@
 // Bound: at Sk <= 256 the scores of one head fit on chip, so DRAM traffic
 // is only q, k, v in and out once. In bf16 that is the bound (ViT-B-16 at
 // B = 32: 38.7 MB, 0.0116 ms at 3.35 TB/s, against 0.0039 ms of tensor-core
-// work); in fp32 the limit is the rate of fp32 FMAs fed from shared
-// memory (2 x Sq x Sk x D a head, twice).
+// work); in fp32 the 3xTF32 products are three tf32 passes of 4 Sq Sk D
+// FLOP a head (ViT-B-16 B = 32: 3.8 GFLOP, 0.023 ms at 495 / 3 TFLOP/s,
+// as long as its 77.5 MB take at 3.35 TB/s).
 //
 // Design, bf16 operands (output bf16, or fp32 for B6): the tensor-core
 // tiles of attention_mma.cuh. A block of up to kMmaWarps warps takes one
@@ -60,77 +61,49 @@
 // 128; see ROADMAP.
 //
 // Design, fp32 (the ERN towers' B7 / B8 / B9, the fp32 tiers, TME
-// training; kept bit for bit): one block per (head, image), K
-// and V of the head staged in shared memory (the K rows padded to an odd
-// word stride, 65 / 81 words at D = 64 / 80, so that the 32 lanes reading
-// 32 different rows hit 32 banks). One warp per query row: each lane
-// scores up to 8 keys with q held in registers, the softmax reductions
-// are warp shuffles, and each lane then owns pairs of output dims for the
-// P . V sum, which runs over the keys in order.
+// training): the same tiling on the tensor cores by 3xTF32 `mma.sync`
+// (attention_tf32.cuh: tf32 m16n8k8 tiles, each product as lo.hi + hi.lo
+// + hi.hi of its operands' tf32 split, every partial folded into the fp32
+// sum on the CUDA cores). Blocks of up to 8 warps, a 16-row tile each, the
+// tiles of a pair interleaved over blocks as in bf16; where the pairs
+// leave SMs idle the tiles spread over more blocks, down to one warp each
+// (B7 at b = 1: 8 heads x 6 tiles make 48 one-warp blocks, where one
+// block a head ran before). K and V of the head go to shared memory raw
+// by `cp.async` (16-byte copies where the pointers and strides allow,
+// else 4-byte), K rows at D + 8 words and V rows at D + 4 so that the
+// fragment loads are conflict-free, and are split into tf32 hi and lo as
+// fragments are loaded. S runs one k-step at a time over all the keys (a
+// lane holds one step's split query fragment), the softmax stays fp32 on
+// the CUDA cores, and P goes from the accumulators into P . V through a
+// permutation of the key order (no shuffle). One instance per count of
+// 32-key groups (1 .. 8), compiled per head dim in attention_fp32_d64.cu
+// and attention_fp32_d80.cu (attention_fp32.cuh).
 //
 // Rounding follows the Pallas kernels in both: fp32 scores and softmax,
-// probabilities normalized in fp32 and cast to the storage type, fp32
-// P . V, output cast per head.
+// probabilities normalized in fp32 and cast to the storage type, P . V
+// accumulated in fp32, output cast per head. The fp32 instance's products
+// are 3xTF32, which agree with fp32 products to within the fp32 tolerance
+// (2e-5), not bit for bit.
 
 // The bodies are in attention_core.cuh: kernel B10 (block.cu) runs them
 // too.
 
 #include "attention_bf16.cuh"
-#include "attention_core.cuh"
+#include "attention_fp32.cuh"
 
 namespace fern {
-
-// fp32: block (h, y) runs head h of images y*gb .. y*gb+gb-1 in turn.
-template <typename T, typename TO, int D, bool kBias>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ bias, TO* __restrict__ out, int Sq, int Sk, int H,
-                 int q_ld, int kv_ld, int causal, float scale, int gb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  for (int i = 0; i < gb; ++i)
-    attention_rows<T, TO, D, kBias>(smem, q, k, v, bias, out, blockIdx.y * gb + i, blockIdx.x,
-                                    0, Sq, Sq, Sk, H, q_ld, kv_ld, causal, scale);
-}
-
-template <typename T, typename TO, int D, bool kBias>
-static cudaError_t launch_kernel(const void* q, const void* k, const void* v,
-                                 const float* bias, void* out, int batch, int sq, int sk,
-                                 int heads, int q_ld, int kv_ld, int causal, float scale,
-                                 int gb, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes<T, D>(sk);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, TO, D, kBias>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(heads, batch / gb);
-  attention_kernel<T, TO, D, kBias><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<TO*>(out), sq, sk, heads, q_ld, kv_ld, causal, scale, gb);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TO, int D>
-static cudaError_t launch_attention(const void* q, const void* k, const void* v,
-                                    const float* bias, void* out, int batch, int sq, int sk,
-                                    int heads, int q_ld, int kv_ld, int causal, float scale,
-                                    int gb, cudaStream_t stream) {
-  if (bias == nullptr)
-    return launch_kernel<T, TO, D, false>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                          kv_ld, causal, scale, gb, stream);
-  return launch_kernel<T, TO, D, true>(q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                       causal, scale, gb, stream);
-}
 
 template <int D>
 static cudaError_t dispatch_types(const void* q, const void* k, const void* v,
                                   const float* bias, void* out, int batch, int sq, int sk,
                                   int heads, int q_ld, int kv_ld, int causal, float scale,
-                                  int dtype, int out_dtype, int gb, cudaStream_t s) {
+                                  int dtype, int out_dtype, int gb, int sms, cudaStream_t s) {
   if (dtype == DTYPE_BF16 && (out_dtype == DTYPE_BF16 || out_dtype == DTYPE_F32))
     return (D == 64 ? launch_attention_bf16_d64 : launch_attention_bf16_d80)(
         q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld, causal, scale, out_dtype, gb, s);
   if (dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
-    return launch_attention<float, float, D>(q, k, v, bias, out, batch, sq, sk, heads, q_ld,
-                                             kv_ld, causal, scale, gb, s);
+    return (D == 64 ? launch_attention_fp32_d64 : launch_attention_fp32_d80)(
+        q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld, causal, scale, gb, sms, s);
   return cudaErrorInvalidValue;
 }
 
@@ -153,11 +126,12 @@ extern "C" int fern_attention(const void* q, const void* k, const void* v, const
   if (batch == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  const int sms = fern::sm_count(device);
   if (head_dim == 64)
     return (int)fern::dispatch_types<64>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                         causal, scale, dtype, out_dtype, gb, s);
+                                         causal, scale, dtype, out_dtype, gb, sms, s);
   if (head_dim == 80)
     return (int)fern::dispatch_types<80>(q, k, v, b, out, batch, sq, sk, heads, q_ld, kv_ld,
-                                         causal, scale, dtype, out_dtype, gb, s);
+                                         causal, scale, dtype, out_dtype, gb, sms, s);
   return (int)cudaErrorInvalidValue;
 }

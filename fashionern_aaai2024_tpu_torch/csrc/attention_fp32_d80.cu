@@ -1,0 +1,15 @@
+// The attention core's fp32 kernel at head dim 80 (attention_fp32.cuh).
+
+#include "attention_fp32.cuh"
+
+namespace fern {
+
+cudaError_t launch_attention_fp32_d80(const void* q, const void* k, const void* v,
+                                      const float* bias, void* out, int batch, int sq, int sk,
+                                      int heads, int q_ld, int kv_ld, int causal, float scale,
+                                      int gb, int sms, cudaStream_t stream) {
+  return launch_attention_fp32<80>(q, k, v, bias, out, batch, sq, sk, heads, q_ld, kv_ld,
+                                   causal, scale, gb, sms, stream);
+}
+
+}  // namespace fern

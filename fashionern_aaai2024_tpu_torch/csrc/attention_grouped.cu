@@ -17,6 +17,8 @@
 // Bound: X1 at bf16 moves 365 MB (q, k, v and out once: 0.109 ms at 3.35
 // TB/s) and computes 3 x 2 x Sq x Sk x D FLOPs a pair (QK^T twice, P.V
 // once; the bound counts the 2 x 2 x Sq x Sk x D the function needs).
+// In fp32 it moves 730 MB (0.218 ms) and its 41.9 GFLOP run as three tf32
+// passes: 0.254 ms at 495 / 3 TFLOP/s.
 //
 // Two passes over 64-key chunks keep `_kernel`'s rounding point: the
 // first finds each row's max and denominator (an online max / rescaled
@@ -45,232 +47,34 @@
 // even) or element copies (`staging_width`). Scores and P.V as in the
 // core.
 //
-// Design, fp32 (the CUDA cores, kept bit for bit): blocks of 8 warps over
-// tiles of 32 query rows (4 rows a warp, held as fp32 in shared memory
-// and read as broadcasts), chunks of 64 keys staged element by element (K
-// at an odd word stride, so the 32 lanes reading 32 key rows hit 32
-// banks): 90.4 KB a block at D <= 128 (zero-padded to 64 or 128). Each
-// lane keeps an online max and rescaled sum over its keys in pass 1, then
-// a warp reduction; each lane scores 2 keys of a chunk against the warp's
-// 4 rows and owns 2 (D <= 64) or 4 output dims.
+// Design, fp32: the same blocks, rounds and passes on the tensor cores by
+// 3xTF32 `mma.sync` (attention_tf32.cuh: tf32 m16n8k8 tiles, each product
+// as lo.hi + hi.lo + hi.hi of its operands' tf32 split, every k-step's and
+// key tile's partial folded into the fp32 sum on the CUDA cores, the split
+// made as fragments are loaded). The kernel is bound by latency, not by
+// issue or shared memory: in exploratory probes (not kept), one block of 8
+// warps an SM (double-buffered 64-key chunks, 202 KB, 172 registers) ran X1
+// well behind two blocks an SM, and splitting each chunk once a block into
+// hi and lo words, or three independent partials in place of the chained
+// mmas, moved it little. So a block stages one 32-key chunk of raw fp32 at
+// a time (K rows at DP + 8 words, V rows at DP + 4, so that the fragment
+// loads are conflict-free), beside its warps' raw query rows: 103 KB at
+// DP = 128, and at most 128 registers a thread (a chunk's scores are 16 a
+// lane, the output 4 DP / 8), so that two blocks share an SM and cover
+// each other's staging (X1's times: `ab_attention.py`, PERF.md §6). The
+// k-steps and output columns past the head's D are skipped. The two passes
+// keep their rounding points: p = exp(s - m) / l as the IEEE fp32 quotient,
+// P . V accumulated in fp32.
 
 #include "attention_core.cuh"
+#include "attention_tf32.cuh"
 
 namespace fern {
 namespace {
 
 constexpr int kGroupedMmaWarps = 8;
 constexpr int kMmaTileRows = kGroupedMmaWarps * kMmaRows;
-constexpr int kGroupedWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTileRows = kGroupedWarps * kRowsPerWarp;
 constexpr int kChunk = 64;
-constexpr int kKeysPerLane = kChunk / 32;
-
-template <typename T, int DP>
-__host__ __device__ constexpr size_t grouped_smem_bytes() {
-  return align16((size_t)kChunk * KStride<T, DP>::value * sizeof(T)) +
-         align16((size_t)kChunk * DP * sizeof(T)) +
-         (size_t)kTileRows * DP * sizeof(float) +
-         (size_t)kGroupedWarps * kRowsPerWarp * kChunk * sizeof(float);
-}
-
-// A pair of values at an 8-byte aligned address (V rows: stride DP).
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// Keys j0 .. j0+63 of one pair into Ks (and Vs), zero past Sk and past D.
-template <typename T, int DP, bool kWithV>
-__device__ __forceinline__ void stage_chunk(T* Ks, T* Vs, const T* __restrict__ kb,
-                                            const T* __restrict__ vb, int j0, int Sk, int D,
-                                            int kv_ld) {
-  constexpr int kld = KStride<T, DP>::value;
-  for (int idx = threadIdx.x; idx < kChunk * DP; idx += blockDim.x) {
-    const int jj = idx / DP, d = idx % DP;
-    const int j = j0 + jj;
-    const bool in = j < Sk && d < D;
-    Ks[jj * kld + d] = in ? kb[(size_t)j * kv_ld + d] : from_f<T>(0.f);
-    if constexpr (kWithV) Vs[jj * DP + d] = in ? vb[(size_t)j * kv_ld + d] : from_f<T>(0.f);
-  }
-}
-
-// Scores of this lane's two keys of the chunk (lane, lane + 32) against
-// the warp's rows: s[t][r] = q_r . k, unscaled.
-template <typename T, int DP>
-__device__ __forceinline__ void chunk_dots(const T* Ks, const float* qw, int lane,
-                                           float (&s)[kKeysPerLane][kRowsPerWarp]) {
-  constexpr int kld = KStride<T, DP>::value;
-  const T* k0 = Ks + lane * kld;
-  const T* k1 = Ks + (lane + 32) * kld;
-#pragma unroll
-  for (int t = 0; t < kKeysPerLane; ++t)
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[t][r] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DP; d += 2) {
-    const float2 a = load2(k0 + d), b = load2(k1 + d);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float2 qv = *reinterpret_cast<const float2*>(qw + r * DP + d);
-      s[0][r] = fmaf(qv.x, a.x, s[0][r]);
-      s[0][r] = fmaf(qv.y, a.y, s[0][r]);
-      s[1][r] = fmaf(qv.x, b.x, s[1][r]);
-      s[1][r] = fmaf(qv.y, b.y, s[1][r]);
-    }
-  }
-}
-
-// The scaled score plus the bias, rounded in that order as the plain
-// version (no fused multiply-add).
-template <bool kBias>
-__device__ __forceinline__ float biased(float dot, float scale, const float* __restrict__ bias,
-                                        int i, int j, int Sq, int Sk) {
-  if constexpr (kBias) {
-    const float bv = i < Sq ? bias[(size_t)i * Sk + j] : 0.f;
-    return __fadd_rn(__fmul_rn(dot, scale), bv);
-  } else {
-    return dot * scale;
-  }
-}
-
-template <typename T, int DP, bool kBias>
-__global__ void __launch_bounds__(kGroupedWarps * 32)
-grouped_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ bias,
-                         T* __restrict__ out, int Sq, int Sk, int H, int D, int q_ld,
-                         int kv_ld, int group, float scale) {
-  // blockIdx.y: the first row tile of this block, gridDim.y the stride
-  static_assert(DP == 64 || DP == 128, "padded head dim: 64 or 128");
-  constexpr int kld = KStride<T, DP>::value;
-  constexpr int kPairRounds = DP / 64;  // output dim pairs a lane owns
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + align16((size_t)kChunk * kld * sizeof(T)));
-  float* Qs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Vs) +
-                                       align16((size_t)kChunk * DP * sizeof(T)));
-  float* Ps = Qs + kTileRows * DP;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* qw = Qs + warp * kRowsPerWarp * DP;
-  float* pw = Ps + warp * kRowsPerWarp * kChunk;
-  const int W = H * D;
-  const int nchunks = (Sk + kChunk - 1) / kChunk;
-
-  for (int pi = 0; pi < group; ++pi) {
-    const int p = blockIdx.x * group + pi;
-    const int b = p / H, h = p % H;
-    const T* qb = q + (size_t)b * Sq * q_ld + (size_t)h * D;
-    const T* kb = k + (size_t)b * Sk * kv_ld + (size_t)h * D;
-    const T* vb = v + (size_t)b * Sk * kv_ld + (size_t)h * D;
-    T* ob = out + (size_t)b * Sq * W + (size_t)h * D;
-
-    for (int row0 = blockIdx.y * kTileRows; row0 < Sq; row0 += gridDim.y * kTileRows) {
-      __syncthreads();  // the previous tile is done with Qs, Ks, Vs
-      for (int idx = threadIdx.x; idx < kTileRows * DP; idx += blockDim.x) {
-        const int i = row0 + idx / DP, d = idx % DP;
-        Qs[idx] = i < Sq && d < D ? to_f(qb[(size_t)i * q_ld + d]) : 0.f;
-      }
-      const int i0 = row0 + warp * kRowsPerWarp;  // the warp's first row
-
-      // pass 1: each lane's running max and rescaled sum over its keys
-      float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        m[r] = -INFINITY;
-        l[r] = 0.f;
-      }
-      for (int c = 0; c < nchunks; ++c) {
-        const int j0 = c * kChunk;
-        __syncthreads();
-        stage_chunk<T, DP, false>(Ks, Vs, kb, vb, j0, Sk, D, kv_ld);
-        __syncthreads();
-        float s[kKeysPerLane][kRowsPerWarp];
-        chunk_dots<T, DP>(Ks, qw, lane, s);
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          const int j = j0 + lane + 32 * t;
-          if (j < Sk) {
-#pragma unroll
-            for (int r = 0; r < kRowsPerWarp; ++r) {
-              const float sv = biased<kBias>(s[t][r], scale, bias, i0 + r, j, Sq, Sk);
-              const float mn = fmaxf(m[r], sv);
-              // a -inf score adds nothing, and while the max is still -inf
-              // there is no sum to rescale (-inf - -inf would be NaN)
-              l[r] = (m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mn)) +
-                     (sv == -INFINITY ? 0.f : expf(sv - mn));
-              m[r] = mn;
-            }
-          }
-        }
-      }
-      float M[kRowsPerWarp], L[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        M[r] = warp_max(m[r]);
-        L[r] = warp_sum(m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - M[r]));
-      }
-
-      // pass 2: p = exp(s - m) / l in the operand type, then P.V in fp32
-      float acc[kRowsPerWarp][kPairRounds][2];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-        for (int u = 0; u < kPairRounds; ++u) acc[r][u][0] = acc[r][u][1] = 0.f;
-      for (int c = 0; c < nchunks; ++c) {
-        const int j0 = c * kChunk;
-        __syncthreads();
-        stage_chunk<T, DP, true>(Ks, Vs, kb, vb, j0, Sk, D, kv_ld);
-        __syncthreads();
-        float s[kKeysPerLane][kRowsPerWarp];
-        chunk_dots<T, DP>(Ks, qw, lane, s);
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          const int jj = lane + 32 * t, j = j0 + jj;
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            float pv = 0.f;
-            if (j < Sk)
-              pv = round_to<T>(
-                  expf(biased<kBias>(s[t][r], scale, bias, i0 + r, j, Sq, Sk) - M[r]) / L[r]);
-            pw[r * kChunk + jj] = pv;
-          }
-        }
-        __syncwarp();
-        const int nk = min(kChunk, Sk - j0);
-        for (int jj = 0; jj < nk; ++jj) {
-          float2 vv[kPairRounds];
-#pragma unroll
-          for (int u = 0; u < kPairRounds; ++u)
-            vv[u] = load_pair(Vs + jj * DP + 2 * (lane + 32 * u));
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float pv = pw[r * kChunk + jj];
-#pragma unroll
-            for (int u = 0; u < kPairRounds; ++u) {
-              acc[r][u][0] = fmaf(pv, vv[u].x, acc[r][u][0]);
-              acc[r][u][1] = fmaf(pv, vv[u].y, acc[r][u][1]);
-            }
-          }
-        }
-        __syncwarp();  // pw is rewritten by the next chunk
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int i = i0 + r;
-        if (i >= Sq) continue;
-#pragma unroll
-        for (int u = 0; u < kPairRounds; ++u) {
-          const int d = 2 * (lane + 32 * u);
-          if (d < D) {
-            ob[(size_t)i * W + d] = from_f<T>(acc[r][u][0]);
-            ob[(size_t)i * W + d + 1] = from_f<T>(acc[r][u][1]);
-          }
-        }
-      }
-    }
-  }
-}
 
 // bf16: shared bytes of grouped_attention_mma_kernel: two chunk buffers of
 // K and V, and 16 query rows a warp, rows of mma_lds(DP) elements.
@@ -438,6 +242,183 @@ grouped_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
 }
 
+// fp32: keys of a chunk.
+constexpr int kTfChunk = 32;
+
+// fp32: shared bytes of grouped_attention_tf32_kernel: one chunk buffer of
+// K (rows of tf32_qk_lds(DP) words) and V (tf32_v_lds(DP)), and 16 query
+// rows a warp (tf32_qk_lds(DP)): 103 KB at DP = 128, so that two blocks
+// share an SM.
+template <int DP>
+__host__ __device__ constexpr size_t grouped_tf32_smem_bytes() {
+  return ((size_t)kTfChunk * (tf32_qk_lds(DP) + tf32_v_lds(DP)) +
+          (size_t)kGroupedMmaWarps * kMmaRows * tf32_qk_lds(DP)) *
+         sizeof(float);
+}
+
+// fp32: as the bf16 kernel, a block of kGroupedMmaWarps warps runs `group`
+// pairs, within a pair rounds of 128 query rows, 16 a warp; two blocks an
+// SM (at most 128 registers a thread).
+template <int DP, bool kBias>
+__global__ void __launch_bounds__(kGroupedMmaWarps * 32, 2)
+grouped_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ bias,
+                              float* __restrict__ out, int Sq, int Sk, int H, int D, int q_ld,
+                              int kv_ld, int group, float scale, int width) {
+  // blockIdx.y: the first row round of this block, gridDim.y the stride
+  static_assert(DP == 64 || DP == 128, "padded head dim: 64 or 128");
+  constexpr int qld = tf32_qk_lds(DP), vld = tf32_v_lds(DP);
+  constexpr int kTiles = kTfChunk / kTfKeyTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const Ks = reinterpret_cast<float*>(smem);
+  float* const Vs = Ks + kTfChunk * qld;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* const Qw = Vs + kTfChunk * vld + warp * kMmaRows * qld;
+  const int W = H * D;
+  const int nchunks = (Sk + kTfChunk - 1) / kTfChunk;
+  const int ksteps = (D + 7) / 8;  // k-steps the head's dims need (zeros past D)
+
+  for (int pi = 0; pi < group; ++pi) {
+    const int p = blockIdx.x * group + pi;
+    const int b = p / H, h = p % H;
+    const float* qb = q + (size_t)b * Sq * q_ld + (size_t)h * D;
+    const float* kb = k + (size_t)b * Sk * kv_ld + (size_t)h * D;
+    const float* vb = v + (size_t)b * Sk * kv_ld + (size_t)h * D;
+    float* ob = out + (size_t)b * Sq * W + (size_t)h * D;
+    // chunk c of K (and V), zero past Sk and past D; it has landed, and
+    // every thread sees it, when this returns
+    auto stage = [&](int c, bool with_v) {
+      const int j0 = c * kTfChunk, n = min(kTfChunk, Sk - j0);
+      stage_rows_f32<DP, tf32_qk_lds(DP)>(Ks, kb + (size_t)j0 * kv_ld, kv_ld, n, kTfChunk, D,
+                                          width, threadIdx.x, blockDim.x);
+      if (with_v)
+        stage_rows_f32<DP, tf32_v_lds(DP)>(Vs, vb + (size_t)j0 * kv_ld, kv_ld, n, kTfChunk, D,
+                                           width, threadIdx.x, blockDim.x);
+      cp_async_wait_all();
+      __syncthreads();
+    };
+    // unscaled scores of the warp's rows against the staged chunk (keys
+    // past Sk are zero rows of it: scored, then masked by the caller)
+    auto chunk_scores = [&](float (&s)[kTiles][4]) {
+#pragma unroll
+      for (int kt = 0; kt < kTiles; ++kt) s[kt][0] = s[kt][1] = s[kt][2] = s[kt][3] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < ksteps; ++kk) {
+        uint32_t ah[4], al[4];
+        load_q_tf32<tf32_qk_lds(DP)>(ah, al, Qw, kk, lane);
+#pragma unroll
+        for (int kt = 0; kt < kTiles; ++kt)
+          qk_step_tf32<tf32_qk_lds(DP)>(s[kt], ah, al, Ks + kt * kTfKeyTile * qld, kk, lane);
+      }
+    };
+
+    for (int row0 = blockIdx.y * kMmaTileRows; row0 < Sq; row0 += gridDim.y * kMmaTileRows) {
+      __syncthreads();  // the previous round is done with every buffer
+      const int r0 = row0 + warp * kMmaRows;
+      const bool active = r0 < Sq;
+      if (active)
+        stage_rows_f32<DP, qld>(Qw, qb + (size_t)r0 * q_ld, q_ld, min(kMmaRows, Sq - r0),
+                                kMmaRows, D, width, lane, 32);
+      const int i0 = r0 + g, i1 = r0 + g + 8;  // this lane's rows
+      const float* brow0 = kBias && i0 < Sq ? bias + (size_t)i0 * Sk : nullptr;
+      const float* brow1 = kBias && i1 < Sq ? bias + (size_t)i1 * Sk : nullptr;
+
+      // pass 1: each row's running max (over its quad) and this lane's
+      // share of the rescaled sum
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      for (int c = 0; c < nchunks; ++c) {
+        stage(c, false);  // with the query rows, the first time
+        if (active) {
+          float s[kTiles][4];
+          chunk_scores(s);
+          float c0 = -INFINITY, c1 = -INFINITY;
+          const bool full = (c + 1) * kTfChunk <= Sk;
+#pragma unroll
+          for (int kt = 0; kt < kTiles; ++kt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = c * kTfChunk + kt * kTfKeyTile + 2 * t + e % 2;
+              const bool hi = e / 2;
+              const float x =
+                  full || j < Sk ? scaled_score<kBias>(s[kt][e], scale, hi ? brow1 : brow0, j)
+                                 : -INFINITY;
+              s[kt][e] = x;
+              if (hi)
+                c1 = fmaxf(c1, x);
+              else
+                c0 = fmaxf(c0, x);
+            }
+          }
+          const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
+          // a -inf score adds nothing, and while the max is still -inf
+          // there is no sum to rescale (-inf - -inf would be NaN)
+          l0 = m0 == -INFINITY ? 0.f : l0 * expf(m0 - n0);
+          l1 = m1 == -INFINITY ? 0.f : l1 * expf(m1 - n1);
+#pragma unroll
+          for (int kt = 0; kt < kTiles; ++kt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool hi = e / 2;
+              const float x = s[kt][e];
+              if (hi)
+                l1 += x == -INFINITY ? 0.f : expf(x - n1);
+              else
+                l0 += x == -INFINITY ? 0.f : expf(x - n0);
+            }
+          }
+          m0 = n0;
+          m1 = n1;
+        }
+        __syncthreads();  // the chunk is restaged by the next iteration
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const double rl0 = 1.0 / l0, rl1 = 1.0 / l1;
+
+      // pass 2: p = exp(s - m) / l in fp32, then P.V in 3xTF32
+      float o[DP / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+      for (int c = 0; c < nchunks; ++c) {
+        stage(c, true);
+        if (active) {
+          float s[kTiles][4];
+          chunk_scores(s);
+          const bool full = (c + 1) * kTfChunk <= Sk;
+#pragma unroll
+          for (int kt = 0; kt < kTiles; ++kt) {
+            float pr[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = c * kTfChunk + kt * kTfKeyTile + 2 * t + e % 2;
+              const bool hi = e / 2;
+              pr[e] = full || j < Sk
+                          ? div_rn(expf(scaled_score<kBias>(s[kt][e], scale, hi ? brow1 : brow0,
+                                                            j) -
+                                        (hi ? m1 : m0)),
+                                   hi ? rl1 : rl0)
+                          : 0.f;
+            }
+            pv_tile_tf32<vld, DP / 8>(o, pr, Vs + kt * kTfKeyTile * vld, lane, D);
+          }
+        }
+        __syncthreads();
+      }
+      if (active) {
+#pragma unroll
+        for (int nd = 0; nd < DP / 8; ++nd) {
+          const int d = nd * 8 + 2 * t;
+          if (d < D) {
+            if (i0 < Sq) store_pair(ob + (size_t)i0 * W + d, o[nd][0], o[nd][1]);
+            if (i1 < Sq) store_pair(ob + (size_t)i1 * W + d, o[nd][2], o[nd][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int DP, bool kBias>
 cudaError_t launch_grouped(const void* q, const void* k, const void* v, const float* bias,
                            void* out, dim3 grid, int sq, int sk, int heads, int head_dim,
@@ -455,13 +436,16 @@ cudaError_t launch_grouped(const void* q, const void* k, const void* v, const fl
         width);
     return cudaGetLastError();
   } else {
-    constexpr size_t smem = grouped_smem_bytes<T, DP>();
-    cudaError_t err = cudaFuncSetAttribute(grouped_attention_kernel<T, DP, kBias>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    constexpr size_t smem = grouped_tf32_smem_bytes<DP>();
+    cudaError_t err = cudaFuncSetAttribute(grouped_attention_tf32_kernel<DP, kBias>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
-    grouped_attention_kernel<T, DP, kBias><<<grid, kGroupedWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-        static_cast<T*>(out), sq, sk, heads, head_dim, q_ld, kv_ld, group, scale);
+    const int width = staging_width({q, k, v}, {q_ld, kv_ld, head_dim}, 4);
+    grouped_attention_tf32_kernel<DP, kBias><<<grid, kGroupedMmaWarps * 32, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bias, static_cast<float*>(out), sq, sk, heads, head_dim,
+        q_ld, kv_ld, group, scale, width);
     return cudaGetLastError();
   }
 }
@@ -495,7 +479,7 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, const floa
 // contiguous fp32 [sq, sk] added to every pair's scores; head_dim even,
 // 2 .. 128; group: pairs a block, dividing batch * heads; split_rows: 0,
 // a block runs every query row of its pairs; 1, one row tile of them (128
-// rows in bf16, 32 in fp32);
+// rows);
 // out [batch, sq, heads * head_dim] in the operands' type (fp32 or bf16).
 extern "C" int fern_attention_grouped(const void* q, const void* k, const void* v,
                                       const void* bias, void* out, int batch, int sq, int sk,
@@ -509,8 +493,7 @@ extern "C" int fern_attention_grouped(const void* q, const void* k, const void* 
       pairs % group || pairs / group > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (pairs == 0 || sq == 0) return 0;
-  const int tile_rows = dtype == fern::DTYPE_BF16 ? fern::kMmaTileRows : fern::kTileRows;
-  const int tiles = (sq + tile_rows - 1) / tile_rows;
+  const int tiles = (sq + fern::kMmaTileRows - 1) / fern::kMmaTileRows;
   if (split_rows && tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(pairs / group), split_rows ? tiles : 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

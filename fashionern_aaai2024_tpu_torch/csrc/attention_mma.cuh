@@ -40,12 +40,13 @@ __host__ __device__ constexpr int mma_lds(int d) { return d + 8; }
 
 // Widest copy every row of an operand allows: 16, 4 or 2 bytes. `ptrs`
 // are the operands' first-head addresses; `strides` their row strides
-// and the head width, in bf16 elements (head h starts h * D further).
+// and the head width, in elements of `esize` bytes (bf16 unless said;
+// head h starts h * D further).
 inline int staging_width(std::initializer_list<const void*> ptrs,
-                         std::initializer_list<long long> strides) {
+                         std::initializer_list<long long> strides, int esize = 2) {
   unsigned long long any = 0;
   for (const void* p : ptrs) any |= reinterpret_cast<unsigned long long>(p);
-  for (long long s : strides) any |= static_cast<unsigned long long>(s) * 2;
+  for (long long s : strides) any |= static_cast<unsigned long long>(s) * esize;
   if (any % 16 == 0) return 16;
   if (any % 4 == 0) return 4;
   return 2;

@@ -26,7 +26,8 @@
 // phase walks its work units round-robin over the blocks, with the same
 // device code as the sub-block kernels (`layernorm_row.cuh`,
 // `gemm_wgmma.cuh` in bf16 and `gemm_tf32.cuh` in fp32,
-// `attention_core.cuh`), so its results are B1 + B2's bit for bit: a
+// `attention_core.cuh`: bf16 or 3xTF32 `mma.sync` tiles), so its results
+// are B1 + B2's bit for bit: a
 // product's tiles run the GEMM's warpgroup-MMA body (the same `wgmma`
 // instructions in the same k order). In bf16 the 128 x 128 tiles are
 // staged by the block's 256 threads with cp.async into the swizzled
@@ -70,7 +71,7 @@ struct BlockArgs {
   T *ln, *qkv, *attn, *y, *hidden, *out;  // workspace (qkv and hidden share) and output
   unsigned* barrier;
   int batch, seq, width, ffn, heads, row_tile, causal, act;
-  int stage;  // bf16: the attention body's staging width of qkv
+  int stage;  // the attention body's staging width of qkv
   float scale, eps;
 };
 
@@ -162,6 +163,42 @@ __device__ __forceinline__ void block_layernorm(const T* x, const T* g, const T*
                  gridDim.x * kWarps, threadIdx.x % 32);
 }
 
+// fp32: one attention unit of B10, out of line, at NP 32-key groups. The
+// 3xTF32 body holds 4 NP scores a lane in registers; inlined at NP = 8,
+// that pressure made ptxas spill 964 bytes across the whole kernel, its
+// GEMM phases too. Out of line the kernel spills 20 bytes (`-Xptxas -v`),
+// and each instance keeps its registers to itself (96 bytes of spill
+// stores at NP = 1, 224 at a text tower's 3, 544 at 8). NP is the count
+// S needs, as the core's kernel takes it: a text tower's 77 keys hold 12
+// scores a lane where NP = 8 held 32. The bits are the same at every NP
+// (the same body, in the same order, each unit scoring only the groups
+// its rows need), so B10 stays B1 + B2's.
+template <int NP>
+__device__ __noinline__ void block_attention_tf32_np(unsigned char* smem, const float* qkv,
+                                                     float* attn, int b, int h, int row0,
+                                                     int row1, int seq, int heads, int W,
+                                                     int causal, float scale, int stage) {
+  attention_tiles_tf32<kBlockHeadDim, false, NP, false>(
+      smem, qkv, qkv + W, qkv + 2 * W, nullptr, attn, b, h, row0, kMmaRows, row1, seq, seq,
+      heads, 3 * W, 3 * W, causal, scale, stage);
+}
+
+__device__ __forceinline__ void block_attention_tf32(unsigned char* smem, const float* qkv,
+                                                     float* attn, int b, int h, int row0,
+                                                     int row1, int seq, int heads, int W,
+                                                     int causal, float scale, int stage) {
+  static_assert(kMaxSeq == 8 * kTfKeyGroup, "one instance per group count up to kMaxSeq");
+#define FERN_GROUPS(NP)                                                                     \
+  case NP:                                                                                  \
+    return block_attention_tf32_np<NP>(smem, qkv, attn, b, h, row0, row1, seq, heads, W,     \
+                                       causal, scale, stage);
+  switch ((seq + kTfKeyGroup - 1) / kTfKeyGroup) {
+    FERN_GROUPS(1) FERN_GROUPS(2) FERN_GROUPS(3) FERN_GROUPS(4)
+    FERN_GROUPS(5) FERN_GROUPS(6) FERN_GROUPS(7) FERN_GROUPS(8)
+  }
+#undef FERN_GROUPS
+}
+
 // The arguments travel by value in one struct: no pointer here is a
 // `const __restrict__` kernel parameter, so no load of an intermediate
 // that another block wrote goes through the read-only cache. The struct
@@ -187,9 +224,8 @@ __global__ void __launch_bounds__(kThreads) block_kernel(const __grid_constant__
           row0, kMmaRows, row1, a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal, a.scale,
           a.stage);
     else
-      attention_rows<T, T, kBlockHeadDim, false>(
-          smem, a.qkv, a.qkv + W, a.qkv + 2 * W, nullptr, a.attn, bh / a.heads, bh % a.heads,
-          row0, row1, a.seq, a.seq, a.heads, 3 * W, 3 * W, a.causal, a.scale);
+      block_attention_tf32(smem, a.qkv, a.attn, bh / a.heads, bh % a.heads, row0, row1, a.seq,
+                           a.heads, W, a.causal, a.scale, a.stage);
   }
   grid_barrier(a.barrier);
   block_gemm(smem, a.f32, 1, a.attn, a.out_w, a.out_b, a.x, a.y, M, W, W, ACT_NONE);
@@ -208,7 +244,7 @@ static size_t block_smem_bytes(int seq) {
       sizeof(T) == 2 ? wgmma_tile_smem_bytes() : TfRing<kMmaN, kTfStages>::kSmem;
   const size_t attn = sizeof(T) == 2
                           ? attention_mma_smem_bytes<kBlockHeadDim>(seq, kThreads / 32)
-                          : attention_smem_bytes<float, kBlockHeadDim>(seq);
+                          : attention_tf32_smem_bytes<kBlockHeadDim>(seq, kThreads / 32);
   return tile > attn ? tile : attn;
 }
 
@@ -256,13 +292,12 @@ static cudaError_t launch_block(BlockArgs<T> a, int device, cudaStream_t stream)
   const int narrowest = sizeof(T) == 2 ? kMmaN : 32;
   const int wide = a.ffn > 3 * a.width ? a.ffn : 3 * a.width;
   // attention units: split each (sequence, head) into row tiles when there
-  // are fewer pairs than blocks, of a multiple of the body's rows a warp
-  // pass (bf16: a 16-row warp tile; fp32: a row for each of its warps)
+  // are fewer pairs than blocks, of a multiple of the body's 16-row warp
+  // tile
   const int pairs = a.batch * a.heads;
   const int per_pair = (resident + pairs - 1) / pairs;
-  const int quantum = sizeof(T) == 2 ? kMmaRows : kAttnWarps;
   int row_tile = (a.seq + per_pair - 1) / per_pair;
-  row_tile = (row_tile + quantum - 1) / quantum * quantum;
+  row_tile = (row_tile + kMmaRows - 1) / kMmaRows * kMmaRows;
   a.row_tile = row_tile < a.seq ? row_tile : a.seq;
   const int units[] = {(M + kThreads / 32 - 1) / (kThreads / 32),
                        row_tiles * ((wide + narrowest - 1) / narrowest),
@@ -317,7 +352,7 @@ static cudaError_t run_block(const void* const* w, void* workspace, void* barrie
   a.barrier = static_cast<unsigned*>(barrier);
   a.batch = batch; a.seq = seq; a.width = width; a.ffn = ffn; a.heads = heads;
   a.row_tile = seq; a.causal = causal; a.act = act; a.scale = scale; a.eps = eps;
-  a.stage = staging_width({a.qkv}, {3LL * width, kBlockHeadDim});
+  a.stage = staging_width({a.qkv}, {3LL * width, kBlockHeadDim}, sizeof(T));
   return launch_block<T>(a, device, stream);
 }
 

@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <atomic>
 
@@ -54,6 +55,24 @@ __device__ __forceinline__ T epilogue(float acc, const T* bias, const T* res,
   v = apply_act(v, act);
   if (res == nullptr) return from_f<T>(v);
   return from_f<T>(to_f(res[idx]) + round_to<T>(v));
+}
+
+// The split of an fp32 operand of the 3xTF32 products on the tensor cores
+// (gemm_tf32.cuh, attention_tf32.cuh): x = hi + lo, hi = tf32_rna(x),
+// lo = tf32_lo(x, hi).
+//
+// x rounded to tf32 as `cvt.rna.tf32.f32` rounds (to nearest, ties away
+// from zero), as an fp32 value with the low 13 mantissa bits zero: half
+// of the dropped bits is added to the magnitude, then they are cleared.
+// Two integer operations; the same bits as cvt.rna for every finite x and
+// for infinities.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// lo = tf32(x - hi) of x = hi + lo, hi = tf32(x) given.
+__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
+  return tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

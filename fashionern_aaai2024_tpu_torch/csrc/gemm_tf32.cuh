@@ -64,20 +64,6 @@ constexpr int kTfTileABytes = kTfBM * kTfBK * 4;  // 16 KB: A's tile (and B's at
 // Bytes of a B tile of bn rows (and of each half of its operand buffer).
 __host__ __device__ constexpr int tf32_tile_b_bytes(int bn) { return bn * kTfBK * 4; }
 
-// x rounded to tf32 as `cvt.rna.tf32.f32` rounds (to nearest, ties away
-// from zero), as an fp32 value with the low 13 mantissa bits zero: half
-// of the dropped bits is added to the magnitude, then they are cleared.
-// Two integer operations; the same bits as cvt.rna for every finite x and
-// for infinities.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// lo = tf32(x - hi) of x = hi + lo, hi = tf32(x) given.
-__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
-  return tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
-}
-
 // D[64, BN] = A[64, 8] . B[BN, 8]^T (+ D where scale_d is 1): A from
 // registers (the fragment of `load_a`), B from shared memory.
 template <int BN>

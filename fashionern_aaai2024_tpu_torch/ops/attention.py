@@ -37,9 +37,12 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     the attention core; every other even head dim up to 128, and any Sk,
     takes the grouped kernel (csrc/attention_grouped.cu, two passes over
     64-key chunks), so the port runs every shape JAX sends to the Pallas
-    kernel. Head dims above 128 raise. In bf16 both kernels run on the
-    tensor cores (16-row warp tiles, `mma.sync`, `cp.async` staging); fp32
-    stays on the CUDA cores.
+    kernel. Head dims above 128 raise. Both kernels run on the tensor
+    cores (16-row warp tiles, `mma.sync`, `cp.async` staging): bf16
+    products in bf16, fp32 products by 3xTF32 (csrc/attention_tf32.cuh:
+    three tf32 passes over each operand's hi / lo split, every partial
+    folded into the fp32 sum on the CUDA cores), within the fp32
+    tolerance of the plain version.
 
 On the TPU the dispatch chose XLA at the B7, B8 and B9 sites (`:353`,
 `:739`, and the bf16-only gate at `:466` that the fp32 fusion stack never
@@ -81,7 +84,7 @@ _MAX_SEQ = 256
 # the grouped kernel: even head dims up to this, any key count
 MAX_GROUPED_HEAD_DIM = 128
 # B9 on the grouped kernel: one (b, h) pair and one query row tile (128
-# rows in bf16, 32 in fp32) a block, the most blocks for the card's 132
+# rows) a block, the most blocks for the card's 132
 # SMs (X1's G sweep: time grows with G past 4, as blocks run out)
 MHA_GROUP = 1
 
@@ -200,8 +203,8 @@ def launch_grouped_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: tor
     stride `q_ld` against k and v rows [batch, Sk, *] at `kv_ld`, head h
     at columns h*Dh .. h*Dh+Dh-1 (contiguous [BH, S, Dh]: heads 1, ld
     Dh), `group` pairs a block, each block over every query row of its
-    pairs or, with `split_rows`, over one row tile of them (128 rows in
-    bf16, 32 in fp32; a grid dimension more); an optional shared fp32
+    pairs or, with `split_rows`, over one row tile of them (128 rows; a
+    grid dimension more); an optional shared fp32
     [Sq, Sk] bias. Output [batch, Sq, heads * Dh] in the operands' dtype. The operands are
     checked CUDA tensors of one dtype. Counts nothing: its callers (B9,
     X1) do."""

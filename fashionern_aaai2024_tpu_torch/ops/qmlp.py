@@ -40,7 +40,8 @@ Rounding points follow the Pallas kernels, not their XLA twins
     quantizing it (`qmlp.py:191-202`); `_qattn_ref` rounds both to bf16
     in a bf16 tower. In fp32 the two agree. In an fp32 tower the TPU
     kernel's products ran at the MXU's default (bf16-pass) precision;
-    the port computes true fp32, as interpret mode does on the CPU.
+    the port computes them to fp32 accuracy (true fp32 on the CPU, as
+    interpret mode does; 3xTF32 on the card).
 
 Forward only, as in JAX: the CUDA path raises if grad mode is on and an
 operand requires grad (`ops/common.py check_no_grad`).

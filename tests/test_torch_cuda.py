@@ -858,11 +858,14 @@ def test_x4_attnblock_kernel_matches_plain(device, dtype):
     _close(got, X.attnblock_plain(x, *args), dtype)
 
 
-# --- the bf16 tensor-core tiles of the attention core and the grouped
-# kernel: ragged edges, every layout, both staging widths ---------------
+# --- the tensor-core tiles of the attention core and the grouped kernel
+# (bf16 tiles, and the fp32 instances' 3xTF32 tiles): ragged edges, every
+# layout, both staging widths ------------------------------------------
 
+ATTN_DTYPES = [torch.float32, torch.bfloat16]
 # (sq, sk) of the core's edge cases: 16-row warp tiles and 16-key tiles
-# with one row or key short of, at, and one past a tile, the ViT's 197
+# (8-key tiles and 32-key groups in fp32) with one row or key short of,
+# at, and one past a tile, the ViT's 197
 EDGE_LENGTHS = (1, 15, 16, 17, 63, 65, 197)
 CORE_EDGE_CROSS = [(1, 82), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1), (197, 13),
                    (5, 256), (1, 1)]
@@ -876,16 +879,17 @@ def _left_padding_bias(sq, sk, device):
     return torch.zeros((sq, sk), device=device).masked_fill(~keep, float("-inf"))
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("dh", [64, 80])
 @pytest.mark.parametrize("s", EDGE_LENGTHS)
 @pytest.mark.parametrize("variant", ["plain", "causal", "bias", "-inf", "gb2"])
-def test_core_packed_edges_match_plain(device, variant, s, dh):
-    """B3 (packed qkv) in bf16 at the tiles' ragged edges: without a bias,
-    causal, with an arbitrary or a -inf left-padding shared bias, and two
-    images a block."""
+def test_core_packed_edges_match_plain(device, variant, s, dh, dtype):
+    """B3 (packed qkv) in bf16 and fp32 at the tiles' ragged edges:
+    without a bias, causal, with an arbitrary or a -inf left-padding
+    shared bias, and two images a block."""
     heads, b = 2, 4
     g = np.random.default_rng(50 + s)
-    qkv = _t(g, (b, s, 3 * heads * dh), 1.0, torch.bfloat16, device)
+    qkv = _t(g, (b, s, 3 * heads * dh), 1.0, dtype, device)
     bias = {"bias": _t(g, (s, s), 2.0, torch.float32, device),
             "-inf": _left_padding_bias(s, s, device)}.get(variant)
     causal, gb = variant == "causal", 2 if variant == "gb2" else 1
@@ -894,36 +898,38 @@ def test_core_packed_edges_match_plain(device, variant, s, dh):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     _close(got, A.packed_qkv_self_attention_plain(qkv, heads, causal=causal, attn_bias=bias),
-           torch.bfloat16)
+           dtype)
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("dh", [64, 80])
 @pytest.mark.parametrize("sq,sk", CORE_EDGE_CROSS)
-def test_core_cross_edges_match_plain(device, sq, sk, dh):
-    """B8 (q + packed kv) in bf16 at the tiles' ragged edges, the
+def test_core_cross_edges_match_plain(device, sq, sk, dh, dtype):
+    """B8 (q + packed kv) in bf16 and fp32 at the tiles' ragged edges, the
     attention pool's 1 x 82 first."""
     heads, b = 3, 2
     g = np.random.default_rng(60 + sq + sk)
-    q = _t(g, (b, sq, heads * dh), 1.0, torch.bfloat16, device)
-    kv = _t(g, (b, sk, 2 * heads * dh), 1.0, torch.bfloat16, device)
+    q = _t(g, (b, sq, heads * dh), 1.0, dtype, device)
+    kv = _t(g, (b, sk, 2 * heads * dh), 1.0, dtype, device)
     got = A.packed_kv_cross_attention(q, kv, heads)
     torch.cuda.synchronize()
-    _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), torch.bfloat16)
+    _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), dtype)
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("layout", ["rows", "contiguous"])
 @pytest.mark.parametrize("dh", [64, 80])
 @pytest.mark.parametrize("sq,sk", CORE_EDGE_CROSS)
-def test_core_head_view_edges_match_plain(device, layout, sq, sk, dh):
+def test_core_head_view_edges_match_plain(device, layout, sq, sk, dh, dtype):
     """B9 on the core (head views of [B, S, H*Dh] rows and contiguous
-    [B, H, S, Dh]) in bf16 at the tiles' ragged edges, with a shared
-    bias."""
+    [B, H, S, Dh]) in bf16 and fp32 at the tiles' ragged edges, with a
+    shared bias."""
     g = np.random.default_rng(70 + sq + sk)
-    q, k, v = _mha_operands(g, 2, 3, sq, sk, dh, layout, torch.bfloat16, device)
+    q, k, v = _mha_operands(g, 2, 3, sq, sk, dh, layout, dtype, device)
     bias = _t(g, (sq, sk), 2.0, torch.float32, device)
     got = A.multi_head_attention(q, k, v, bias=bias)
     torch.cuda.synchronize()
-    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
+    _close(got, A.mha_plain(q, k, v, bias), dtype)
 
 
 @pytest.mark.parametrize("s", [1, 17, 65, 197])
@@ -942,48 +948,108 @@ def test_core_fp32_output_edges_match_plain(device, s):
                torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("offset", [1, 2])
 @pytest.mark.parametrize("dh", [64, 128])
-def test_misaligned_views_take_the_narrow_staging(device, dh, offset):
-    """Head views whose base is 2 or 4 bytes past a 16-byte boundary (and
-    whose row stride is not a multiple of 8 elements): the launchers
-    stage them with element or 4-byte copies, on the core (head dim 64)
-    and the grouped kernel (128)."""
+def test_misaligned_views_take_the_narrow_staging(device, dh, offset, dtype):
+    """Head views whose base is one or two elements past a 16-byte
+    boundary (and whose row stride is not a multiple of 16 bytes): the
+    launchers stage them with element or 4-byte copies in bf16, 4-byte
+    copies in fp32, on the core (head dim 64) and the grouped kernel
+    (128)."""
     g = np.random.default_rng(90 + dh + offset)
     b, h, sq, sk = 2, 4, 33, 70
 
     def view(s):
-        big = _t(g, (b, s, h * dh + offset), 1.0, torch.bfloat16, device)
+        big = _t(g, (b, s, h * dh + offset), 1.0, dtype, device)
         return big[..., offset:].view(b, s, h, dh).transpose(1, 2)
 
     q, k, v = view(sq), view(sk), view(sk)
-    assert q.data_ptr() % 16 == 2 * offset
+    assert q.data_ptr() % 16 == q.element_size() * offset
     bias = _t(g, (sq, sk), 2.0, torch.float32, device)
     got = A.multi_head_attention(q, k, v, bias=bias)
     torch.cuda.synchronize()
-    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
+    _close(got, A.mha_plain(q, k, v, bias), dtype)
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("sk", [1, 63, 64, 65, 300, 1024])
 @pytest.mark.parametrize("dh,width", [(128, 16), (96, 16), (34, 4), (126, 4)])
-def test_grouped_kernel_staging_widths(device, dh, width, sk):
-    """The grouped kernel in bf16 with 16-byte staging (head dims 128,
-    96: D % 8 == 0) and 4-byte staging (34, 126: D % 8 != 0) at chunk
-    edges, with a -inf left-padding bias, and causal at Sq == Sk."""
+def test_grouped_kernel_staging_widths(device, dh, width, sk, dtype):
+    """The grouped kernel in bf16 and fp32 with 16-byte staging (head dims
+    128, 96: a head's row is a multiple of 16 bytes) and 4-byte staging
+    (34, 126: it is not) at chunk edges, with a -inf left-padding bias,
+    and causal at Sq == Sk."""
     g = np.random.default_rng(100 + sk + dh)
     sq = min(sk, 77)
-    q, k, v = _mha_operands(g, 2, 2, sq, sk, dh, "contiguous", torch.bfloat16, device)
-    assert ((dh * 2) % 16 == 0) == (width == 16)
+    q, k, v = _mha_operands(g, 2, 2, sq, sk, dh, "contiguous", dtype, device)
+    assert ((dh * q.element_size()) % 16 == 0) == (width == 16)
     bias = _left_padding_bias(sq, sk, device)
     got = A.multi_head_attention(q, k, v, bias=bias)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    _close(got, A.mha_plain(q, k, v, bias), torch.bfloat16)
-    q, k, v = _mha_operands(g, 2, 2, sk, sk, dh, "rows", torch.bfloat16, device)
+    _close(got, A.mha_plain(q, k, v, bias), dtype)
+    q, k, v = _mha_operands(g, 2, 2, sk, sk, dh, "rows", dtype, device)
     got = A.multi_head_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    _close(got, A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, device)),
-           torch.bfloat16)
+    _close(got, A.mha_plain(q, k, v, A.shared_bias(True, None, sk, sk, device)), dtype)
+
+
+@pytest.mark.parametrize("sk", [300, 512])
+@pytest.mark.parametrize("dh", [2, 8, 30, 64, 80, 96, 126, 128])
+def test_grouped_kernel_fp32_head_dims(device, dh, sk):
+    """The grouped kernel's fp32 instance at every head-dim class from 2
+    to 128 (padded to 64 or 128 in shared memory, its k-steps and output
+    columns past the head's dims skipped) over 300 and 512 keys, with an
+    arbitrary bias: std-1 operands against the plain version, and std-2
+    operands against the float64 function. At std 2 and head dim 128 the
+    scores reach ~20, and the plain version's own fp32 rounding of them
+    moves its outputs most of the fp32 tolerance from the float64 function
+    while 3xTF32 stays closer to it (`tests/test_torch_ops.py
+    test_attention_tf32_beats_plain_fp32_at_large_scores`), so there the
+    float64 function is the reference the tolerance is held to."""
+    g = np.random.default_rng(110 + sk + dh)
+    bias = _t(g, (77, sk), 2.0, torch.float32, device)
+    q, k, v = _mha_operands(g, 2, 3, 77, sk, dh, "rows", torch.float32, device)
+    got = A.multi_head_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    _close(got, A.mha_plain(q, k, v, bias), torch.float32)
+    q, k, v = (2.0 * t for t in _mha_operands(g, 2, 3, 77, sk, dh, "rows", torch.float32,
+                                              device))
+    got = A.multi_head_attention(q, k, v, bias=bias)
+    scores = q.double() @ k.double().transpose(-1, -2) * dh ** -0.5 + bias.double()
+    want = torch.softmax(scores, dim=-1) @ v.double()
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
+
+
+def test_core_fp32_spreads_few_pairs_over_the_card(device):
+    """B7's core at b = 1 (8 heads x 6 row tiles) and B3 at one image of 2
+    heads, and over 256 keys (the instance of 8 key groups): the tiles of
+    few pairs spread over one-warp blocks, with the same result as the
+    plain version."""
+    g = np.random.default_rng(120)
+    for b, s, w, heads, causal in ((1, 91, 640, 8, False), (1, 197, 128, 2, False),
+                                   (2, 256, 640, 8, True), (3, 256, 512, 8, False)):
+        qkv = _t(g, (b, s, 3 * w), 1.0, torch.float32, device)
+        got = A.packed_qkv_self_attention(qkv, heads, causal=causal)
+        torch.cuda.synchronize()
+        _close(got, A.packed_qkv_self_attention_plain(qkv, heads, causal=causal),
+               torch.float32)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_block_kernel_fp32_equals_the_pair(device, b):
+    """B10 in fp32 at the ViT-B-16 text tower, b = 1 and 32: bit for bit
+    B1 + B2 (both run the 3xTF32 attention body and the 3xTF32 GEMM)."""
+    from fashionern_aaai2024_tpu_torch.ops import block as B
+
+    args = _block_args(np.random.default_rng(35 + b), b, 77, 512, torch.float32, device)
+    got = B._launch_block(*args, 8, True, "quick_gelu", None, 1e-5)
+    pair = M.mlp_subblock(A.attention_subblock(*args[:7], 8, causal=True), *args[7:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pair, atol=0, rtol=0)
+    _close(got, B.transformer_block_plain(*args, 8, causal=True), torch.float32)
 
 
 @pytest.mark.parametrize("b", [1, 32])
@@ -1030,6 +1096,31 @@ def test_bf16_attention_kernels_run_on_tensor_cores_and_cp_async(device):
         assert found, f"no {kernel} in the library"
         for name, sass in found.items():
             assert "HMMA" in sass and "LDGSTS" in sass, name
+
+
+def test_fp32_attention_kernels_run_3xtf32_mma(device):
+    """Every fp32 instance of the attention core (32: head dims 64 and 80,
+    with and without a bias, 1-8 key groups), of the grouped kernel (4)
+    and B10's fp32 instance issue their attention products as tf32
+    tensor-core MMA (HMMA.1688.F32.TF32) fed by asynchronous copies
+    (LDGSTS), the core and the grouped kernel with no other HMMA; the
+    CUDA-core fp32 kernels they replace are gone from the library."""
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    core = {k: v for k, v in funcs.items()
+            if "attention_tf32_kernel" in k and "grouped" not in k}
+    grouped = {k: v for k, v in funcs.items() if "grouped_attention_tf32_kernel" in k}
+    assert len(core) == 32 and len(grouped) == 4, (sorted(core), sorted(grouped))
+    for name, sass in {**core, **grouped}.items():
+        hmma = [line.strip() for line in sass.splitlines() if "HMMA" in line]
+        assert hmma and all("F32.TF32" in line for line in hmma), (name, hmma[:4])
+        assert "LDGSTS" in sass, name
+    blocks = {k: v for k, v in funcs.items() if "block_kernel" in k and "bfloat16" not in k}
+    assert blocks, "no fp32 block_kernel in the library"
+    for name, sass in blocks.items():
+        assert "HMMA.1688.F32.TF32" in sass and "LDGSTS" in sass, name
+    old = [k for k in funcs if "attention_kernel" in k and "mma" not in k and "tf32" not in k]
+    assert not old, old
 
 
 # the bf16 GEMM's ragged edges: rows one short of, at and one past a

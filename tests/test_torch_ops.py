@@ -478,6 +478,272 @@ def test_fused_qkv_3xtf32_projection_meets_the_fp32_tolerance(d, dh):
     assert np.abs(got[1] - want).max() > 2e-5
 
 
+# The fp32 attention kernels' arithmetic (csrc/attention_tf32.cuh): 8-key
+# tiles of `mma.sync.m16n8k8` tf32, whose k index t is dim 2t (S) or key
+# 2t (P . V, the key permutation) of the step and t + 4 is dim / key
+# 2t + 1. A lane (g, t) of the S accumulator holds keys 2t, 2t + 1 of rows
+# g and g + 8.
+_TF32_PERM = [0, 2, 4, 6, 1, 3, 5, 7]  # k' -> key (or dim) of a step
+
+
+def _pv_fragments(p_tile: np.ndarray, v_tile: np.ndarray):
+    """A [16, 8] and B [8, n] of one P . V mma as the kernel's lanes load
+    them: A from the S accumulator registers (c0, c2, c1, c3), B from the
+    staged V rows 2t and 2t + 1 at column g of each 8-column step."""
+    a = np.zeros((16, 8), p_tile.dtype)
+    b = np.zeros((8, v_tile.shape[1]), v_tile.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        c = (p_tile[g, 2 * t], p_tile[g, 2 * t + 1], p_tile[g + 8, 2 * t],
+             p_tile[g + 8, 2 * t + 1])
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = c[0], c[2], c[1], c[3]
+        for n0 in range(0, v_tile.shape[1], 8):
+            b[t, n0 + g], b[t + 4, n0 + g] = v_tile[2 * t, n0 + g], v_tile[2 * t + 1, n0 + g]
+    return a, b
+
+
+def test_tf32_key_permutation_feeds_p_from_the_accumulators():
+    """The P . V operands rebuilt lane by lane from the S accumulator and
+    the staged V rows multiply to P . V of the tile (and are P and V with
+    the keys permuted), and the S operands' dim mapping gives Q K^T."""
+    g = np.random.default_rng(5)
+    p, v = g.standard_normal((16, 8)), g.standard_normal((8, 80))
+    a, b = _pv_fragments(p, v)
+    np.testing.assert_array_equal(a, p[:, _TF32_PERM])
+    np.testing.assert_array_equal(b, v[_TF32_PERM])
+    np.testing.assert_allclose(a @ b, p @ v, rtol=1e-12, atol=1e-12)
+    q, k = g.standard_normal((16, 8)), g.standard_normal((8, 8))
+    qa, kb = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        gg, t = lane // 4, lane % 4
+        # a0 / a2: row g at dims 2t / 2t + 1 (one 8-byte load); b0 / b1: key g
+        qa[gg, t], qa[gg + 8, t], qa[gg, t + 4], qa[gg + 8, t + 4] = (
+            q[gg, 2 * t], q[gg + 8, 2 * t], q[gg, 2 * t + 1], q[gg + 8, 2 * t + 1])
+        kb[t, gg], kb[t + 4, gg] = k[gg, 2 * t], k[gg, 2 * t + 1]
+    np.testing.assert_allclose(qa @ kb, q @ k.T, rtol=1e-12, atol=1e-12)
+
+
+def _mma_rz(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One tf32 mma as the tensor cores add: the products of tf32 values
+    exact, their sum with the fp32 accumulator truncated toward zero (the
+    cores do not round their accumulation to nearest)."""
+    x = acc.double() + a.double() @ b.double()
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma3_rz(a: torch.Tensor, b: torch.Tensor, passes: int,
+             acc: torch.Tensor | None = None) -> torch.Tensor:
+    """a . b in tf32 added to `acc` (a fresh partial when None): the
+    3xTF32 lo.hi + hi.lo + hi.hi (small terms first) or one hi.hi pass,
+    each pass one truncating mma."""
+    ah, bh = _tf32(a), _tf32(b)
+    part = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32) if acc is None else acc
+    if passes == 3:
+        part = _mma_rz(part, _tf32(a - ah), bh)
+        part = _mma_rz(part, ah, _tf32(b - bh))
+    return _mma_rz(part, ah, bh)
+
+
+def _scores_tf32(q, k, passes: int, fold: bool = True) -> torch.Tensor:
+    """Unscaled Q K^T of q [N, Sq, D] against k [N, Sk, D] over D / 8
+    k-steps (dims of a step in the mma's k order), each step's 3xTF32 (or
+    one-pass) partial folded into the fp32 scores (round to nearest);
+    `fold` False: one truncating accumulator instead."""
+    s = torch.zeros((q.shape[0], q.shape[1], k.shape[1]))
+    for kk in range(0, q.shape[-1], 8):
+        dims = [kk + i for i in _TF32_PERM]
+        part = _mma3_rz(q[..., dims], k[..., dims].transpose(1, 2), passes, None if fold else s)
+        s = s + part if fold else part
+    return s
+
+
+def _attention_tf32(q, k, v, bias, scale: float, passes: int, fold: bool = True) -> torch.Tensor:
+    """The fp32 attention core's arithmetic on [N, S, D] fp32 operands:
+    S as `_scores_tf32`; the scale and the bias rounded on their own; the softmax in fp32, p / denom; P . V
+    over 8-key tiles with the keys permuted (`_pv_fragments`), each tile's
+    partial folded into the fp32 output. Keys are zero-padded to a whole
+    tile, with p = 0 there. `fold` False: every mma adds into one truncating
+    accumulator instead (the design the folds replace)."""
+    n, sq, d = q.shape
+    sk = k.shape[1]
+    skp = -(-sk // 8) * 8
+    kp = torch.zeros((n, skp, d)).index_copy_(1, torch.arange(sk), k)
+    vp = torch.zeros((n, skp, d)).index_copy_(1, torch.arange(sk), v)
+    s = _scores_tf32(q, kp, passes, fold)[..., :sk] * scale
+    if bias is not None:
+        s = s + bias
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.zeros((n, sq, skp)).index_copy_(2, torch.arange(sk), e / e.sum(-1, keepdim=True))
+    o = torch.zeros((n, sq, d))
+    for j0 in range(0, skp, 8):
+        keys = [j0 + i for i in _TF32_PERM]
+        part = _mma3_rz(p[..., keys], vp[:, keys], passes, None if fold else o)
+        o = o + part if fold else part
+    return o
+
+
+def _attention_tf32_chunked(q, k, v, bias, scale: float, passes: int,
+                            chunk: int = 32) -> torch.Tensor:
+    """The grouped kernel's fp32 arithmetic on [N, S, D] fp32 operands:
+    two passes over `chunk`-key chunks (keys zero-padded to whole chunks,
+    masked to -inf past Sk). Pass 1 keeps each row's running max and a
+    rescaled sum: per chunk, the new max n = max(m, the chunk's max), the
+    sum times exp(m - n) (0 while m is -inf), plus exp(x - n) over the
+    chunk's finite scores. Pass 2 recomputes the scores, forms p =
+    exp(s - m) / l in fp32 and runs P . V over 8-key tiles with the keys
+    permuted, each tile's partial folded into the fp32 output. S, the
+    scale and the bias as `_attention_tf32`."""
+    n, sq, d = q.shape
+    sk = k.shape[1]
+    skp = -(-sk // chunk) * chunk
+    kp = torch.zeros((n, skp, d)).index_copy_(1, torch.arange(sk), k)
+    vp = torch.zeros((n, skp, d)).index_copy_(1, torch.arange(sk), v)
+
+    def chunk_scores(j0):
+        x = _scores_tf32(q, kp[:, j0:j0 + chunk], passes) * scale
+        if bias is not None:
+            x[..., :min(chunk, sk - j0)] += bias[:, j0:j0 + chunk]
+        x[..., max(0, sk - j0):] = float("-inf")
+        return x
+
+    m = torch.full((n, sq, 1), float("-inf"))
+    l = torch.zeros((n, sq, 1))
+    for j0 in range(0, skp, chunk):
+        x = chunk_scores(j0)
+        new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        l = torch.where(m == float("-inf"), 0.0, l * torch.exp(m - new))
+        l = l + torch.where(x == float("-inf"), 0.0, torch.exp(x - new)).sum(-1, keepdim=True)
+        m = new
+    o = torch.zeros((n, sq, d))
+    for j0 in range(0, skp, chunk):
+        p = torch.exp(chunk_scores(j0) - m) / l
+        for t0 in range(0, chunk, 8):
+            keys = [t0 + i for i in _TF32_PERM]
+            o = o + _mma3_rz(p[..., keys], vp[:, [j0 + i for i in keys]], passes)
+    return o
+
+
+def _heads_tf32(q, k, v, heads: int, bias, passes: int) -> torch.Tensor:
+    """`_attention_tf32` over the heads of q [B, Sq, W], k, v [B, Sk, W]
+    -> [B, Sq, W]."""
+    b, sq, w = q.shape
+    dh = w // heads
+    split = lambda t: t.reshape(b, t.shape[1], heads, dh).transpose(1, 2).reshape(  # noqa: E731
+        b * heads, t.shape[1], dh)
+    o = _attention_tf32(split(q), split(k), split(v), bias, dh ** -0.5, passes)
+    return o.reshape(b, heads, sq, dh).transpose(1, 2).reshape(b, sq, w)
+
+
+def _tf32_attention_case(case: str, passes_list=(3, 1)):
+    """(JAX output, {passes: the emulation's output}) of one fp32 case."""
+    g = np.random.default_rng(sum(map(ord, case)))
+    f = np.float32
+    got = {}
+    if case in ("bert512", "bert640"):  # B7: the DVR BERT, 91 rows
+        d, heads = int(case[4:]), 8
+        x, w, bias = _gemm_inputs(2 * 91, d, 3 * d, seed=d + 1)
+        want = JA._qkv_fused_pallas(jnp.asarray(x.reshape(2, 91, d)), jnp.asarray(w),
+                                    jnp.asarray(bias), jnp.zeros((91, 91), jnp.float32),
+                                    (d // heads) ** -0.5, heads, interpret=True)
+        qkv = _linear_tf32(torch.from_numpy(x), torch.from_numpy(w).t().contiguous(),
+                           torch.from_numpy(bias), 3).view(2, 91, 3 * d)
+        for passes in passes_list:
+            got[passes] = _heads_tf32(*qkv.split(d, dim=-1), heads, None, passes)
+    elif case in ("mr512", "mr640"):  # B8: the MR cross-attention, 77 x 13 keys
+        d, heads = int(case[2:]), 8
+        q, kv = (g.standard_normal(shape).astype(f) for shape in ((2, 77, d), (2, 13, 2 * d)))
+        want = JA._packed_cross_pallas(jnp.asarray(q), jnp.asarray(kv),
+                                       jnp.zeros((77, 13), jnp.float32), (d // heads) ** -0.5,
+                                       1, heads, interpret=True)
+        tq, tkv = torch.from_numpy(q), torch.from_numpy(kv)
+        for passes in passes_list:
+            got[passes] = _heads_tf32(tq, *tkv.split(d, dim=-1), heads, None, passes)
+    elif case == "text_causal":  # B3: the text tower's causal rows
+        qkv = g.standard_normal((2, 77, 3 * 512)).astype(f)
+        want = JA.packed_qkv_self_attention(jnp.asarray(qkv), 8, causal=True,
+                                            force_pallas=True, interpret=True)
+        mask = TA.causal_bias(77, "cpu")
+        for passes in passes_list:
+            got[passes] = _heads_tf32(*torch.from_numpy(qkv).split(512, dim=-1), 8, mask, passes)
+    else:  # B9: TME's [2, 8, 77, 64] x 13 keys with a bias; 300 keys at D = 128, std 2
+        sk, dh, std = (13, 64, 1.0) if case == "tme" else (300, 128, 2.0)
+        g = np.random.default_rng(sum(map(ord, case.removesuffix("_one_pass"))))
+        q, k, v = ((std * g.standard_normal((2, 8, s, dh))).astype(f) for s in (77, sk, sk))
+        bias = (2 * g.standard_normal((77, sk))).astype(f)
+        want = JA.multi_head_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                       bias=jnp.asarray(bias), force_pallas=True,
+                                       interpret=True)
+        tq, tk, tv = (torch.from_numpy(a).reshape(16, -1, dh) for a in (q, k, v))
+        # past 256 keys B9 runs on the grouped kernel: its two chunked
+        # passes (the `_one_pass` control: the core's one-pass softmax)
+        emulate = (_attention_tf32 if sk <= 256 or case.endswith("_one_pass")
+                   else _attention_tf32_chunked)
+        for passes in passes_list:
+            got[passes] = emulate(tq, tk, tv, torch.from_numpy(bias), dh ** -0.5,
+                                  passes).reshape(2, 8, 77, dh)
+    return np.asarray(want), {p_: t.numpy() for p_, t in got.items()}
+
+
+TF32_ATTENTION_CASES = ["bert512", "bert640", "mr512", "mr640", "tme", "text_causal",
+                        "d128_sk300", "d128_sk300_one_pass"]
+
+
+@pytest.mark.parametrize("case", TF32_ATTENTION_CASES)
+def test_attention_3xtf32_meets_the_fp32_tolerance(case):
+    """The fp32 attention core and grouped kernel as they run on the card
+    (3xTF32 `mma.sync` tiles, truncating accumulation with every k-step's
+    and key tile's partial folded in, the key permutation), emulated here,
+    hold the interpret-mode Pallas kernels at the fp32 tolerance (atol
+    2e-5): B7 at the DVR BERT (bert512 / bert640, 91 rows), B8 at the MR
+    cross-attention, B9 at TME's shape with a bias, B3 over causal text
+    rows, B9 (the grouped kernel: two passes over 32-key chunks, an online
+    max and a rescaled sum) over 300 keys at head dim 128 with std-2
+    operands, and the same inputs through the core's one-pass softmax.
+    One tf32 pass is the control: the same arithmetic with it misses the
+    tolerance, so the check tells the two apart."""
+    want, got = _tf32_attention_case(case)
+    np.testing.assert_allclose(got[3], want, atol=2e-5, rtol=0)
+    assert np.abs(got[1] - want).max() > 2e-5
+
+
+def test_attention_tf32_folds_hold_against_truncating_accumulation():
+    """Why the fp32 attention kernels fold every k-step's and key tile's
+    partial into the fp32 sum on the CUDA cores: at X1's worst shape (one
+    pair of 208 rows against 256 keys at D = 128, std-2 operands), the
+    3xTF32 arithmetic with one truncating accumulator a product drifts
+    past the fp32 tolerance from the float64 result, and with the folds it
+    stays within half of it."""
+    g = np.random.default_rng(128)
+    q, k, v = (torch.from_numpy((2 * g.standard_normal((1, s, 128))).astype(np.float32))
+               for s in (208, 256, 256))
+    scores = q.double() @ k.double().transpose(1, 2) * 128 ** -0.5
+    want = torch.softmax(scores, dim=-1) @ v.double()
+    err = {fold: (_attention_tf32(q, k, v, None, 128 ** -0.5, 3, fold).double() - want)
+           .abs().max().item() for fold in (True, False)}
+    assert err[True] < 1e-5 and err[False] > 2e-5, err
+
+
+def test_attention_tf32_beats_plain_fp32_at_large_scores():
+    """At std-2 operands over head dim 128 and 300 keys with an std-2 bias
+    (scores up to ~20), the plain version's own fp32 rounding moves its
+    outputs most of the fp32 tolerance from the float64 function, while
+    the kernels' 3xTF32 arithmetic stays closer to it: there the card
+    test holds the kernel to the float64 function
+    (`tests/test_torch_cuda.py test_grouped_kernel_fp32_head_dims`)."""
+    g = np.random.default_rng(538)
+    q, k, v = (torch.from_numpy((2 * g.standard_normal((6, s, 128))).astype(np.float32))
+               for s in (77, 300, 300))
+    bias = torch.from_numpy((2 * g.standard_normal((77, 300))).astype(np.float32))
+    scale = 128 ** -0.5
+    want = torch.softmax(q.double() @ k.double().transpose(1, 2) * scale + bias.double(),
+                         dim=-1) @ v.double()
+    plain = (TA.mha_plain(q, k, v, bias, scale).double() - want).abs().max().item()
+    tf32 = (_attention_tf32(q, k, v, bias, scale, 3).double() - want).abs().max().item()
+    assert tf32 < 1e-5 < plain and tf32 < plain, (tf32, plain)
+
+
 @pytest.mark.parametrize("w,heads", [(512, 8), (768, 12)])
 def test_subblocks_3xtf32_products_meet_the_fp32_tolerance(w, heads):
     """B1 and B2 at the towers' real widths (W = 512 / 768, hidden 2,048 /
