@@ -62,6 +62,28 @@ slice's step time at B=1024 (phase 9), and prints them on one line.
 
 times instead the two fp32 attention bodies of this checkout (the core's
 kernel and the grouped kernel) side by side at the core's fp32 sites.
+
+    cd <checkout> && python3 <path>/ab_attention.py LABEL --bf16-gemm
+
+times instead the bf16 GEMM products alone (the default run's "bf16
+GEMM" line), a short run for many alternations of two checkouts.
+
+    cd <checkout> && python3 <path>/ab_attention.py LABEL --int8
+
+times instead the int8 tier: kernels B5 and B6 (`int8_mlp_subblock`,
+`int8_attention_subblock`, bf16) per call and in bursts at ViT-B-16 B=32
+and the text tower at b = 32 and 1, beside the library composition of
+`chip_smoke.py int8_library_call`, with the host µs of one call (median of
+200, no synchronisation between them) and the device µs of one call by
+kernel (`torch.profiler` over 20 calls); then each int8 product of B5 and B6
+(QKV, out-projection + residual, c_fc + quick_gelu with an fp32 output,
+c_proj + residual over its two hidden groups: one launch where the
+checkout's `launch_qgemm` takes `groups`, one per group otherwise) at
+ViT-B-16 M = 32 x 197 and 128 x 197 and the text tower at M = 77 and
+32 x 77, in bursts, with TOPS and `torch._int_mm`'s time on the same
+operands (the yardstick, never called by the port), and each one-group
+product at every tile width forced where the checkout's `launch_qgemm`
+takes `tile` (`ops/common.py int8_tile`'s relative costs).
 """
 
 import importlib.util
@@ -287,7 +309,7 @@ def call_ms(fn, runs: int = 25) -> float:
 
 def host_us(fn, calls: int = 2000) -> float:
     """Median host time of one call, no synchronisation between calls."""
-    for _ in range(100):
+    for _ in range(min(100, calls)):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -425,6 +447,104 @@ def fp32_kernels(label: str, g: torch.Generator) -> None:
     print(label, "fp32 towers ms (bursts):", "; ".join(out), flush=True)
 
 
+# the int8 tier's sites (b, s, w, heads, causal) and products (M, K, N,
+# hidden groups, residual, activation)
+INT8_SITES = (("vit_b32", (32, 197, 768, 12, False)), ("text_b32", (32, 77, 512, 8, True)),
+              ("text_b1", (1, 77, 512, 8, True)))
+INT8_GEMMS = tuple((f"{tower}_{name}_m{m}", (m, k, n, groups, res, act))
+                   for tower, w, rows in (("vit", 768, (32 * 197, 128 * 197)),
+                                          ("text", 512, (77, 32 * 77)))
+                   for m in rows
+                   for name, k, n, groups, res, act in (
+                       ("qkv", w, 3 * w, 1, False, None), ("out_proj", w, w, 1, True, None),
+                       ("c_fc", w, 4 * w, 1, False, "quick_gelu"),
+                       ("c_proj", 4 * w, w, 2, True, None)))
+
+
+def device_split(fn, calls: int = 20) -> str:
+    """Device µs of one call of `fn`, in all and by kernel (the profiler's
+    CUDA time over `calls` calls, after 5 warm-up calls)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key.split("(")[0][:48], e.device_time_total / calls) for e in prof.key_averages()
+            if e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return (f"{sum(t for _, t in rows):.1f} us (" + ", ".join(f"{k} {t:.1f}" for k, t in rows)
+            + ")")
+
+
+def int8_tier(label: str, g: torch.Generator) -> None:
+    """B5 and B6 per call and in bursts beside their library composition,
+    then each int8 product in bursts beside `torch._int_mm`."""
+    import inspect
+
+    import chip_smoke as cs
+
+    out = []
+    for name, (b, s, w, heads, causal) in INT8_SITES:
+        inputs = cs.int8_inputs(b, s, w, torch.bfloat16, seed=100)
+        for kernel in (cs.B5, cs.B6):
+            args = inputs[kernel]
+            if kernel == cs.B5:
+                run = lambda: cs.Q.int8_mlp_subblock(*args, activation="quick_gelu")
+            else:
+                run = lambda: cs.Q.int8_attention_subblock(*args, heads, causal=causal)
+            library = cs.int8_library_call(kernel, args, heads, causal)
+            out.append(f"{name}/{kernel[-3:-1]} call {call_ms(run):.4f} burst "
+                       f"{median_ms(run):.4f} (library call {call_ms(library):.4f} burst "
+                       f"{median_ms(library):.4f}); host {host_us(run, 200):.1f} us, device "
+                       f"{device_split(run)}")
+        del inputs
+    print(label, "int8 sub-blocks ms (bf16):", "; ".join(out), flush=True)
+    params = inspect.signature(common.launch_qgemm).parameters
+    grouped, widths = "groups" in params, "tile" in params
+    out = []
+    for name, (m, k, n, groups, with_res, act) in INT8_GEMMS:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).cuda()
+        # scales as the towers' quantizers give them (an absmax near 4 /
+        # 127 a row, weights drawn at std 0.02 a column)
+        a_s = (0.03 + 0.01 * torch.rand((m, groups), generator=g)).cuda()
+        w_s = (4e-4 + 1e-4 * torch.rand(n, generator=g)).cuda()
+        bias = (0.5 * torch.randn(n, generator=g)).to(torch.bfloat16).cuda()
+        res = torch.randn((m, n), generator=g).to(torch.bfloat16).cuda() if with_res else None
+        out_dtype = torch.float32 if act else torch.bfloat16
+        if groups == 1:
+            run = lambda: common.launch_qgemm(a, a_s, w, w_s, bias=bias, residual=res,
+                                              activation=act, out_dtype=out_dtype)
+        elif grouped:
+            run = lambda: common.launch_qgemm(a, a_s, w, w_s, groups=groups, bias=bias,
+                                              residual=res, out_dtype=out_dtype)
+        else:
+            def run():
+                c, acc = k // groups, None
+                for i in range(groups):
+                    last = i == groups - 1
+                    acc = common.launch_qgemm(
+                        a, a_s, w, w_s, k_range=(c * i, c * (i + 1)), group=i, partial=acc,
+                        bias=bias if last else None, residual=res if last else None,
+                        out_dtype=out_dtype if last else torch.float32)
+                return acc
+        wt = w.t()
+        ms, int_mm = median_ms(run), median_ms(lambda: torch._int_mm(a, wt))
+        ops = 2e-9 * m * n * k
+        forced = ""
+        for tile in (64, 128) if widths and groups == 1 else ():
+            tile_ms = median_ms(lambda: common.launch_qgemm(
+                a, a_s, w, w_s, bias=bias, residual=res, activation=act, out_dtype=out_dtype,
+                tile=tile))
+            forced += f"; tile {tile} {tile_ms:.4f}"
+        out.append(f"{name}/int8 {ms:.4f} ({ops / ms:.1f} TOPS; torch._int_mm {int_mm:.4f}, "
+                   f"{ops / int_mm:.1f}{forced})")
+        del a, w, res
+    print(label, "int8 GEMM ms (bursts):", "; ".join(out), flush=True)
+
+
 def slices(label: str) -> None:
     """The checkout's chip_smoke.py phases 3-4, 6, 9 and 10."""
     import chip_smoke as cs
@@ -450,6 +570,23 @@ def slices(label: str) -> None:
           f"; train step {train['median_step_ms_from_2']:.2f} ms (B=1024) ({card})", flush=True)
 
 
+def bf16_gemms(label: str, g: torch.Generator) -> None:
+    """The bf16 GEMM at each product of B1 and B2 in bursts beside
+    `F.linear`."""
+    out = []
+    for name, (m, k, n, with_res, act) in BF16_GEMMS:
+        a, w, b, res = (None if shape is None else
+                        (scale * torch.randn(shape, generator=g)).to(torch.bfloat16).cuda()
+                        for shape, scale in (((m, k), 1.0), ((n, k), 0.02), ((n,), 0.02),
+                                             ((m, n) if with_res else None, 1.0)))
+        kernel = median_ms(lambda: common.launch_gemm(a, w, b, residual=res, activation=act))
+        linear = median_ms(lambda: torch.nn.functional.linear(a, w, b))
+        tflops = 2e-9 * m * n * k
+        out.append(f"{name}/bfloat16 {kernel:.4f} ({tflops / kernel:.1f} TFLOP/s; F.linear "
+                   f"{linear:.4f}, {tflops / linear:.1f})")
+    print(label, "bf16 GEMM ms:", "; ".join(out), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ab_attention: CUDA is not available")
@@ -460,6 +597,12 @@ def main() -> None:
     g = torch.Generator().manual_seed(0)
     if "--bodies" in sys.argv[2:]:
         fp32_bodies(label, g)
+        return
+    if "--int8" in sys.argv[2:]:
+        int8_tier(label, g)
+        return
+    if "--bf16-gemm" in sys.argv[2:]:
+        bf16_gemms(label, g)
         return
     out = []
     for shape, (b, s, w, heads, causal), dtype in SHAPES:
@@ -480,18 +623,7 @@ def main() -> None:
     print(label, "fp32 GEMM ms:", "; ".join(out), flush=True)
     fp32_kernels(label, g)
     fp32_attention(label, g)
-    out = []
-    for name, (m, k, n, with_res, act) in BF16_GEMMS:
-        a, w, b, res = (None if shape is None else
-                        (scale * torch.randn(shape, generator=g)).to(torch.bfloat16).cuda()
-                        for shape, scale in (((m, k), 1.0), ((n, k), 0.02), ((n,), 0.02),
-                                             ((m, n) if with_res else None, 1.0)))
-        kernel = median_ms(lambda: common.launch_gemm(a, w, b, residual=res, activation=act))
-        linear = median_ms(lambda: torch.nn.functional.linear(a, w, b))
-        tflops = 2e-9 * m * n * k
-        out.append(f"{name}/bfloat16 {kernel:.4f} ({tflops / kernel:.1f} TFLOP/s; F.linear "
-                   f"{linear:.4f}, {tflops / linear:.1f})")
-    print(label, "bf16 GEMM ms:", "; ".join(out), flush=True)
+    bf16_gemms(label, g)
     ln_and_combiner(label, g)
     if importlib.util.find_spec("fashionern_aaai2024_tpu_torch.ops.attn_experiment") is not None:
         cases = attention_cases(g)

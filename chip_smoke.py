@@ -44,7 +44,17 @@ Phases (each raises on failure; nothing is caught):
      same timings; the library yardstick is LN + quantize + `torch._int_mm` +
      rescale (with SDPA for B6's attention), and the bound counts int8
      operations at 1,979 TOPS, attention FLOPs at the float peak and bytes
-     at 3.35 TB/s;
+     at 3.35 TB/s; the C entry points of each call in order (B5 four:
+     LN + quantize, c_fc, the hidden quantized in groups, one c_proj over
+     every group; B6 five); then the int8 GEMM (`launch_qgemm`) at its
+     tiles' edges, the rule's width and the other, bf16 and fp32, bit for
+     bit against the exact product through the same epilogue with the
+     identity activation (B5's two groups in one launch included), a
+     misaligned view refused; and each int8 product of B5 and B6 at
+     ViT-B-16 B = 32 and 128 and the text tower at b = 1 and 32, at the
+     rule's width, in bursts,
+     beside `torch._int_mm`, with TOPS; and the quantize passes alone at
+     ViT-B-16 B = 32 and 128 in bursts beside their bytes bound;
   6. the int8 serve slice: the same ViT-B-16 with `quantize_mlp=True`
      (phase 3's seeded weights), bf16, `quantize_gallery=True`, the same
      gallery and queries, launch counts (B5 and B6 on every block, B1-B3
@@ -215,7 +225,7 @@ from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
-from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
+from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
 from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
@@ -316,9 +326,12 @@ CORE = ["attention.cu", "attention_bf16_d64.cu", "attention_bf16_d80.cu", "atten
 TF32 = ["gemm_tf32.cuh", "gemm_wgmma.cuh", "tma.cuh"]
 GEMM = ["gemm.cu", "gemm_tf32.cu", *TF32]
 LN_SRC = ["layernorm.cu", "layernorm_row.cuh"]
+# the int8 tier: quant.cu (on layernorm_row.cuh's vector rows) and
+# qgemm.cu (int8 wgmma on tma.cuh's ring, gemm_wgmma.cuh's descriptors)
+INT8 = ["quant.cu", "layernorm_row.cuh", "qgemm.cu", "gemm_wgmma.cuh", "tma.cuh"]
 SOURCES = {B1: [*LN_SRC, *GEMM, *CORE], B2: [*LN_SRC, *GEMM],
-           B3: CORE, B4: ["bbc_loss.cu", *TF32], B5: ["quant.cu", "qgemm.cu"],
-           B6: ["quant.cu", "qgemm.cu", *CORE], B7: [*GEMM, *CORE],
+           B3: CORE, B4: ["bbc_loss.cu", *TF32], B5: INT8,
+           B6: [*INT8, *CORE], B7: [*GEMM, *CORE],
            B8: CORE, B11: LN_SRC,
            B9: [*CORE, "attention_grouped.cu"],
            B12: [*GEMM, "combiner.cu"],
@@ -346,6 +359,33 @@ EXPERIMENT_KERNELS = (X1, X2, X3, X4)
 INT8_STEP = {torch.float32: 1.2e-2, torch.bfloat16: 0.0}
 INT8_MEAN = {torch.float32: 4e-5, torch.bfloat16: 3e-5}
 INT8_CODE_SHARE = 1e-3
+# the C entry points one call of B5 / B6 launches, in order: B5's c_proj
+# takes every hidden group in one launch
+INT8_SEQUENCE = {B5: ["fern_ln_quant", "fern_qgemm", "fern_quant_groups", "fern_qgemm"],
+                 B6: ["fern_ln_quant", "fern_qgemm", "fern_attention", "fern_quant_groups",
+                      "fern_qgemm"]}
+# the int8 GEMM's tile edges (csrc/qgemm.cu: s8 warpgroup MMA on TMA-fed
+# 128 x 64 / 128 tiles, 128-deep K tiles): the text tower's 77 rows
+# at b = 1, one row, one short of and one past a 128-row tile; columns
+# inside and past each width and ViT's 768; K of one k32 step, one k32
+# step past a K tile and 768; epilogues (bias, residual, activation, fp32
+# output) as B5 and B6 use them
+INT8_EDGE_M = (1, 77, 127, 129)
+INT8_EDGE_N = (8, 200, 264, 768)
+INT8_EDGE_K = (16, 144, 768)
+INT8_EPILOGUES = ((True, False, None, False), (True, True, None, False),
+                  (True, False, "quick_gelu", True), (False, False, None, True))
+# each int8 product of B5 and B6 (name, M, K, N, groups, residual,
+# activation): ViT-B-16 at the gallery batch (32 x 197) and the embed
+# batch (128 x 197), the text tower at b = 1 and 32
+INT8_PRODUCTS = [(f"{tower}_{name}_m{m}", m, k, n, groups, res, act)
+                 for tower, w, rows in (("vit", 768, (32 * 197, 128 * 197)),
+                                        ("text", 512, (77, 32 * 77)))
+                 for m in rows
+                 for name, k, n, groups, res, act in (
+                     ("qkv", w, 3 * w, 1, False, None), ("out_proj", w, w, 1, True, None),
+                     ("c_fc", w, 4 * w, 1, False, "quick_gelu"),
+                     ("c_proj", 4 * w, w, Q.hidden_groups(4 * w, "quick_gelu"), True, None))]
 INT8_SHAPES = [(torch.bfloat16, s) for s in SHAPES] + [(torch.float32, s) for s in SHAPES]
 INT8_SHAPES += [(torch.bfloat16, s) for s in TRAIN_SHAPES]
 # int8 tensor-core peak of the H100 SXM (dense), NVIDIA data sheet
@@ -2189,6 +2229,168 @@ def ln_quant_flips(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> float:
     return share
 
 
+def int8_launch_sequence(wrapper, *args, **kwargs) -> tuple[torch.Tensor, list[str]]:
+    """One call of `wrapper` and the C entry points it launched, in order."""
+    seen, launch = [], common.launch
+
+    def spy(entry, *entry_args):
+        seen.append(entry)
+        return launch(entry, *entry_args)
+
+    with mock.patch.object(common, "launch", spy):
+        out = wrapper(*args, **kwargs)
+    return out, seen
+
+
+def int8_gemm_operands(g: torch.Generator, m: int, k: int, n: int, groups: int,
+                       dtype: torch.dtype) -> tuple:
+    """int8 operands in [-127, 127], row scales near an absmax of 4 / 127
+    per group, column scales near 0.05 / 127, a bias and a residual."""
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).cuda()
+
+    return (codes(m, k), (0.03 + 0.01 * torch.rand((m, groups), generator=g)).cuda(),
+            codes(n, k), (4e-4 + 1e-4 * torch.rand(n, generator=g)).cuda(),
+            (0.5 * torch.randn(n, generator=g)).to(dtype).cuda(),
+            torch.randn((m, n), generator=g).to(dtype).cuda())
+
+
+def int8_gemm_reference(a, a_scale, w, w_scale, bias, res, activation, out_dtype,
+                        groups=1) -> torch.Tensor:
+    """The int8 GEMM's function on the exact product (`int8_product`):
+    each group's sums times its row scale, times the column scale, added in
+    group order; then bias, activation, the cast and the residual."""
+    c, acc = a.shape[1] // groups, None
+    for i in range(groups):
+        lo = c * i
+        o = int8_product(a[:, lo:lo + c], w[:, lo:lo + c]) * a_scale[:, i:i + 1] * w_scale
+        acc = o if acc is None else acc + o
+    if bias is not None:
+        acc = acc + bias.float()
+    if activation is not None:
+        acc = M.act_f32(acc, activation)
+    return acc.to(out_dtype) if res is None else res + acc.to(res.dtype)
+
+
+def phase_int8_gemm_edges() -> float:
+    """The int8 GEMM (`launch_qgemm` at the rule's width and the other
+    width) against `int8_gemm_reference` at every INT8_EDGE_M x
+    INT8_EDGE_N x INT8_EDGE_K in bf16 and fp32 (untimed): bit for bit
+    with the identity activation, at the fp32 tolerance with quick_gelu;
+    B5's c_proj over both hidden groups in one launch, bit for bit; a
+    misaligned operand view that must raise. Returns the largest
+    error."""
+    g, worst, n, exact = torch.Generator().manual_seed(704), 0.0, 0, 0
+
+    def check(got, want, bitwise, what):
+        nonlocal worst, n, exact
+        torch.cuda.synchronize()
+        if bitwise and not torch.equal(got, want):
+            raise AssertionError(f"int8 gemm {what}: not bit for bit its plain version (max "
+                                 f"error {(got.float() - want.float()).abs().max().item()})")
+        if not bitwise:
+            torch.testing.assert_close(got, want, **TOL[torch.float32])
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        n, exact = n + 1, exact + bitwise
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, m in enumerate(INT8_EDGE_M):
+            for nn in INT8_EDGE_N:
+                for j, k in enumerate(INT8_EDGE_K):
+                    with_bias, with_res, act, out_f32 = INT8_EPILOGUES[(i + j) % len(
+                        INT8_EPILOGUES)]
+                    a, a_s, w, w_s, bias, res = int8_gemm_operands(g, m, k, nn, 1, dtype)
+                    bias, res = bias if with_bias else None, res if with_res else None
+                    out_dtype = torch.float32 if out_f32 else dtype
+                    want = int8_gemm_reference(a, a_s, w, w_s, bias, res, act, out_dtype)
+                    rule = common.int8_tile(m, nn, common.sm_count(0))
+                    for tile in (0, 64 if rule == 128 else 128):
+                        check(common.launch_qgemm(a, a_s, w, w_s, bias=bias, residual=res,
+                                                  activation=act, out_dtype=out_dtype,
+                                                  tile=tile),
+                              want, act is None, f"M={m} N={nn} K={k} tile {tile} {dtype}")
+        for m in (77, 129, 6304):
+            for f in (3072, 2048):
+                a, a_s, w, w_s, bias, res = int8_gemm_operands(g, m, f, 768, 2, dtype)
+                want = int8_gemm_reference(a, a_s, w, w_s, bias, res, None, dtype, groups=2)
+                check(common.launch_qgemm(a, a_s, w, w_s, groups=2, bias=bias, residual=res,
+                                          out_dtype=dtype),
+                      want, True, f"two groups M={m} F={f} {dtype}")
+    flat = torch.zeros(77 * 512 + 16, dtype=torch.int8, device="cuda")
+    try:
+        common.launch_qgemm(flat[1:77 * 512 + 1].view(77, 512), a_s[:77, :1],
+                            w[:, :512].contiguous(), w_s, out_dtype=torch.float32)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("int8 gemm: a misaligned operand view was launched")
+    log(f"  int8 GEMM edges: {n} cases (M in {INT8_EDGE_M}, N in {INT8_EDGE_N}, K in "
+        f"{INT8_EDGE_K}, the rule's width and the other, bf16 and fp32; two groups in one "
+        f"launch at F = 3072 and 2048), {exact} of them bit "
+        f"for bit, max error {worst:.3e}; a misaligned view raises: {refused}")
+    return worst
+
+
+def phase_int8_products(card: str) -> list[dict]:
+    """Each int8 product of B5 and B6 at INT8_PRODUCTS through
+    `launch_qgemm` (its own epilogue: bias, residual, quick_gelu with an
+    fp32 output, c_proj over its hidden groups) at the rule's width,
+    beside `torch._int_mm` (int8 x int8 -> int32 on the same operands: the
+    yardstick, never called by the port), in bursts, with TOPS: one line
+    a product. `ab_attention.py --int8` times a checkout's products for
+    an A/B."""
+    g, rows = torch.Generator().manual_seed(705), []
+    for name, m, k, n, groups, with_res, act in INT8_PRODUCTS:
+        a, a_s, w, w_s, bias, res = int8_gemm_operands(g, m, k, n, groups, torch.bfloat16)
+        res = res if with_res else None
+        out_dtype = torch.float32 if act else torch.bfloat16
+
+        def run():
+            return common.launch_qgemm(a, a_s, w, w_s, groups=groups, bias=bias, residual=res,
+                                       activation=act, out_dtype=out_dtype)
+
+        wt = w.t()
+        ops = 2.0 * m * n * k
+        row = dict(product=name, m=m, k=k, n=n, groups=groups,
+                   tile=64 if groups > 1 else common.int8_tile(m, n, common.sm_count(0)),
+                   ms=burst_ms(run), int_mm_ms=burst_ms(lambda: torch._int_mm(a, wt)))
+        row.update(tops=ops / row["ms"] / 1e9, int_mm_tops=ops / row["int_mm_ms"] / 1e9)
+        rows.append(row)
+        log(f"  int8 gemm {name:20s} M={m} K={k} N={n} groups={groups}: {row['ms']:.4f} ms "
+            f"({row['tops']:.1f} TOPS; tile {row['tile']}); torch._int_mm "
+            f"{row['int_mm_ms']:.4f} ms ({row['int_mm_tops']:.1f} TOPS) ({card})")
+        del a, w, res
+    return rows
+
+
+def phase_int8_quantize(card: str) -> list[dict]:
+    """The quantize passes of B5 and B6 at ViT-B-16 B = 32 and 128 (bf16
+    towers), in bursts, beside their bytes bound (each input read once,
+    the codes and scales written once): LN + quantize of x [M, 768] bf16,
+    B5's hidden [M, 3072] fp32 in its two groups, B6's attention output
+    [M, 768] fp32 in one."""
+    g, rows = torch.Generator().manual_seed(706), []
+    for m in (32 * 197, 128 * 197):
+        x = torch.randn((m, 768), generator=g).to(torch.bfloat16).cuda()
+        gamma, beta = (torch.randn(768, generator=g).to(torch.bfloat16).cuda()
+                       for _ in range(2))
+        hidden = torch.randn((m, 3072), generator=g).cuda()
+        attn = torch.randn((m, 768), generator=g).cuda()
+        for name, fn, nbytes in (
+                ("ln_quant_w768", lambda: common.launch_ln_quant(x, gamma, beta, 1e-5),
+                 m * 768 * 3 + 4 * m + 4 * 768),
+                ("quant_groups_f3072_g2", lambda: common.launch_quant_groups(hidden, 2),
+                 m * 3072 * 5 + 8 * m),
+                ("quant_groups_w768_g1", lambda: common.launch_quant_groups(attn, 1),
+                 m * 768 * 5 + 4 * m)):
+            row = dict(name=f"{name}_m{m}", ms=burst_ms(fn), bound_ms=1e3 * nbytes / PEAK_BYTES)
+            rows.append(row)
+            log(f"  quantize {row['name']:28s} {row['ms']:.4f} ms (bytes bound "
+                f"{row['bound_ms']:.4f} ms) ({card})")
+        del x, hidden, attn
+    return rows
+
+
 def phase_int8_kernels() -> tuple[dict, list]:
     plain = {B5: Q.int8_mlp_subblock_plain, B6: Q.int8_attention_subblock_plain}
     rows, worst = [], {name: 0.0 for name in INT8_KERNELS}
@@ -2199,7 +2401,10 @@ def phase_int8_kernels() -> tuple[dict, list]:
             wrapper, args = KERNELS[name][0], inputs[name]
             kw = {"activation": "quick_gelu"} if name == B5 else {"causal": shp["causal"]}
             pos = () if name == B5 else (shp["heads"],)
-            got = wrapper(*args, *pos, **kw)
+            got, sequence = int8_launch_sequence(wrapper, *args, *pos, **kw)
+            if sequence != INT8_SEQUENCE[name]:
+                raise AssertionError(f"{name} {label}: launched {sequence}, expected "
+                                     f"{INT8_SEQUENCE[name]}")
             want = plain[name](*args, *pos, **kw)
             control = bf16_control(plain[name], *args, *pos, **kw)
             torch.cuda.synchronize()
@@ -2483,6 +2688,9 @@ def main() -> None:
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
     log(f"phase 5: int8 kernels B5 and B6 against their plain versions ({card})")
     int8_worst, int8_rows = phase_int8_kernels()
+    int8_gemm_worst = phase_int8_gemm_edges()
+    int8_gemm_rows = phase_int8_products(card)
+    int8_quant_rows = phase_int8_quantize(card)
     log(f"phase 6: the int8 serve slice, ViT-B-16 bf16, int8 towers and gallery ({card})")
     int8_info, int8_service, int8_api = phase_slice(card, quantize=True)
     int8_info["bf16_topk_overlap"] = topk_overlap(slice_info["results"], int8_info["results"])
@@ -2563,6 +2771,9 @@ def main() -> None:
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
     worst.update(int8_worst)
+    # the int8 GEMM's edge cases: the device code of B5's and B6's products
+    for name in INT8_KERNELS:
+        worst[name] = max(worst[name], int8_gemm_worst)
     worst.update(new_worst)
     worst.update(tme_worst)
     worst[B9] = max(worst[B9], exp_worst.pop(B9))
@@ -2621,6 +2832,9 @@ def main() -> None:
                            tokenizer=tokenizer_info, evaluation=eval_info,
                            experiment_kernel_rows=exp_rows, experiment=experiment,
                            gemm_products=gemm_rows, gemm_edge_max_err=gemm_worst,
+                           int8_gemm_products=int8_gemm_rows,
+                           int8_quantize_passes=int8_quant_rows,
+                           int8_gemm_edge_max_err=int8_gemm_worst,
                            f32_gemm_edge_max_err=f32_gemm_worst,
                            host_us_per_call=host,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)

@@ -112,6 +112,24 @@ inline int sm_count(int device) {
   return n;
 }
 
+// Blocks of `Kernel`, launched with `threads` threads and no dynamic
+// shared memory, that the SMs of `device` hold at once, read once.
+template <auto Kernel>
+inline int max_resident_blocks(int device, int threads) {
+  static std::atomic<int> blocks[kMaxDevices];
+  int n = blocks[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads, 0) !=
+            cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    n = per_sm * sm_count(device);
+    blocks[device].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
 // 16-byte asynchronous copy to shared memory; with pred false the 16
 // bytes are zero-filled (0 source bytes).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {

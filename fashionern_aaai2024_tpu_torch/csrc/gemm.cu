@@ -38,9 +38,6 @@
 
 namespace fern {
 
-constexpr int kProducerWarp = kConsumerThreads / 32;  // warp 8
-constexpr int kGemmThreads = kConsumerThreads + 32;
-
 // A tile width, the ring's depth and the blocks an SM holds.
 template <int BN, int STAGES, int BLOCKS>
 struct GemmConfig {
@@ -48,8 +45,8 @@ struct GemmConfig {
   static constexpr size_t kRing = (size_t)STAGES * kStageBytes;
   static constexpr size_t kData = kRing > scratch_bytes(BN) ? kRing : scratch_bytes(BN);
   // alignment slack, the ring (after the last K tile, the epilogue
-  // scratch), 2 x STAGES mbarriers
-  static constexpr size_t kSmem = 1024 + kData + 2 * STAGES * sizeof(uint64_t);
+  // scratch), its mbarriers
+  static constexpr size_t kSmem = 1024 + kData + TmaRing<STAGES>::kBarBytes;
 };
 
 // The output tile at rows blockIdx.y * 128.., columns blockIdx.x * BN..
@@ -60,53 +57,35 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                  const bf16* __restrict__ res, bf16* __restrict__ C, int M, int N, int K,
                  int ldc, int act) {
   using Cfg = GemmConfig<BN, STAGES, BLOCKS>;
-  constexpr int S = STAGES, NB = BN / kMmaN;
+  constexpr int NB = BN / kMmaN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  const uint32_t ring = smem_addr(smem);
-  const uint32_t full = smem_addr(smem + Cfg::kData), empty = full + S * sizeof(uint64_t);
+  const TmaRing<STAGES> ring{smem_addr(smem), smem_addr(smem + Cfg::kData), Cfg::kStageBytes,
+                             kTileABytes};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bm = blockIdx.y * kGemmBM, bn = blockIdx.x * BN;
   const int kt_count = (K + kGemmBK - 1) / kGemmBK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + s * sizeof(uint64_t), 1);
-      mbar_init(empty + s * sizeof(uint64_t), kConsumerThreads / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring.init(kConsumerThreads / 32);
   __syncthreads();
 
   if (warp == kProducerWarp) {
     // the producer: one thread issues every copy; the warp keeps few registers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (lane == 0) {
-      for (int kt = 0; kt < kt_count; ++kt) {
-        const int s = kt % S;
-        const uint32_t f = full + s * sizeof(uint64_t);
-        if (kt >= S) mbar_wait(empty + s * sizeof(uint64_t), ((kt / S) - 1) & 1);
-        mbar_expect_tx(f, Cfg::kStageBytes);
-        const uint32_t a = ring + s * Cfg::kStageBytes;
-        tma_load(&map_a, a, f, kt * kGemmBK, bm);
-        tma_load(&map_b, a + kTileABytes, f, kt * kGemmBK, bn);
-      }
-    }
+    if (lane == 0) ring.produce(&map_a, &map_b, kt_count, kGemmBK, bm, bn);
   } else {
     // two consumer warpgroups, 64 rows each
     const int wg = threadIdx.x / 128;
     float acc[NB][64];
     zero_acc(acc);
     for (int kt = 0; kt < kt_count; ++kt) {
-      const int s = kt % S;
-      mbar_wait(full + s * sizeof(uint64_t), (kt / S) & 1);
-      const uint32_t a = ring + s * Cfg::kStageBytes;
+      const uint32_t a = ring.wait(kt);
       fence_acc(acc);
       wgmma_fence();
       mma_ktile<NB>(acc, a + wg * kWgRows * 128, a + kTileABytes);
       wgmma_commit();
       wgmma_wait<1>();  // the K tile before this one is multiplied: release its stage
       fence_acc(acc);
-      if (kt > 0 && lane == 0) mbar_arrive(empty + ((kt - 1) % S) * sizeof(uint64_t));
+      if (kt > 0) ring.release(kt - 1, lane);
     }
     wgmma_wait<0>();
     fence_acc(acc);

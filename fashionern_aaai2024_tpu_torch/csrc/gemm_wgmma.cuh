@@ -42,6 +42,9 @@ constexpr int kGemmBK = 64;     // K of a tile: one 128-byte swizzle row
 constexpr int kWgRows = 64;     // rows of a warpgroup's slab (the wgmma M)
 constexpr int kMmaN = 128;      // columns of one wgmma (n128)
 constexpr int kConsumerThreads = 256;
+// gemm.cu and qgemm.cu: the two consumer warpgroups and one producer warp
+constexpr int kProducerWarp = kConsumerThreads / 32;  // warp 8
+constexpr int kGemmThreads = kConsumerThreads + 32;
 constexpr int kTileABytes = kGemmBM * kGemmBK * 2;  // 16 KB
 
 __host__ __device__ constexpr int scratch_ld(int bn) { return bn + 8; }

@@ -43,29 +43,12 @@ layernorm_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __re
     layernorm_rows_any(x, g, b, y, rows, width, eps, warp, step, lane);
 }
 
-// Blocks of one instance that the SMs of `device` hold at once, read once.
-template <typename T, int VPL>
-static int resident_blocks(int device) {
-  static std::atomic<int> blocks[kMaxDevices];
-  int n = blocks[device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    int per_sm = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layernorm_kernel<T, VPL>,
-                                                      kLnThreads, 0) != cudaSuccess ||
-        per_sm < 1)
-      per_sm = 1;
-    n = per_sm * sm_count(device);
-    blocks[device].store(n, std::memory_order_relaxed);
-  }
-  return n;
-}
-
 template <typename T, int VPL>
 static cudaError_t launch_instance(const void* x, const void* g, const void* b, void* y,
                                    int rows, int width, float eps, int device,
                                    cudaStream_t stream) {
   const int wanted = (rows + kLnWarps - 1) / kLnWarps;
-  const int resident = resident_blocks<T, VPL>(device);
+  const int resident = max_resident_blocks<layernorm_kernel<T, VPL>>(device, kLnThreads);
   layernorm_kernel<T, VPL><<<wanted < resident ? wanted : resident, kLnThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(b),
       static_cast<T*>(y), rows, width, eps);

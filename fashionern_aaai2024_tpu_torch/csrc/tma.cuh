@@ -1,9 +1,10 @@
 // The TMA ring's pieces, shared by gemm.cu (the bf16 GEMM of kernels B1,
-// B2, B7 and B12 in bf16), gemm_tf32.cu (the fp32 GEMM: B1, B2, B7 and
-// B12 in fp32) and bbc_loss.cu (kernel B4): mbarriers in shared memory,
-// one 2-D tile copy by the Tensor Memory Accelerator completing a
-// barrier's transaction bytes, and the tensor maps those copies read,
-// encoded on the host.
+// B2, B7 and B12 in bf16), qgemm.cu (the int8 GEMM of B5 and B6),
+// gemm_tf32.cu (the fp32 GEMM: B1, B2, B7 and B12 in fp32) and
+// bbc_loss.cu (kernel B4): mbarriers in shared memory, one 2-D tile copy
+// by the Tensor Memory Accelerator completing a barrier's transaction
+// bytes, the ring of a kernel with a producer warp (`TmaRing`), and the
+// tensor maps those copies read, encoded on the host.
 #pragma once
 
 #include <cuda.h>
@@ -60,6 +61,67 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
       : "memory");
 }
+
+// The ring of the GEMMs with a producer warp (gemm.cu, qgemm.cu): S
+// stages of one (A, B) K tile each, `stage_bytes` apart from `data` on,
+// A's box first (`a_bytes`), then B's. Each stage has a "full" mbarrier,
+// completed by its copies' transaction bytes, and an "empty" one, which
+// lane 0 of every consumer warp arrives on once the products that read
+// the stage are done. One producer thread issues every copy and waits on
+// "empty" before it refills a stage; the consumers wait on "full".
+template <int S>
+struct TmaRing {
+  uint32_t data;    // stage 0
+  uint32_t full0;   // S "full" mbarriers
+  uint32_t empty0;  // then S "empty" ones
+  int stage_bytes, a_bytes;
+
+  static constexpr size_t kBarBytes = 2 * S * sizeof(uint64_t);
+
+  __device__ __forceinline__ TmaRing(uint32_t data_, uint32_t bars, int stage_bytes_,
+                                     int a_bytes_)
+      : data(data_),
+        full0(bars),
+        empty0(bars + S * sizeof(uint64_t)),
+        stage_bytes(stage_bytes_),
+        a_bytes(a_bytes_) {}
+
+  // Thread 0 of the block; every thread then passes a __syncthreads().
+  __device__ __forceinline__ void init(int consumer_warps) const {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + s * sizeof(uint64_t), 1);
+      mbar_init(empty0 + s * sizeof(uint64_t), consumer_warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // The producer thread: K tiles 0 .. kt_count - 1 of the A rows from bm
+  // and the B rows from bn, K tile kt at K coordinate kt * bk.
+  __device__ __forceinline__ void produce(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                          int kt_count, int bk, int bm, int bn) const {
+    for (int kt = 0; kt < kt_count; ++kt) {
+      const int s = kt % S;
+      const uint32_t f = full0 + s * sizeof(uint64_t);
+      if (kt >= S) mbar_wait(empty0 + s * sizeof(uint64_t), ((kt / S) - 1) & 1);
+      mbar_expect_tx(f, stage_bytes);
+      const uint32_t a = data + s * stage_bytes;
+      tma_load(map_a, a, f, kt * bk, bm);
+      tma_load(map_b, a + a_bytes, f, kt * bk, bn);
+    }
+  }
+
+  // A consumer: K tile kt's stage, once its copies have landed.
+  __device__ __forceinline__ uint32_t wait(int kt) const {
+    const int s = kt % S;
+    mbar_wait(full0 + s * sizeof(uint64_t), (kt / S) & 1);
+    return data + s * stage_bytes;
+  }
+
+  // A consumer warp whose products of K tile kt are done frees its stage.
+  __device__ __forceinline__ void release(int kt, int lane) const {
+    if (lane == 0) mbar_arrive(empty0 + (kt % S) * sizeof(uint64_t));
+  }
+};
 
 // cuTensorMapEncodeTiled from the driver, found once through the
 // runtime (no link against libcuda).

@@ -65,10 +65,9 @@ _SIGNATURES = {
     "fern_ln_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # x, q, scale, rows, width, groups, device, stream
     "fern_quant_groups": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # a, lda, bt, ldb, a_scale, a_scale_stride, b_scale, bias, partial, res,
-    # c, m, n, k, act, dtype, out_f32, device, stream
-    "fern_qgemm": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P),
+    # a, bt, a_scale, a_scale_stride, b_scale, bias, res, c, m, n, k, groups,
+    # act, dtype, out_f32, tile, device, stream
+    "fern_qgemm": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # pred, tar, row, part_m, part_l, diag, B, d, temp, splits,
     # tiles_per_split, device, stream
     "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
@@ -397,42 +396,81 @@ def launch_quant_groups(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, tor
     return q, scale
 
 
+# The int8 GEMM's tiles (csrc/qgemm.cu), two blocks an SM: width -> time
+# of a wave of its tiles against a wave of 128-wide ones, read on an H100
+# at B5's and B6's one-group products (`ab_attention.py --int8`, each width
+# forced: 0.54-0.70 at M = 6,304 and 25,216). Several K groups (B5's
+# c_proj) take the 64-wide tile, the one whose instance holds the fp32
+# accumulator.
+_INT8_TILE_ROWS, _INT8_BLOCKS_PER_SM = 128, 2
+_INT8_TILES = ((128, 1.0), (64, 0.6))
+_INT8_GROUPED_TILE = 64
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_tile(m: int, n: int, sms: int) -> int:
+    """Output tile width of the one-group int8 GEMM [m, k] x [n, k]^T on a
+    card of `sms` SMs: the width whose waves of tiles (two blocks an SM),
+    each at its relative cost (`_INT8_TILES`), take least time, the wider
+    on a tie. Narrow tiles fill the SMs where wide ones leave a wave
+    mostly empty (ViT's out-projection at B = 32: 300 tiles 128 wide, 1.14
+    waves)."""
+    rows = -(-m // _INT8_TILE_ROWS)
+
+    def waves_time(tile: tuple[int, float]) -> float:
+        bn, cost = tile
+        return -(-(rows * -(-n // bn)) // (sms * _INT8_BLOCKS_PER_SM)) * cost
+
+    return min(_INT8_TILES, key=waves_time)[0]
+
+
 def launch_qgemm(a: torch.Tensor, a_scale: torch.Tensor, weight: torch.Tensor,
-                 w_scale: torch.Tensor, *, k_range: tuple[int, int] | None = None,
-                 group: int = 0, bias: torch.Tensor | None = None,
-                 partial: torch.Tensor | None = None, residual: torch.Tensor | None = None,
-                 activation: str | None = None, out_dtype: torch.dtype) -> torch.Tensor:
-    """int8 GEMM kernel with its rescaling epilogue:
+                 w_scale: torch.Tensor, *, groups: int = 1, bias: torch.Tensor | None = None,
+                 residual: torch.Tensor | None = None, activation: str | None = None,
+                 out_dtype: torch.dtype, tile: int = 0) -> torch.Tensor:
+    """int8 GEMM kernel with its rescaling epilogue, one launch:
 
-        [res +] cast(act([partial +] float(a . weight.T) * a_scale * w_scale + bias))
+        [res +] cast(act(sum_g float(a_g . weight_g.T) * a_scale[:, g] * w_scale + bias))
 
-    a int8 [M, Kfull]; a_scale fp32 [M, G] (column `group` is used);
-    weight int8 [N, Kfull] (torch layout) with w_scale fp32 [N];
-    `k_range` = (k0, k1) multiplies only columns k0:k1 of both (one
-    hidden group of B5); bias and residual in `out_dtype` or, for an fp32
-    output, in the activations' dtype (`bias.dtype`); partial fp32 [M, N].
-    Its callers have checked the operands."""
-    m, kfull = a.shape
+    a int8 [M, K]; weight int8 [N, K] (torch layout) with w_scale fp32
+    [N]; a_scale fp32 [M, groups]. `groups` > 1 splits K into that many
+    equal groups of whole 128-column K tiles, group g rescaled by
+    a_scale[:, g], the groups' fp32 sums added in group order (B5's
+    c_proj over its hidden groups). bias and residual in `out_dtype` or,
+    for an fp32 output, in the activations' dtype (`bias.dtype`). `tile`:
+    0 for the rule (`int8_tile`; 64 with several groups), or 64 / 128 to
+    force a width (128 with one group only). Raises on what the kernel
+    cannot take: K not a multiple of 16, an operand that is not contiguous
+    or does not start on a 16-byte boundary (TMA), groups that are not
+    whole K tiles. Its callers have checked the operands' devices and
+    dtypes."""
+    m, k = a.shape
     n = weight.shape[0]
-    k0, k1 = k_range if k_range is not None else (0, kfull)
-    if weight.shape[1] != kfull or (k1 - k0) % 16 or k0 % 16 or kfull % 16:
-        raise ValueError(f"qgemm: a {tuple(a.shape)}, weight {tuple(weight.shape)}, "
-                         f"k {k0}:{k1} (multiples of 16 only)")
+    if weight.shape[1] != k or k % 16 or k <= 0:
+        raise ValueError(f"qgemm: a {tuple(a.shape)}, weight {tuple(weight.shape)} "
+                         "(K a multiple of 16 only)")
+    if groups < 1 or k % groups or (groups > 1 and (k // groups) % 128):
+        raise ValueError(f"qgemm: {groups} groups of K={k} (whole 128-column K tiles only)")
+    if a_scale.shape != (m, groups) or a_scale.stride(1) != 1:
+        raise ValueError(f"qgemm: a_scale {tuple(a_scale.shape)} for {m} rows, {groups} groups")
+    for name, t in (("a", a), ("weight", weight)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"qgemm: {name} {tuple(t.shape)} is not contiguous from an "
+                             "address that is a multiple of 16 bytes")
     io = bias if bias is not None else residual
     io_dtype = io.dtype if io is not None else out_dtype
     if out_dtype != torch.float32 and out_dtype != io_dtype:
         raise TypeError(f"qgemm: output {out_dtype} with bias/residual {io_dtype}")
     if residual is not None and (out_dtype != residual.dtype or residual.shape != (m, n)):
         raise ValueError(f"qgemm: residual {residual.dtype} {tuple(residual.shape)}")
-    if partial is not None and (partial.dtype != torch.float32 or partial.shape != (m, n)):
-        raise ValueError(f"qgemm: partial {partial.dtype} {tuple(partial.shape)}")
+    if tile not in (0, 64, 128) or (tile == 128 and groups > 1):
+        raise ValueError(f"qgemm: tile {tile} with {groups} groups")
+    device = a.get_device()
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    groups = a_scale.shape[1]
-    launch("fern_qgemm", a.data_ptr() + k0, kfull, weight.data_ptr() + k0, kfull,
-           a_scale.data_ptr() + 4 * group, groups, w_scale.data_ptr(),
-           None if bias is None else bias.data_ptr(),
-           None if partial is None else partial.data_ptr(),
-           None if residual is None else residual.data_ptr(), c.data_ptr(), m, n, k1 - k0,
+    launch("fern_qgemm", a.data_ptr(), weight.data_ptr(), a_scale.data_ptr(),
+           a_scale.stride(0), w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+           None if residual is None else residual.data_ptr(), c.data_ptr(), m, n, k, groups,
            ACT_CODES[activation], DTYPE_CODES[io_dtype], int(out_dtype == torch.float32),
-           a.get_device(), stream_of(a))
+           tile or (_INT8_GROUPED_TILE if groups > 1 else int8_tile(m, n, sm_count(device))),
+           device, stream_of(a))
     return c

@@ -34,7 +34,10 @@ _EPS = 1e-8
 def quantize_rowwise(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., K] float -> (int8 values, [..., 1] fp32 scales)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(_EPS)
+    # a tensor divisor: PyTorch divides a CUDA tensor by a Python scalar
+    # through the scalar's reciprocal, which is not the IEEE quotient
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -10,17 +10,18 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/qmlp.py`:
     `_qattn_kernel`, `:168`): x + out_proj(attention(in_proj(LN(x))))
     with both projections int8 and the attention in x.dtype / fp32.
 
-On a CUDA tensor each runs hand-written kernels (csrc/): B5 = LN + row
-int8 (`quant.cu`) -> int8 GEMM + rescale + bias + activation, fp32
-hidden (`qgemm.cu`) -> row int8 per hidden group (`quant.cu`) -> one
-int8 GEMM per group, each adding its rescaled product to the previous
-groups' fp32 sum, the last adding the bias and the residual. B6 = LN +
-row int8 -> int8 GEMM + rescale + bias, cast to x.dtype -> the attention
-core with an fp32 output (`attention.cu`) -> row int8 -> int8 GEMM +
+On a CUDA tensor each runs hand-written kernels (csrc/), four launches
+for B5 and five for B6: B5 = LN + row int8 (`quant.cu`) -> int8 GEMM +
+rescale + bias + activation, fp32 hidden (`qgemm.cu`) -> row int8 per
+hidden group (`quant.cu`) -> one int8 GEMM over every group, each
+group's rescaled product added to the earlier groups' fp32 sum in
+registers, then the bias and the residual. B6 = LN + row int8 -> int8
+GEMM + rescale + bias, cast to x.dtype -> the attention core with an
+fp32 output (`attention.cu`) -> row int8 (one group) -> int8 GEMM +
 rescale + bias + residual. The TPU kept the int8 weights resident in
 VMEM for one program per row block; here they stream through shared
-memory and stay hot in L2, and the program splits where the data reuse
-changes.
+memory and stay hot in L2, and the program splits where a row's int8
+scale needs the whole row (or hidden group), which no output tile sees.
 
 Weights arrive quantized: int8 values in the torch layout [out, in] and
 one fp32 scale per output row, i.e. `quantize_colwise` of the JAX
@@ -142,16 +143,10 @@ def int8_mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.T
                             out_dtype=torch.float32)
     groups = hidden_groups(f, activation)
     hq, hs = common.launch_quant_groups(h, groups)
-    c = f // groups
-    acc = None
-    for i in range(groups):
-        last = i == groups - 1
-        acc = common.launch_qgemm(hq, hs, proj_q, proj_scale, k_range=(c * i, c * (i + 1)),
-                                  group=i, partial=acc, bias=proj_bias if last else None,
-                                  residual=x2 if last else None,
-                                  out_dtype=x.dtype if last else torch.float32)
+    out = common.launch_qgemm(hq, hs, proj_q, proj_scale, groups=groups, bias=proj_bias,
+                              residual=x2, out_dtype=x.dtype)
     int8_mlp_subblock.launches += 1
-    return acc.view(b, s, w)
+    return out.view(b, s, w)
 
 
 int8_mlp_subblock.launches = 0

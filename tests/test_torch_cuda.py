@@ -31,7 +31,19 @@ B=4); the mean error is held instead, per dtype, between the largest
 reading of these tests (fp32 1.2e-5, bf16 2.5e-6) and the smallest of a
 control that rounds the activations to bf16 before quantizing (fp32
 1.3e-4, bf16 1.4e-4): INT8_MEAN = 4e-5 in fp32 and 3e-5 in bf16, the
-limits `chip_smoke.py` holds the serve shapes to.
+limits `chip_smoke.py` holds the serve shapes to. B5 is four launches
+(its c_proj takes both hidden groups in one). The int8 GEMM
+(`ops/common.py launch_qgemm`, csrc/qgemm.cu: s8 warpgroup MMA on TMA-fed
+tiles) at its tiles' edges, every width and the rule's: M in 1, 77, 127
+and 129, N in 8-768, K in 16-768, bf16 and fp32, with the identity
+activation equal bit for bit to the plain function on the exact product
+(int32 sums are exact; every later step rounds as the plain version
+does), with quick_gelu at the fp32 tolerance; B5's c_proj over both
+hidden groups in one launch, bit for bit; a SASS check for integer GMMA
+on UTMALDG-loaded tiles and no IMMA. The group quantizer equals
+`quantize_rowwise` exactly on the card (codes and scales, an all-zero
+row included), and the LN + quantize kernel is held at the
+tower widths, the general routine's widths and W = 2,056.
 
 B7 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and
 B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B11
@@ -460,8 +472,12 @@ def _int8_weight(g, out_f, in_f, device, dtype):
     return q, s.reshape(-1)
 
 
+# LN + quantize at the tower widths, the general routine's widths (bf16
+# 100, both 642, and 2,056, past the vector instances) and a vector
+# instance at W = 640
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,w", [(2, 9, 128), (4, 197, 768), (1, 77, 512)])
+@pytest.mark.parametrize("b,s,w", [(2, 9, 128), (4, 197, 768), (1, 77, 512), (1, 77, 640),
+                                   (3, 43, 100), (2, 9, 642), (1, 5, 2056)])
 def test_ln_quant_kernel_matches_plain(device, dtype, b, s, w):
     g = np.random.default_rng(5)
     x = _t(g, (b * s, w), 1.0, dtype, device)
@@ -505,6 +521,135 @@ def test_int8_attention_kernel_matches_plain(device, dtype, b, s, w, heads, caus
     assert Q.int8_attention_subblock.launches == n0 + 1
     _close_up_to_flips(got, Q.int8_attention_subblock_plain(*args, heads, causal=causal),
                        dtype)
+
+
+# quantize in groups: B6's attention output (W = 768, one group), B5's
+# hidden at ViT-B-16 (3,072 in two groups) and the text tower (2,048 in
+# two), a group the vector routine cannot take (770 columns) and one past
+# its largest instance (6,400)
+@pytest.mark.parametrize("width,groups", [(768, 1), (3072, 2), (2048, 2), (1540, 2),
+                                          (6400, 1)])
+@pytest.mark.parametrize("rows", [1, 77, 129, 6304])
+def test_quant_groups_kernel_equals_quantize_rowwise(device, rows, width, groups):
+    """The group quantizer's codes and scales equal `quantize_rowwise` on
+    each group exactly, both on the card (absmax, one IEEE division,
+    round half to even): an all-zero row (scale 1e-8 / 127, codes 0)
+    included."""
+    g = np.random.default_rng(rows + width)
+    x = _t(g, (rows, width), 2.0, torch.float32, device)
+    x[rows // 2] = 0.0
+    q, scale = common.launch_quant_groups(x, groups)
+    c = width // groups
+    for i in range(groups):
+        want_q, want_scale = quantize_rowwise(x[:, c * i:c * (i + 1)])
+        assert torch.equal(q[:, c * i:c * (i + 1)], want_q)
+        assert torch.equal(scale[:, i:i + 1], want_scale)
+    assert not q[rows // 2].any()
+    assert scale[rows // 2, 0].item() == np.float32(1e-8) / np.float32(127.0)
+
+
+# the int8 GEMM (csrc/qgemm.cu: s8 warpgroup MMA on TMA-fed 128 x 64 / 128
+# tiles, 128-deep K tiles) at its tiles' edges: the text tower's 77 rows,
+# one row, one short of and one past a 128-row tile; columns inside and
+# past the 64- and 128-wide tiles (and 264) and ViT's 768; K of one k32
+# step, short of, at and one k32 step past a K tile, and 768; epilogues
+# (bias, residual, activation, fp32 output) as B5 and B6 use them
+INT8_GEMM_M = (1, 77, 127, 129)
+INT8_GEMM_N = (8, 72, 200, 264, 768)
+INT8_GEMM_K = (16, 112, 128, 144, 768)
+INT8_GEMM_EPILOGUES = ((True, False, None, False), (True, True, None, False),
+                       (True, False, "quick_gelu", True), (False, False, None, True))
+
+
+def _qgemm_plain(a, a_scale, w, w_scale, bias, res, activation, out_dtype, groups=1):
+    """The int8 GEMM's function on the plain product: each group's int32
+    sums times its row scale, times the column scale, added in group
+    order; then bias, activation, the cast and the residual."""
+    from fashionern_aaai2024_tpu_torch.ops.mlp import act_f32
+    from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product
+
+    c, acc = a.shape[1] // groups, None
+    for i in range(groups):
+        lo = c * i
+        o = int8_product(a[:, lo:lo + c], w[:, lo:lo + c]) * a_scale[:, i:i + 1] * w_scale
+        acc = o if acc is None else acc + o
+    if bias is not None:
+        acc = acc + bias.float()
+    if activation is not None:
+        acc = act_f32(acc, activation)
+    return acc.to(out_dtype) if res is None else res + acc.to(res.dtype)
+
+
+def _qgemm_operands(g, m, k, n, groups, dtype, device):
+    a = torch.tensor(g.integers(-127, 128, (m, k)), dtype=torch.int8, device=device)
+    w = torch.tensor(g.integers(-127, 128, (n, k)), dtype=torch.int8, device=device)
+    a_scale = _t(g, (m, groups), 0.01, torch.float32, device, 0.03)
+    w_scale = _t(g, (n,), 1e-4, torch.float32, device, 4e-4)
+    return a, a_scale, w, w_scale, _t(g, (n,), 0.5, dtype, device), _t(g, (m, n), 1.0, dtype,
+                                                                         device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", INT8_GEMM_M)
+def test_int8_gemm_tile_edges_equal_plain(device, m, dtype):
+    """Every width (64, 128 and the rule's) at every N x K, each an
+    epilogue: with the identity activation equal to the plain function bit
+    for bit (int32 sums are exact, every later step rounds as the plain
+    version does); with quick_gelu at the fp32 tolerance."""
+    g = np.random.default_rng(m)
+    for i, n in enumerate(INT8_GEMM_N):
+        for j, k in enumerate(INT8_GEMM_K):
+            with_bias, with_res, act, out_f32 = INT8_GEMM_EPILOGUES[(i + j) % 4]
+            a, a_s, w, w_s, bias, res = _qgemm_operands(g, m, k, n, 1, dtype, device)
+            bias, res = bias if with_bias else None, res if with_res else None
+            out_dtype = torch.float32 if out_f32 else dtype
+            want = _qgemm_plain(a, a_s, w, w_s, bias, res, act, out_dtype)
+            for tile in (0, 64, 128):
+                got = common.launch_qgemm(a, a_s, w, w_s, bias=bias, residual=res,
+                                          activation=act, out_dtype=out_dtype, tile=tile)
+                torch.cuda.synchronize()
+                if act is None:
+                    assert torch.equal(got, want), (m, n, k, tile)
+                else:
+                    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [77, 129, 6304])
+def test_int8_gemm_one_launch_c_proj_equals_plain(device, m, dtype):
+    """B5's c_proj over both hidden groups in one launch (F = 3,072 and
+    2,048, the second group from K tile 12 or 8 on with the row scale's
+    column 1; bias and residual) equals the plain products bit for bit:
+    the group sums are added in group order, as the two-product plain sum
+    adds them."""
+    g = np.random.default_rng(m + 1)
+    for f in (3072, 2048):
+        a, a_s, w, w_s, bias, res = _qgemm_operands(g, m, f, 768, 2, dtype, device)
+        want = _qgemm_plain(a, a_s, w, w_s, bias, res, None, dtype, groups=2)
+        got = common.launch_qgemm(a, a_s, w, w_s, groups=2, bias=bias, residual=res,
+                                  out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f
+
+
+def test_int8_kernels_run_int8_wgmma_fed_by_tma(device):
+    """The int8 GEMM issues integer warpgroup MMA (GMMA) on tiles that TMA
+    loads (UTMALDG), with no WMMA integer MMA (IMMA) left; every vector
+    instance of the quantize kernels loads 16 bytes a lane (LDG.E.128)."""
+    import re
+
+    common.LIBRARY.load()
+    funcs = _sass_functions(common.LIBRARY.library_path())
+    gemms = {k: v for k, v in funcs.items() if "qgemm_kernel" in k}
+    assert len(gemms) == 6, sorted(gemms)
+    for name, sass in gemms.items():
+        assert "GMMA" in sass and "UTMALDG" in sass and "IMMA" not in sass, name
+    quant = {k: v for k, v in funcs.items()
+             if ("ln_quant_kernel" in k and re.search(r"Li[1-8]E", k))
+             or ("quant_groups_kernel" in k and re.search(r"ILi([1-9]|1[0-2])E", k))}
+    assert len(quant) == 16 + 12, sorted(quant)
+    for name, sass in quant.items():
+        assert "LDG.E.128" in sass, name
 
 
 def test_int8_wrappers_refuse_operands_that_require_grad(device):

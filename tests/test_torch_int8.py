@@ -11,6 +11,11 @@ at which tolerance:
     order; at these seeds no int8 code flips, and a flip would show as
     an error of a quantization step, far above it); bf16 at atol = rtol
     = 1e-2, one bf16 step of the output;
+  * the same at the rows and widths the int8 GEMM's tiles end on (M = 77,
+    the text tower at b = 1, and 129, one row past a 128-row tile) and at
+    the text tower's W = 512, F = 2048 (two hidden groups of 1,024); the
+    row quantizer there too, per hidden group, with an all-zero row
+    (scale 1e-8 / 127, codes 0) and a row of half-step ties;
   * at F = 3072 (two hidden groups) the port follows the kernel and not
     `_qmlp_ref`, which quantizes whole hidden rows (the difference is
     asserted to be large);
@@ -151,6 +156,33 @@ def test_dequantize_rows_and_int8_matmul_equal_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("rows,width,groups", [(77, 512, 1), (129, 768, 1), (77, 2048, 2),
+                                               (129, 3072, 2)])
+def test_row_quantizer_equals_the_kernels_at_the_tile_edges(rows, width, groups):
+    """`quantize_rowwise` on each hidden group of a [rows, F] block (B5's
+    hidden, B6's attention output with one group) gives the codes and
+    scales of the Pallas kernels' `_quant_rows_f32`, exactly: an all-zero
+    row (scale 1e-8 / 127, codes 0) and a row of half-step ties (its
+    absmax 127: scale 1.0, ties rounded to even) included."""
+    g = np.random.default_rng(rows + width)
+    x = (3.0 * g.standard_normal((rows, width))).astype(np.float32)
+    x[rows // 2] = 0.0
+    x[-1] = np.resize(np.arange(-63.5, 64.5, 1.0, dtype=np.float32), width)
+    x[-1, ::97] = 127.0
+    c = width // groups
+    for i in range(groups):
+        block = np.ascontiguousarray(x[:, c * i:c * (i + 1)])
+        jq, js = JQ._quant_rows_f32(jnp.asarray(block))
+        tq, ts = TQM.quantize_rowwise(torch.from_numpy(block))
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        assert ts[rows // 2].item() == np.float32(1e-8) / np.float32(127.0)
+        assert not tq[rows // 2].any()
+        assert ts[-1].item() == 1.0
+        ties = block[-1] - np.trunc(block[-1]) != 0
+        assert ties.any() and (tq[-1].numpy()[ties] % 2 == 0).all()
+
+
 def test_int8_product_is_the_exact_int32_product():
     g = np.random.default_rng(2)
     a = g.integers(-127, 128, (5, 3072)).astype(np.int8)
@@ -197,6 +229,19 @@ def test_int8_mlp_plain_matches_the_pallas_kernel(dtype):
     np.testing.assert_allclose(got, kernel, **(F32_TOL if dtype == "fp32" else BF16_TOL))
 
 
+# (b, s, w, f): the text tower at b = 1 (M = 77, W = 512, F = 2048: two
+# hidden groups of 1,024), and M = 129, one row past a 128-row tile
+EDGE_MLP = [(1, 77, 512, 2048), (3, 43, 128, 512)]
+# (b, s, w, heads, causal): the text tower at b = 1, and M = 129
+EDGE_ATTN = [(1, 77, 512, 8, True), (3, 43, 128, 2, False)]
+
+
+@pytest.mark.parametrize("b,s,w,f", EDGE_MLP)
+def test_int8_mlp_plain_matches_the_pallas_kernel_at_the_tile_edges(b, s, w, f):
+    got, kernel, _ = _b5(_mlp_inputs(b, s, w, f, seed=b + w), "fp32", "quick_gelu")
+    assert_close_up_to_flips(got, kernel, rows=1, step=1e-2)
+
+
 def test_int8_mlp_follows_the_kernel_not_qmlp_ref_at_two_groups():
     """F = 3072: the kernel quantizes the hidden per row in two groups of
     1536 columns; `_qmlp_ref` (JAX off the TPU and at b < 8) per whole
@@ -219,9 +264,28 @@ def test_int8_mlp_exact_gelu_matches_qmlp_ref():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_int8_attention_plain_matches_the_pallas_kernel(dtype, causal):
-    jd, td = DTYPES[dtype]
-    b, s, w, heads = 2, 9, 128, 2
-    g = np.random.default_rng(3)
+    _check_b6(dtype, 2, 9, 128, 2, causal, seed=3)
+
+
+@pytest.mark.parametrize("b,s,w,heads,causal", EDGE_ATTN)
+def test_int8_attention_plain_matches_the_pallas_kernel_at_the_tile_edges(b, s, w, heads,
+                                                                         causal):
+    """One attention-output code flips at M = 129 (one row off 2e-5, by
+    less than a step): held as the flips above."""
+    got, want = _b6(DTYPES["fp32"], b, s, w, heads, causal, seed=b + w)
+    assert_close_up_to_flips(got, want, rows=1, step=1e-2)
+
+
+def _check_b6(dtype, b, s, w, heads, causal, seed):
+    got, want = _b6(DTYPES[dtype], b, s, w, heads, causal, seed)
+    np.testing.assert_allclose(got, want, **(F32_TOL if dtype == "fp32" else BF16_TOL))
+
+
+def _b6(dtypes, b, s, w, heads, causal, seed):
+    """(the port's B6 on the CPU, the Pallas kernel in interpret mode) as
+    fp32 numpy arrays, on one seeded input."""
+    jd, td = dtypes
+    g = np.random.default_rng(seed)
     n = lambda *shape, std=1.0, mean=0.0: (mean + std * g.standard_normal(shape)).astype(
         np.float32)
     x, g_, be = n(b, s, w), n(w, std=0.1, mean=1.0), n(w, std=0.1)
@@ -232,8 +296,7 @@ def test_int8_attention_plain_matches_the_pallas_kernel(dtype, causal):
                                       causal=causal, force_pallas=True, interpret=True)
     got = TQ.int8_attention_subblock(T(x), T(g_), T(be), *_port_weights(wq, td), T(bq),
                                      *_port_weights(wo, td), T(bo), heads, causal=causal)
-    np.testing.assert_allclose(to_np(got), np.asarray(want.astype(jnp.float32)),
-                               **(F32_TOL if dtype == "fp32" else BF16_TOL))
+    return to_np(got), np.asarray(want.astype(jnp.float32))
 
 
 # --- the quantized towers ----------------------------------------------

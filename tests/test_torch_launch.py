@@ -1,8 +1,10 @@
 """The port's launch path on the CPU (`ops/common.py`): the operand checks
 every wrapper runs before a launch, the bound entry table, and the
 arguments B11 (`layer_norm`), B12 (`combiner_apply`), the GEMM
-(`launch_gemm`, fp32 and bf16) and B4 (`bbc_rowloss`) hand to their C
-entry points, recorded by a fake card instead of launched. The kernels
+(`launch_gemm`, fp32 and bf16), B4 (`bbc_rowloss`) and the int8
+sub-blocks B5 and B6 (`int8_mlp_subblock`, `int8_attention_subblock`,
+with the int8 GEMM's tile rule and refusals) hand to their C entry
+points, recorded by a fake card instead of launched. The kernels
 themselves are held on the card (`tests/test_torch_cuda.py`)."""
 
 import numpy as np
@@ -14,6 +16,8 @@ from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
+from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
+from fashionern_aaai2024_tpu_torch.ops.qmatmul import quantize_rowwise
 
 
 def _t(*shape, dtype=torch.float32, seed=0):
@@ -246,3 +250,138 @@ def test_bbc_rowloss_launch_pads_d_to_a_multiple_of_4(fake_card, b, d):
         assert args[:2] == (pred.data_ptr(), tar.data_ptr())
     else:
         assert pred.data_ptr() not in args[:2] and tar.data_ptr() not in args[:2]
+
+
+# --- B5 and B6: the int8 sub-blocks ------------------------------------
+
+
+def _int8_weight(out_f, in_f, dtype, seed):
+    q, scale = quantize_rowwise(_t(out_f, in_f, dtype=dtype, seed=seed))
+    return q, scale.reshape(-1)
+
+
+def _int8_args(b, s, w, f, dtype):
+    return (_t(b, s, w, dtype=dtype), _t(w, dtype=dtype, seed=1), _t(w, dtype=dtype, seed=2),
+            *_int8_weight(f, w, dtype, 3), _t(f, dtype=dtype, seed=4),
+            *_int8_weight(w, f, dtype, 5), _t(w, dtype=dtype, seed=6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,f,groups", [(1, 77, 512, 2048, 2), (3, 43, 128, 512, 1),
+                                            (2, 197, 768, 3072, 2)])
+def test_int8_mlp_launches_four_kernels(fake_card, dtype, b, s, w, f, groups):
+    """B5 is four launches: LN + quantize, c_fc (fp32 hidden, with its
+    bias and activation), the hidden quantized in `pick_splits` groups,
+    then one c_proj over every group (the scale stride and the group
+    count go with it) that adds the bias and the residual; each GEMM at
+    `int8_tile`'s width, and the wrapper counts one call."""
+    args = _int8_args(b, s, w, f, dtype)
+    x, _, _, fc_q, fc_s, fc_b, proj_q, proj_s, proj_b = args
+    n0 = Q.int8_mlp_subblock.launches
+    with torch.no_grad():
+        out = Q.int8_mlp_subblock(*args, activation="quick_gelu")
+    assert Q.int8_mlp_subblock.launches == n0 + 1
+    assert [c[0] for c in fake_card] == ["fern_ln_quant", "fern_qgemm", "fern_quant_groups",
+                                         "fern_qgemm"]
+    (_, lnq), (_, fc), (_, qg), (_, proj) = fake_card
+    m, code = b * s, common.DTYPE_CODES[dtype]
+    assert Q.hidden_groups(f, "quick_gelu") == groups
+    assert lnq[0] == x.data_ptr() and lnq[5:9] == (m, w, 1e-5, code)
+    yq, ys = lnq[3], lnq[4]
+    assert fc[:8] == (yq, fc_q.data_ptr(), ys, 1, fc_s.data_ptr(), fc_b.data_ptr(), None, fc[7])
+    assert fc[8:16] == (m, f, w, 1, common.ACT_CODES["quick_gelu"], code, 1,
+                        common.int8_tile(m, f, 132))
+    assert qg[0] == fc[7] and qg[3:6] == (m, f, groups)
+    hq, hs = qg[1], qg[2]
+    assert proj[:8] == (hq, proj_q.data_ptr(), hs, groups, proj_s.data_ptr(), proj_b.data_ptr(),
+                        x.data_ptr(), out.data_ptr())
+    assert proj[8:16] == (m, w, f, groups, 0, code, int(dtype == torch.float32),
+                          64 if groups > 1 else common.int8_tile(m, w, 132))
+    assert out.shape == x.shape and out.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,causal", [(1, 77, 512, 8, True), (2, 197, 768, 12, False)])
+def test_int8_attention_launches_five_kernels(fake_card, dtype, b, s, w, heads, causal):
+    """B6 is five launches in order: LN + quantize, the QKV product (bias,
+    cast to x's dtype), the attention core with an fp32 output, the
+    attention output quantized as one group, the out-projection with its
+    bias and the residual."""
+    x = _t(b, s, w, dtype=dtype)
+    qkv_q, qkv_s = _int8_weight(3 * w, w, dtype, 3)
+    out_q, out_s = _int8_weight(w, w, dtype, 5)
+    args = (x, _t(w, dtype=dtype, seed=1), _t(w, dtype=dtype, seed=2), qkv_q, qkv_s,
+            _t(3 * w, dtype=dtype, seed=4), out_q, out_s, _t(w, dtype=dtype, seed=6))
+    n0 = Q.int8_attention_subblock.launches
+    with torch.no_grad():
+        out = Q.int8_attention_subblock(*args, heads, causal=causal)
+    assert Q.int8_attention_subblock.launches == n0 + 1
+    assert [c[0] for c in fake_card] == ["fern_ln_quant", "fern_qgemm", "fern_attention",
+                                         "fern_quant_groups", "fern_qgemm"]
+    (_, lnq), (_, qkv), (_, attn), (_, qg), (_, proj) = fake_card
+    m, code = b * s, common.DTYPE_CODES[dtype]
+    assert qkv[:4] == (lnq[3], qkv_q.data_ptr(), lnq[4], 1)
+    f32 = int(dtype == torch.float32)
+    assert qkv[8:16] == (m, 3 * w, w, 1, 0, code, f32, common.int8_tile(m, 3 * w, 132))
+    assert attn[0] == qkv[7]
+    assert qg[3:6] == (m, w, 1)
+    assert proj[:4] == (qg[1], out_q.data_ptr(), qg[2], 1)
+    assert proj[6:8] == (x.data_ptr(), out.data_ptr())
+    assert proj[8:16] == (m, w, w, 1, 0, code, f32, common.int8_tile(m, w, 132))
+
+
+def test_int8_gemm_tile_rule_counts_waves():
+    """`int8_tile` takes the width whose waves of tiles (two blocks an SM),
+    each at its cost relative to a wave of 128-wide tiles, take least
+    time, and the wider of two that tie."""
+    costs = dict(common._INT8_TILES)
+    for sms in (1, 78, 132):
+        for m in (1, 77, 127, 128, 129, 2464, 6304, 25216, 201728):
+            for n in (512, 768, 1536, 2048, 2304, 3072):
+                rows = -(-m // 128)
+                time = {bn: -(-(rows * -(-n // bn)) // (2 * sms)) * cost
+                        for bn, cost in costs.items()}
+                tile = common.int8_tile(m, n, sms)
+                assert time[tile] == min(time.values())
+                assert all(time[bn] > time[tile] for bn in time if bn > tile)
+    # ViT-B-16 at B = 32: the out-projection fills 1.14 waves of 128-wide
+    # tiles, 2.27 of 64-wide ones; the QKV product 3.4 and 6.8
+    assert common.int8_tile(6304, 768, 132) == 64
+    assert common.int8_tile(6304, 2304, 132) == 128
+
+
+def _qgemm_operands(m, k, n, groups=1):
+    a = torch.zeros((m, k), dtype=torch.int8)
+    w = torch.zeros((n, k), dtype=torch.int8)
+    return a, torch.ones((m, groups)), w, torch.ones(n)
+
+
+@pytest.mark.parametrize("fault", ["k", "misaligned view", "not contiguous", "scale columns",
+                                   "group width", "tile"])
+def test_int8_gemm_refuses_what_the_kernel_cannot_take(fake_card, fault):
+    """K (the row stride) not a multiple of 16, an operand that does not
+    start on a 16-byte boundary or is not contiguous (TMA), a row scale
+    that is not one column a group, groups that are not whole 128-column
+    K tiles, and a 128-wide tile with several groups raise before any
+    launch."""
+    kw = dict(out_dtype=torch.float32)
+    if fault == "k":
+        args = _qgemm_operands(77, 24, 64)
+    elif fault == "misaligned view":
+        flat = torch.zeros(77 * 32 + 1, dtype=torch.int8)
+        a = flat[1:].view(77, 32)
+        args = (a, *_qgemm_operands(77, 32, 64)[1:])
+    elif fault == "not contiguous":
+        a, a_scale, w, w_scale = _qgemm_operands(77, 64, 64)
+        args = (a, a_scale, torch.zeros((64, 64), dtype=torch.int8).t(), w_scale)
+    elif fault == "scale columns":
+        args = _qgemm_operands(77, 256, 64, groups=2)
+    elif fault == "group width":
+        args = _qgemm_operands(77, 192, 64, groups=2)
+        kw["groups"] = 2
+    else:
+        args = _qgemm_operands(77, 256, 64, groups=2)
+        kw.update(groups=2, tile=128)
+    with pytest.raises(ValueError, match="multiple|16 bytes|K tiles|tile|a_scale"):
+        common.launch_qgemm(*args, **kw)
+    assert not fake_card
