@@ -126,6 +126,24 @@ Phases (each raises on failure; nothing is caught):
       tower, its trunk and attention pool, index refine; text tower, DVR
       query tower, search). Every profile runs after every host-clock and
       event timing: the profiler slows later launches.
+  15. the dataset and CLI path, through the port's CLI
+      (`python -m fashionern_aaai2024_tpu_torch.cli.main`, run as `-m`
+      runs it, in subprocesses that write their kernel launch counts at
+      exit): soak legs B (learnable FashionIQ) and C (learnable CIRR) of
+      `benchmarks/accuracy_soak.py`, each `make-fixture --learnable` (64
+      images a type, 128 triplets) -> untrained `eval --seed 7` -> `train`
+      at ViT-B-16, B = 16, 15 epochs, validation every epoch, the uint8
+      feed -> `eval` with the best checkpoint; the trained eval must equal
+      the sidecar's best validation metric exactly and beat the untrained
+      eval by 20 points (the two legs' chains run side by side). Then the
+      host time of `load_and_preprocess` per decode route (a fixture PNG
+      and the same pixels as a JPEG), and `extract-patches` on 8 fixture
+      images: the CLI on the card (fp32), and the tool's extractor with
+      the CLI's model on the card under the bf16 policy and on the CPU in
+      fp32 (plain versions), each card crop's feature at cosine >= 0.99
+      against the CPU's. Every kernel the legs run (B1-B4, B7, B8, B10-B12)
+      must have launched; their counts go into the kernels line
+      (`launches_by_path["cli_legs"]`).
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -187,10 +205,12 @@ plain, library and TF32 bound times); the last line is `{"ok": true,
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import functools
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -205,11 +225,15 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from fashionern_aaai2024_tpu_torch.benchmarks import accuracy_soak as Soak
 from fashionern_aaai2024_tpu_torch.benchmarks import attn_experiment as XD
+from fashionern_aaai2024_tpu_torch.cli import main as Cli
 from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
-from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP_MEAN, CLIP_STD
+from fashionern_aaai2024_tpu_torch.data import transforms
+from fashionern_aaai2024_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import SimpleTokenizer, learn_merges
+from fashionern_aaai2024_tpu_torch.native import image as native_image
 from fashionern_aaai2024_tpu_torch.models.composed import (
     ComposedCIRModel,
     apply_precision,
@@ -232,6 +256,7 @@ from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
 from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
 from fashionern_aaai2024_tpu_torch.train.state import create_train_state
 from fashionern_aaai2024_tpu_torch.train.step import build_train_step
+from fashionern_aaai2024_tpu_torch.tools import extract_patches as Extract
 from fashionern_aaai2024_tpu_torch.train.trainer import (
     DatasetPlugin,
     TrainConfig,
@@ -2651,6 +2676,166 @@ def phase_eval(card: str) -> dict:
                 prediction_cosine_median=cos.median().item())
 
 
+# --- phase 15: the dataset and CLI path ------------------------------------
+
+# the legs' limits: the trained CLI eval equals the sidecar's best
+# validation metric, which beats the untrained eval by this many points
+LEG_MIN_GAIN = 20.0
+# the kernels a leg runs at the CLI's defaults (ViT-B-16, fp32): the
+# towers' sub-blocks (B1-B3; B10 in the eval text towers), B4 in the train
+# step, the DVR query tower's B7 and B8, B11 at the standalone LNs, B12 at
+# the eval combiners
+LEG_KERNELS = (B1, B2, B3, B4, B7, B8, B10, B11, B12)
+EXTRACT_IMAGES = 8
+ROUTE_LOADS = 64
+
+
+def counting_cli(counts_path: str):
+    """The `command` argument of `accuracy_soak.run_leg`: the port's CLI module
+    run as `python -m` runs it (`runpy`, `__main__`), with each process's
+    kernel launch counts appended to `counts_path` at its exit."""
+    wrappers = {name: [fn.__module__, fn.__name__] for name, (fn, _, _) in KERNELS.items()}
+    code = (
+        "import atexit, importlib, json, runpy, sys\n"
+        f"WRAPPERS = {json.dumps(wrappers)}\n"
+        "def dump():\n"
+        "    counts = {n: getattr(importlib.import_module(m), a).launches\n"
+        "              for n, (m, a) in WRAPPERS.items()}\n"
+        f"    with open({counts_path!r}, 'a') as f:\n"
+        "        f.write(json.dumps(counts) + '\\n')\n"
+        "atexit.register(dump)\n"
+        f"runpy.run_module({Soak.CLI_MODULE!r}, run_name='__main__', alter_sys=True)\n")
+    return lambda args: [sys.executable, "-c", code, *args]
+
+
+def summed_counts(counts_path: str) -> dict[str, int]:
+    total = dict.fromkeys(KERNELS, 0)
+    with open(counts_path) as f:
+        for line in f:
+            for name, n in json.loads(line).items():
+                total[name] += n
+    return total
+
+
+def route_ms(paths: list[str], dim: int) -> dict:
+    """Host ms an item of `load_and_preprocess` (the uint8 feed) per file
+    kind, with the route each took (median of ROUTE_LOADS loads)."""
+    out = {}
+    for kind, path in paths:
+        before = dict(transforms.ROUTES)
+        times = []
+        for _ in range(ROUTE_LOADS):
+            t = time.perf_counter()
+            transforms.load_and_preprocess(path, dim, as_uint8=True)
+            times.append((time.perf_counter() - t) * 1e3)
+        route = next(r for r in transforms.ROUTES if transforms.ROUTES[r] != before.get(r, 0))
+        out[kind] = {"route": route, "ms_per_item": statistics.median(times)}
+    return out
+
+
+def phase_extract(root: str, work: str, command) -> dict:
+    """`extract-patches` on EXTRACT_IMAGES of a fixture's images: the CLI
+    on the card (fp32), and the tool's `PatchExtractor` with the CLI's
+    model on the card under the bf16 policy and on the CPU in fp32 (the
+    plain versions); every crop's feature card against CPU at cosine
+    >= 0.99."""
+    images = os.path.join(work, "images")
+    os.makedirs(images)
+    for name in sorted(os.listdir(os.path.join(root, "images")))[:EXTRACT_IMAGES]:
+        os.symlink(os.path.join(root, "images", name), os.path.join(images, name))
+    out_dir = os.path.join(work, "cuda")
+    feats, seconds = {}, {}
+    _, seconds["cli_cuda"] = Soak.run_cli(
+        ["extract-patches", "--data-root", work, "--clip-model-name", "ViT-B-16", "--out-dir",
+         out_dir, "--batch-images", str(EXTRACT_IMAGES), "--device", "cuda"],
+        "extract-patches --device cuda", command=command)
+    feats["cli_cuda"] = np.load(os.path.join(out_dir, "pack.npy"))
+    paths = [p for p, _ in Extract.enumerate_image_dir(work)]
+    for label, device, precision in (("cuda_bf16", "cuda", "bf16"), ("cpu", "cpu", "fp32")):
+        model = Cli.load_model_variables(get_clip_config("ViT-B-16"), None, None, 13)
+        model = apply_precision(model, precision).to(device).eval()
+
+        @torch.inference_mode()
+        def encode(crops):
+            return model.encode_image(torch.from_numpy(crops).to(device))[0].float().cpu()
+
+        t = time.perf_counter()
+        feats[label] = Extract.PatchExtractor(encode, 224, EXTRACT_IMAGES).extract_batch(paths)
+        seconds[label] = time.perf_counter() - t
+        del model
+    want = torch.from_numpy(feats["cpu"]).reshape(-1, feats["cpu"].shape[-1])
+    cos = {k: float(cosine(torch.from_numpy(feats[k]).reshape(want.shape), want).min())
+           for k in ("cli_cuda", "cuda_bf16")}
+    for k, c in cos.items():
+        if not c >= 0.99:
+            raise AssertionError(f"extract-patches: {k} crops against the CPU's fp32 run: "
+                                 f"min cosine {c:.5f} < 0.99")
+    return {"images": len(paths), "crops": int(want.shape[0]), "min_cosine": cos,
+            "seconds": seconds}
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 15, the dataset and CLI path, through the port's CLI in
+    subprocesses (`benchmarks/accuracy_soak.py run_leg`): soak legs B
+    (learnable FashionIQ) and C (learnable CIRR) at ViT-B-16, B = 16, 15
+    epochs, the two legs' process chains side by side (the card and the
+    host's 8 cores hold both; the results do not depend on it, the
+    seconds do), then `extract-patches`; launch counts summed over every
+    CLI process."""
+    t0 = time.perf_counter()
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as work:
+        counts_path = os.path.join(work, "launches.jsonl")
+        open(counts_path, "w").close()
+        command = counting_cli(counts_path)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = {leg: pool.submit(Soak.run_leg, leg, os.path.join(work, f"leg_{leg}"),
+                                     min_gain=LEG_MIN_GAIN, command=command)
+                    for leg in ("B", "C")}
+            legs = {leg: f.result() for leg, f in runs.items()}
+        legs_seconds = time.perf_counter() - t0
+        for leg, res in legs.items():
+            k, tr = res["metric_key"], res["train"]
+            log(f"  leg {leg} ({res['dataset']}): untrained {k} "
+                f"{res['untrained_eval'][k]:.2f}; val curve {tr['first_metric']:.2f} -> best "
+                f"{tr['best_metric']:.2f} over {tr['steps']} steps; trained CLI eval {k} "
+                f"{res['trained_eval'][k]:.2f} (== best); seconds "
+                + ", ".join(f"{s} {v:.1f}" for s, v in res["seconds"].items()) + f" ({card})")
+        log(f"  legs B and C side by side: {legs_seconds:.1f} s ({card})")
+        fiq = os.path.join(work, "leg_B", "fixture")
+        routes = route_ms([("png", os.path.join(fiq, "images", "dress0.png")),
+                           ("jpeg", jpeg_copy(os.path.join(fiq, "images", "dress0.png"),
+                                              work))], 224)
+        log("  decode routes: " + "; ".join(
+            f"{kind} -> {r['route']} {r['ms_per_item']:.3f} ms an item (224, uint8)"
+            for kind, r in routes.items())
+            + f"; JPEG decoder built in: {native_image.has_decoder()} (host)")
+        extract = phase_extract(fiq, os.path.join(work, "extract"), command)
+        log(f"  extract-patches: {extract['images']} images, {extract['crops']} crops, min "
+            "cosine against the CPU's fp32 run: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in extract["min_cosine"].items())
+            + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in extract["seconds"].items())
+            + f" ({card})")
+        launches = summed_counts(counts_path)
+    missing = [name for name in LEG_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"phase 15: kernels never launched by the CLI runs: {missing}")
+    seconds = time.perf_counter() - t0
+    log(f"  phase 15 took {seconds:.1f} s; launches " + ", ".join(
+        f"{n.split(' ')[-1]} {c}" for n, c in launches.items() if c) + f" ({card})")
+    return {"legs": legs, "legs_seconds": legs_seconds, "routes": routes, "extract": extract,
+            "launches": launches, "seconds": seconds}
+
+
+def jpeg_copy(png: str, work: str) -> str:
+    """The same pixels as a JPEG (PIL writes it), for the JPEG route's time."""
+    from PIL import Image
+
+    path = os.path.join(work, "route.jpg")
+    Image.open(png).convert("RGB").save(path, quality=90)
+    return path
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json-out", help="also write every measurement to this file")
@@ -2749,6 +2934,13 @@ def main() -> None:
             f"{split['device_ms']:.3f} ms, idle share {split['idle_share']:.3f}; "
             + "; ".join(f"{t['kernel'][:48]} {t['ms']:.3f} ms x{t['launches']}"
                         for t in split["top"]) + span_text + f" ({card})")
+    # the CLI's processes get the card's memory that the services held
+    del service, api, rn_service, rn_api, tme_service, tme_api, profiles, embed_fn, query_fn
+    del int8_embed_fn, rn_embed_fn, rn_query_fn, tme_query_fn, fn
+    torch.cuda.empty_cache()
+    log(f"phase 15: the dataset and CLI path through the port's CLI: soak legs B and C, "
+        f"extract-patches ({card})")
+    cli_info = phase_cli(card)
     log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
         f"({card})")
 
@@ -2796,7 +2988,8 @@ def main() -> None:
                       "tme_serve": tme_info["launches"][name],
                       "tme_train": tme_train["launches"][name],
                       "eval": eval_info["launches"][name],
-                      "attn_experiment": experiment["launches"][name]}
+                      "attn_experiment": experiment["launches"][name],
+                      "cli_legs": cli_info["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -2836,7 +3029,7 @@ def main() -> None:
                            int8_quantize_passes=int8_quant_rows,
                            int8_gemm_edge_max_err=int8_gemm_worst,
                            f32_gemm_edge_max_err=f32_gemm_worst,
-                           host_us_per_call=host,
+                           host_us_per_call=host, cli=cli_info,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -19,18 +19,14 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.data.transforms import normalize_on_device
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 from fashionern_aaai2024_tpu_torch.models.clip.resnet import ModifiedResNet
 from fashionern_aaai2024_tpu_torch.models.clip.text import TextTower
 from fashionern_aaai2024_tpu_torch.models.clip.vit import ViTTower
-
-# `fashionern_aaai2024_tpu/data/transforms.py:20-21`
-CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
-CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
 class CLIP(TextTower):
@@ -50,9 +46,7 @@ class CLIP(TextTower):
         images are normalized here; float images are taken as already
         normalized."""
         if images.dtype == torch.uint8:
-            scale = torch.from_numpy(1.0 / (255.0 * CLIP_STD)).to(images.device)
-            shift = torch.from_numpy(-CLIP_MEAN / CLIP_STD).to(images.device)
-            images = images.float() * scale + shift
+            images = normalize_on_device(images, images.device)
         return self.visual(images)
 
     def encode_text(self, text_ids: torch.Tensor, mode: str = "global"):

@@ -7,83 +7,44 @@ does and flags every other text (HTML entities, non-ASCII bytes,
 special-token literals); `SimpleTokenizer` re-encodes the flagged rows
 in Python, so the ids are always the Python path's.
 
-Build: `g++` at first use into `build/native/<hash>/` at the root of the
-checkout, keyed by a hash of the source and the flags. Where the JAX
-binding quietly stays in Python when the build fails, this one raises
-with the compiler's output: the port has one tokenizer path.
+Build: `g++` at first use (`native/build.py`). Where the JAX binding
+quietly stays in Python when the build fails, this one raises with the
+compiler's output: the port has one tokenizer path.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 
 import numpy as np
 
+from fashionern_aaai2024_tpu_torch.native.build import NativeLibrary
+
 SOURCE = Path(__file__).resolve().with_name("fasttokenizer.cpp")
-BUILD_ROOT = SOURCE.parent.parent.parent / "build" / "native"
 FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
-_LIB_NAME = "libfasttokenizer.so"
 FT_OK = 0
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ft_create.restype = ctypes.c_void_p
+    lib.ft_create.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.ft_destroy.argtypes = [ctypes.c_void_p]
+    for name in ("ft_sot", "ft_eot"):
+        getattr(lib, name).restype = ctypes.c_int32
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.ft_encode_batch.restype = None
+    lib.ft_encode_batch.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
+                                    ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
+                                    ctypes.c_void_p]
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / _LIB_NAME
-
-
-def _build(target: Path) -> None:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the native tokenizer cannot be built")
-    target.parent.mkdir(parents=True, exist_ok=True)
-    # build beside the target, then rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(dir=target.parent, suffix=".so")
-    os.close(fd)
-    try:
-        done = subprocess.run([cxx, *FLAGS, str(SOURCE), "-o", tmp], capture_output=True,
-                              text=True)
-        if done.returncode != 0:
-            raise RuntimeError(f"g++ failed ({done.returncode}) building {SOURCE}:\n"
-                               f"{done.stdout}\n{done.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+LIBRARY = NativeLibrary(SOURCE, "libfasttokenizer.so", [FLAGS], _bind)
 
 
 def load() -> ctypes.CDLL:
     """The built core (built at the first call of the process)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = library_path()
-            if not path.is_file():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
-            lib.ft_create.restype = ctypes.c_void_p
-            lib.ft_create.argtypes = [ctypes.c_char_p, ctypes.c_int64]
-            lib.ft_destroy.argtypes = [ctypes.c_void_p]
-            for name in ("ft_sot", "ft_eot"):
-                getattr(lib, name).restype = ctypes.c_int32
-                getattr(lib, name).argtypes = [ctypes.c_void_p]
-            lib.ft_encode_batch.restype = None
-            lib.ft_encode_batch.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
-                                            ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
-                                            ctypes.c_void_p]
-            _lib = lib
-        return _lib
+    return LIBRARY.load()
 
 
 class NativeBPE:

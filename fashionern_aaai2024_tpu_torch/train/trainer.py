@@ -13,9 +13,7 @@ state).
 Differences from the JAX Trainer:
   * `device` in place of `mesh`. A mesh of more than one device, and
     therefore "global" negatives across devices, raise
-    `NotImplementedError` (ROADMAP A8); so does any dataset class or
-    dataset evaluator the port does not have yet (A9): pass
-    `train_dataset` and `validator`.
+    `NotImplementedError` (ROADMAP A8).
   * The model carries its weights: pass a `ComposedCIRModel`, or the
     Trainer builds one with seeded random weights
     (`models/composed.py random_init_`), which are not the JAX package's
@@ -41,12 +39,27 @@ from fashionern_aaai2024_tpu_torch.data.captions import (
     generate_randomized_fiq_caption,
     generate_shoes_caption,
 )
+from fashionern_aaai2024_tpu_torch.data.cirr import CIRRDataset
+from fashionern_aaai2024_tpu_torch.data.fashion200k import (
+    Fashion200kDataset,
+    Fashion200kTestDataset,
+    Fashion200kTestQueryDataset,
+)
+from fashionern_aaai2024_tpu_torch.data.fashioniq import DRESS_TYPES, FashionIQDataset
 from fashionern_aaai2024_tpu_torch.data.loader import Loader
 from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
+from fashionern_aaai2024_tpu_torch.data.shoes import ShoesDataset
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
-from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI, resolve_device
+from fashionern_aaai2024_tpu_torch.retrieval.evaluate import (
+    InferenceAPI,
+    evaluate_cirr,
+    evaluate_fashion200k,
+    evaluate_fiq,
+    evaluate_shoes,
+    resolve_device,
+)
 from fashionern_aaai2024_tpu_torch.train.checkpoint import (
     BestCheckpointer,
     load_meta,
@@ -70,10 +83,10 @@ from fashionern_aaai2024_tpu_torch.utils.meters import AverageMeter
 @dataclasses.dataclass
 class TrainConfig:
     """Flag names mirror `run/train/train_fiq.py:181-205`; the fields are
-    the JAX TrainConfig's, less `data_root` and `target_ratio`, which only
-    the dataset classes read (ROADMAP A9)."""
+    the JAX TrainConfig's."""
 
     dataset: str = "fashioniq"            # fashioniq | cirr | shoes | fashion200k
+    data_root: str = ""
     clip_model_name: str = "RN50x4"
     batch_size: int = 1024                # per device (reference: per rank)
     lr: float = 4e-5
@@ -82,6 +95,7 @@ class TrainConfig:
     print_frequency: int = 100
     ckpt_dir: str = "ckpt"
     seed: int = 42
+    target_ratio: float = 1.25
     patch_num: int = 13
     num_workers: int = 8
     worker_type: str = "thread"           # "thread" | "process" (fork, decode-bound)
@@ -128,33 +142,102 @@ def _plain_captions(batch: dict, rng: random.Random) -> list[str]:
     return list(batch["caption"])
 
 
-def _unported_dataset(cfg: TrainConfig):
-    raise NotImplementedError(
-        f"the {cfg.dataset} dataset class is not ported yet (ROADMAP.md A9): "
-        "pass train_dataset")
+def _dim(cfg: TrainConfig) -> int:
+    return get_clip_config(cfg.clip_model_name).input_dim
 
 
-def _unported_validator(cfg: TrainConfig):
-    raise NotImplementedError(
-        f"the {cfg.dataset} validation set (its dataset class) is not ported yet "
-        "(ROADMAP.md A9): pass validator, e.g. one that runs retrieval/evaluate.py's "
-        "evaluator over in-memory loaders")
+def _loader(cfg: TrainConfig, dataset) -> Loader:
+    return Loader(dataset, cfg.eval_batch_size, num_workers=cfg.num_workers,
+                  worker_type=cfg.worker_type)
+
+
+def _make_fiq_train(cfg: TrainConfig):
+    return FashionIQDataset(cfg.data_root, "train", DRESS_TYPES, mode="relative",
+                            dim=_dim(cfg), target_ratio=cfg.target_ratio,
+                            image_dtype=cfg.image_dtype)
+
+
+def _make_cirr_train(cfg: TrainConfig):
+    return CIRRDataset(cfg.data_root, "train", mode="relative", dim=_dim(cfg),
+                       target_ratio=cfg.target_ratio, image_dtype=cfg.image_dtype)
+
+
+def _make_shoes_train(cfg: TrainConfig):
+    return ShoesDataset(cfg.data_root, "train", mode="relative", dim=_dim(cfg),
+                        target_ratio=cfg.target_ratio, image_dtype=cfg.image_dtype)
+
+
+def _make_200k_train(cfg: TrainConfig):
+    return Fashion200kDataset(cfg.data_root, "train", dim=_dim(cfg),
+                              target_ratio=cfg.target_ratio, image_dtype=cfg.image_dtype)
+
+
+def _fiq_validator(cfg: TrainConfig):
+    mk = dict(dim=_dim(cfg), target_ratio=cfg.target_ratio)
+
+    def run(api: InferenceAPI):
+        loaders = {
+            dt: (_loader(cfg, FashionIQDataset(cfg.data_root, "val", [dt], mode="classic", **mk)),
+                 _loader(cfg, FashionIQDataset(cfg.data_root, "val", [dt], mode="relative",
+                                               **mk)))
+            for dt in DRESS_TYPES}
+        m = evaluate_fiq(api, loaders)
+        return m["avg"], m
+
+    return run
+
+
+def _cirr_validator(cfg: TrainConfig):
+    mk = dict(dim=_dim(cfg), target_ratio=cfg.target_ratio)
+
+    def run(api: InferenceAPI):
+        m = evaluate_cirr(
+            api, _loader(cfg, CIRRDataset(cfg.data_root, "val", mode="classic", **mk)),
+            _loader(cfg, CIRRDataset(cfg.data_root, "val", mode="relative", **mk)))
+        return m["headline"], m
+
+    return run
+
+
+def _shoes_validator(cfg: TrainConfig):
+    mk = dict(dim=_dim(cfg), target_ratio=cfg.target_ratio)
+
+    def run(api: InferenceAPI):
+        m = evaluate_shoes(
+            api, _loader(cfg, ShoesDataset(cfg.data_root, "val", mode="classic", **mk)),
+            _loader(cfg, ShoesDataset(cfg.data_root, "val", mode="relative", **mk)))
+        return m["avg"], m
+
+    return run
 
 
 def _200k_validator(cfg: TrainConfig):
-    """Opt-in, as in JAX: the reference never validates 200k in training."""
-    return _unported_validator(cfg) if cfg.validate_200k else None
+    """Opt-in (`validate_200k`), as in JAX: the reference never validates
+    200k in training (`base_trainer.py:50-53`); None keeps that skip. At
+    fixture scale the test split's multi-positive eval gives 200k the
+    same validate-and-select chain as the other datasets."""
+    if not cfg.validate_200k:
+        return None
+    mk = dict(dim=_dim(cfg), target_ratio=cfg.target_ratio)
+
+    def run(api: InferenceAPI):
+        m = evaluate_fashion200k(
+            api, _loader(cfg, Fashion200kTestDataset(cfg.data_root, split="test", **mk)),
+            _loader(cfg, Fashion200kTestQueryDataset(cfg.data_root, split="test", **mk)))
+        return m["avg"], m
+
+    return run
 
 
 PLUGINS: dict[str, DatasetPlugin] = {
-    "fashioniq": DatasetPlugin("fashioniq", _unported_dataset, _fiq_captions,
-                               make_validator=_unported_validator),
-    "cirr": DatasetPlugin("cirr", _unported_dataset, _plain_captions,
-                          make_validator=_unported_validator),
-    "shoes": DatasetPlugin("shoes", _unported_dataset, _shoes_captions,
-                           make_validator=_unported_validator),
+    "fashioniq": DatasetPlugin("fashioniq", _make_fiq_train, _fiq_captions,
+                               make_validator=_fiq_validator),
+    "cirr": DatasetPlugin("cirr", _make_cirr_train, _plain_captions,
+                          make_validator=_cirr_validator),
+    "shoes": DatasetPlugin("shoes", _make_shoes_train, _shoes_captions,
+                           make_validator=_shoes_validator),
     "fashion200k": DatasetPlugin(
-        "fashion200k", _unported_dataset, _plain_captions, ref_key="ref_id",
+        "fashion200k", _make_200k_train, _plain_captions, ref_key="ref_id",
         make_validator=_200k_validator,
         on_epoch=lambda ds, epoch: getattr(ds, "resample_epoch", lambda: None)()),
 }

@@ -71,6 +71,10 @@ slices up to M = 128, 2 at 129 and 1 at 1024 at d = 512; 3, 1 and 1 at
 640), at the tolerances above; a SASS check holds its fp32 GEMM to tf32 HGMMA fed
 by UTMALDG.
 
+The data path: a dataset batch of the uint8 feed normalized on
+the card equals the CPU's float feed bit for bit, and `PatchExtractor`
+over a small seeded ViT on the card holds the CPU's features at 1e-4.
+
 The attention experiment's X1-X4 (`ops/attn_experiment.py`) at its own
 shapes at batch 2 to 4, at the tolerances above: X1 (the grouped kernel)
 on every row and lane of the padded output, a row whose keys all carry
@@ -1513,3 +1517,66 @@ def test_block_kernel_equals_the_pair_at_the_ln_widths(device, dtype, b, s, w, h
     pair = M.mlp_subblock(A.attention_subblock(*args[:7], heads, causal=causal), *args[7:])
     torch.cuda.synchronize()
     torch.testing.assert_close(got, pair, atol=0, rtol=0)
+
+
+def test_uint8_feed_normalized_on_the_card_equals_the_cpu_feed(device, tmp_path):
+    """A dataset batch of the uint8 feed, normalized on the card
+    (`normalize_on_device`, as `CLIP.encode_image` does), equals the float
+    feed the CPU normalizes (`native.normalize_images`) bit for bit: both
+    round x * (1 / (255 std)) and then + (-mean / std)."""
+    from fashionern_aaai2024_tpu_torch.data.fashioniq import DRESS_TYPES, FashionIQDataset
+    from fashionern_aaai2024_tpu_torch.data.loader import Loader
+    from fashionern_aaai2024_tpu_torch.data.transforms import normalize_on_device
+    from fashionern_aaai2024_tpu_torch.tools.make_fixture import make_fixture
+
+    root = make_fixture(str(tmp_path / "fiq"), "fashioniq", dim=16, learnable=True,
+                        n_images=6, n_triplets=4)
+    batches = {}
+    for dtype in ("uint8", "float32"):
+        ds = FashionIQDataset(root, "train", DRESS_TYPES, dim=224, image_dtype=dtype)
+        batches[dtype] = next(iter(Loader(ds, 8, num_workers=0)))
+    u8 = batches["uint8"]["ref_image"]
+    assert u8.dtype == np.uint8 and u8.shape == (8, 224, 224, 3)
+    got = normalize_on_device(u8, device)
+    assert got.device.type == "cuda"
+    want = torch.from_numpy(batches["float32"]["ref_image"])
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+def test_extract_patches_card_against_cpu(device, tmp_path):
+    """`PatchExtractor` over a small seeded ViT on the card (fp32, the
+    kernels) against the same tower on the CPU (the plain versions): every
+    crop's feature at the fp32 tolerance of a two-layer tower."""
+    from PIL import Image
+
+    from fashionern_aaai2024_tpu_torch.models.clip import config as C
+    from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+    from fashionern_aaai2024_tpu_torch.tools.extract_patches import (
+        PatchExtractor,
+        enumerate_image_dir,
+    )
+
+    cfg = C.CLIPConfig(name="small", vision=C.VisionConfig(
+        kind="vit", image_size=32, embed_dim=24, width=128, layers=2, heads=2, patch_size=16),
+        text=C.TextConfig(vocab_size=100, context_length=16, width=64, heads=2, layers=2,
+                          embed_dim=24))
+    g = np.random.default_rng(0)
+    (tmp_path / "images").mkdir()
+    for i, (h, w) in enumerate(((120, 90), (64, 64), (50, 130))):
+        Image.fromarray(g.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            tmp_path / "images" / f"im{i}.png")
+    items = enumerate_image_dir(str(tmp_path))
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0)).eval()
+    feats = {}
+    for dev in ("cpu", device):
+        model = model.to(dev)
+
+        @torch.inference_mode()
+        def encode(crops):
+            return model.encode_image(torch.from_numpy(crops).to(dev))[0].float().cpu()
+
+        feats[str(dev)] = torch.from_numpy(
+            PatchExtractor(encode, 32, batch_images=2).extract_batch([p for p, _ in items]))
+    got, want = feats[str(device)], feats["cpu"]
+    assert got.shape == (3, 13, 24)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

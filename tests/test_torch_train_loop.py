@@ -26,11 +26,16 @@ from fashionern_aaai2024_tpu.data.loader import Loader as JaxLoader
 from fashionern_aaai2024_tpu.data.prefetch import prefetch_iter as jax_prefetch
 from fashionern_aaai2024_tpu.retrieval import metrics as JMet
 from fashionern_aaai2024_tpu_torch.data import captions as TC
+from fashionern_aaai2024_tpu_torch.data.cirr import CIRRDataset
+from fashionern_aaai2024_tpu_torch.data.fashion200k import Fashion200kDataset
+from fashionern_aaai2024_tpu_torch.data.fashioniq import FashionIQDataset
 from fashionern_aaai2024_tpu_torch.data.loader import Loader
 from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
+from fashionern_aaai2024_tpu_torch.data.shoes import ShoesDataset
 from fashionern_aaai2024_tpu_torch.models.clip import config as torch_config
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
 from fashionern_aaai2024_tpu_torch.retrieval import metrics as TMet
+from fashionern_aaai2024_tpu_torch.tools.make_fixture import make_fixture
 from fashionern_aaai2024_tpu_torch.train import checkpoint as ckpt
 from fashionern_aaai2024_tpu_torch.train.state import create_train_state
 from fashionern_aaai2024_tpu_torch.train.trainer import (
@@ -247,22 +252,41 @@ def test_trainer_trains_with_tme(tmp_path, cache_features):
                 tokenizer=crc_tokenizer)
 
 
-def test_trainer_raises_on_a_mesh_and_on_missing_datasets(tmp_path):
+def test_trainer_raises_on_a_mesh_and_on_missing_datasets(tmp_path, monkeypatch):
+    """A mesh of more than one device raises (A8). Without an injected
+    dataset or validator, each dataset's plugin builds its dataset class
+    and its validator from a fixture tree (`tools/make_fixture.py`), and
+    the validation runs; Fashion200k validates only when asked."""
     class Mesh:
         devices = np.empty((2, 4), object)
 
     cfg = TrainConfig(dataset="fashioniq", num_workers=0, ckpt_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="A8"):
         Trainer(cfg, device="cpu", mesh=Mesh(), model=_model(), tokenizer=crc_tokenizer)
-    with pytest.raises(NotImplementedError, match="dataset class.*A9"):
-        Trainer(cfg, device="cpu", model=_model(), tokenizer=crc_tokenizer)
-    with pytest.raises(NotImplementedError, match="evaluator"):
-        Trainer(cfg, device="cpu", model=_model(), tokenizer=crc_tokenizer,
-                train_dataset=SyntheticRelativeDataset())
     # a one-device mesh is the default path
     Trainer(cfg, device="cpu", mesh=[torch.device("cpu")], model=_model(),
             tokenizer=crc_tokenizer, train_dataset=SyntheticRelativeDataset(),
             plugin=DatasetPlugin("s", lambda c: None, _fiq_captions))
+    monkeypatch.setitem(torch_config._CONFIGS, "port-test", small_config(torch_config))
+    classes = {"fashioniq": FashionIQDataset, "cirr": CIRRDataset, "shoes": ShoesDataset,
+               "fashion200k": Fashion200kDataset}
+    for name, cls in classes.items():
+        root = make_fixture(str(tmp_path / name), name, dim=D, patch_num=PATCH_NUM,
+                            **({} if name == "fashion200k" else dict(n_images=6,
+                                                                     n_triplets=4)))
+        cfg = TrainConfig(dataset=name, data_root=root, clip_model_name="port-test",
+                          num_workers=0, ckpt_dir=str(tmp_path / f"ckpt_{name}"),
+                          eval_batch_size=4, validate_200k=True)
+        tr = Trainer(cfg, device="cpu", model=_model(), tokenizer=crc_tokenizer)
+        assert isinstance(tr.train_dataset, cls) and len(tr.train_dataset) > 0
+        item = tr.train_dataset[0]
+        assert item["ref_image"].shape == (32, 32, 3) and item["ref_patch"].shape == (13, D)
+        metric = tr.validate(0)
+        assert 0.0 <= metric <= 100.0 and tr.best.best_metric == metric
+        if name == "fashion200k":
+            cfg = dataclasses.replace(cfg, validate_200k=False)
+            assert Trainer(cfg, device="cpu", model=_model(),
+                           tokenizer=crc_tokenizer).validator is None
 
 
 def test_cached_features_match_the_image_step(tmp_path):
@@ -352,12 +376,14 @@ def test_meter_and_logger(tmp_path):
 
 
 def test_port_imports_nothing_of_jax_optax_or_orbax():
-    """Every module of the port, the train path included, imports with
-    jax, flax, optax, orbax and the JAX package made unimportable."""
+    """Every module of the port, the train path, the data layer, the CLI
+    and the tools included, imports with jax, flax, optax, orbax, the JAX
+    package and PIL made unimportable (PIL is imported where an image is
+    decoded or written, so the port imports on a machine without it)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint',\n"
-        "             'fashionern_aaai2024_tpu'):\n"
+        "             'fashionern_aaai2024_tpu', 'PIL', 'PIL.Image'):\n"
         "    sys.modules[name] = None\n"
         "import fashionern_aaai2024_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -370,8 +396,12 @@ def test_port_imports_nothing_of_jax_optax_or_orbax():
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
     for name in ("train.trainer", "train.step", "train.checkpoint", "ops.losses",
-                 "data.loader", "retrieval.metrics", "utils.logging"):
-        assert f"fashionern_aaai2024_tpu_torch.{name}" in mods
+                 "data.loader", "retrieval.metrics", "utils.logging", "data.transforms",
+                 "data.patch_store", "data.fashioniq", "data.cirr", "data.shoes",
+                 "data.fashion200k", "native.build", "native.image", "tools.make_fixture",
+                 "tools.extract_patches", "tools.convert_patches", "cli.main", "run.train_fiq",
+                 "run.test_200k", "benchmarks.accuracy_soak"):
+        assert f"fashionern_aaai2024_tpu_torch.{name}" in mods, name
 
 
 def test_profile_dir_writes_a_trace_of_steps_two_to_four(tmp_path):
