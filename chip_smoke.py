@@ -28,13 +28,22 @@ Phases (each raises on failure; nothing is caught):
      and its host time at b = 1 and 32; then ViT-B-16 at full width with
      seeded weights under the bf16 serve policy, a RetrievalService over
      a 512-item synthetic gallery, 8 single queries and one 32-query
-     batch at k=10, launch counts of every kernel on that run (B10 in
-     each text-tower block, B1-B3 in the image tower's, B7 and B8 in the
-     DVR query tower, B11 at every standalone LayerNorm), and the card's
+     batch at k=10 through the service's one-dispatch serve program (one
+     CUDA graph per bucket 1, 8 and 32, captured at startup after one
+     eager warm-up call each; a query is one replay; each capture checks
+     the graph's kernel nodes, read through libcuda, against the launches
+     it recorded, and a replay adds those), launch counts of
+     every kernel on that run (the warm-ups and the replays: B10 in each
+     text-tower block, B1-B3 in the image tower's, B7 and B8 in the DVR
+     query tower, B11 at every standalone LayerNorm), and the card's
      embeddings held against the port's fp32 plain run on the CPU;
   4. timings: gallery embed + index refine in img/s (bench.py's
      definition: bf16, B=128, best of 3 windows of 20) and query P50
-     latency at b=1 and b=32;
+     latency at b=1 and b=32; then both query routes side by side in one
+     process, in turns, `ROUTE_SAMPLES` host-clock samples each at b=1
+     and b=32: the serve program (`service.query`, one graph replay) and
+     the multi-dispatch route (text tower, DVR, search: the service's
+     large-k path), P50 and P99;
   5. int8 kernels: B5 (int8 MLP sub-block) and B6 (int8 attention
      sub-block) against their plain versions at vit_b32, text_b32 and
      text_b1 in bf16 and fp32 and at vit_b1024 and text_b1024 in bf16,
@@ -122,7 +131,9 @@ Phases (each raises on failure; nothing is caught):
       `experiment_launches` just after;
   14. a `torch.profiler` split by kernel of one embed + refine call of
       each tier (phases 4, 6 and 10), of one ViT-B-16 and one RN50x4
-      query at b=1, and of one RN50x4 and one TME query at b=32, with the device time of the `record_function` spans (image
+      query at b=1, and of one RN50x4 and one TME query at b=32 (the
+      multi-dispatch route), and of one ViT-B-16 query through the serve
+      program at b=1 and 32 (a graph replay), with the device time of the `record_function` spans (image
       tower, its trunk and attention pool, index refine; text tower, DVR
       query tower, search). Every profile runs after every host-clock and
       event timing: the profiler slows later launches.
@@ -144,6 +155,33 @@ Phases (each raises on failure; nothing is caught):
       against the CPU's. Every kernel the legs run (B1-B4, B7, B8, B10-B12)
       must have launched; their counts go into the kernels line
       (`launches_by_path["cli_legs"]`).
+  16. the serving front: a ViT-B-16 service (bf16, phase 3's seeded
+      weights and gallery) at capacity 1,024: each bucket's graph replay
+      against the serve program's body run eagerly on the same inputs
+      (equal rows, scores within 1e-6: cuBLAS may take another algorithm
+      under capture, the port's kernels give the same bits; whether the
+      bits are equal is printed); one replay of each bucket under the
+      profiler, in a process of its own (`--replay-trace`), whose port
+      kernels must be the graph's kernel nodes, one event each;
+      `add_items` of 16 items, then answers
+      equal to a service rebuilt over the 528 items (rows equal, scores
+      within 1e-4: the grown gallery's products run at other shapes);
+      `quantize_refs` with `approx_recall` 0.95 on the same gallery
+      (startup `calibrate_approx`), its answers against a plain
+      re-computation (the int8 rows dequantized in numpy, the towers,
+      the fp32 product); the approximate tier's fold where it folds, a
+      200,000-row clustered synthetic gallery (`calibrate_approx`'s
+      recall, and the serve program by features against the plain towers,
+      product and a numpy fold; the top-50 selection of its [b, 200,000]
+      scores at b = 1 and 32, exact against the fold, eager and as a
+      graph replay); 64 concurrent b=1 HTTP clients through
+      the micro-batcher (answers equal to `service.query`, fewer batches
+      than requests); the native front over the same service (answers
+      equal); and `fashionern-torch serve` in a subprocess over a
+      learnable FashionIQ fixture (soak leg B's sizes): /healthz, /query
+      (single and batch), /add, /stats, then interrupted. Launch counts:
+      the phase's own (`launches_by_path["serving_front"]`) and the
+      serve process's (`["cli_serve"]`).
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -205,6 +243,7 @@ plain, library and TF32 bound times); the last line is `{"ok": true,
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -212,11 +251,14 @@ import functools
 import json
 import os
 import random
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from unittest import mock
 
 import numpy as np
@@ -245,14 +287,17 @@ from fashionern_aaai2024_tpu_torch.ops import block as TB
 from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import dropout as Dr
+from fashionern_aaai2024_tpu_torch.ops import graphs as GR
 from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
 from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
+from fashionern_aaai2024_tpu_torch.ops import similarity as S
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
 from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
+from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
-from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
+from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService, serve
 from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
 from fashionern_aaai2024_tpu_torch.train.state import create_train_state
 from fashionern_aaai2024_tpu_torch.train.step import build_train_step
@@ -298,6 +343,11 @@ LN_SHAPES = [("ln_final", dict(rows=32 * 77, w=640, eps=1e-5)),
 BERT_LAYERS = 2
 BERT_LNS = 1 + 2 * BERT_LAYERS
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
+# host-clock samples of each query route at b = 1 and 32 (phase 4)
+ROUTE_SAMPLES = 1000
+# phase 16: the live-add service's rows, the items it adds, the HTTP
+# clients, the synthetic gallery the approximate tier folds
+FRONT_CAPACITY, FRONT_ADDS, HTTP_CLIENTS, FOLD_GALLERY = 1024, 16, 64, 200_000
 CTX = 77
 CAPTIONS = ["is darker and has longer sleeves", "make it red", "more formal",
             "has a floral print", "is shorter and lighter", "with a collar",
@@ -1657,9 +1707,13 @@ def phase_slice(card_label: str, model_name: str = "ViT-B-16", quantize: bool = 
     run_s = time.perf_counter() - t0
     launches = launch_counts()
 
-    want = serve_launches(cfg, [BATCH] * (GALLERY // BATCH), [1] * len(refs) + [32])
+    # the serve program's calls: one eager warm-up call a bucket before its
+    # capture, then one replay a query call
+    buckets = list(service._serve_fn.buckets)
+    want = serve_launches(cfg, [BATCH] * (GALLERY // BATCH), buckets + [1] * len(refs) + [32])
     log(f"  main path {run_s:.2f} s; launches {launches} (expected {want}: "
-        f"{GALLERY // BATCH} gallery batches, {len(refs) + 1} query calls)")
+        f"{GALLERY // BATCH} gallery batches, warm-up calls at buckets {buckets}, "
+        f"{len(refs) + 1} query calls as graph replays)")
     tier = "int8 " if quantize else "TME " if tme else ""
     check_launches(f"{model_name} {tier}serve path", launches, want)
     norms = service.gallery.features.float().norm(dim=-1)
@@ -1812,6 +1866,46 @@ def phase_timings(service: RetrievalService, api: InferenceAPI) -> tuple[dict, o
                                k=K)[1] for i in range(reps)]
         lat[f"query_p50_ms_b{qb}"] = statistics.median(times) * 1e3
     return dict(embed_refine_img_per_s=img_s, **lat), embed_and_refine, query
+
+
+def multi_dispatch_query(service: RetrievalService, refs: list, caps: list, k: int = K):
+    """The multi-dispatch route of a query (the service's large-k path):
+    tokenize, text tower, DVR query tower, `RetrievalIndex.search`."""
+    with service._lock:
+        ids = service.api.tokenize(caps)
+        return service.multi_dispatch(ids, np.asarray([service.rows[r] for r in refs]), k)
+
+
+def route_latencies(service: RetrievalService, samples: int = ROUTE_SAMPLES) -> dict:
+    """Host-clock latency of a query by each route, in turns (serve
+    program, multi-dispatch, multi-dispatch, serve program, ...), each
+    sample ending in its host copy of the results: P50 and P99 in ms at
+    b = 1 and 32. Both routes must give the same rows."""
+    names = service.gallery.names
+    routes = {"serve_program": lambda r, c: service.query(r, c, k=K)[0],
+              "multi_dispatch": lambda r, c: multi_dispatch_query(service, r, c)}
+    out = {}
+    for qb in (1, 32):
+        caps = [CAPTIONS[j % 8] for j in range(qb)]
+        first = {name: fn(names[:qb], caps) for name, fn in routes.items()}
+        rows = [[service.rows[x["name"]] for x in res] for res in first["serve_program"]]
+        if rows != first["multi_dispatch"][1].tolist():
+            raise AssertionError(f"b={qb}: the serve program and the multi-dispatch route "
+                                 "rank differently")
+        times = {name: [] for name in routes}
+        for i in range(samples):
+            refs = [names[(i + j) % GALLERY] for j in range(qb)]
+            order = list(routes) if i % 2 == 0 else list(routes)[::-1]
+            for name in order:
+                t = time.perf_counter()
+                routes[name](refs, caps)
+                times[name].append((time.perf_counter() - t) * 1e3)
+        for name, ts in times.items():
+            ts.sort()
+            out[f"{name}_b{qb}"] = dict(p50_ms=statistics.median(ts),
+                                        p99_ms=ts[min(len(ts) - 1, int(0.99 * len(ts)))],
+                                        samples=len(ts))
+    return out
 
 
 def reset_launches() -> None:
@@ -2827,6 +2921,404 @@ def phase_cli(card: str) -> dict:
             "launches": launches, "seconds": seconds}
 
 
+def fold_twin(s: np.ndarray, k: int, recall: float) -> tuple[np.ndarray, np.ndarray]:
+    """The approximate tier's fold in numpy (`ops/similarity.py
+    folded_top_k`): -inf padding to L * 2^r columns, strided bins, the
+    first maximal slot a bin, the stable top-k of the bin maxima."""
+    q, n = s.shape
+    bins, r = S.reduction_output_size(n, k, recall)
+    if r == 0:
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        return np.take_along_axis(s, order, 1), order
+    padded = np.full((q, bins << r), -np.inf, np.float32)
+    padded[:, :n] = s
+    folded = padded.reshape(q, 1 << r, bins)
+    slot, best = folded.argmax(axis=1), folded.max(axis=1)
+    chosen = np.argsort(-best, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(best, chosen, 1), np.take_along_axis(slot, chosen, 1) * bins + chosen
+
+
+def same_answers(got: list, want: list, atol: float, what: str) -> float:
+    """Equal names in each result list, scores within `atol`; -> the
+    largest score difference."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if [x["name"] for x in g] != [x["name"] for x in w]:
+            raise AssertionError(f"{what}: {[x['name'] for x in g]} != "
+                                 f"{[x['name'] for x in w]}")
+        worst = max(worst, max(abs(a["score"] - b["score"]) for a, b in zip(g, w)))
+    if worst > atol:
+        raise AssertionError(f"{what}: scores differ by {worst:.3e} > {atol}")
+    return worst
+
+
+def http_json(url: str, payload: dict | None = None, timeout: float = 120) -> dict:
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"},
+                                 method="GET" if payload is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def front_replays(service: RetrievalService, names: list) -> dict:
+    """Each bucket's graph replay against the serve program's body run
+    eagerly on the same inputs."""
+    fn, out = service._serve_fn, {}
+    for b in fn.buckets:
+        ids = service.api.tokenize([CAPTIONS[i % 8] for i in range(b)])
+        rows = np.asarray([service.rows[names[(5 * i + b) % GALLERY]] for i in range(b)])
+        got_s, got_i = fn(ids, rows, k=fn.k_max)
+        want_s, want_i = (t.cpu().numpy() for t in fn.body(torch.from_numpy(ids).to(fn.device),
+                                                            torch.from_numpy(rows).to(fn.device)))
+        diff = float(np.abs(got_s - want_s).max())
+        if not np.array_equal(got_i, want_i) or diff > 1e-6:
+            raise AssertionError(f"bucket {b}: graph replay against the eager body: rows "
+                                 f"equal {np.array_equal(got_i, want_i)}, max diff {diff}")
+        out[b] = dict(bitwise=bool(np.array_equal(got_s, want_s)), max_abs_diff=diff)
+    return out
+
+
+def front_quantized_refs(api: InferenceAPI, model, batches: list, names: list) -> dict:
+    """`quantize_refs` with `approx_recall` 0.95 over the phase's gallery:
+    startup calibration, and 8 answers against a plain re-computation
+    (the int8 rows dequantized in numpy, the eager towers, the fp32
+    product, the numpy fold)."""
+    api_q = InferenceAPI(model, tokenizer=tokenizer(), device=api.device, batch_size=BATCH,
+                         quantize_refs=True, approx_recall=0.95)
+    service = RetrievalService(api_q, batches)
+    fn = service._serve_fn
+    (fv, fs), (pv, ps) = fn.ref_f, fn.ref_p
+    if fv.dtype != torch.int8 or pv.dtype != torch.int8:
+        raise AssertionError("quantize_refs: the resident reference rows are not int8")
+    ids = api_q.tokenize(CAPTIONS)
+    rows = np.asarray([service.rows[names[(11 * i) % GALLERY]] for i in range(8)])
+    got_s, got_i = fn(ids, rows, k=fn.k_max)
+    rf = fv.cpu().numpy()[rows].astype(np.float32) * fs.cpu().numpy()[rows][:, None]
+    rp = pv.cpu().numpy()[rows].astype(np.float32) * ps.cpu().numpy()[rows][:, :, None]
+    tg, ts = api_q.encode_text(ids, visual_emb=rp)
+    scores = (api_q.query(rf, rp, tg, ts) @ fn.gallery.t()).cpu().numpy()
+    want_s, want_i = fold_twin(scores, fn.k_max, 0.95)
+    diff = float(np.abs(got_s - want_s).max())
+    if not np.array_equal(got_i, want_i) or diff > 1e-5:
+        raise AssertionError(f"quantize_refs: serve program against the plain re-computation: "
+                             f"rows equal {np.array_equal(got_i, want_i)}, max diff {diff}")
+    return dict(measured_topk_recall=service.measured_topk_recall, max_abs_diff=diff,
+                folds=S.reduction_output_size(fn.capacity or len(names), fn.k_max, 0.95)[1] > 0)
+
+
+def front_fold(api: InferenceAPI, service: RetrievalService, names: list) -> dict:
+    """The approximate tier where it folds: a clustered 200,000-row
+    gallery (1,000 centres, unit rows), `calibrate_approx`'s recall on
+    the card, and the serve program by features (8 queries, bucket 8)
+    against the plain towers, the fp32 product and the numpy fold, with
+    its overlap with the exact top-50."""
+    g = np.random.default_rng(200)
+    d = api.model.clip_config.feature_dim
+    centres = g.standard_normal((1000, d)).astype(np.float32)
+    gal = centres[g.integers(0, 1000, FOLD_GALLERY)] + 0.5 * g.standard_normal(
+        (FOLD_GALLERY, d)).astype(np.float32)
+    gal /= np.linalg.norm(gal, axis=1, keepdims=True)
+    gal_t = torch.from_numpy(gal).to(api.device)
+    index = RetrievalIndex([str(i) for i in range(FOLD_GALLERY)], gal_t, approx_recall=0.95)
+    measured = index.calibrate_approx(k=51)
+    api_a = InferenceAPI(api.model, tokenizer=tokenizer(), device=api.device, batch_size=BATCH,
+                         approx_recall=0.95)
+    fn = api_a.build_serve_fn(gal_t, k_max=50)
+    rows = torch.as_tensor([service.rows[names[(13 * i) % GALLERY]] for i in range(8)],
+                           device=api.device)
+    rf = service.gallery.features[rows].cpu().numpy()
+    rp = service.gallery.local_features[rows].cpu().numpy()
+    ids = api_a.tokenize(CAPTIONS)
+    got_s, got_i = fn(ids, rf, rp, k=50)
+    tg, ts = api_a.encode_text(ids, visual_emb=rp)
+    scores = api_a.query(rf, rp, tg, ts) @ gal_t.t()
+    want_s, want_i = fold_twin(scores.cpu().numpy(), 50, 0.95)
+    diff = float(np.abs(got_s - want_s).max())
+    if not np.array_equal(got_i, want_i) or diff > 1e-5:
+        raise AssertionError(f"the fold: serve program against the plain re-computation: rows "
+                             f"equal {np.array_equal(got_i, want_i)}, max diff {diff}")
+    exact = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :50].cpu()
+    overlap = float(np.mean([len(set(a.tolist()) & set(e.tolist())) / 50
+                             for a, e in zip(got_i, exact.numpy())]))
+    wide = [service.rows[names[(13 * i) % GALLERY]] for i in range(32)]
+    rows32 = torch.as_tensor(wide, device=api.device)
+    rf32, rp32 = service.gallery.features[rows32], service.gallery.local_features[rows32]
+    tg, ts = api_a.encode_text(api_a.tokenize([CAPTIONS[i % 8] for i in range(32)]),
+                               visual_emb=rp32)
+    scores32 = api_a.query(rf32, rp32, tg, ts) @ gal_t.t()
+    return dict(gallery=FOLD_GALLERY, reduction=S.reduction_output_size(FOLD_GALLERY, 50, 0.95),
+                calibrate_approx_recall=measured, serve_recall_vs_exact=overlap,
+                max_abs_diff=diff, selection={b: selection_times(scores32[:b].contiguous())
+                                              for b in (1, 32)})
+
+
+def plain_graph(fn) -> torch.cuda.CUDAGraph:
+    """`fn` (plain PyTorch) captured into a CUDA graph after one call on a
+    side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def selection_times(scores: torch.Tensor) -> dict:
+    """The serve program's top-50 of [b, N] scores: the exact tier
+    (`stable_top_k`) against the fold at recall 0.95 (`folded_top_k`),
+    each called eagerly and replayed as a CUDA graph, as the serve
+    program runs it; CUDA-event medians of 200 calls."""
+    exact = lambda: S.stable_top_k(scores, 50)  # noqa: E731
+    fold = lambda: S.folded_top_k(scores, 50, 0.95)  # noqa: E731
+    return dict(exact_ms=median_ms(exact, 200), fold_ms=median_ms(fold, 200),
+                exact_graph_ms=median_ms(plain_graph(exact).replay, 200),
+                fold_graph_ms=median_ms(plain_graph(fold).replay, 200))
+
+
+def front_replay_trace() -> dict:
+    """`front_trace_process` in a process of its own: late in this one,
+    after phase 14's profiles, the profiler drops kernel events of graph
+    replays (a b=32 replay traced B10 3 times of 12)."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--replay-trace"],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"the replay trace exited {done.returncode}:\n{done.stderr[-3000:]}")
+    return {int(b): r for b, r in json.loads(done.stdout.strip().splitlines()[-1]).items()}
+
+
+def front_trace_process() -> None:
+    """Phase 16's service, built in a fresh process, then one replay of
+    each bucket's graph under the profiler: the port kernels that ran, by
+    kernel, must equal the graph's kernel nodes, which its capture read
+    through libcuda and checked against its recorded launches
+    (`ops/graphs.py`). Prints the result as one JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, _, _, service = front_service()
+    out = {}
+    for b, bucket in service._serve_fn._buckets.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            bucket.run()
+            torch.cuda.synchronize()
+        traced = collections.Counter()
+        for e in prof.key_averages():
+            kernel = GR.port_kernel(e.key)
+            if kernel:
+                traced[kernel] += e.count
+        if traced != bucket.graph.kernel_nodes:
+            raise AssertionError(f"bucket {b}: a replay ran the port kernels {dict(traced)}, "
+                                 f"its graph holds {dict(bucket.graph.kernel_nodes)}")
+        out[b] = dict(kernel_nodes=dict(traced),
+                      launches={w.__name__: n for w, n in bucket.graph.launches.items()})
+    print(json.dumps(out))
+
+
+def front_service() -> tuple:
+    """Phase 16's service: ViT-B-16 from phase 3's seed under the bf16
+    serve policy, phase 3's gallery, capacity FRONT_CAPACITY. -> (cfg,
+    model, api, (names, batches), service)."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
+    apply_precision(model, "bf16")
+    api = InferenceAPI(model, tokenizer=tokenizer(), device="cuda", batch_size=BATCH)
+    names, _, _, batches = make_gallery(cfg.vision.image_size, cfg.feature_dim)
+    return cfg, model, api, (names, batches), RetrievalService(api, batches,
+                                                                capacity=FRONT_CAPACITY)
+
+
+def front_http(service: RetrievalService, names: list) -> dict:
+    """HTTP_CLIENTS concurrent b=1 clients through the micro-batcher:
+    answers equal to `service.query`, fewer batches than requests."""
+    httpd = serve(service, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    reqs = [(names[(17 * i) % GALLERY], CAPTIONS[i % 8]) for i in range(HTTP_CLIENTS)]
+    try:
+        def post(rc):
+            t = time.perf_counter()
+            out = http_json(f"{url}/query", {"ref_name": rc[0], "caption": rc[1], "k": K})
+            return out, (time.perf_counter() - t) * 1e3
+
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            outs = list(pool.map(post, reqs))
+        stats = http_json(f"{url}/stats")
+    finally:
+        httpd.shutdown()
+        service.batcher.close()
+        service.batcher = None
+    want = [service.query([r], [c], k=K)[0][0] for r, c in reqs]
+    worst = same_answers([o["results"] for o, _ in outs], want, 1e-4, "HTTP clients")
+    batches = stats["dynamic_batching"]["batches"]
+    if batches >= HTTP_CLIENTS or stats["dynamic_batching"]["items"] != HTTP_CLIENTS:
+        raise AssertionError(f"micro-batcher: {stats['dynamic_batching']}")
+    ms = sorted(t for _, t in outs)
+    return dict(batches_run=batches, items=HTTP_CLIENTS, max_abs_diff=worst,
+                client_ms_p50=statistics.median(ms), client_ms_max=ms[-1])
+
+
+def front_native(service: RetrievalService, names: list) -> dict:
+    """The native front over the same service: a client batch and 16
+    concurrent singles, answers equal to `service.query`."""
+    from fashionern_aaai2024_tpu_torch.native import serve_frontend
+
+    ns = serve_frontend.serve_native(service, port=0)
+    url = f"http://127.0.0.1:{ns.port}"
+    refs = [names[(29 * i) % GALLERY] for i in range(8)]
+    try:
+        batch = http_json(f"{url}/query", {"ref_names": refs, "captions": CAPTIONS, "k": K})
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            singles = list(pool.map(lambda i: http_json(f"{url}/query", {
+                "ref_name": refs[i % 8], "caption": CAPTIONS[(i + 3) % 8], "k": K}), range(16)))
+        stats = http_json(f"{url}/stats")
+    finally:
+        ns.shutdown()
+    worst = same_answers(batch["results"], service.query(refs, CAPTIONS, k=K)[0], 1e-4,
+                         "native front, client batch")
+    want = [service.query([refs[i % 8]], [CAPTIONS[(i + 3) % 8]], k=K)[0][0] for i in range(16)]
+    worst = max(worst, same_answers([o["results"] for o in singles], want, 1e-4,
+                                    "native front, singles"))
+    return dict(requests=stats["requests"], batches=stats["dynamic_batching"]["batches"],
+                max_abs_diff=worst)
+
+
+def front_cli(work: str, card: str) -> dict:
+    """`fashionern-torch serve` in a subprocess (launch counts at its exit)
+    over a learnable FashionIQ fixture of soak leg B's sizes: /healthz,
+    /query single and batch, /add, /stats; then interrupted, and it must
+    exit 0."""
+    from fashionern_aaai2024_tpu_torch.tools.make_fixture import make_fixture
+
+    root = make_fixture(os.path.join(work, "fixture"), "fashioniq", n_images=64,
+                        n_triplets=128, learnable=True)
+    counts_path = os.path.join(work, "launches.jsonl")
+    open(counts_path, "w").close()
+    argv = counting_cli(counts_path)(
+        ["serve", "--dataset", "fashioniq", "--data-root", root, "--clip-model-name",
+         "ViT-B-16", "--bpe-path", os.path.join(root, "bpe.txt.gz"), "--num-workers", "0",
+         "--port", "0", "--capacity", "1024", "--device", "cuda"])
+    env = dict(os.environ, PYTHONPATH=Soak.REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    err_path = os.path.join(work, "serve.stderr")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+
+    def stderr_tail() -> str:
+        with open(err_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        url = None
+        for line in proc.stdout:
+            if line.startswith("serving "):
+                url = line.split(" on ")[1].split()[0]
+                break
+        if url is None:
+            raise AssertionError(f"serve printed no URL:\n{stderr_tail()}")
+        startup = time.perf_counter() - t0
+        health = http_json(f"{url}/healthz")
+        n = health["gallery_size"]
+        image = sorted(os.listdir(os.path.join(root, "images")))[0]
+        ref = os.path.splitext(image)[0]
+        one = http_json(f"{url}/query", {"ref_name": ref, "caption": "is red", "k": K})
+        two = http_json(f"{url}/query", {"ref_names": [ref, ref], "captions": ["is red", "blue"],
+                                         "k": K})
+        same_answers(two["results"][:1], [one["results"]], 1e-4, "serve CLI, batch vs single")
+        np.save(os.path.join(root, "added.npy"),
+                np.random.default_rng(3).standard_normal((13, 512)).astype(np.float32))
+        added = http_json(f"{url}/add", {"items": [{
+            "name": "added-item", "image_path": os.path.join(root, "images", image),
+            "patch_path": os.path.join(root, "added.npy")}]})
+        if added["gallery_size"] != n + 1:
+            raise AssertionError(f"serve CLI /add: {added}")
+        found = http_json(f"{url}/query", {"ref_name": "added-item", "caption": "is red",
+                                           "k": K})
+        stats = http_json(f"{url}/stats")
+        if stats["requests"] < 3 or stats["gallery_size"] != n + 1:
+            raise AssertionError(f"serve CLI /stats: {stats}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    if rc != 0:
+        raise AssertionError(f"serve CLI exited {rc}: {stderr_tail()}")
+    log(f"  serve CLI: up in {startup:.1f} s over {n} items; /query single, batch, /add "
+        f"(gallery {n} -> {added['gallery_size']}), the added item answers "
+        f"({len(found['results'])} results), /stats {stats['latency_ms']} ({card})")
+    return dict(startup_seconds=startup, gallery_size=n, stats=stats,
+                launches=summed_counts(counts_path))
+
+
+def phase_serving_front(card: str) -> dict:
+    """Phase 16, the serving front (module docstring)."""
+    t0 = time.perf_counter()
+    reset_launches()
+    cfg, model, api, (names, batches), service = front_service()
+    out = {"replay_vs_eager": front_replays(service, names)}
+    log("  graph replay vs eager body: " + ", ".join(
+        f"bucket {b}: rows equal, scores {'bit for bit' if r['bitwise'] else 'max diff %.2e' % r['max_abs_diff']}"
+        for b, r in out["replay_vs_eager"].items()) + f" ({card})")
+    out["replay_trace"] = front_replay_trace()
+    for b, r in out["replay_trace"].items():
+        log(f"  bucket {b}: one profiled replay (a fresh process) ran the graph's port "
+            f"kernel nodes {r['kernel_nodes']}; it counts the wrappers {r['launches']}")
+
+    g = np.random.default_rng(16)
+    side = cfg.vision.image_size
+    new = {"name": [f"new{i:02d}" for i in range(FRONT_ADDS)],
+           "image": ((g.random((FRONT_ADDS, side, side, 3), dtype=np.float32) - CLIP_MEAN)
+                     / CLIP_STD).astype(np.float32),
+           "patch": g.standard_normal((FRONT_ADDS, 13, cfg.feature_dim)).astype(np.float32)}
+    graphs = {b: bk.graph for b, bk in service._serve_fn._buckets.items()}
+    added = service.add_items(new["name"], new["image"], new["patch"])
+    if {b: bk.graph for b, bk in service._serve_fn._buckets.items()} != graphs:
+        raise AssertionError("live adds recaptured a graph")
+    rebuilt = RetrievalService(api, batches + [new])
+    probe = ([new["name"][0], new["name"][-1], names[3], names[GALLERY // 5]], CAPTIONS[:4])
+    out["live_adds"] = dict(added=added, max_abs_diff=same_answers(
+        service.query(*probe, k=K)[0], rebuilt.query(*probe, k=K)[0], 1e-4,
+        "live adds against a rebuilt service"))
+    del rebuilt
+    log(f"  add_items of {FRONT_ADDS}: {added}; answers equal to a service rebuilt over "
+        f"{GALLERY + FRONT_ADDS} items (max score diff {out['live_adds']['max_abs_diff']:.2e}) "
+        f"({card})")
+    out["quantized_refs"] = front_quantized_refs(api, model, batches, names)
+    out["fold"] = front_fold(api, service, names)
+    log(f"  quantize_refs + topk-recall 0.95 over {GALLERY} items: calibrate_approx "
+        f"{out['quantized_refs']['measured_topk_recall']}, plain re-computation max diff "
+        f"{out['quantized_refs']['max_abs_diff']:.2e}; the fold over {FOLD_GALLERY} clustered "
+        f"rows (L, r) = {out['fold']['reduction']}: calibrate_approx recall "
+        f"{out['fold']['calibrate_approx_recall']:.4f}, serve program vs exact top-50 "
+        f"{out['fold']['serve_recall_vs_exact']:.4f}, plain re-computation max diff "
+        f"{out['fold']['max_abs_diff']:.2e} ({card})")
+    for b, t in out["fold"]["selection"].items():
+        log(f"  top-50 of [{b}, {FOLD_GALLERY}] scores: exact {t['exact_ms']:.4f} ms eager, "
+            f"{t['exact_graph_ms']:.4f} ms in a graph; fold {t['fold_ms']:.4f} ms eager, "
+            f"{t['fold_graph_ms']:.4f} ms in a graph ({card})")
+    out["http"] = front_http(service, names)
+    log(f"  HTTP: {HTTP_CLIENTS} concurrent b=1 clients in {out['http']['batches_run']} "
+        f"batches, answers equal to service.query (max diff "
+        f"{out['http']['max_abs_diff']:.2e}); client P50 {out['http']['client_ms_p50']:.2f} "
+        f"ms, max {out['http']['client_ms_max']:.2f} ms ({card})")
+    out["native"] = front_native(service, names)
+    log(f"  native front: a client batch of 8 and 16 concurrent singles equal to "
+        f"service.query (max diff {out['native']['max_abs_diff']:.2e}) ({card})")
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    del service
+    torch.cuda.empty_cache()
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as work:
+        out["cli"] = front_cli(work, card)
+    out["seconds"] = time.perf_counter() - t0
+    missing = [n for n in (B7, B8, B10, B11, B12) if out["cli"]["launches"][n] == 0
+               or out["launches"][n] == 0]
+    if missing:
+        raise AssertionError(f"phase 16: kernels never launched: {missing}")
+    log(f"  phase 16 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def jpeg_copy(png: str, work: str) -> str:
     """The same pixels as a JPEG (PIL writes it), for the JPEG route's time."""
     from PIL import Image
@@ -2839,9 +3331,14 @@ def jpeg_copy(png: str, work: str) -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json-out", help="also write every measurement to this file")
+    parser.add_argument("--replay-trace", action="store_true",
+                        help="only phase 16's profiled replays (phase 16 runs this itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs one GPU")
+    if args.replay_trace:
+        front_trace_process()
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2871,6 +3368,10 @@ def main() -> None:
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
+    timings["routes"] = route_latencies(service)
+    for key, r in timings["routes"].items():
+        log(f"  route {key}: P50 {r['p50_ms']:.3f} ms, P99 {r['p99_ms']:.3f} ms over "
+            f"{r['samples']} samples ({card})")
     log(f"phase 5: int8 kernels B5 and B6 against their plain versions ({card})")
     int8_worst, int8_rows = phase_int8_kernels()
     int8_gemm_worst = phase_int8_gemm_edges()
@@ -2910,6 +3411,7 @@ def main() -> None:
     exp_worst, exp_rows = phase_experiment_kernels()
     experiment = phase_experiment(card)
     log(f"phase 14: profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
+        f"of the ViT-B-16 serve program at b=1 and 32, "
         f"and of an RN50x4 and a TME query at b=32 ({card})")
     vit_spans = ("embed/image_tower", "embed/index_refine")
     profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
@@ -2920,6 +3422,13 @@ def main() -> None:
                  EMBED_SPANS),
                 ("ViT-B-16 bf16 query b=1", lambda: query_fn(1), timings, "query_b1_profile",
                  QUERY_SPANS),
+                ("ViT-B-16 bf16 serve program b=1",
+                 lambda: service.query(service.gallery.names[:1], CAPTIONS[:1], k=K), timings,
+                 "serve_program_b1_profile", ()),
+                ("ViT-B-16 bf16 serve program b=32",
+                 lambda: service.query(service.gallery.names[:32],
+                                       [CAPTIONS[i % 8] for i in range(32)], k=K), timings,
+                 "serve_program_b32_profile", ()),
                 ("RN50x4 bf16 query b=1", lambda: rn_query_fn(1), rn_timings,
                  "query_b1_profile", QUERY_SPANS),
                 ("RN50x4 bf16 query b=32", rn_query_fn, rn_timings, "query_b32_profile",
@@ -2941,6 +3450,9 @@ def main() -> None:
     log(f"phase 15: the dataset and CLI path through the port's CLI: soak legs B and C, "
         f"extract-patches ({card})")
     cli_info = phase_cli(card)
+    log(f"phase 16: the serving front: graphs against the eager body, live adds, "
+        f"quantize_refs and the approximate tier, HTTP, the native front, the serve CLI ({card})")
+    front = phase_serving_front(card)
     log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
         f"({card})")
 
@@ -2989,7 +3501,9 @@ def main() -> None:
                       "tme_train": tme_train["launches"][name],
                       "eval": eval_info["launches"][name],
                       "attn_experiment": experiment["launches"][name],
-                      "cli_legs": cli_info["launches"][name]}
+                      "cli_legs": cli_info["launches"][name],
+                      "serving_front": front["launches"][name],
+                      "cli_serve": front["cli"]["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -3029,7 +3543,7 @@ def main() -> None:
                            int8_quantize_passes=int8_quant_rows,
                            int8_gemm_edge_max_err=int8_gemm_worst,
                            f32_gemm_edge_max_err=f32_gemm_worst,
-                           host_us_per_call=host, cli=cli_info,
+                           host_us_per_call=host, cli=cli_info, serving_front=front,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

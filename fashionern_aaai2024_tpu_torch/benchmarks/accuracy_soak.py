@@ -27,8 +27,7 @@ protocol), E learnable FashionIQ with `--tme`.
 
 Not here: the JAX soak's steps 5-6 (export the serve artifact, replay
 every query through the live service and the artifact) wait for ROADMAP
-A7 (artifacts) and A1 (the one-dispatch serve program); this script does
-not stand in for them.
+A7 (artifacts); this script does not stand in for them.
 
 Run (on the card, from the repo root):
     python -m fashionern_aaai2024_tpu_torch.benchmarks.accuracy_soak --legs B,C \\

@@ -16,10 +16,16 @@ take the reference's torch `state_dict`s (`.pth`) directly;
 Not here:
   * `fetch-bpe` (it downloads) and `convert-ckpt` (the port needs no
     conversion): not to port (ROADMAP).
-  * `serve`, `export`, `refresh-artifact` and `serve-artifact` are
-    registered with their JAX flags and raise `NotImplementedError`
-    (ROADMAP A1, A7), as do `eval --topk-recall` (A1) and
-    `eval --data-parallel` (A8).
+  * `export`, `refresh-artifact` and `serve-artifact` are registered
+    with their JAX flags and raise `NotImplementedError` (ROADMAP A7), as
+    does `--data-parallel` of `eval` and `serve` (A8).
+
+`serve` (`build_service`, `run_serve`; JAX `:569-612`, `:631-670`)
+builds the service and serves it over HTTP until interrupted, and prints
+one line with the bound URL (`--port 0` takes a free port). With
+`--native-front` it serves `/query` through the C++ front and `/add` on
+the admin port; where the front cannot be built, it raises (JAX falls
+back to the Python server).
 """
 
 from __future__ import annotations
@@ -81,9 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch / CUDA port's CLI: the JAX `fashionern` CLI's "
                     "subcommands and flags.",
         epilog="Not ported: fetch-bpe (it downloads; pass --bpe-path) and convert-ckpt "
-               "(the port loads the reference .pth state_dicts directly). serve, "
-               "export, refresh-artifact and serve-artifact are registered and raise "
-               "NotImplementedError (ROADMAP A1, A7).")
+               "(the port loads the reference .pth state_dicts directly). export, "
+               "refresh-artifact and serve-artifact are registered and raise "
+               "NotImplementedError (ROADMAP A7).")
     sub = parser.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="fine-tune the ERN fusion stack")
@@ -158,15 +164,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "weight load (the same forward up to one rounding)")
     e.add_argument("--topk-recall", default=None, type=float,
                    metavar="R",
-                   help="approximate top-k at recall target R (not ported: "
-                        "ROADMAP A1; the exact top-k runs when omitted)")
+                   help="approximate top-k at recall target R (the exact "
+                        "top-k runs when omitted)")
     e.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
                    help="tower/fusion weight+activation dtype "
                         "(models/composed.py apply_precision)")
 
     sv = sub.add_parser("serve",
-                        help="persistent retrieval service over HTTP "
-                             "(not ported: ROADMAP A1)")
+                        help="persistent retrieval service over HTTP")
     _add_common(sv)
     sv.add_argument("--clip-path", default=None)
     sv.add_argument("--fusion-model-path", default=None)
@@ -186,7 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="approx top-k selector at recall target R "
                          "(serving tier; exact when omitted)")
     sv.add_argument("--fold-bn", action="store_true")
-    sv.add_argument("--data-parallel", action="store_true")
+    sv.add_argument("--data-parallel", action="store_true",
+                    help="gallery-sharded serving (not ported: ROADMAP A8)")
     sv.add_argument("--precision", default="bf16", choices=["fp32", "bf16"],
                    help="serving dtype")
     sv.add_argument("--capacity", default=None, type=int,
@@ -410,9 +416,6 @@ def _tokenizer(args):
 
 
 def _refuse_unported_eval_flags(args) -> None:
-    if getattr(args, "topk_recall", None) is not None:
-        raise NotImplementedError("--topk-recall (the approximate top-k) is not ported yet "
-                                  "(ROADMAP A1)")
     if getattr(args, "data_parallel", False):
         raise NotImplementedError("--data-parallel is not ported yet (ROADMAP A8)")
 
@@ -431,9 +434,10 @@ def _loader(args, dataset):
 
 
 def build_inference_api(args):
-    """The InferenceAPI of an eval run: the model from `--clip-path`,
-    `--fusion-model-path` and the seed, with `--fold-bn` and the
-    `--precision` policy, on `--device`."""
+    """The InferenceAPI of an eval or serve run: the model from
+    `--clip-path`, `--fusion-model-path` and the seed, with `--fold-bn`
+    and the `--precision` policy, on `--device`; `--quantize-gallery`,
+    `--quantize-refs` and `--topk-recall`."""
     from fashionern_aaai2024_tpu_torch.models.clip.resnet import ModifiedResNet, fold_batchnorm
     from fashionern_aaai2024_tpu_torch.models.composed import apply_precision
     from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI, resolve_device
@@ -452,7 +456,9 @@ def build_inference_api(args):
     return InferenceAPI(model, tokenizer=_tokenizer(args), device=device,
                         batch_size=args.batch_size,
                         context_length=clip_cfg.text.context_length,
-                        quantize_gallery=getattr(args, "quantize_gallery", False))
+                        quantize_gallery=getattr(args, "quantize_gallery", False),
+                        quantize_refs=getattr(args, "quantize_refs", False),
+                        approx_recall=getattr(args, "topk_recall", None))
 
 
 def run_eval(args) -> dict:
@@ -582,6 +588,59 @@ def run_train(args):
     return trainer
 
 
+def build_service(args):
+    """The model, the gallery and the RetrievalService of a `serve` run
+    (apart from `run_serve`, so that tests drive the wiring without
+    `serve_forever`)."""
+    from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService
+
+    api = build_inference_api(args)
+    print(f"embedding gallery ({args.dataset}/{args.split}) ...", flush=True)
+    spec = _dataset_kwargs(args, get_clip_config(args.clip_model_name))
+    return RetrievalService(api, make_classic_loader(args),
+                            capacity=getattr(args, "capacity", None), image_spec=spec,
+                            add_root=args.data_root)
+
+
+def run_serve(args) -> None:
+    """`serve`: the service over HTTP until interrupted; one line with the
+    bound URL once it takes requests."""
+    import threading
+
+    from fashionern_aaai2024_tpu_torch.retrieval.server import serve
+
+    service = build_service(args)
+    dynamic = not args.no_dynamic_batching
+    if args.native_front:
+        from fashionern_aaai2024_tpu_torch.native import serve_frontend
+
+        ns = serve_frontend.serve_native(service, host=args.host, port=args.port)
+        admin_port = args.admin_port if args.admin_port is not None else args.port + 1
+        httpd = serve(service, host=args.host, port=admin_port, dynamic_batching=dynamic)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        print(f"serving {service.gallery_size} gallery items on http://{args.host}:{ns.port} "
+              f"(native front; admin /add on http://{args.host}:{httpd.server_address[1]}; "
+              f"startup {service.startup_seconds:.1f}s)", flush=True)
+        try:
+            ns.wait()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            ns.shutdown()
+            httpd.shutdown()
+        return
+    httpd = serve(service, host=args.host, port=args.port, dynamic_batching=dynamic)
+    print(f"serving {service.gallery_size} gallery items on "
+          f"http://{args.host}:{httpd.server_address[1]} "
+          f"(startup {service.startup_seconds:.1f}s)", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+
+
 def _native_status(probe) -> object:
     try:
         return probe()
@@ -596,6 +655,7 @@ def run_info() -> dict:
 
     from fashionern_aaai2024_tpu_torch import native
     from fashionern_aaai2024_tpu_torch.native import image as native_image
+    from fashionern_aaai2024_tpu_torch.native import serve_frontend
     from fashionern_aaai2024_tpu_torch.native import tokenizer as native_tokenizer
     from fashionern_aaai2024_tpu_torch.train.trainer import PLUGINS
 
@@ -606,14 +666,15 @@ def run_info() -> dict:
         "native_loader": _native_status(lambda: native.LIBRARY.load() is not None),
         "native_tokenizer": _native_status(lambda: native_tokenizer.load() is not None),
         "native_image": _native_status(lambda: native_image.library().load() is not None),
+        "native_serve_front": _native_status(lambda: serve_frontend.LIBRARY.load() is not None),
         # gray/RGB JPEGs take the native pipeline where libjpeg was found
         "image_routes": {"jpeg": _native_status(native_image.jpeg_route), "other": "pil"},
         "torch": torch.__version__,
         "cuda": {"available": cuda,
                  "device": torch.cuda.get_device_name(0) if cuda else None},
-        "not_ported": {"serve": "A1", "export": "A7", "refresh-artifact": "A7",
-                       "serve-artifact": "A7", "eval --topk-recall": "A1",
-                       "eval --data-parallel": "A8",
+        "not_ported": {"export": "A7", "refresh-artifact": "A7",
+                       "serve-artifact": "A7", "eval --data-parallel": "A8",
+                       "serve --data-parallel": "A8",
                        "fetch-bpe": "not to port (it downloads)",
                        "convert-ckpt": "not to port (the .pth loads directly)"},
     }
@@ -649,7 +710,6 @@ def run_extract_patches(args) -> int:
 
 
 _UNPORTED = {
-    "serve": "the serve daemon is not ported yet (ROADMAP A1)",
     "export": "serve artifacts are not ported yet (ROADMAP A7)",
     "refresh-artifact": "serve artifacts are not ported yet (ROADMAP A7)",
     "serve-artifact": "serve artifacts are not ported yet (ROADMAP A7)",
@@ -670,6 +730,9 @@ def main(argv=None) -> int:
         else:
             for k, v in metrics.items():
                 print(f"{k}: {v}")
+        return 0
+    if args.command == "serve":
+        run_serve(args)
         return 0
     if args.command == "extract-patches":
         print(f"extracted {run_extract_patches(args)} images")

@@ -265,9 +265,11 @@ class PlusModel(nn.Module):
         seq_num = text_features.shape[1]
         inputs = torch.cat([self.cls_token.expand(b, 1, d), reference_features,
                             text_features], dim=1)
+        # made on the device: a copy from the host could not be captured in
+        # a CUDA graph (the serve program)
         token_type_ids = torch.cat(
-            [torch.zeros((b, patch_num + 1), dtype=torch.long),
-             torch.ones((b, seq_num), dtype=torch.long)], dim=1).to(inputs.device)
+            [torch.zeros((b, patch_num + 1), dtype=torch.long, device=inputs.device),
+             torch.ones((b, seq_num), dtype=torch.long, device=inputs.device)], dim=1)
         last_hidden, pooled = self.bert_encoder.bert_model(inputs, token_type_ids, generator)
         return torch_normalize(pooled), last_hidden, pooled
 

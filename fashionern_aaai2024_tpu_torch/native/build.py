@@ -2,8 +2,9 @@
 
 Each library is one source file, compiled with `g++` at its first load
 into `build/native/<hash>/` at the root of the checkout, keyed by a hash
-of the source and the flags, so an edit or another flag set builds anew
-and a later process loads the cached file. Where the JAX package's
+of the source, the files it includes (`includes`) and the flags, so an
+edit or another flag set builds anew and a later process loads the
+cached file. Where the JAX package's
 bindings quietly stay in Python when a build fails, these raise with the
 compiler's output: the port has one path for each of them.
 """
@@ -40,11 +41,13 @@ def header_found(header: str) -> bool:
 class NativeLibrary:
     """One source, built with the first of `flag_sets` that compiles
     (later sets are fallbacks, e.g. without `-march=native`), loaded once
-    a process; `bind(lib)` declares the entry points' signatures."""
+    a process; `bind(lib)` declares the entry points' signatures;
+    `includes` are the sources that `source` includes."""
 
     def __init__(self, source: Path, name: str, flag_sets: Sequence[Sequence[str]],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None], includes: Sequence[Path] = ()):
         self.source = source
+        self.includes = tuple(includes)
         self.name = name
         self.flag_sets = [tuple(f) for f in flag_sets]
         self._bind = bind
@@ -54,7 +57,8 @@ class NativeLibrary:
 
     def library_path(self, flags: Sequence[str]) -> Path:
         h = hashlib.sha256(" ".join(flags).encode())
-        h.update(self.source.read_bytes())
+        for path in (self.source, *self.includes):
+            h.update(path.read_bytes())
         return BUILD_ROOT / h.hexdigest()[:16] / self.name
 
     def _build(self, target: Path, flags: Sequence[str]) -> str | None:

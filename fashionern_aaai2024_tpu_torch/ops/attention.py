@@ -394,7 +394,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = MHAFunction.apply(q, k, v, bias32, scale)
     else:
         out = _launch_mha(q, k, v, bias32, scale)
-    multi_head_attention.launches += 1
+    common.count(multi_head_attention)
     return out
 
 
@@ -432,7 +432,7 @@ def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = F
     common.check_cuda_operands("packed_qkv_self_attention", qkv)
     out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype,
                                 bias=attn_bias, images_per_block=images_per_block)
-    packed_qkv_self_attention.launches += 1
+    common.count(packed_qkv_self_attention)
     return out
 
 
@@ -466,7 +466,7 @@ def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
     out = _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1], heads=heads,
                        q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False, scale=scale,
                        out_dtype=q.dtype)
-    packed_kv_cross_attention.launches += 1
+    common.count(packed_kv_cross_attention)
     return out
 
 
@@ -510,7 +510,7 @@ def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.
     qkv = common.launch_gemm(x.view(b * s, w), weight, bias).view(b, s, 3 * w)
     out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype,
                                 bias=attn_bias)
-    fused_qkv_self_attention.launches += 1
+    common.count(fused_qkv_self_attention)
     return out
 
 
@@ -565,7 +565,7 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
     o = packed_qkv_self_attention(qkv.view(b, s, 3 * w), heads, causal=causal, scale=scale,
                                   attn_bias=attn_bias)
     out = common.launch_gemm(o.view(b * s, w), out_weight, out_bias, residual=x2)
-    attention_subblock.launches += 1
+    common.count(attention_subblock)
     return out.view(b, s, w)
 
 

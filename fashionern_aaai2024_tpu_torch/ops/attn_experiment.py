@@ -103,7 +103,7 @@ def mha_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.T
     out = A.launch_grouped_attention("mha_grouped", q, k, v, bias, batch=bh, heads=1, dh=dh,
                                      sq=sq, sk=sk, q_ld=dh, kv_ld=dh, group=g, split_rows=False,
                                      scale=scale)
-    mha_grouped.launches += 1
+    common.count(mha_grouped)
     return out
 
 
@@ -134,7 +134,7 @@ def mha_packed(qkv: torch.Tensor, bias: torch.Tensor | None, scale: float,
     _check_divides("mha_packed", qkv.shape[0], gb, "images")
     out = A.packed_qkv_self_attention(qkv, _heads("mha_packed", qkv.shape[-1] // 3),
                                       scale=scale, attn_bias=bias, images_per_block=gb)
-    mha_packed.launches += 1
+    common.count(mha_packed)
     return out
 
 
@@ -162,7 +162,7 @@ def qkvattn(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
         return qkvattn_plain(x, w_qkv, b_qkv, bias, scale)
     out = A.fused_qkv_self_attention(x, w_qkv, b_qkv, _heads("qkvattn", x.shape[-1]),
                                      scale=scale, attn_bias=bias)
-    qkvattn.launches += 1
+    common.count(qkvattn)
     return out
 
 
@@ -195,7 +195,7 @@ def attnblock(x: torch.Tensor, g: torch.Tensor, be: torch.Tensor, w_qkv: torch.T
     out = A.attention_subblock(x, g, be, w_qkv, b_qkv, w_out, b_out,
                                _heads("attnblock", x.shape[-1]), scale=scale, eps=LN_EPS,
                                attn_bias=bias)
-    attnblock.launches += 1
+    common.count(attnblock)
     return out
 
 

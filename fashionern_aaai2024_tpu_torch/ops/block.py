@@ -24,12 +24,19 @@ through `BlockFunction` whenever autograd has to reach an operand. The
 rule comes from the B10 against B1 + B2 timings of `chip_smoke.py` phase
 2 and `ab_attention.py` (PERF.md, "Findings").
 
+Under CUDA graph capture (the serve program, `ops/graphs.py`) B10 takes
+the grid-barrier word of `graph_barrier`, one per captured graph, held
+by it; a capture without one raises.
+
 Weights are in the torch layout, as `attention_subblock` / `mlp_subblock`
 take them: in_proj_weight [3W, W], out_proj weight [W, W], c_fc weight
 [F, W], c_proj weight [W, F].
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -56,6 +63,8 @@ BLOCK_MAX_ROWS = 32 * 77
 # one grid-barrier word per (device, stream): a launch flips its top bit
 # and leaves the low bits zero, so the word is never reset
 _BARRIERS: dict[tuple[int, int], torch.Tensor] = {}
+# the word of the CUDA graph this thread is capturing (`graph_barrier`)
+_CAPTURE = threading.local()
 
 
 def use_block_kernel(rows: int) -> bool:
@@ -81,7 +90,29 @@ def transformer_block_plain(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.T
                               activation=activation, eps=eps)
 
 
+@contextlib.contextmanager
+def graph_barrier(word: torch.Tensor):
+    """B10 launches captured into a CUDA graph inside this context take
+    `word` (one int32 on the device, zeroed, allocated before the
+    capture) as their grid-barrier word. A graph replays on whatever
+    stream calls it, so the per-stream words of eager calls cannot serve
+    it: each graph gets a word of its own, which its replays, in order on
+    one stream, share as eager calls on one stream share theirs."""
+    previous = getattr(_CAPTURE, "word", None)
+    _CAPTURE.word = word
+    try:
+        yield
+    finally:
+        _CAPTURE.word = previous
+
+
 def _barrier(device: torch.device, stream: int) -> torch.Tensor:
+    word = getattr(_CAPTURE, "word", None)
+    if word is not None:
+        return word
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("kernel B10 under CUDA graph capture needs a barrier word of its "
+                           "own: capture inside `ops.block.graph_barrier(word)`")
     key = (device.index, stream)
     if key not in _BARRIERS:
         _BARRIERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -187,7 +218,7 @@ def transformer_block(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
                                causal=causal, scale=scale, eps=eps)
         return mlp_subblock(y, ln2_w, ln2_b, fc_w, fc_b, proj_w, proj_b,
                             activation=activation, eps=eps)
-    transformer_block.launches += 1
+    common.count(transformer_block)
     return out
 
 

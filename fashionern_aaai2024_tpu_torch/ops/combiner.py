@@ -148,7 +148,7 @@ def combiner_apply(image: torch.Tensor, text: torch.Tensor, module) -> torch.Ten
     common.launch("fern_combiner_gate", h_ptr, hp_ptr, splits, ptrs[7], ptrs[8], bo.data_ptr(),
                   ptrs[0], ptrs[3], out.data_ptr(), m, d, hd, common.DTYPE_CODES[image.dtype],
                   device, stream)
-    combiner_apply.launches += 1
+    common.count(combiner_apply)
     return out
 
 

@@ -18,6 +18,8 @@ anything but 0.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -184,6 +187,45 @@ def launch(name: str, *args) -> None:
     err = (_ENTRY or _bind())[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    record = getattr(_RECORD, "log", None)
+    if record is not None:
+        record.entries[name] += 1
+
+
+# what this thread launches while it records (`recording`): the capture
+# of a CUDA graph (`ops/graphs.py`)
+_RECORD = threading.local()
+
+
+class Record:
+    """The launches one thread made while it recorded: C entry point ->
+    calls (`entries`), kernel wrapper -> counted calls (`wrappers`)."""
+
+    def __init__(self):
+        self.entries: collections.Counter = collections.Counter()
+        self.wrappers: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record this thread's launches until the context ends. Launches of
+    other threads are not recorded."""
+    record = Record()
+    _RECORD.log = record
+    try:
+        yield record
+    finally:
+        _RECORD.log = None
+
+
+def count(wrapper) -> None:
+    """A kernel wrapper launched its kernels: add one to its `launches`
+    (each wrapper calls this once, where it launches), and record the
+    call on a recording thread."""
+    wrapper.launches += 1
+    record = getattr(_RECORD, "log", None)
+    if record is not None:
+        record.wrappers[wrapper] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -85,7 +85,7 @@ def bbc_rowloss(pred: torch.Tensor, tar: torch.Tensor,
                   scratch[:splits].data_ptr(), scratch[splits:2 * splits].data_ptr(),
                   scratch[2 * splits].data_ptr(), b, d, temp, splits, per_split,
                   pred.get_device(), common.stream_of(pred))
-    bbc_rowloss.launches += 1
+    common.count(bbc_rowloss)
     return row
 
 

@@ -75,7 +75,7 @@ def mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor
     y = common.launch_layer_norm(x2, ln_weight, ln_bias, eps)
     h = common.launch_gemm(y, fc_weight, fc_bias, activation=activation)
     out = common.launch_gemm(h, proj_weight, proj_bias, residual=x2)
-    mlp_subblock.launches += 1
+    common.count(mlp_subblock)
     return out.view(b, s, w)
 
 

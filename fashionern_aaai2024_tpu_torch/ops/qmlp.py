@@ -145,7 +145,7 @@ def int8_mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.T
     hq, hs = common.launch_quant_groups(h, groups)
     out = common.launch_qgemm(hq, hs, proj_q, proj_scale, groups=groups, bias=proj_bias,
                               residual=x2, out_dtype=x.dtype)
-    int8_mlp_subblock.launches += 1
+    common.count(int8_mlp_subblock)
     return out.view(b, s, w)
 
 
@@ -206,7 +206,7 @@ def int8_attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: t
     aq, as_ = common.launch_quant_groups(attn.view(b * s, w), 1)
     out = common.launch_qgemm(aq, as_, out_q, out_scale, bias=out_bias, residual=x2,
                               out_dtype=x.dtype)
-    int8_attention_subblock.launches += 1
+    common.count(int8_attention_subblock)
     return out.view(b, s, w)
 
 

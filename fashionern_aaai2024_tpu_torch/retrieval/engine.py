@@ -2,12 +2,12 @@
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/engine.py`:
 `names_to_ids` (`:27`), `GalleryFeatures`, `embed_gallery` (`:74`) and
-the exact tier of `RetrievalIndex` (`:136-235`), fp32 or int8
-(`quantize=True`, `--quantize-gallery`), with the name ids, top-k ids,
-member scores and row lookups the evaluators use. `embed_gallery` is
-serial here: the JAX version's prefetch thread, approximate top-k (and
-with it `calibrate_approx`) and mesh sharding are not ported yet
-(ROADMAP A1, A8).
+`RetrievalIndex` (`:136-235`), fp32 or int8 (`quantize=True`,
+`--quantize-gallery`), exact or approximate (`approx_recall`,
+`--topk-recall`, with `calibrate_approx`), with the name ids, top-k
+ids, member scores and row lookups the evaluators use. `embed_gallery`
+is serial here; the JAX version's prefetch thread and mesh sharding
+(`sharded_search`) are not ported (ROADMAP A8).
 
 Features stay on the model's device as fp32 tensors, so a query's
 reference-row gather and the search run there without a host round
@@ -17,6 +17,7 @@ trip.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -26,7 +27,10 @@ from fashionern_aaai2024_tpu_torch.ops.quant import (
     blocked_top_k_similarity_int8,
     quantize_rows,
 )
-from fashionern_aaai2024_tpu_torch.ops.similarity import blocked_top_k_similarity
+from fashionern_aaai2024_tpu_torch.ops.similarity import (
+    blocked_top_k_similarity,
+    measured_approx_recall,
+)
 
 
 def names_to_ids(names: Sequence[str]) -> tuple[np.ndarray, dict[str, int]]:
@@ -65,25 +69,57 @@ def embed_gallery(encode_image_fn: Callable, loader: Iterable[dict]) -> GalleryF
 
 
 class RetrievalIndex:
-    """Refined gallery embeddings + exact top-k search.
+    """Refined gallery embeddings + top-k search.
 
     `quantize=True` stores the gallery on its device as int8 with one fp32
-    scale per row (`ops/quant.py quantize_rows`; 4x fewer bytes than
-    fp32) and searches it (`blocked_top_k_similarity_int8`). The fp32
-    features then move to the host, as the JAX index keeps them there
-    for `scores_for`."""
+    scale per row (`ops/quant.py quantize_rows`, run on the host, so that
+    only the int8 bytes and the scales go to the device; 4x fewer bytes
+    than fp32) and searches it (`blocked_top_k_similarity_int8`). The
+    fp32 features stay on the host, as the JAX index keeps them there for
+    `scores_for`.
 
-    def __init__(self, names: Sequence[str], features: torch.Tensor, quantize: bool = False):
+    `approx_recall`: None is the exact top-k (the parity tier); a float
+    selects through the approximate tier at that recall target
+    (`ops/similarity.py`), which `calibrate_approx` measures on this
+    gallery."""
+
+    def __init__(self, names: Sequence[str], features: torch.Tensor, quantize: bool = False,
+                 approx_recall: float | None = None):
         self.names = list(names)
         self.ids, self.vocab = names_to_ids(self.names)
         self._rows: dict[str, int] | None = None
         self.quantized = quantize
+        self.approx_recall = approx_recall
         self.features_q = self.scales = None
         if quantize:
-            self.features_q, self.scales = quantize_rows(features.float())
             self.features = features.float().cpu()
+            values, scales = quantize_rows(self.features)
+            self.features_q, self.scales = values.to(features.device), scales.to(features.device)
         else:
             self.features = features.float()
+
+    def calibrate_approx(self, k: int = 51, n_queries: int = 256, min_margin: float = 0.05,
+                         strict: bool = False) -> float | None:
+        """The approximate tier's recall measured on this gallery, where the
+        search runs (None on the exact tier). Warns on stderr when it is
+        below `approx_recall`; with `strict`, raises when it is below by
+        more than `min_margin` (JAX `engine.py:163-198`, same wording)."""
+        if self.approx_recall is None:
+            return None
+        device = self.features_q.device if self.quantized else self.features.device
+        measured = measured_approx_recall(self.features.to(device), k=k,
+                                          recall_target=self.approx_recall,
+                                          n_queries=n_queries)
+        if measured < self.approx_recall:
+            msg = (f"--topk-recall {self.approx_recall}: measured recall "
+                   f"on this gallery is {measured:.4f} "
+                   f"({len(self.names)} rows, k={k})")
+            if strict and measured < self.approx_recall - min_margin:
+                raise RuntimeError(msg + " — below the requested target by more than "
+                                   f"{min_margin}; use a higher --topk-recall or the "
+                                   "exact tier")
+            print(f"WARNING: {msg}", file=sys.stderr)
+        return measured
 
     def search(self, query_features: torch.Tensor, k: int = 51,
                chunk: int | None = None) -> tuple[np.ndarray, np.ndarray]:
@@ -91,10 +127,12 @@ class RetrievalIndex:
         if self.quantized:
             q = torch.as_tensor(query_features).to(self.features_q.device)
             scores, idx = blocked_top_k_similarity_int8(q, self.features_q, self.scales, k=k,
-                                                        chunk=chunk)
+                                                        chunk=chunk,
+                                                        approx_recall=self.approx_recall)
         else:
             q = torch.as_tensor(query_features).to(self.features.device)
-            scores, idx = blocked_top_k_similarity(q, self.features, k=k, chunk=chunk)
+            scores, idx = blocked_top_k_similarity(q, self.features, k=k, chunk=chunk,
+                                                   approx_recall=self.approx_recall)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     def topk_ids(self, indices: np.ndarray) -> np.ndarray:

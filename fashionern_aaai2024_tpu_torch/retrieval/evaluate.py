@@ -8,9 +8,11 @@ pipelines: embed the gallery (global features and the 13 patch features
 of every item), tokenize the captions, run the text tower and the DVR
 query tower against the raw reference features (looked up by name, the
 last duplicate winning), refine the gallery through the index tower,
-take the exact top-k, and score Recall@K (`retrieval/metrics.py`).
-`build_serve_fn` (the one-dispatch serve program) and the mesh path are
-not ported yet (ROADMAP A1, A8).
+take the top-k, and score Recall@K (`retrieval/metrics.py`); and
+`build_serve_fn` (`:254-572`), the one-dispatch serve program
+(`ServeFn`), which on the card runs as one CUDA graph per batch bucket.
+The mesh path is not ported (ROADMAP A8), nor are the serve program's
+export handles `jfn` and `consts` (A7).
 
 The batch wrappers take host arrays or tensors and run in slices of
 `batch_size`. JAX padded the last slice to keep one compiled program;
@@ -22,6 +24,7 @@ list of batches).
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -30,6 +33,10 @@ import torch
 from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel
+from fashionern_aaai2024_tpu_torch.ops.graphs import CapturedCall
+from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product
+from fashionern_aaai2024_tpu_torch.ops.quant import quantize_rows
+from fashionern_aaai2024_tpu_torch.ops.similarity import select_top_k
 from fashionern_aaai2024_tpu_torch.retrieval import metrics as M
 from fashionern_aaai2024_tpu_torch.retrieval.engine import (
     GalleryFeatures,
@@ -52,16 +59,26 @@ class InferenceAPI:
 
     def __init__(self, model: ComposedCIRModel, *, tokenizer: Callable | None = None,
                  device: torch.device | str = "cuda", batch_size: int = 32,
-                 context_length: int = 77, quantize_gallery: bool = False):
+                 context_length: int = 77, quantize_gallery: bool = False,
+                 quantize_refs: bool = False, approx_recall: float | None = None):
         """`tokenizer`: callable (captions, context_length) -> int32
         [B, L]; by default the port's CLIP BPE (`models/clip/tokenizer.py
         tokenize`), which finds its table at the first call
         (`default_bpe_path`) or raises FileNotFoundError there.
         `quantize_gallery`: the services built on this API store the
         refined gallery int8 for the top-k search (`--quantize-gallery`,
-        `ops/quant.py`)."""
+        `ops/quant.py`). `quantize_refs`: the serve program stores its
+        reference rows (raw features and patches) int8 with one scale per
+        row and dequantizes the gathered rows (`--quantize-refs`, ~4x
+        fewer bytes on the serve program's largest array). `approx_recall`:
+        None is the exact top-k; a float selects every gallery-wide top-k
+        this API builds (the evaluators' search, the serve program)
+        through the approximate tier at that recall target
+        (`--topk-recall`, `ops/similarity.py`)."""
         self.device = resolve_device(device)
         self.quantize_gallery = quantize_gallery
+        self.quantize_refs = quantize_refs
+        self.approx_recall = approx_recall
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.context_length = context_length
@@ -127,6 +144,240 @@ class InferenceAPI:
         -> (global, tokens) on the API's device."""
         return self.encode_image
 
+    def build_serve_fn(self, gallery_features, k_max: int = 50,
+                       buckets: Sequence[int] = (1, 8, 32), patch_num: int = 13,
+                       ref_features=None, ref_patches=None, mesh=None,
+                       capacity: int | None = None) -> "ServeFn":
+        """The one-dispatch serve program (JAX `evaluate.py:254-572`):
+        text tower -> DVR query tower -> gallery scores -> top-k in one
+        call per request, at the smallest batch bucket that holds it.
+        `ref_features` / `ref_patches` given (the by-rows form): the
+        request names gallery rows and the program gathers them.
+        `capacity` (by rows): the arrays are padded to `capacity` rows
+        and `update_rows` grows or rewrites the gallery in place. See
+        `ServeFn`."""
+        if mesh is not None:
+            raise NotImplementedError("mesh-sharded serving is not ported (ROADMAP A8)")
+        return ServeFn(self, gallery_features, k_max, buckets, patch_num, ref_features,
+                       ref_patches, capacity)
+
+
+def _host_f32(a) -> torch.Tensor:
+    return torch.as_tensor(a).detach().to("cpu", torch.float32)
+
+
+def _pad_to(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
+
+
+class _Bucket:
+    """One batch bucket of a `ServeFn`: its static input tensors, its
+    outputs, and on the card its CUDA graph."""
+
+    def __init__(self, serve: "ServeFn", b: int):
+        dev = serve.device
+        self.ids = torch.zeros((b, serve.context_length), dtype=torch.int32, device=dev)
+        if serve.by_rows:
+            self.rows = torch.zeros(b, dtype=torch.int64, device=dev)
+            self.inputs = (self.ids, self.rows)
+        else:
+            self.ref = torch.zeros((b, serve.feat_dim), device=dev)
+            self.patch = torch.zeros((b, serve.patch_num, serve.feat_dim), device=dev)
+            self.inputs = (self.ids, self.ref, self.patch)
+        call = lambda: serve.body(*self.inputs)  # noqa: E731
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self.graph = CapturedCall(call, serve.graph_pool)
+            self.outputs = self.graph.outputs
+            self.run = self.graph.replay
+        else:
+            self.graph = None
+            self.outputs = None
+
+            def run():
+                self.outputs = call()
+            self.run = run
+
+
+class ServeFn:
+    """The one-dispatch serve program of an `InferenceAPI` (JAX
+    `build_serve_fn`, `evaluate.py:254-572`), single-device.
+
+    `serve(token_ids, rows, k)` (by rows) or `serve(token_ids, ref_feats,
+    ref_patch, k)` (by features) -> (scores [n, k], gallery rows [n, k])
+    as host arrays, k clamped to `k_max` and to the valid rows. The body,
+    in order: gather the reference rows (dequantized after the gather
+    under `quantize_refs`), the text tower (TME on the gathered patches
+    on a TME model), the DVR query tower, the gallery scores (an fp32
+    product, or under `quantize_gallery` JAX's int8 form: the query rows
+    quantized, the exact int32 sums, the rescale), the columns at or past
+    `n_valid` masked to -inf on a growable program, and the top-k of
+    `k_max` (`ops/similarity.py select_top_k`, exact or approximate).
+
+    A request of n rows runs at the smallest bucket >= n, its rows padded
+    with zero ids and row 0 (their results are dropped); a batch past the
+    largest bucket raises. On the card each bucket is one CUDA graph
+    (`ops/graphs.py CapturedCall`) over static tensors: the request's ids
+    and rows (or features) are copied into the bucket's inputs, the graph
+    replays once, and `[:n, :k]` of its outputs come back to the host.
+    The gallery, the reference rows and `n_valid` (a device scalar) are
+    static tensors that every bucket's graph reads; the graphs share one
+    memory pool. Every bucket is captured when the program is built, so
+    no capture runs once it serves; `warmup()` does nothing more. On the
+    CPU the same body runs eagerly on the same tensors.
+
+    `update_rows(start, refined, ref_f, ref_p)` (growable only) checks
+    every shape, then writes the rows into the static tensors in place
+    and sets `n_valid`: the graphs see the new rows at their next replay,
+    with no recapture. Gallery and reference rows are quantized on the
+    host (`ops/quant.py quantize_rows`, JAX's `quantize_rows_np`), so only
+    int8 bytes and scales go to the device. Calls and updates hold one
+    lock: the static tensors serve one request at a time."""
+
+    def __init__(self, api: InferenceAPI, gallery_features, k_max: int,
+                 buckets: Sequence[int], patch_num: int, ref_features, ref_patches,
+                 capacity: int | None):
+        self.api = api
+        self.device = api.device
+        self.context_length = api.context_length
+        self.patch_num = patch_num
+        n_rows = int(gallery_features.shape[0])
+        self.feat_dim = int(gallery_features.shape[1])
+        self.k_max = min(k_max, n_rows if capacity is None else capacity)
+        self.buckets = tuple(sorted(buckets))
+        self.by_rows = ref_features is not None
+        self.growable = capacity is not None
+        self.capacity = capacity
+        self.quantized = api.quantize_gallery
+        self.quantize_refs = api.quantize_refs
+        self.approx_recall = api.approx_recall
+        self.tme = bool(api.model.clip_config.text.tme)
+        rows = n_rows
+        if self.growable:
+            if not self.by_rows:
+                raise ValueError("capacity needs the by-rows form "
+                                 "(pass ref_features/ref_patches)")
+            if capacity < n_rows:
+                raise ValueError(f"capacity {capacity} < current gallery {n_rows}")
+            rows = capacity
+
+        def resident(a) -> torch.Tensor:
+            t = _host_f32(a)
+            return _pad_to(t, rows) if self.growable else t
+
+        self.gallery = self._place(resident(gallery_features), self.quantized)
+        if self.by_rows:
+            self.ref_f = self._place(resident(ref_features), self.quantize_refs)
+            self.ref_p = self._place(resident(ref_patches), self.quantize_refs)
+        self._n_valid = n_rows
+        if self.growable:
+            self._n_valid_dev = torch.tensor(n_rows, dtype=torch.int64, device=self.device)
+            self._cols = torch.arange(rows, device=self.device)
+        self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                           else None)
+        self._lock = threading.Lock()
+        self._buckets = {b: _Bucket(self, b) for b in self.buckets}
+
+    def _place(self, host: torch.Tensor, quantize: bool):
+        """A host fp32 array on the device: as it is, or as (int8 values,
+        fp32 scales) with one scale per row of the last axis."""
+        if not quantize:
+            return host.to(self.device)
+        values, scales = quantize_rows(host.reshape(-1, host.shape[-1]))
+        return (values.reshape(host.shape).to(self.device),
+                scales.reshape(host.shape[:-1]).to(self.device))
+
+    def _gather(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The reference rows; int8 rows dequantize after the gather (only
+        the requested rows, not the gallery)."""
+        if not self.quantize_refs:
+            return self.ref_f[rows], self.ref_p[rows]
+        (fq, fs), (pq, ps) = self.ref_f, self.ref_p
+        return fq[rows].float() * fs[rows][:, None], pq[rows].float() * ps[rows][:, :, None]
+
+    def _scores(self, pred: torch.Tensor) -> torch.Tensor:
+        if not self.quantized:
+            return pred @ self.gallery.t()
+        gq, gs = self.gallery
+        qv, qs = quantize_rows(pred)
+        return int8_product(qv, gq) * qs[:, None] * gs[None, :]
+
+    @torch.no_grad()
+    def body(self, ids: torch.Tensor, ref: torch.Tensor,
+             patch: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The program on device tensors: ids [b, L] int32 and rows [b]
+        (by rows) or features [b, d] and patches [b, P, d] -> (scores
+        [b, k_max], rows [b, k_max])."""
+        model = self.api.model
+        rf, rp = self._gather(ref) if self.by_rows else (ref, patch)
+        tg, ts = model.encode_text(ids, visual_emb=rp.float() if self.tme else None)
+        pred = model.query(rf.float(), rp.float(), tg.float(), ts.float())
+        scores = self._scores(pred)
+        if self.growable:
+            # rows >= n_valid are zero padding: they must lose to every real row
+            scores = scores.masked_fill(self._cols >= self._n_valid_dev, -torch.inf)
+        return select_top_k(scores, self.k_max, self.approx_recall)
+
+    def __call__(self, token_ids, ref, ref_patch=None, k: int = 10):
+        n = int(token_ids.shape[0])
+        b = next((x for x in self.buckets if x >= n), None)
+        if b is None:
+            raise ValueError(f"batch {n} exceeds the largest compile bucket "
+                             f"{self.buckets[-1]}; split the request")
+        ids = np.zeros((b, self.context_length), np.int32)
+        ids[:n] = np.asarray(token_ids)
+        with self._lock:
+            bucket = self._buckets[b]
+            bucket.ids.copy_(torch.from_numpy(ids))
+            if self.by_rows:
+                rows = np.zeros(b, np.int64)
+                rows[:n] = np.asarray(ref)
+                bucket.rows.copy_(torch.from_numpy(rows))
+            else:
+                bucket.ref.copy_(_pad_to(_host_f32(ref), b))
+                bucket.patch.copy_(_pad_to(_host_f32(ref_patch), b))
+            bucket.run()
+            # never emit masked rows: their scores are -inf, their rows invalid
+            k = min(k, self.k_max, self._n_valid)
+            scores, idx = bucket.outputs
+            return scores[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
+
+    def warmup(self) -> None:
+        """JAX compiles each bucket here; every bucket of the port is
+        captured when the program is built."""
+
+    def n_valid(self) -> int:
+        return self._n_valid
+
+    def update_rows(self, start: int, refined, ref_feat_rows, ref_patch_rows) -> int:
+        """Write m items at rows [start, start + m) of the capacity-padded
+        tensors (append when start == n_valid, overwrite otherwise); ->
+        the new valid-row count. Every input is checked and prepared
+        before any row is written."""
+        if not self.growable:
+            raise ValueError("serve fn built without capacity=")
+        g32, rf32, rp32 = (_host_f32(a) for a in (refined, ref_feat_rows, ref_patch_rows))
+        m, d = int(g32.shape[0]), self.feat_dim
+        if start + m > self.capacity:
+            raise ValueError(f"update [{start}, {start + m}) exceeds capacity "
+                             f"{self.capacity}; rebuild the service with more headroom")
+        if (tuple(g32.shape) != (m, d) or tuple(rf32.shape) != (m, d) or rp32.ndim != 3
+                or rp32.shape[0] != m or rp32.shape[2] != d):
+            raise ValueError(f"update_rows shapes: refined {tuple(g32.shape)}, ref_feats "
+                             f"{tuple(rf32.shape)}, ref_patches {tuple(rp32.shape)} don't "
+                             f"agree with m={m}, d={d}")
+        writes = [(self.gallery, self._place(g32, self.quantized)),
+                  (self.ref_f, self._place(rf32, self.quantize_refs)),
+                  (self.ref_p, self._place(rp32, self.quantize_refs))]
+        sl = slice(start, start + m)
+        with self._lock:
+            for dst, src in writes:
+                for d_t, s_t in (zip(dst, src) if isinstance(dst, tuple) else [(dst, src)]):
+                    d_t[sl] = s_t
+            self._n_valid = max(self._n_valid, start + m)
+            self._n_valid_dev.fill_(self._n_valid)
+            return self._n_valid
+
 
 def last_wins_rows(names: Sequence[str]) -> dict[str, int]:
     """name -> gallery row, duplicates resolved to the last occurrence
@@ -158,12 +409,14 @@ def generate_predictions(api: InferenceAPI, relative_loader: Iterable[dict],
 def _search_ids(api: InferenceAPI, gallery: GalleryFeatures, preds: torch.Tensor,
                 k: int) -> tuple[RetrievalIndex, np.ndarray]:
     """Refine the gallery, index it, and return the top-k name ids of
-    every prediction. (The JAX evaluator calibrates its approximate tier
-    here, `calibrate_approx`; the port has the exact tier only, where
-    that is a no-op.)"""
+    every prediction. On the approximate tier the index first measures
+    its recall on this gallery (a warning when it undershoots)."""
     refined = api.refine_gallery(gallery.features, gallery.local_features)
-    index = RetrievalIndex(gallery.names, refined, quantize=api.quantize_gallery)
-    _, idx = index.search(preds, k=min(k, len(gallery.names)))
+    index = RetrievalIndex(gallery.names, refined, quantize=api.quantize_gallery,
+                           approx_recall=api.approx_recall)
+    k = min(k, len(gallery.names))
+    index.calibrate_approx(k=k)
+    _, idx = index.search(preds, k=k)
     return index, index.topk_ids(idx)
 
 

@@ -149,11 +149,10 @@ def test_train_defaults_match_the_reference():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["serve", "--data-root", "/x"], "A1"),
+    (["serve", "--data-root", "/x", "--data-parallel", "--device", "cpu"], "A8"),
     (["export", "--data-root", "/x", "--out", "/y"], "A7"),
     (["refresh-artifact", "--data-root", "/x", "--artifact", "/y"], "A7"),
     (["serve-artifact", "--artifact", "/y"], "A7"),
-    (["eval", "--data-root", "/x", "--topk-recall", "0.95", "--device", "cpu"], "A1"),
     (["eval", "--data-root", "/x", "--data-parallel", "--device", "cpu"], "A8"),
 ])
 def test_unported_subcommands_and_flags_raise_with_their_item(argv, item):
@@ -173,7 +172,9 @@ def test_info_names_the_routes_and_what_is_not_ported():
     assert {"ViT-B-16", "RN50x4"} <= set(info["backbones"])
     assert info["datasets"] == ["cirr", "fashion200k", "fashioniq", "shoes"]
     assert info["image_routes"]["other"] == "pil"
-    assert info["not_ported"]["serve"] == "A1"
+    assert "serve" not in info["not_ported"] and "eval --topk-recall" not in info["not_ported"]
+    assert info["not_ported"]["serve --data-parallel"] == "A8"
+    assert info["native_serve_front"] is True
 
 
 # --- eval parity ----------------------------------------------------------------

@@ -122,11 +122,15 @@ of 5e-5 times the largest gradient element (the fp32 rounding of scores
 near 75 reaches the softmax as a relative error of about 1e-5).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from fashionern_aaai2024_tpu_torch.ops import attention as A
+from fashionern_aaai2024_tpu_torch.ops import attn_experiment as XA
+from fashionern_aaai2024_tpu_torch.ops import block as TB
 from fashionern_aaai2024_tpu_torch.ops import combiner as Cb
 from fashionern_aaai2024_tpu_torch.ops import common
 from fashionern_aaai2024_tpu_torch.ops import layernorm as LN
@@ -1580,3 +1584,241 @@ def test_extract_patches_card_against_cpu(device, tmp_path):
     got, want = feats[str(device)], feats["cpu"]
     assert got.shape == (3, 13, 24)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# --- the serve program as CUDA graphs (retrieval/evaluate.py ServeFn) -----------
+
+
+def _serve_api(device, tme=False):
+    """A seeded model whose text tower takes B10 (width 512, 8 heads of
+    64, 16 tokens) and whose DVR runs at d = 512, under the bf16 serve
+    policy, on the card."""
+    from fashionern_aaai2024_tpu_torch.models.clip import config as C
+    from fashionern_aaai2024_tpu_torch.models.composed import (
+        ComposedCIRModel,
+        apply_precision,
+        random_init_,
+    )
+    from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
+
+    cfg = C.CLIPConfig(name="serve-small", vision=C.VisionConfig(
+        kind="vit", image_size=32, embed_dim=512, width=128, layers=1, heads=2, patch_size=16),
+        text=C.TextConfig(vocab_size=1000, context_length=16, width=512, heads=8, layers=2,
+                          embed_dim=512, tme=tme))
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
+    apply_precision(model, "bf16")
+    return InferenceAPI(model, tokenizer=None, device=device, context_length=16)
+
+
+def _serve_arrays(n, seed, d=512):
+    g = np.random.default_rng(seed)
+    gal = g.standard_normal((n, d)).astype(np.float32)
+    gal /= np.linalg.norm(gal, axis=1, keepdims=True)
+    return (gal, g.standard_normal((n, d)).astype(np.float32),
+            g.standard_normal((n, 13, d)).astype(np.float32))
+
+
+def _serve_ids(n, seed):
+    ids = np.random.default_rng(seed).integers(1, 998, (n, 16)).astype(np.int32)
+    ids[:, 9] = 999   # EOT: the largest id
+    ids[:, 10:] = 0
+    return ids
+
+
+@pytest.mark.parametrize("tme", [False, True])
+def test_serve_graphs_replay_the_eager_body(device, tme):
+    """Each bucket's graph replay against the same body run eagerly on the
+    same static inputs: equal rows, scores within 1e-6 (cuBLAS may take
+    another algorithm under capture; the kernels of the port give the
+    same bits)."""
+    api = _serve_api(device, tme)
+    gal, rf, rp = _serve_arrays(300, 1)
+    fn = api.build_serve_fn(gal, k_max=50, ref_features=rf, ref_patches=rp, capacity=512)
+    for b in fn.buckets:
+        ids, rows = _serve_ids(b, b), np.random.default_rng(b).integers(0, 300, b)
+        got_s, got_i = fn(ids, rows, k=50)
+        want_s, want_i = fn.body(torch.from_numpy(ids).to(device),
+                                 torch.from_numpy(rows).to(device))
+        assert np.array_equal(got_i, want_i.cpu().numpy())
+        np.testing.assert_allclose(got_s, want_s.cpu().numpy(), atol=1e-6, rtol=0)
+        assert np.isfinite(got_s).all() and int(got_i.max()) < 300
+
+
+def test_graph_barrier_words_are_isolated(device):
+    """B10 captured at two sizes (two graphs, each with its own barrier
+    word, allocated before its capture and held by it) and replayed
+    interleaved with eager B10 calls on the default stream: the same bits
+    every time."""
+    from fashionern_aaai2024_tpu_torch.ops.graphs import CapturedCall
+
+    calls = []
+    for b, seed in ((1, 0), (8, 1)):
+        g = np.random.default_rng(seed)
+        x = _t(g, (b, 77, 512), 1.0, torch.bfloat16, device)
+        ws = [_t(g, s, 0.02, torch.bfloat16, device, offset=o) for s, o in (
+            ((512,), 1.0), ((512,), 0.0), ((1536, 512), 0.0), ((1536,), 0.0), ((512, 512), 0.0),
+            ((512,), 0.0), ((512,), 1.0), ((512,), 0.0), ((2048, 512), 0.0), ((2048,), 0.0),
+            ((512, 2048), 0.0), ((512,), 0.0))]
+        calls.append(lambda x=x, ws=ws: TB.transformer_block(x, *ws, heads=8, causal=True))
+    want = [c().clone() for c in calls]
+    graphs = [CapturedCall(c) for c in calls]
+    assert graphs[0].barrier_word.data_ptr() != graphs[1].barrier_word.data_ptr()
+    for _ in range(20):
+        for c, g, w in zip(calls, graphs, want):
+            g.replay()
+            assert torch.equal(c(), w)
+        torch.cuda.synchronize()
+        for g, w in zip(graphs, want):
+            assert torch.equal(g.outputs, w)
+
+
+def test_live_adds_need_no_recapture(device):
+    """`update_rows` writes into the static tensors the graphs read: the
+    graphs and the tensors' addresses stay, and the answers equal a
+    program built over the grown gallery."""
+    api = _serve_api(device)
+    gal, rf, rp = _serve_arrays(200, 2)
+    fn = api.build_serve_fn(gal, k_max=20, buckets=(1, 8), ref_features=rf, ref_patches=rp,
+                            capacity=256)
+    graphs = {b: fn._buckets[b].graph for b in fn.buckets}   # captured at the build
+    ptrs = [t.data_ptr() for t in (fn.gallery, fn.ref_f, fn.ref_p, fn._n_valid_dev)]
+    more = _serve_arrays(30, 3)
+    over = _serve_arrays(5, 4)
+    assert fn.update_rows(200, *more) == 230
+    assert fn.update_rows(10, *over) == 230
+    assert {b: fn._buckets[b].graph for b in fn.buckets} == graphs
+    assert [t.data_ptr() for t in (fn.gallery, fn.ref_f, fn.ref_p, fn._n_valid_dev)] == ptrs
+    grown = [np.concatenate([a, m]) for a, m in zip((gal, rf, rp), more)]
+    for a, o in zip(grown, over):
+        a[10:15] = o
+    fresh = api.build_serve_fn(grown[0], k_max=20, buckets=(1, 8), ref_features=grown[1],
+                               ref_patches=grown[2])
+    ids, rows = _serve_ids(6, 5), np.asarray([0, 12, 150, 201, 229, 14])
+    got_s, got_i = fn(ids, rows, k=20)
+    want_s, want_i = fresh(ids, rows, k=20)
+    assert np.array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_s, want_s, atol=1e-5, rtol=0)
+    assert int(got_i.max()) < 230
+
+
+def _kernel_wrappers():
+    return (A.attention_subblock, A.packed_qkv_self_attention, A.fused_qkv_self_attention,
+            A.packed_kv_cross_attention, A.multi_head_attention, M.mlp_subblock,
+            LN.layer_norm, Cb.combiner_apply, L.bbc_rowloss, Q.int8_mlp_subblock,
+            Q.int8_attention_subblock, TB.transformer_block, XA.mha_grouped, XA.mha_packed,
+            XA.qkvattn, XA.attnblock)
+
+
+# per serve call of `_serve_api`'s model: B10 in each of the text tower's 2
+# blocks, B11 at ln_final and the DVR BERT's 5 LNs, B7 in its 2 layers, B8
+# at MR, B12 in the three combiners
+def _serve_per_call():
+    return {TB.transformer_block: 2, LN.layer_norm: 6, A.fused_qkv_self_attention: 2,
+            A.packed_kv_cross_attention: 1, Cb.combiner_apply: 3}
+
+
+def test_launch_counts_follow_replays(device):
+    """The build counts its one eager call and no capture; each replay
+    counts its graph's kernels."""
+    api = _serve_api(device)
+    gal, rf, rp = _serve_arrays(100, 6)
+    per_call = _serve_per_call()
+    for c in _kernel_wrappers():
+        c.launches = 0
+    fn = api.build_serve_fn(gal, k_max=10, buckets=(1,), ref_features=rf, ref_patches=rp)
+    for c in _kernel_wrappers():
+        assert c.launches == per_call.get(c, 0), c.__name__
+    assert fn._buckets[1].graph.launches == per_call
+    for _ in range(7):
+        fn(_serve_ids(1, 7), np.asarray([3]), k=5)
+    torch.cuda.synchronize()
+    for c in _kernel_wrappers():
+        assert c.launches == 8 * per_call.get(c, 0), c.__name__
+
+
+def test_replay_runs_the_graphs_kernel_nodes(device):
+    """One replay of each bucket under the profiler: the port kernels in
+    the trace are the graph's kernel nodes (`kernel_nodes`, read from the
+    libcuda at capture and checked there against the recorded launches),
+    one event each."""
+    import collections
+
+    from fashionern_aaai2024_tpu_torch.ops.graphs import port_kernel
+
+    api = _serve_api(device, tme=True)
+    gal, rf, rp = _serve_arrays(120, 8)
+    fn = api.build_serve_fn(gal, k_max=20, ref_features=rf, ref_patches=rp, capacity=128)
+    for b in fn.buckets:
+        graph = fn._buckets[b].graph
+        assert graph.kernel_nodes[graph.kernel_nodes.most_common(1)[0][0]] > 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        traced = collections.Counter()
+        for e in prof.key_averages():
+            if port_kernel(e.key):
+                traced[port_kernel(e.key)] += e.count
+        assert traced == graph.kernel_nodes, b
+
+
+def test_capture_beside_another_threads_launches(device):
+    """A serve program built while another thread launches B10 eagerly:
+    the capture records only its own thread, so the counters hold the
+    other thread's launches, the build's eager call and the replays, and
+    the replay equals the eager body."""
+    api = _serve_api(device)
+    gal, rf, rp = _serve_arrays(100, 9)
+    g = np.random.default_rng(10)
+    x = _t(g, (1, 77, 512), 1.0, torch.bfloat16, device)
+    ws = [_t(g, s, 0.02, torch.bfloat16, device, offset=o) for s, o in (
+        ((512,), 1.0), ((512,), 0.0), ((1536, 512), 0.0), ((1536,), 0.0), ((512, 512), 0.0),
+        ((512,), 0.0), ((512,), 1.0), ((512,), 0.0), ((2048, 512), 0.0), ((2048,), 0.0),
+        ((512, 2048), 0.0), ((512,), 0.0))]
+    want = TB.transformer_block(x, *ws, heads=8, causal=True).clone()
+    per_call = _serve_per_call()
+    for c in _kernel_wrappers():
+        c.launches = 0
+    stop, calls, same = threading.Event(), [0], [True]
+
+    def eager():
+        while not stop.is_set() or calls[0] < 50:
+            same[0] &= torch.equal(TB.transformer_block(x, *ws, heads=8, causal=True), want)
+            calls[0] += 1
+    other = threading.Thread(target=eager)
+    other.start()
+    try:
+        fn = api.build_serve_fn(gal, k_max=10, buckets=(1, 8), ref_features=rf,
+                                ref_patches=rp)
+    finally:
+        stop.set()
+        other.join()
+    assert same[0]
+    for c in _kernel_wrappers():
+        extra = calls[0] if c is TB.transformer_block else 0
+        assert c.launches == 2 * per_call.get(c, 0) + extra, c.__name__
+    ids, rows = _serve_ids(8, 11), np.arange(8)
+    got_s, got_i = fn(ids, rows, k=10)
+    want_s, want_i = fn.body(torch.from_numpy(ids).to(device), torch.from_numpy(rows).to(device))
+    assert np.array_equal(got_i, want_i[:, :10].cpu().numpy())
+    np.testing.assert_allclose(got_s, want_s[:, :10].cpu().numpy(), atol=1e-6, rtol=0)
+    assert TB.transformer_block.launches == 4 * per_call[TB.transformer_block] + calls[0]
+
+
+def test_fold_matches_numpy_twin_on_the_card(device):
+    """The approximate tier's fold on the card (strided bins, first
+    maximal slot, stable top-k of the bin maxima) against its numpy twin,
+    on scores with ties inside the bins."""
+    from fashionern_aaai2024_tpu_torch.ops import similarity as S
+
+    for n, k in ((5000, 51), (1024, 50), (20000, 10), (3000, 1)):
+        s = np.round(np.random.default_rng(n).standard_normal((8, n)), 2).astype(np.float32)
+        bins, r = S.reduction_output_size(n, k, 0.95)
+        padded = np.full((8, bins << r), -np.inf, np.float32)
+        padded[:, :n] = s
+        folded = padded.reshape(8, 1 << r, bins)
+        slot, best = folded.argmax(axis=1), folded.max(axis=1)
+        chosen = np.argsort(-best, axis=1, kind="stable")[:, :k]
+        got_s, got_i = S.select_top_k(torch.from_numpy(s).to(device), k, 0.95)
+        assert np.array_equal(got_i.cpu().numpy(),
+                              np.take_along_axis(slot, chosen, 1) * bins + chosen)
+        assert np.array_equal(got_s.cpu().numpy(), np.take_along_axis(best, chosen, 1))
