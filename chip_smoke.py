@@ -109,7 +109,7 @@ Phases (each raises on failure; nothing is caught):
       `evaluate_cirr` of ViT-B-16 at full width, seeded weights, over
       in-memory FashionIQ- and CIRR-shaped loaders (galleries of 512,
       256 queries each, batches of 32), on the card under the bf16 serve
-      policy and, for the first 64 queries of every evaluator over a
+      policy and, for the first 32 queries of every evaluator over a
       gallery cut to the images they name, on the CPU in fp32 with the
       plain versions: launch counts on the card, every CPU query's
       prediction card against CPU at cosine >= 0.99, and the recall dicts
@@ -143,7 +143,8 @@ Phases (each raises on failure; nothing is caught):
       exit): soak legs B (learnable FashionIQ) and C (learnable CIRR) of
       `benchmarks/accuracy_soak.py`, each `make-fixture --learnable` (64
       images a type, 128 triplets) -> untrained `eval --seed 7` -> `train`
-      at ViT-B-16, B = 16, 15 epochs, validation every epoch, the uint8
+      at ViT-B-16, B = 16, 12 epochs (the soak's 15, cut to keep the run
+      under 900 s), validation every epoch, the uint8
       feed -> `eval` with the best checkpoint; the trained eval must equal
       the sidecar's best validation metric exactly and beat the untrained
       eval by 20 points (the two legs' chains run side by side). Then the
@@ -154,7 +155,9 @@ Phases (each raises on failure; nothing is caught):
       fp32 (plain versions), each card crop's feature at cosine >= 0.99
       against the CPU's. Every kernel the legs run (B1-B4, B7, B8, B10-B12)
       must have launched; their counts go into the kernels line
-      (`launches_by_path["cli_legs"]`).
+      (`launches_by_path["cli_legs"]`). The legs skip the soak's steps
+      5-6 here (export, the artifact against the live service): phase 18
+      covers artifacts, and the soak run alone runs them.
   16. the serving front: a ViT-B-16 service (bf16, phase 3's seeded
       weights and gallery) at capacity 1,024: each bucket's graph replay
       against the serve program's body run eagerly on the same inputs
@@ -182,6 +185,32 @@ Phases (each raises on failure; nothing is caught):
       (single and batch), /add, /stats, then interrupted. Launch counts:
       the phase's own (`launches_by_path["serving_front"]`) and the
       serve process's (`["cli_serve"]`).
+  17. the RN50x4 tiers (run after phase 14, before phase 15): RN50x4 at
+      full width through `Trainer.train()`, 3 bf16 steps at B = 1024 (the
+      frozen ResNet and its BatchNorm statistics in bf16), 2 with int8
+      towers (B5 and B6 on the W = 640 text tower, the hidden in 2
+      groups of 1,280), and TME: queries through the serve program (the
+      serve slice of phase 10 with tme=True, card against the CPU's fp32
+      run) and 2 train steps with B9's backward at head dim 80 in
+      `MHAFunction`; B9's backward at d = 640 against the plain
+      version's autograd. Launch counts `rn50x4_train`,
+      `rn50x4_int8_train`, `rn50x4_tme` (serve and train). B4 at d = 640,
+      B5 / B6 at W = 640 and B9 at head dim 80 are held against their
+      plain versions in phases 7, 5 and 2.
+  18. serve artifacts (after phase 17): phase 3's ViT-B-16 service (bf16
+      serve policy, the 512-item gallery) and phase 6's int8 one exported
+      (`retrieval/artifact.py`: `torch.export` of the serve program over
+      the kernels as registered ops, the consts apart), then loaded in a
+      fresh process that imports no module of `models/` or `data/`: each
+      bucket one CUDA graph whose kernel nodes its capture checked
+      against its recorded launches; queries of 1, 5, 20 and 32 rows
+      against the live serve programs (equal top-k rows, scores within
+      1e-5, bit for bit or not) and query P50 at b = 1 and 32 beside
+      the live programs', 200 samples each; then `serve-artifact` over
+      the bf16 artifact, `refresh_consts` from a service whose ERN has
+      new seeded weights, `POST /reload`, and the daemon's answers must
+      become the new service's. Launch counts of the loading process
+      (`launches_by_path["artifact"]`).
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -272,9 +301,14 @@ from fashionern_aaai2024_tpu_torch.benchmarks import attn_experiment as XD
 from fashionern_aaai2024_tpu_torch.cli import main as Cli
 from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
+from fashionern_aaai2024_tpu_torch.models.clip.resnet import FrozenBatchNorm2d
 from fashionern_aaai2024_tpu_torch.data import transforms
 from fashionern_aaai2024_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
-from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import SimpleTokenizer, learn_merges
+from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import (
+    SimpleTokenizer,
+    learn_merges,
+    write_bpe_table,
+)
 from fashionern_aaai2024_tpu_torch.native import image as native_image
 from fashionern_aaai2024_tpu_torch.models.composed import (
     ComposedCIRModel,
@@ -294,6 +328,7 @@ from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
 from fashionern_aaai2024_tpu_torch.ops import similarity as S
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
+from fashionern_aaai2024_tpu_torch.retrieval import artifact as ART
 from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
 from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
@@ -463,6 +498,9 @@ INT8_PRODUCTS = [(f"{tower}_{name}_m{m}", m, k, n, groups, res, act)
                      ("c_proj", 4 * w, w, Q.hidden_groups(4 * w, "quick_gelu"), True, None))]
 INT8_SHAPES = [(torch.bfloat16, s) for s in SHAPES] + [(torch.float32, s) for s in SHAPES]
 INT8_SHAPES += [(torch.bfloat16, s) for s in TRAIN_SHAPES]
+# RN50x4's text tower (W = 640: B5's hidden in 2 groups of 1,280; the
+# int8 GEMM at K = 640, N = 1,920 and 2,560), serve and train shapes
+INT8_SHAPES += [(torch.bfloat16, s) for s in RN_SHAPES + RN_TRAIN_SHAPES]
 # int8 tensor-core peak of the H100 SXM (dense), NVIDIA data sheet
 PEAK_INT8_OPS = 1979e12
 # the card's int8 bf16 embeddings against the port's plain int8 fp32 run
@@ -518,8 +556,9 @@ FIQ_TYPES = ("dress", "shirt", "toptee")
 # the CPU leg of the evaluation phase (fp32 plain versions, the run's
 # slowest phase) runs every evaluator on its first CPU_QUERIES queries
 # over a gallery cut to the images they name (`cpu_loaders`): the image
-# embeds (~35 GFLOP an image against ~6 a query) take most of its time
-CPU_QUERIES = 64
+# embeds (~35 GFLOP an image against ~6 a query) take most of its time;
+# one batch of queries since PR 16 (64 took 130.77 s of a 1,079.4 s run)
+CPU_QUERIES = 32
 EVAL_GALLERY, EVAL_QUERIES, CIRR_GROUP = 512, 256, 6
 CIRR_CAPTIONS = ["has two dogs instead of one", "the same bag but in black leather",
                  "show it from the side", "make the background a beach",
@@ -1925,18 +1964,24 @@ def check_launches(path: str, launches: dict, want: dict) -> None:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
 
 
-def train_launches(steps: int, int8: bool = False, tme: bool = False) -> dict:
+def train_launches(steps: int, int8: bool = False, tme: bool = False,
+                   resnet: bool = False) -> dict:
     """Expected launches of `steps` train steps: 3 frozen tower passes a
     step (B1-B3, or B5-B6, in each block), B11 at the ViT's ln_pre and
     ln_post (2 image passes), the text tower's ln_final, TME's LN on a TME
     model and the train-mode BERT's LNs; B9 at TME's cross-attention; B4
     once. The train-mode BERT and MR attention are `mha_ref` with
     probability dropout, as in JAX: no B7, no B8, no B9; the train-mode
-    combiners drop out too: no B12."""
-    want = dict.fromkeys(INT8_KERNELS if int8 else TOWER_KERNELS, steps * 3 * LAYERS)
+    combiners drop out too: no B12. With the ResNet image tower (RN50x4)
+    only the text pass runs blocks, and each image pass ends in its
+    attention pool (B8) with no LN."""
+    passes = 1 if resnet else 3
+    want = dict.fromkeys(INT8_KERNELS if int8 else TOWER_KERNELS, steps * passes * LAYERS)
     want[B4] = steps
-    want[B11] = steps * (2 * 2 + 1 + int(tme) + BERT_LNS)
+    want[B11] = steps * ((0 if resnet else 2 * 2) + 1 + int(tme) + BERT_LNS)
     want[B9] = steps * int(tme)
+    if resnet:
+        want[B8] = steps * 2
     return want
 
 
@@ -2134,31 +2179,36 @@ def profile_step(trainer: Trainer, step_fn) -> dict:
                 spans_device_ms=split)
 
 
-def phase_train(card: str, tme: bool = False) -> dict:
-    """The train slice (phase 9: 6 steps and a validation) or its TME
-    variant (phase 11: 3 steps, no validation)."""
-    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", tme=tme)
-    steps = TME_TRAIN_STEPS if tme else TRAIN_STEPS
+def phase_train(card: str, tme: bool = False, model_name: str = "ViT-B-16",
+                steps: int | None = None) -> dict:
+    """The train slice (phase 9: 6 steps and a validation), its TME variant
+    (phase 11: 3 steps, no validation), or RN50x4's (phase 17: `steps`
+    steps, no validation and no fp32 check against the CPU, which
+    `tests/test_torch_rn50x4_train.py` holds against JAX)."""
+    cfg = get_clip_config(model_name, activation="quick_gelu", tme=tme)
+    vit = cfg.vision.kind == "vit"
+    steps = steps or (TME_TRAIN_STEPS if tme else TRAIN_STEPS)
     g = np.random.default_rng(2)
     side = cfg.vision.image_size
     images = g.integers(0, 256, (UNIVERSE, side, side, 3), dtype=np.uint8)
     patches = g.standard_normal((UNIVERSE, 13, cfg.feature_dim), dtype=np.float32)
     dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * steps, seed=4)
-    fp32 = check_fp32_step(cfg, dataset, card)
+    fp32 = check_fp32_step(cfg, dataset, card) if vit else None
+    validate = vit and not tme
 
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     val_launches: list = []
     common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as ckpt_dir:
-        tcfg = TrainConfig(dataset="fashioniq", clip_model_name="ViT-B-16",
+        tcfg = TrainConfig(dataset="fashioniq", clip_model_name=model_name,
                            activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                            num_epochs=1, validation_frequency=1, print_frequency=1,
                            max_steps_per_epoch=steps, num_workers=0, precision="bf16",
                            image_dtype="uint8", eval_batch_size=128, ckpt_dir=ckpt_dir,
                            seed=0, tme=tme)
         trainer = Trainer(tcfg, device="cuda", model=model, train_dataset=dataset,
-                          validator=None if tme else make_validator(images, patches,
-                                                                    val_launches),
+                          validator=make_validator(images, patches, val_launches)
+                          if validate else None,
                           plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
                                                _fiq_captions),
                           tokenizer=tokenizer())
@@ -2185,7 +2235,7 @@ def phase_train(card: str, tme: bool = False) -> dict:
         run_s = time.perf_counter() - t0
         total = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        if len(val_launches) != (0 if tme else 1):
+        if len(val_launches) != int(validate):
             raise AssertionError(f"{len(val_launches)} validations")
         launches = dict(total)
         if val_launches:
@@ -2193,8 +2243,13 @@ def phase_train(card: str, tme: bool = False) -> dict:
             check_launches("validation", val_launches[0],
                            serve_launches(cfg, [128] * (VAL_GALLERY // 128),
                                           [128] * (VAL_QUERIES // 128)))
-        check_launches(f"{'TME ' if tme else ''}train path", launches,
-                       train_launches(steps, tme=tme))
+        check_launches(f"{model_name} {'TME ' if tme else ''}train path", launches,
+                       train_launches(steps, tme=tme, resnet=not vit))
+        if not vit:
+            bns = [m for m in model.clip.visual.modules() if isinstance(m, FrozenBatchNorm2d)]
+            if not bns or any(m.running_mean.dtype != torch.bfloat16 for m in bns):
+                raise AssertionError("the bf16 train policy left ResNet BatchNorm statistics "
+                                     "in fp32")
         if len(losses) != steps or not np.all(np.isfinite(losses)):
             raise AssertionError(f"train losses {losses}")
         for k, v in model.clip.state_dict().items():
@@ -2215,7 +2270,7 @@ def phase_train(card: str, tme: bool = False) -> dict:
                     recall_at10=trainer.best.best_metric, peak_memory_gib=peak_gb,
                     ern_moved=len(moved), ern_unmoved=still, clip_checksum=clip_sum,
                     fp32_check=fp32)
-        log(f"  {steps} steps at B={TRAIN_BATCH}{' with TME' if tme else ''}: losses "
+        log(f"  {model_name}, {steps} steps at B={TRAIN_BATCH}{' with TME' if tme else ''}: losses "
             f"{[round(x, 4) for x in losses]}; step times "
             f"{[round(1e3 * t, 2) for t in times]} ms, median (2-{steps}) {step_ms:.2f} ms = "
             f"{info['samples_per_s']:.1f} samples/s; peak memory {peak_gb:.2f} GiB ({card})")
@@ -2577,9 +2632,9 @@ def topk_overlap(a: list, b: list) -> float:
     return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
 
 
-def phase_int8_train(card: str) -> dict:
+def phase_int8_train(card: str, model_name: str = "ViT-B-16") -> dict:
     """2 steps of Trainer.train() at B = 1024 with int8 frozen towers."""
-    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", quantize_mlp=True)
+    cfg = get_clip_config(model_name, activation="quick_gelu", quantize_mlp=True)
     g = np.random.default_rng(5)
     side = cfg.vision.image_size
     images = g.integers(0, 256, (UNIVERSE, side, side, 3), dtype=np.uint8)
@@ -2587,7 +2642,7 @@ def phase_int8_train(card: str) -> dict:
     dataset = SyntheticFashionIQ(images, patches, TRAIN_BATCH * INT8_TRAIN_STEPS, seed=6)
     common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as ckpt_dir:
-        tcfg = TrainConfig(dataset="fashioniq", clip_model_name="ViT-B-16",
+        tcfg = TrainConfig(dataset="fashioniq", clip_model_name=model_name,
                            activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                            num_epochs=1, print_frequency=1,
                            max_steps_per_epoch=INT8_TRAIN_STEPS, num_workers=0,
@@ -2616,10 +2671,11 @@ def phase_int8_train(card: str) -> dict:
         trainer.train()
         torch.cuda.synchronize()
         launches = launch_counts()
-    check_launches("int8 train path", launches, train_launches(INT8_TRAIN_STEPS, int8=True))
+    check_launches(f"{model_name} int8 train path", launches,
+                   train_launches(INT8_TRAIN_STEPS, int8=True, resnet=cfg.vision.kind != "vit"))
     if len(losses) != INT8_TRAIN_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"int8 train losses {losses}")
-    log(f"  {INT8_TRAIN_STEPS} steps at B={TRAIN_BATCH}, int8 towers: losses "
+    log(f"  {model_name}, {INT8_TRAIN_STEPS} steps at B={TRAIN_BATCH}, int8 towers: losses "
         f"{[round(x, 4) for x in losses]}; step times "
         f"{[round(1e3 * t, 2) for t in times]} ms (the second: "
         f"{TRAIN_BATCH / times[-1]:.1f} samples/s); launches {launches} ({card})")
@@ -2775,6 +2831,9 @@ def phase_eval(card: str) -> dict:
 # the legs' limits: the trained CLI eval equals the sidecar's best
 # validation metric, which beats the untrained eval by this many points
 LEG_MIN_GAIN = 20.0
+# phase 15's legs run 12 of the soak's 15 epochs: the whole run passed
+# 900 s of its 1,200 once phases 17 and 18 came in (PERF.md, PR 16)
+LEG_EPOCHS = 12
 # the kernels a leg runs at the CLI's defaults (ViT-B-16, fp32): the
 # towers' sub-blocks (B1-B3; B10 in the eval text towers), B4 in the train
 # step, the DVR query tower's B7 and B8, B11 at the standalone LNs, B12 at
@@ -2871,8 +2930,8 @@ def phase_extract(root: str, work: str, command) -> dict:
 def phase_cli(card: str) -> dict:
     """Phase 15, the dataset and CLI path, through the port's CLI in
     subprocesses (`benchmarks/accuracy_soak.py run_leg`): soak legs B
-    (learnable FashionIQ) and C (learnable CIRR) at ViT-B-16, B = 16, 15
-    epochs, the two legs' process chains side by side (the card and the
+    (learnable FashionIQ) and C (learnable CIRR) at ViT-B-16, B = 16,
+    LEG_EPOCHS epochs, the two legs' process chains side by side (the card and the
     host's 8 cores hold both; the results do not depend on it, the
     seconds do), then `extract-patches`; launch counts summed over every
     CLI process."""
@@ -2884,7 +2943,8 @@ def phase_cli(card: str) -> dict:
         command = counting_cli(counts_path)
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             runs = {leg: pool.submit(Soak.run_leg, leg, os.path.join(work, f"leg_{leg}"),
-                                     min_gain=LEG_MIN_GAIN, command=command)
+                                     epochs=LEG_EPOCHS, min_gain=LEG_MIN_GAIN,
+                                     artifact=False, command=command)
                     for leg in ("B", "C")}
             legs = {leg: f.result() for leg, f in runs.items()}
         legs_seconds = time.perf_counter() - t0
@@ -3319,6 +3379,312 @@ def phase_serving_front(card: str) -> dict:
     return out
 
 
+# --- phase 17: the RN50x4 tiers --------------------------------------------------
+
+RN_TRAIN_STEPS, RN_TME_TRAIN_STEPS = 3, 2
+
+
+def mha_grad_check(b: int = 64, d: int = 640) -> dict:
+    """B9's backward at RN50x4's TME (8 heads of 80, 77 queries against
+    13 patches, fp32), as `MHAFunction` takes it in a TME train step: the
+    kernel forward and the plain version's VJP, against autograd of the
+    plain version, every gradient at rtol 1e-4 and an atol of 1e-5 times
+    its largest element (tests/test_torch_cuda.py's limits)."""
+    q, k, v, _ = mha_case(dict(b=b, d=d), torch.float32, seed=801)
+    up = torch.randn(q.shape, generator=torch.Generator().manual_seed(802)).cuda()
+    grads = []
+    for fn in (A.multi_head_attention, A.mha_plain):
+        ops = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        (fn(*ops).float() * up).sum().backward()
+        grads.append([t.grad for t in ops])
+    worst = 0.0
+    for name, got, want in zip("qkv", *grads):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=lambda m, n=name: f"B9 backward d{d}, grad {n}: {m}")
+        worst = max(worst, err / scale)
+    return {"b": b, "d": d, "head_dim": d // 8, "max_err_over_scale": worst}
+
+
+def phase_rn50x4_tiers(card: str) -> dict:
+    """Phase 17 (ROADMAP A4b): RN50x4 at full width (ResNet 4-6-10-6, width
+    80, 288 px, text 12 x 640) through `Trainer.train()` for
+    RN_TRAIN_STEPS bf16 steps at B = 1024, with int8 towers for
+    INT8_TRAIN_STEPS, and with TME for RN_TME_TRAIN_STEPS after TME
+    queries through the serve program (the serve slice of phase 10 with
+    tme=True); B9's backward at head dim 80 against its plain version.
+    B4 at d = 640 (phase 7), B5 / B6 at W = 640 (phase 5) and B9's forward
+    at d = 640 (phase 2) are held at these shapes in their phases."""
+    out = {}
+    log(f"  RN50x4 train, bf16 towers, B={TRAIN_BATCH}")
+    out["train"] = phase_train(card, model_name="RN50x4", steps=RN_TRAIN_STEPS)
+    log(f"  RN50x4 int8 train, B={TRAIN_BATCH}")
+    out["int8_train"] = phase_int8_train(card, model_name="RN50x4")
+    log("  RN50x4 TME: queries through the serve program, then train")
+    out["tme_slice"], tme_service, tme_api = phase_slice(card, model_name="RN50x4", tme=True)
+    del tme_service, tme_api
+    out["tme_train"] = phase_train(card, tme=True, model_name="RN50x4",
+                                   steps=RN_TME_TRAIN_STEPS)
+    out["tme_launches"] = {name: out["tme_slice"]["launches"][name]
+                           + out["tme_train"]["launches"][name] for name in KERNELS}
+    out["b9_backward_d640"] = mha_grad_check()
+    log(f"  B9 backward at head dim 80 (b=64, d=640, fp32) against the plain version's "
+        f"autograd: max error / scale {out['b9_backward_d640']['max_err_over_scale']:.2e} "
+        f"({card})")
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 18: serve artifacts -----------------------------------------------------
+
+ARTIFACT_SAMPLES = 200
+ARTIFACT_QUERY_ROWS = (1, 5, 20, 32)     # buckets 1, 8, 32, 32
+
+# The artifact's loading process: it imports the port's op library, the
+# artifact module and the tokenizer only, and must import no module of
+# `models/` or `data/`. It loads each artifact (each bucket captured as a
+# CUDA graph, its kernel nodes checked against its recorded launches),
+# answers the queries of the request, reads the launch counts, times
+# `query` at b = 1 and 32, and writes the result as JSON.
+ARTIFACT_PROCESS = r"""
+import importlib, json, statistics, sys, time
+import numpy as np
+import torch
+from fashionern_aaai2024_tpu_torch.retrieval.artifact import load_serve_artifact
+req = json.load(open(sys.argv[1]))
+wrappers = {n: getattr(importlib.import_module(m), a) for n, (m, a) in req["wrappers"].items()}
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for tag, path in req["artifacts"].items():
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    art = load_serve_artifact(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    answers = {}
+    for key, q in req["queries"].items():
+        s, i = art.query(np.asarray(q["ids"], np.int32), q["rows"], k=q["k"])
+        answers[key] = {"scores": s.tolist(), "rows": i.tolist()}
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    graphs = {str(b): {"kernel_nodes": dict(art._buckets[b].graph.kernel_nodes),
+                       "launches": {w.__name__: n for w, n in
+                                    art._buckets[b].graph.launches.items()}}
+              for b in art.buckets}
+    p50 = {}
+    for b in (1, 32):
+        ids = np.asarray(req["queries"][f"q{b}"]["ids"], np.int32)
+        rows = req["queries"][f"q{b}"]["rows"]
+        times = []
+        for _ in range(req["samples"]):
+            t = time.perf_counter()
+            art.query(ids, rows, k=10)
+            times.append((time.perf_counter() - t) * 1e3)
+        p50[str(b)] = statistics.median(times)
+    out[tag] = dict(load_seconds=load_s, answers=answers, launches=launches, graphs=graphs,
+                    p50_ms=p50, buckets=art.buckets)
+out["port_modules"] = sorted(m for m in sys.modules if m.startswith("fashionern_aaai2024_tpu"))
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def artifact_queries(service: RetrievalService) -> dict:
+    """Queries of 1, 5, 20 and 32 rows (buckets 1, 8, 32, 32) as token ids
+    and gallery rows."""
+    names = service.gallery.names
+    out = {}
+    for n in ARTIFACT_QUERY_ROWS:
+        refs = [names[(11 * i + n) % len(names)] for i in range(n)]
+        caps = [CAPTIONS[(i + n) % len(CAPTIONS)] for i in range(n)]
+        out[f"q{n}"] = {"ids": tokenizer()(caps, CTX).tolist(),
+                        "rows": [service.rows[r] for r in refs], "k": K}
+    return out
+
+
+def live_answers(service: RetrievalService, queries: dict) -> dict:
+    fn = service._serve_fn
+    return {key: fn(np.asarray(q["ids"], np.int32), q["rows"], k=q["k"])
+            for key, q in queries.items()}
+
+
+def compare_answers(got: dict, want: dict, what: str) -> dict:
+    """Equal top-k rows, scores within 1e-5; whether bit for bit."""
+    worst, bitwise = 0.0, True
+    for key, (ws, wi) in want.items():
+        gs, gi = np.asarray(got[key]["scores"], np.float32), np.asarray(got[key]["rows"])
+        if not np.array_equal(gi, wi):
+            raise AssertionError(f"{what} {key}: top-k rows {gi.tolist()} != live {wi.tolist()}")
+        worst = max(worst, float(np.abs(gs - ws).max()))
+        bitwise &= bool(np.array_equal(gs, ws))
+    if worst > 1e-5:
+        raise AssertionError(f"{what}: scores off the live program's by {worst}")
+    return {"max_score_diff": worst, "bit_for_bit": bitwise}
+
+
+def live_p50(service: RetrievalService, queries: dict) -> dict:
+    fn, out = service._serve_fn, {}
+    for b in (1, 32):
+        q = queries[f"q{b}"]
+        ids = np.asarray(q["ids"], np.int32)
+        times = []
+        for _ in range(ARTIFACT_SAMPLES):
+            t = time.perf_counter()
+            fn(ids, q["rows"], k=K)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[str(b)] = statistics.median(times)
+    return out
+
+
+def artifact_daemon(path: str, bpe: str, work: str):
+    """`fashionern-torch serve-artifact` over `path` in a process of its
+    own: (process, URL)."""
+    err = open(os.path.join(work, "serve-artifact.stderr"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", Soak.CLI_MODULE, "serve-artifact", "--artifact", path, "--port",
+         "0", "--bpe-path", bpe, "--no-dynamic-batching"], stdout=subprocess.PIPE, stderr=err,
+        text=True, env=dict(os.environ, PYTHONPATH=Soak.REPO + os.pathsep
+                            + os.environ.get("PYTHONPATH", "")))
+    for line in proc.stdout:
+        if line.startswith("serving "):
+            return proc, line.split(" on ")[1].split()[0]
+    proc.wait(timeout=60)
+    with open(err.name) as f:
+        raise AssertionError(f"serve-artifact printed no URL:\n{f.read()[-3000:]}")
+
+
+def daemon_query(service: RetrievalService, queries: dict) -> tuple[list, list]:
+    """The 5-row query as gallery names and captions."""
+    return ([service.gallery.names[r] for r in queries["q5"]["rows"]],
+            [CAPTIONS[(i + 5) % len(CAPTIONS)] for i in range(5)])
+
+
+def http_answers(url: str, service: RetrievalService, queries: dict) -> list:
+    refs, caps = daemon_query(service, queries)
+    return http_json(f"{url}/query", {"ref_names": refs, "captions": caps, "k": K})["results"]
+
+
+def phase_artifacts(card: str, service: RetrievalService, int8_service: RetrievalService,
+                    ) -> dict:
+    """Phase 18 (ROADMAP A7): phase 3's ViT-B-16 service (bf16 serve policy,
+    the 512-item gallery) and phase 6's int8 one (--quantize-gallery
+    --quantize-towers) exported (`retrieval/artifact.py`); both loaded in a
+    fresh process that imports no `models` module, each bucket captured as
+    one CUDA graph; their answers against the live serve programs' (equal
+    top-k rows, scores within 1e-5, bit for bit or not), and query P50 at
+    b = 1 and 32 of each. Then `serve-artifact` over the bf16 artifact,
+    `refresh_consts` (what `refresh-artifact` runs) from a service whose
+    ERN has new seeded weights, and `POST /reload`: the daemon's answers
+    become the new live service's."""
+    t0 = time.perf_counter()
+    queries = artifact_queries(service)
+    wrappers = {name: [fn.__module__, fn.__name__] for name, (fn, _, _) in KERNELS.items()}
+    out = {}
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as work:
+        paths = {"bf16": os.path.join(work, "vit_bf16"), "int8": os.path.join(work, "vit_int8")}
+        lives = {"bf16": service, "int8": int8_service}
+        for tag, svc in lives.items():
+            t = time.perf_counter()
+            manifest = ART.export_serve_artifact(svc._serve_fn, paths[tag],
+                                                 model_name="ViT-B-16",
+                                                 gallery_names=svc.gallery.names)
+            size = {name: os.path.getsize(os.path.join(paths[tag], name))
+                    for name in os.listdir(paths[tag])}
+            out[tag] = dict(export_seconds=time.perf_counter() - t, file_bytes=size,
+                            consts=len(manifest["consts_shapes"]))
+            log(f"  export {tag}: {time.perf_counter() - t:.1f} s; files " + ", ".join(
+                f"{n} {b / 2**20:.2f} MiB" for n, b in sorted(size.items())))
+        req, res = os.path.join(work, "request.json"), os.path.join(work, "result.json")
+        with open(req, "w") as f:
+            json.dump(dict(artifacts=paths, queries=queries, wrappers=wrappers,
+                           samples=ARTIFACT_SAMPLES), f)
+        t = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", ARTIFACT_PROCESS, req, res],
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=Soak.REPO + os.pathsep
+                                       + os.environ.get("PYTHONPATH", "")))
+        if done.returncode != 0:
+            raise AssertionError(f"the artifact process failed:\n{done.stderr[-3000:]}")
+        with open(res) as f:
+            loaded = json.load(f)
+        out["process_seconds"] = time.perf_counter() - t
+        imported = [m for m in loaded["port_modules"]
+                    if m.startswith(("fashionern_aaai2024_tpu_torch.models",
+                                     "fashionern_aaai2024_tpu_torch.data",
+                                     "fashionern_aaai2024_tpu."))]
+        if imported:
+            raise AssertionError(f"the artifact process imported {imported}")
+        launches = dict.fromkeys(KERNELS, 0)
+        for tag, svc in lives.items():
+            got = loaded[tag]
+            buckets = got["buckets"]
+            cmp = compare_answers(got["answers"], live_answers(svc, queries), f"artifact {tag}")
+            calls = [next(b for b in buckets if b >= n) for n in ARTIFACT_QUERY_ROWS]
+            want = serve_launches(svc.api.model.clip_config, [], buckets + calls,
+                                  refine_chunks=0)
+            check_launches(f"artifact {tag}", got["launches"], want)
+            for name, n in got["launches"].items():
+                launches[name] += n
+            live = live_p50(svc, queries)
+            out[tag].update(load_seconds=got["load_seconds"], graphs=got["graphs"],
+                            launches=got["launches"], p50_ms=got["p50_ms"],
+                            live_p50_ms=live, **cmp)
+            log(f"  artifact {tag}: loaded and captured in {got['load_seconds']:.1f} s; "
+                f"graph kernel nodes by bucket " + "; ".join(
+                    f"b={b} {sum(g['kernel_nodes'].values())}"
+                    for b, g in got["graphs"].items())
+                + f"; answers == live (rows equal, max score diff {cmp['max_score_diff']:.2e}, "
+                f"bit for bit {cmp['bit_for_bit']}); query P50 b=1 {got['p50_ms']['1']:.3f} "
+                f"ms, b=32 {got['p50_ms']['32']:.3f} ms; live serve program b=1 "
+                f"{live['1']:.3f} ms, b=32 {live['32']:.3f} ms ({ARTIFACT_SAMPLES} samples, "
+                f"{card})")
+        out["launches"] = launches
+        out["imported_port_modules"] = loaded["port_modules"]
+
+        # serve-artifact, a retrained ERN, refresh, /reload
+        bpe = os.path.join(work, "bpe")
+        os.makedirs(bpe)
+        words = CAPTIONS + [c for pair in FIQ_CAPTIONS for c in pair] + CIRR_CAPTIONS
+        table = write_bpe_table(bpe, words + NON_ASCII_CAPTIONS, BPE_MERGES)
+        if not np.array_equal(SimpleTokenizer(table)(CAPTIONS, CTX),
+                              tokenizer()(CAPTIONS, CTX)):
+            raise AssertionError("the written BPE table tokenizes unlike the phases' table")
+        proc, url = artifact_daemon(paths["bf16"], table, work)
+        try:
+            before = http_answers(url, service, queries)
+            same_answers(before, service.query(*daemon_query(service, queries), k=K)[0], 1e-5,
+                         "serve-artifact vs the live service")
+            # the same towers, a new seeded ERN: a retrained checkpoint's shapes
+            model = copy.deepcopy(service.api.model).float().cpu()
+            random_init_(model.ern, torch.Generator().manual_seed(16))
+            apply_precision(model, "bf16")
+            new_api = InferenceAPI(model, tokenizer=tokenizer(), device="cuda",
+                                   batch_size=BATCH)
+            cfg = model.clip_config
+            _, _, _, batches = make_gallery(cfg.vision.image_size, cfg.feature_dim)
+            new_service = RetrievalService(new_api, batches)
+            ART.refresh_consts(paths["bf16"], new_service._serve_fn)
+            reload = http_json(f"{url}/reload", {})
+            after = http_answers(url, new_service, queries)
+            same_answers(after, new_service.query(*daemon_query(new_service, queries),
+                                                  k=K)[0], 1e-5,
+                         "serve-artifact after /reload vs the new service")
+            if after == before:
+                raise AssertionError("/reload changed nothing")
+            del new_service, new_api, model
+        finally:
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=120)
+        out["reload"] = dict(seconds=reload["seconds"], gallery_size=reload["gallery_size"])
+        log(f"  serve-artifact: answers == live; refresh_consts from a new seeded ERN, "
+            f"/reload in {reload['seconds']:.3f} s, answers == the new live service's ({card})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+
 def jpeg_copy(png: str, work: str) -> str:
     """The same pixels as a JPEG (PIL writes it), for the JPEG route's time."""
     from PIL import Image
@@ -3385,7 +3751,7 @@ def main() -> None:
         f"embed + refine {int8_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
         f"int8 towers); query P50 {int8_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{int8_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
-    del int8_service, int8_api
+    del int8_api
     log(f"phase 7: {B4} against its plain version ({card})")
     bbc_rows = phase_bbc()
     log(f"phase 8: the int8 train slice, B={TRAIN_BATCH}, quantize_towers ({card})")
@@ -3443,9 +3809,17 @@ def main() -> None:
             f"{split['device_ms']:.3f} ms, idle share {split['idle_share']:.3f}; "
             + "; ".join(f"{t['kernel'][:48]} {t['ms']:.3f} ms x{t['launches']}"
                         for t in split["top"]) + span_text + f" ({card})")
-    # the CLI's processes get the card's memory that the services held
-    del service, api, rn_service, rn_api, tme_service, tme_api, profiles, embed_fn, query_fn
+    del rn_service, rn_api, tme_service, tme_api, profiles, embed_fn, query_fn
     del int8_embed_fn, rn_embed_fn, rn_query_fn, tme_query_fn, fn
+    torch.cuda.empty_cache()
+    log(f"phase 17: the RN50x4 tiers: train, int8 train and TME at full width ({card})")
+    rn_tiers = phase_rn50x4_tiers(card)
+    log(f"phase 18: serve artifacts of phase 3's and phase 6's services: export, a fresh "
+        f"loading process, graphs, answers against the live programs, serve-artifact, "
+        f"refresh and /reload ({card})")
+    artifacts = phase_artifacts(card, service, int8_service)
+    # the CLI's processes get the card's memory that the services held
+    del service, api, int8_service
     torch.cuda.empty_cache()
     log(f"phase 15: the dataset and CLI path through the port's CLI: soak legs B and C, "
         f"extract-patches ({card})")
@@ -3503,7 +3877,11 @@ def main() -> None:
                       "attn_experiment": experiment["launches"][name],
                       "cli_legs": cli_info["launches"][name],
                       "serving_front": front["launches"][name],
-                      "cli_serve": front["cli"]["launches"][name]}
+                      "cli_serve": front["cli"]["launches"][name],
+                      "rn50x4_train": rn_tiers["train"]["launches"][name],
+                      "rn50x4_int8_train": rn_tiers["int8_train"]["launches"][name],
+                      "rn50x4_tme": rn_tiers["tme_launches"][name],
+                      "artifact": artifacts["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -3544,6 +3922,7 @@ def main() -> None:
                            int8_gemm_edge_max_err=int8_gemm_worst,
                            f32_gemm_edge_max_err=f32_gemm_worst,
                            host_us_per_call=host, cli=cli_info, serving_front=front,
+                           rn50x4_tiers=rn_tiers, artifacts=artifacts,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,14 @@ take the reference's torch `state_dict`s (`.pth`) directly;
 Not here:
   * `fetch-bpe` (it downloads) and `convert-ckpt` (the port needs no
     conversion): not to port (ROADMAP).
-  * `export`, `refresh-artifact` and `serve-artifact` are registered
-    with their JAX flags and raise `NotImplementedError` (ROADMAP A7), as
-    does `--data-parallel` of `eval` and `serve` (A8).
+  * `--data-parallel` of `eval` and `serve` raises `NotImplementedError`
+    (ROADMAP A8).
+
+`export`, `refresh-artifact` and `serve-artifact` (JAX `:613-629`,
+`:675-721`) write, republish and serve a serve artifact
+(`retrieval/artifact.py`). `serve-artifact` imports nothing of `models/`
+or `data/`: `main` parses it with its own parser, and this module imports
+the model configs only where a command builds a model.
 
 `serve` (`build_service`, `run_serve`; JAX `:569-612`, `:631-670`)
 builds the service and serves it over HTTP until interrupted, and prints
@@ -36,12 +41,18 @@ import os
 import sys
 import warnings
 
-from fashionern_aaai2024_tpu_torch.models.clip.config import _CONFIGS, get_clip_config
-
 _TORCH_EXTS = (".pth", ".pt", ".bin")
 
 
+def get_clip_config(*args, **kwargs):
+    from fashionern_aaai2024_tpu_torch.models.clip import config
+
+    return config.get_clip_config(*args, **kwargs)
+
+
 def _backbones() -> list:
+    from fashionern_aaai2024_tpu_torch.models.clip.config import _CONFIGS
+
     return sorted(_CONFIGS)
 
 
@@ -75,6 +86,31 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     _add_device(p)
 
 
+def _add_serve_artifact(sub) -> None:
+    """The deploy host's subcommand: the artifact and the HTTP flags, none
+    of the dataset, model or checkpoint flags."""
+    sa = sub.add_parser("serve-artifact", help="serve an exported artifact over HTTP")
+    sa.add_argument("--artifact", required=True, help="artifact directory "
+                    "produced by `fashionern-torch export`")
+    sa.add_argument("--host", default="127.0.0.1")
+    sa.add_argument("--port", default=8080, type=int)
+    sa.add_argument("--no-dynamic-batching", action="store_true")
+    sa.add_argument("--allow-platform-mismatch", action="store_true",
+                    help="load an artifact exported for another device type "
+                         "(see its manifest)")
+    sa.add_argument("--bpe-path", default=None,
+                    help="BPE merges table for the server-side tokenizer")
+    _add_device(sa)
+
+
+def build_serve_artifact_parser() -> argparse.ArgumentParser:
+    """A parser of `serve-artifact` alone (`main` parses that command with
+    it, so that serving an artifact imports no model module)."""
+    parser = argparse.ArgumentParser(prog="fashionern-torch")
+    _add_serve_artifact(parser.add_subparsers(dest="command", required=True))
+    return parser
+
+
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device the model runs on (the port's only flag of its "
@@ -87,9 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch / CUDA port's CLI: the JAX `fashionern` CLI's "
                     "subcommands and flags.",
         epilog="Not ported: fetch-bpe (it downloads; pass --bpe-path) and convert-ckpt "
-               "(the port loads the reference .pth state_dicts directly). export, "
-               "refresh-artifact and serve-artifact are registered and raise "
-               "NotImplementedError (ROADMAP A7).")
+               "(the port loads the reference .pth state_dicts directly).")
     sub = parser.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="fine-tune the ERN fusion stack")
@@ -216,7 +250,7 @@ def build_parser() -> argparse.ArgumentParser:
     ex = sub.add_parser(
         "export",
         help="export the one-dispatch serve program as an artifact "
-             "(not ported: ROADMAP A7)")
+             "(torch.export, one program per bucket + a consts sidecar)")
     _add_common(ex)
     ex.add_argument("--clip-path", default=None)
     ex.add_argument("--fusion-model-path", default=None)
@@ -237,7 +271,7 @@ def build_parser() -> argparse.ArgumentParser:
     rf = sub.add_parser(
         "refresh-artifact",
         help="republish an artifact's weights and gallery from a "
-             "retrained checkpoint (not ported: ROADMAP A7)")
+             "retrained checkpoint")
     _add_common(rf)
     rf.add_argument("--clip-path", default=None)
     rf.add_argument("--fusion-model-path", default=None)
@@ -259,19 +293,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(e.g. http://127.0.0.1:8080) to POST /reload "
                          "after republishing")
 
-    sa = sub.add_parser(
-        "serve-artifact",
-        help="serve an exported artifact over HTTP (not ported: ROADMAP A7)")
-    sa.add_argument("--artifact", required=True, help="artifact directory "
-                    "produced by `fashionern export`")
-    sa.add_argument("--host", default="127.0.0.1")
-    sa.add_argument("--port", default=8080, type=int)
-    sa.add_argument("--no-dynamic-batching", action="store_true")
-    sa.add_argument("--allow-platform-mismatch", action="store_true",
-                    help="load an artifact exported for a different "
-                         "backend (numerics may differ; see manifest)")
-    sa.add_argument("--bpe-path", default=None,
-                    help="BPE merges table for the server-side tokenizer")
+    _add_serve_artifact(sub)
 
     sub.add_parser("info", help="print backbones, datasets, native libraries, image "
                                 "routes and what is not ported")
@@ -641,6 +663,65 @@ def run_serve(args) -> None:
         httpd.server_close()
 
 
+def run_export(args) -> dict:
+    """`export` (JAX `:613-629`): the service that `serve` builds, its serve
+    program exported with the consts sidecar (`retrieval/artifact.py`);
+    returns the manifest."""
+    from fashionern_aaai2024_tpu_torch.retrieval.artifact import export_serve_artifact
+
+    service = build_service(args)
+    return export_serve_artifact(
+        service._serve_fn, args.out, model_name=args.clip_model_name,
+        gallery_names=service.gallery.names,
+        extra_meta={"dataset": args.dataset, "split": args.split,
+                    "precision": getattr(args, "precision", "bf16"),
+                    "quantize_gallery": bool(getattr(args, "quantize_gallery", False)),
+                    "quantize_towers": bool(getattr(args, "quantize_towers", False))})
+
+
+def run_refresh_artifact(args) -> dict:
+    """`refresh-artifact` (JAX `:675-693`): the service rebuilt from the
+    (retrained) checkpoint flags, its consts republished into the
+    artifact, then `POST /reload` to `--reload-url` if given."""
+    from fashionern_aaai2024_tpu_torch.retrieval.artifact import refresh_consts
+
+    service = build_service(args)
+    manifest = refresh_consts(args.artifact, service._serve_fn)
+    print(f"republished consts for {manifest['gallery_size']}-item gallery at "
+          f"{args.artifact}", flush=True)
+    if getattr(args, "reload_url", None):
+        import urllib.request
+
+        req = urllib.request.Request(args.reload_url.rstrip("/") + "/reload", b"{}",
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            print("daemon reload:", r.read().decode(), flush=True)
+    return manifest
+
+
+def run_serve_artifact(args) -> None:
+    """`serve-artifact` (JAX `:696-720`): the HTTP daemon over an artifact,
+    with none of the model stack; one line with the bound URL once it
+    takes requests."""
+    from fashionern_aaai2024_tpu_torch.retrieval.server import ArtifactService, serve
+
+    if args.bpe_path:
+        os.environ["FASHIONERN_BPE_PATH"] = args.bpe_path
+    service = ArtifactService(args.artifact, device=args.device,
+                              allow_platform_mismatch=args.allow_platform_mismatch)
+    httpd = serve(service, host=args.host, port=args.port,
+                  dynamic_batching=not args.no_dynamic_batching)
+    print(f"serving {service.gallery_size} gallery items from artifact {args.artifact} on "
+          f"http://{args.host}:{httpd.server_address[1]} "
+          f"(startup {service.startup_seconds:.1f}s)", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+
+
 def _native_status(probe) -> object:
     try:
         return probe()
@@ -661,7 +742,7 @@ def run_info() -> dict:
 
     cuda = torch.cuda.is_available()
     return {
-        "backbones": sorted(_CONFIGS),
+        "backbones": _backbones(),
         "datasets": sorted(PLUGINS),
         "native_loader": _native_status(lambda: native.LIBRARY.load() is not None),
         "native_tokenizer": _native_status(lambda: native_tokenizer.load() is not None),
@@ -672,8 +753,7 @@ def run_info() -> dict:
         "torch": torch.__version__,
         "cuda": {"available": cuda,
                  "device": torch.cuda.get_device_name(0) if cuda else None},
-        "not_ported": {"export": "A7", "refresh-artifact": "A7",
-                       "serve-artifact": "A7", "eval --data-parallel": "A8",
+        "not_ported": {"eval --data-parallel": "A8",
                        "serve --data-parallel": "A8",
                        "fetch-bpe": "not to port (it downloads)",
                        "convert-ckpt": "not to port (the .pth loads directly)"},
@@ -709,17 +789,20 @@ def run_extract_patches(args) -> int:
     return ex.run(items, args.out_dir, write_pack=not args.no_pack)
 
 
-_UNPORTED = {
-    "export": "serve artifacts are not ported yet (ROADMAP A7)",
-    "refresh-artifact": "serve artifacts are not ported yet (ROADMAP A7)",
-    "serve-artifact": "serve artifacts are not ported yet (ROADMAP A7)",
-}
-
-
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["serve-artifact"]:
+        run_serve_artifact(build_serve_artifact_parser().parse_args(argv))
+        return 0
     args = build_parser().parse_args(argv)
-    if args.command in _UNPORTED:
-        raise NotImplementedError(f"`{args.command}`: {_UNPORTED[args.command]}")
+    if args.command == "export":
+        manifest = run_export(args)
+        print(f"exported {len(manifest['files'])} programs ({manifest['platform']}) to "
+              f"{args.out}", flush=True)
+        return 0
+    if args.command == "refresh-artifact":
+        run_refresh_artifact(args)
+        return 0
     if args.command == "train":
         run_train(args)
         return 0

@@ -81,8 +81,13 @@ class ResidualAttentionBlock(nn.Module):
 
     def int8_weights(self) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
         """{name: (int8 [out, in], fp32 scales [out])} of the four
-        matrices, quantized from the weights as they are now."""
+        matrices, quantized from the weights as they are now. While
+        `torch.export` traces (the weights are then the program's inputs)
+        the quantization goes into the program, uncached, as JAX's does."""
         weights = self._float_weights()
+        if torch.compiler.is_exporting():
+            return {name: (q, scale.reshape(-1)) for name, (q, scale) in
+                    ((n, quantize_rowwise(w.detach())) for n, w in weights.items())}
         key = tuple((id(w), w.data_ptr(), w.dtype, w.device, w._version)
                     for w in weights.values())
         if self._int8 is None or self._int8[0] != key:

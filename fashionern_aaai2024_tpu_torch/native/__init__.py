@@ -24,7 +24,6 @@ from pathlib import Path
 
 import numpy as np
 
-from fashionern_aaai2024_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from fashionern_aaai2024_tpu_torch.native.build import NativeLibrary
 
 
@@ -58,13 +57,15 @@ def gather_rows(pack: np.ndarray, indices) -> np.ndarray:
     return out
 
 
-_MEAN32 = np.asarray(CLIP_MEAN, np.float32)
-_STD32 = np.asarray(CLIP_STD, np.float32)
-
-
 def normalize_images(u8_nhwc: np.ndarray) -> np.ndarray:
     """CLIP normalization of uint8 NHWC images (any leading shape, a
-    trailing channel axis of 3) -> float32."""
+    trailing channel axis of 3) -> float32. (The constants are imported
+    here: the native tokenizer's package must not import `data/`, which a
+    serving host of an artifact does without.)"""
+    from fashionern_aaai2024_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+
+    _MEAN32 = np.asarray(CLIP_MEAN, np.float32)
+    _STD32 = np.asarray(CLIP_STD, np.float32)
     arr = np.ascontiguousarray(u8_nhwc)
     if arr.shape[-1] != 3:
         raise ValueError(f"expected trailing channel axis of 3, got {arr.shape}")

@@ -74,7 +74,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm_plain
 
@@ -377,16 +377,37 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal mask over [Sq, Sk] (`:690-744`).
 
     With `dropout_rate` > 0 and a generator: the `_mha_ref` formula with
-    probability dropout. Otherwise CUDA: the attention core (head dim 64
-    or 80, Sk <= 256) or the grouped kernel (other even head dims up to
-    128, any Sk), through `MHAFunction` when autograd has to reach an
-    operand; CPU: the plain version."""
+    probability dropout. Otherwise `mha`: CUDA: the attention core (head
+    dim 64 or 80, Sk <= 256) or the grouped kernel (other even head dims
+    up to 128, any Sk), through `MHAFunction` when autograd has to reach
+    an operand; CPU: the plain version."""
+    if dropout_rate > 0.0 and generator is not None:
+        sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
+        return mha_ref(q, k, v, shared_bias(causal, bias, sq, sk, q.device),
+                       dh ** -0.5 if scale is None else scale, dropout_rate, generator)
+    return mha(q, k, v, causal, bias, scale)
+
+
+multi_head_attention.launches = 0
+
+
+def _mha_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+              bias: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
+    b, h, sq, dh = q.shape
+    if q.is_cuda and h > 1:  # the kernels' output: a head view of [B, Sq, H * Dh]
+        return q.new_empty((b, sq, h, dh)).transpose(1, 2)
+    return q.new_empty((b, h, sq, dh))
+
+
+@library.exportable(_mha_fake, name="multi_head_attention")
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+        bias: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
+    """B9 without dropout (`multi_head_attention`'s launches): the entry
+    that `ops/library.py` registers."""
     sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
     if scale is None:
         scale = dh ** -0.5
     bias32 = shared_bias(causal, bias, sq, sk, q.device)
-    if dropout_rate > 0.0 and generator is not None:
-        return mha_ref(q, k, v, bias32, scale, dropout_rate, generator)
     if not common.is_cuda(q):
         return mha_plain(q, k, v, bias32, scale)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
@@ -396,9 +417,6 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = _launch_mha(q, k, v, bias32, scale)
     common.count(multi_head_attention)
     return out
-
-
-multi_head_attention.launches = 0
 
 
 # --- B3: packed-qkv self-attention ---------------------------------------
@@ -450,6 +468,7 @@ def packed_kv_cross_attention_plain(q: torch.Tensor, kv: torch.Tensor, heads: in
     return attention_core_plain(q, k, v, heads, scale=scale)
 
 
+@library.exportable(library.like)
 def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
                               scale: float | None = None) -> torch.Tensor:
     """q [B, Sq, W] against kv [B, Sk, 2W] (k | v) -> [B, Sq, W] (B8).
@@ -489,6 +508,7 @@ def fused_qkv_self_attention_plain(x: torch.Tensor, weight: torch.Tensor, bias: 
                                            attn_bias=attn_bias)
 
 
+@library.exportable(library.like)
 def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                              heads: int, *, causal: bool = False, scale: float | None = None,
                              attn_bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -536,6 +556,7 @@ def attention_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor,
     return x + proj
 
 
+@library.exportable(library.like)
 def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                        in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
                        out_weight: torch.Tensor, out_bias: torch.Tensor, heads: int, *,

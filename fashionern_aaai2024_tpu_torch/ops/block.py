@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 from fashionern_aaai2024_tpu_torch.ops.attention import (
     attention_subblock,
     attention_subblock_plain,
@@ -190,6 +190,7 @@ class BlockFunction(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@library.exportable(library.like)
 def transformer_block(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
                       in_proj_w: torch.Tensor, in_proj_b: torch.Tensor, out_w: torch.Tensor,
                       out_b: torch.Tensor, ln2_w: torch.Tensor, ln2_b: torch.Tensor,

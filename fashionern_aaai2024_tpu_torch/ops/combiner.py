@@ -39,7 +39,7 @@ import operator
 import torch
 import torch.nn.functional as F
 
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 
 NORM_EPS = 1e-12
 # gemm_tf32.cu's output tile (B12 runs the 128-wide one, without the
@@ -52,7 +52,9 @@ _TILE, _K_TILE, _MIN_SLICE_TILES = 128, 32, 8
 def _weights(module) -> tuple[torch.Tensor, ...]:
     """(W_t, b_t, W_i, b_i, W_h, b_h, w_o, b_o) of a CombinerSimple,
     read from the module dicts (`Sequential[i]` costs microseconds a
-    call)."""
+    call); a tuple of them is its own."""
+    if isinstance(module, tuple):
+        return module
     mods = module._modules
     hidden = mods["dynamic_scalar"]._modules
     layers = (mods["text_projection_layer"]._modules["0"],
@@ -92,20 +94,32 @@ def hidden_k_slice(m: int, n: int, k: int, sms: int) -> int:
 
 
 def combiner_apply(image: torch.Tensor, text: torch.Tensor, module) -> torch.Tensor:
-    """Eval CombinerSimple forward of image and text [M, d] (B12).
+    """Eval CombinerSimple forward of image and text [M, d] (B12), the
+    module's or a tuple of its weights (`_weights`): `combiner` on them.
 
     CUDA: the products and the gate kernel, fp32 or bf16, every weight in
     the inputs' dtype; d a multiple of 8 and every operand but b_o at a
     16-byte aligned address, else it raises. CPU: the plain version."""
+    return combiner(image, text, *_weights(module))
+
+
+combiner_apply.launches = 0
+
+
+@library.exportable(library.like)
+def combiner(image: torch.Tensor, text: torch.Tensor, wt: torch.Tensor, bt: torch.Tensor,
+             wi: torch.Tensor, bi: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
+             wo: torch.Tensor, bo: torch.Tensor) -> torch.Tensor:
+    """B12 on the weights in `_weights`' order (`combiner_apply`'s
+    launches): the entry that `ops/library.py` registers."""
+    weights = (wt, bt, wi, bi, wh, bh, wo, bo)
     if not common.is_cuda(image):
-        return combiner_apply_plain(image, text, module)
+        return combiner_apply_plain(image, text, weights)
     if image.ndim != 2 or text.shape != image.shape:
         raise ValueError(f"combiner_apply: image {tuple(image.shape)}, text "
                          f"{tuple(text.shape)}; expected two [M, d]")
     image, text = image.contiguous(), text.contiguous()
-    weights = _weights(module)
     device = common.check_cuda_operands("combiner_apply", image, text, *weights)
-    wt, bt, wi, bi, wh, bh, wo, bo = weights
     m, d = image.shape
     p, hd = wt.shape[0], wh.shape[0]
     if (wt.shape != (p, d) or wi.shape != (p, d) or wh.shape != (hd, 2 * p)
@@ -150,6 +164,3 @@ def combiner_apply(image: torch.Tensor, text: torch.Tensor, module) -> torch.Ten
                   device, stream)
     common.count(combiner_apply)
     return out
-
-
-combiner_apply.launches = 0

@@ -3,7 +3,8 @@
 A captured program runs as one `torch.cuda.CUDAGraph` replay: one host
 call where the eager program makes dozens of launches (each 10-16 µs of
 host time, `PERF.md`). The serve program (`retrieval/evaluate.py
-build_serve_fn`) is captured this way, one graph per batch bucket; it
+build_serve_fn`) and a loaded serve artifact (`retrieval/artifact.py`)
+are captured this way, one graph per batch bucket (`BucketedCall`); it
 replaces the JAX package's one jitted dispatch per request.
 
 Launch counts. Each kernel wrapper adds one to its `fn.launches` where it
@@ -32,8 +33,10 @@ import ctypes
 import functools
 import re
 import threading
-from typing import Callable, Iterable
+from collections.abc import Mapping
+from typing import Callable, Iterable, Sequence
 
+import numpy as np
 import torch
 
 from fashionern_aaai2024_tpu_torch.ops import block, common
@@ -183,3 +186,78 @@ class CapturedCall:
         self.graph.replay()
         for wrapper, n in self.launches.items():
             wrapper.launches += n
+
+
+class _Bucket:
+    """One bucket of a `BucketedCall`: its static inputs, its outputs, and
+    on the card its graph."""
+
+    def __init__(self, fn: Callable, inputs: tuple[torch.Tensor, ...],
+                 device: torch.device, pool):
+        self.inputs = inputs
+        call = lambda: fn(*inputs)  # noqa: E731
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                self.graph = CapturedCall(call, pool)
+            self.outputs = self.graph.outputs
+            self.run = self.graph.replay
+        else:
+            self.graph = None
+            self.outputs = None
+
+            def run():
+                self.outputs = call()
+            self.run = run
+
+
+class BucketedCall(Mapping):
+    """`fn(*inputs)` at a few batch sizes over static inputs: the request
+    path of the serve program and of a loaded serve artifact. A mapping
+    of bucket size -> bucket (`inputs`, `outputs`, `run()`, `graph`).
+
+    `make_inputs(b)` makes one bucket's static input tensors on `device`,
+    each with b rows. A call of n rows runs at the smallest bucket >= n:
+    each host input is zero padded to b rows and copied into the bucket's
+    static tensor, the bucket runs once, and `[:n, :k]` of each output
+    comes back to the host. On the card each bucket is one
+    `CapturedCall`, all in one memory pool, captured here, so no capture
+    runs once it serves; on the CPU `fn` runs eagerly. Calls hold `lock`:
+    the static tensors serve one request at a time, and a caller that
+    writes other tensors `fn` reads (weights, gallery rows) holds it too."""
+
+    def __init__(self, fn: Callable, make_inputs: Callable[[int], tuple],
+                 sizes: Iterable[int], device: torch.device):
+        self.sizes = tuple(sorted(sizes))
+        self.lock = threading.Lock()
+        pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self._buckets = {b: _Bucket(fn, make_inputs(b), device, pool) for b in self.sizes}
+
+    def __getitem__(self, b: int) -> _Bucket:
+        return self._buckets[b]
+
+    def __iter__(self):
+        return iter(self._buckets)
+
+    def __len__(self) -> int:
+        return len(self._buckets)
+
+    def __call__(self, inputs: Sequence, k: int) -> tuple[np.ndarray, ...]:
+        """`inputs`: host arrays or tensors of n rows each, in the order of
+        a bucket's static inputs."""
+        xs = [torch.as_tensor(x).detach().cpu() for x in inputs]
+        n = int(xs[0].shape[0])
+        b = next((x for x in self.sizes if x >= n), None)
+        if b is None:
+            raise ValueError(f"batch {n} exceeds the largest compile bucket "
+                             f"{self.sizes[-1]}; split the request")
+        bucket = self._buckets[b]
+        padded = []
+        for x, static in zip(xs, bucket.inputs, strict=True):
+            host = torch.zeros(static.shape, dtype=static.dtype)
+            host[:n] = x
+            padded.append(host)
+        with self.lock:
+            for static, host in zip(bucket.inputs, padded):
+                static.copy_(host)
+            bucket.run()
+            return tuple(o[:n, :k].cpu().numpy() for o in bucket.outputs)

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -69,6 +69,7 @@ class LayerNormFunction(torch.autograd.Function):
         return (*(next(grads) if t.requires_grad else None for t in saved), None)
 
 
+@library.exportable(library.like)
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm of x [..., W] (B11). CUDA: the kernel, fp32 or bf16,

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm_plain
 
 
@@ -52,6 +52,7 @@ def mlp_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
     return x + o
 
 
+@library.exportable(library.like)
 def mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                  fc_weight: torch.Tensor, fc_bias: torch.Tensor, proj_weight: torch.Tensor,
                  proj_bias: torch.Tensor, *, activation: str = "quick_gelu",

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from fashionern_aaai2024_tpu_torch.ops import library
+
 _EPS = 1e-8
 
 
@@ -48,6 +50,11 @@ def quantize_colwise(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.t(), scale.t()
 
 
+def _int8_product_fake(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    return a.new_empty((*a.shape[:-1], bt.shape[0]), dtype=torch.float32)
+
+
+@library.exportable(_int8_product_fake)
 def int8_product(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """a int8 [..., K] . bt int8 [N, K]^T -> the int32 sums as fp32."""
     return (a.double() @ bt.double().t()).float()

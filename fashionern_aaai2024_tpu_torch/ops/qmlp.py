@@ -53,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from fashionern_aaai2024_tpu_torch.ops import attention as A
-from fashionern_aaai2024_tpu_torch.ops import common
+from fashionern_aaai2024_tpu_torch.ops import common, library
 from fashionern_aaai2024_tpu_torch.ops.mlp import act_f32
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
 
@@ -115,6 +115,7 @@ def int8_mlp_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: t
     return (x2 + (acc + proj_bias.float()).to(x.dtype)).view(b, s, w)
 
 
+@library.exportable(library.like)
 def int8_mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                       fc_q: torch.Tensor, fc_scale: torch.Tensor, fc_bias: torch.Tensor,
                       proj_q: torch.Tensor, proj_scale: torch.Tensor, proj_bias: torch.Tensor,
@@ -174,6 +175,7 @@ def int8_attention_subblock_plain(x: torch.Tensor, ln_weight: torch.Tensor,
     return (x2 + proj.to(x.dtype)).view(b, s, w)
 
 
+@library.exportable(library.like)
 def int8_attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                             qkv_q: torch.Tensor, qkv_scale: torch.Tensor,
                             qkv_bias: torch.Tensor, out_q: torch.Tensor,

@@ -11,8 +11,9 @@ last duplicate winning), refine the gallery through the index tower,
 take the top-k, and score Recall@K (`retrieval/metrics.py`); and
 `build_serve_fn` (`:254-572`), the one-dispatch serve program
 (`ServeFn`), which on the card runs as one CUDA graph per batch bucket.
-The mesh path is not ported (ROADMAP A8), nor are the serve program's
-export handles `jfn` and `consts` (A7).
+Its export handles (JAX `jfn` and `consts`, `:540-572`) are
+`ServeFn.consts` and `ServeFn.program`, which `retrieval/artifact.py`
+exports. The mesh path is not ported (ROADMAP A8).
 
 The batch wrappers take host arrays or tensors and run in slices of
 `batch_size`. JAX padded the last slice to keep one compiled program;
@@ -24,7 +25,6 @@ list of batches).
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -33,7 +33,7 @@ import torch
 from fashionern_aaai2024_tpu_torch.data.captions import join_fiq_captions
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel
-from fashionern_aaai2024_tpu_torch.ops.graphs import CapturedCall
+from fashionern_aaai2024_tpu_torch.ops.graphs import BucketedCall
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product
 from fashionern_aaai2024_tpu_torch.ops.quant import quantize_rows
 from fashionern_aaai2024_tpu_torch.ops.similarity import select_top_k
@@ -162,41 +162,32 @@ class InferenceAPI:
                        ref_patches, capacity)
 
 
+class _QueryTower(torch.nn.Module):
+    """The model part of the serve program: the text tower (TME on the
+    reference patches on a TME model) and the DVR query tower, as one
+    module, so that `torch.func.functional_call` can run it on weights
+    passed as arguments (`ServeFn.program`)."""
+
+    def __init__(self, model: ComposedCIRModel, tme: bool):
+        super().__init__()
+        self.model = model
+        self.tme = tme
+
+    def forward(self, ids: torch.Tensor, rf: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
+        tg, ts = self.model.encode_text(ids, visual_emb=rp.float() if self.tme else None)
+        return self.model.query(rf.float(), rp.float(), tg.float(), ts.float())
+
+
+def _flat(parts) -> list[torch.Tensor]:
+    return [t for p in parts for t in (p if isinstance(p, tuple) else (p,))]
+
+
 def _host_f32(a) -> torch.Tensor:
     return torch.as_tensor(a).detach().to("cpu", torch.float32)
 
 
 def _pad_to(t: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
-
-
-class _Bucket:
-    """One batch bucket of a `ServeFn`: its static input tensors, its
-    outputs, and on the card its CUDA graph."""
-
-    def __init__(self, serve: "ServeFn", b: int):
-        dev = serve.device
-        self.ids = torch.zeros((b, serve.context_length), dtype=torch.int32, device=dev)
-        if serve.by_rows:
-            self.rows = torch.zeros(b, dtype=torch.int64, device=dev)
-            self.inputs = (self.ids, self.rows)
-        else:
-            self.ref = torch.zeros((b, serve.feat_dim), device=dev)
-            self.patch = torch.zeros((b, serve.patch_num, serve.feat_dim), device=dev)
-            self.inputs = (self.ids, self.ref, self.patch)
-        call = lambda: serve.body(*self.inputs)  # noqa: E731
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                self.graph = CapturedCall(call, serve.graph_pool)
-            self.outputs = self.graph.outputs
-            self.run = self.graph.replay
-        else:
-            self.graph = None
-            self.outputs = None
-
-            def run():
-                self.outputs = call()
-            self.run = run
 
 
 class ServeFn:
@@ -217,7 +208,8 @@ class ServeFn:
     A request of n rows runs at the smallest bucket >= n, its rows padded
     with zero ids and row 0 (their results are dropped); a batch past the
     largest bucket raises. On the card each bucket is one CUDA graph
-    (`ops/graphs.py CapturedCall`) over static tensors: the request's ids
+    (`ops/graphs.py BucketedCall`, the artifact's request path too) over
+    static tensors: the request's ids
     and rows (or features) are copied into the bucket's inputs, the graph
     replays once, and `[:n, :k]` of its outputs come back to the host.
     The gallery, the reference rows and `n_valid` (a device scalar) are
@@ -226,13 +218,19 @@ class ServeFn:
     no capture runs once it serves; `warmup()` does nothing more. On the
     CPU the same body runs eagerly on the same tensors.
 
+    `consts` (JAX `consts`): the model's weights and buffers, the gallery
+    and the reference rows, as one flat list of the tensors the body
+    reads; `program(consts, ids, rows)` (JAX `jfn`): the body of the
+    by-rows form on those tensors passed as arguments, what an artifact
+    exports (`retrieval/artifact.py`).
+
     `update_rows(start, refined, ref_f, ref_p)` (growable only) checks
     every shape, then writes the rows into the static tensors in place
     and sets `n_valid`: the graphs see the new rows at their next replay,
     with no recapture. Gallery and reference rows are quantized on the
     host (`ops/quant.py quantize_rows`, JAX's `quantize_rows_np`), so only
-    int8 bytes and scales go to the device. Calls and updates hold one
-    lock: the static tensors serve one request at a time."""
+    int8 bytes and scales go to the device. Calls and updates hold the
+    buckets' lock: the static tensors serve one request at a time."""
 
     def __init__(self, api: InferenceAPI, gallery_features, k_max: int,
                  buckets: Sequence[int], patch_num: int, ref_features, ref_patches,
@@ -273,10 +271,24 @@ class ServeFn:
         if self.growable:
             self._n_valid_dev = torch.tensor(n_rows, dtype=torch.int64, device=self.device)
             self._cols = torch.arange(rows, device=self.device)
-        self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                           else None)
-        self._lock = threading.Lock()
-        self._buckets = {b: _Bucket(self, b) for b in self.buckets}
+        self._tower = _QueryTower(api.model, self.tme)
+        self._buckets = BucketedCall(self.body, self._static_inputs, self.buckets,
+                                     self.device)
+        # the graphs read the int8 weight sets cached when they were captured
+        # (`models/clip/transformer.py int8_weights`); the program holds
+        # them, so that a rebuild of the cache (any `.to()` of the model
+        # drops it) cannot free memory a replay reads
+        self._int8_weights = [m._int8 for m in api.model.modules()
+                              if getattr(m, "_int8", None) is not None]
+
+    def _static_inputs(self, b: int) -> tuple[torch.Tensor, ...]:
+        """One bucket's inputs: ids, and rows or features and patches."""
+        dev = self.device
+        ids = torch.zeros((b, self.context_length), dtype=torch.int32, device=dev)
+        if self.by_rows:
+            return ids, torch.zeros(b, dtype=torch.int64, device=dev)
+        return (ids, torch.zeros((b, self.feat_dim), device=dev),
+                torch.zeros((b, self.patch_num, self.feat_dim), device=dev))
 
     def _place(self, host: torch.Tensor, quantize: bool):
         """A host fp32 array on the device: as it is, or as (int8 values,
@@ -287,20 +299,26 @@ class ServeFn:
         return (values.reshape(host.shape).to(self.device),
                 scales.reshape(host.shape[:-1]).to(self.device))
 
-    def _gather(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _gather(self, rows: torch.Tensor, ref_f, ref_p) -> tuple[torch.Tensor, torch.Tensor]:
         """The reference rows; int8 rows dequantize after the gather (only
         the requested rows, not the gallery)."""
         if not self.quantize_refs:
-            return self.ref_f[rows], self.ref_p[rows]
-        (fq, fs), (pq, ps) = self.ref_f, self.ref_p
+            return ref_f[rows], ref_p[rows]
+        (fq, fs), (pq, ps) = ref_f, ref_p
         return fq[rows].float() * fs[rows][:, None], pq[rows].float() * ps[rows][:, :, None]
 
-    def _scores(self, pred: torch.Tensor) -> torch.Tensor:
+    def _scores(self, pred: torch.Tensor, gallery) -> torch.Tensor:
         if not self.quantized:
-            return pred @ self.gallery.t()
-        gq, gs = self.gallery
+            return pred @ gallery.t()
+        gq, gs = gallery
         qv, qs = quantize_rows(pred)
         return int8_product(qv, gq) * qs[:, None] * gs[None, :]
+
+    def _select(self, scores: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.growable:
+            # rows >= n_valid are zero padding: they must lose to every real row
+            scores = scores.masked_fill(self._cols >= self._n_valid_dev, -torch.inf)
+        return tuple(select_top_k(scores, self.k_max, self.approx_recall))
 
     @torch.no_grad()
     def body(self, ids: torch.Tensor, ref: torch.Tensor,
@@ -308,39 +326,55 @@ class ServeFn:
         """The program on device tensors: ids [b, L] int32 and rows [b]
         (by rows) or features [b, d] and patches [b, P, d] -> (scores
         [b, k_max], rows [b, k_max])."""
-        model = self.api.model
-        rf, rp = self._gather(ref) if self.by_rows else (ref, patch)
-        tg, ts = model.encode_text(ids, visual_emb=rp.float() if self.tme else None)
-        pred = model.query(rf.float(), rp.float(), tg.float(), ts.float())
-        scores = self._scores(pred)
-        if self.growable:
-            # rows >= n_valid are zero padding: they must lose to every real row
-            scores = scores.masked_fill(self._cols >= self._n_valid_dev, -torch.inf)
-        return select_top_k(scores, self.k_max, self.approx_recall)
+        rf, rp = self._gather(ref, self.ref_f, self.ref_p) if self.by_rows else (ref, patch)
+        return self._select(self._scores(self._tower(ids, rf, rp), self.gallery))
+
+    def _model_names(self) -> list[str]:
+        """The tower's weights and buffers that the body reads: all but the
+        image tower's (it embeds the gallery, never a query)."""
+        names = ([n for n, _ in self._tower.named_parameters()]
+                 + [n for n, _ in self._tower.named_buffers()])
+        return [n for n in names if not n.startswith("model.clip.visual.")]
+
+    @property
+    def consts(self) -> list[torch.Tensor]:
+        """The tensors the by-rows body reads, in `program`'s order: the
+        model's parameters, then its buffers, then the gallery and the
+        reference features and patches (each as (int8 values, scales)
+        where it is quantized)."""
+        if not self.by_rows:
+            raise ValueError("consts: the serve program needs the by-rows form "
+                             "(pass ref_features/ref_patches)")
+        state = dict(self._tower.named_parameters())
+        state.update(self._tower.named_buffers())
+        return ([state[n].detach() for n in self._model_names()]
+                + _flat((self.gallery, self.ref_f, self.ref_p)))
+
+    def program(self, consts: Sequence[torch.Tensor], ids: torch.Tensor,
+                rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The by-rows body on `consts` (in `consts`' order and shapes)
+        passed as arguments: the weights through
+        `torch.func.functional_call`, the gallery and the reference rows
+        in place of the resident ones."""
+        names = self._model_names()
+        state = dict(zip(names, consts[:len(names)]))
+        rest = list(consts[len(names):])
+
+        def take(quantized: bool):
+            return (rest.pop(0), rest.pop(0)) if quantized else rest.pop(0)
+        gallery = take(self.quantized)
+        ref_f, ref_p = take(self.quantize_refs), take(self.quantize_refs)
+        with torch.no_grad():
+            rf, rp = self._gather(rows, ref_f, ref_p)
+            pred = torch.func.functional_call(self._tower, state, (ids, rf, rp))
+            return self._select(self._scores(pred, gallery))
 
     def __call__(self, token_ids, ref, ref_patch=None, k: int = 10):
-        n = int(token_ids.shape[0])
-        b = next((x for x in self.buckets if x >= n), None)
-        if b is None:
-            raise ValueError(f"batch {n} exceeds the largest compile bucket "
-                             f"{self.buckets[-1]}; split the request")
-        ids = np.zeros((b, self.context_length), np.int32)
-        ids[:n] = np.asarray(token_ids)
-        with self._lock:
-            bucket = self._buckets[b]
-            bucket.ids.copy_(torch.from_numpy(ids))
-            if self.by_rows:
-                rows = np.zeros(b, np.int64)
-                rows[:n] = np.asarray(ref)
-                bucket.rows.copy_(torch.from_numpy(rows))
-            else:
-                bucket.ref.copy_(_pad_to(_host_f32(ref), b))
-                bucket.patch.copy_(_pad_to(_host_f32(ref_patch), b))
-            bucket.run()
-            # never emit masked rows: their scores are -inf, their rows invalid
-            k = min(k, self.k_max, self._n_valid)
-            scores, idx = bucket.outputs
-            return scores[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
+        # never emit masked rows: their scores are -inf, their rows invalid
+        # (`_n_valid` only grows, so a concurrent update cannot shrink it)
+        k = min(k, self.k_max, self._n_valid)
+        return self._buckets((token_ids, ref) if self.by_rows
+                             else (token_ids, ref, ref_patch), k)
 
     def warmup(self) -> None:
         """JAX compiles each bucket here; every bucket of the port is
@@ -370,7 +404,7 @@ class ServeFn:
                   (self.ref_f, self._place(rf32, self.quantize_refs)),
                   (self.ref_p, self._place(rp32, self.quantize_refs))]
         sl = slice(start, start + m)
-        with self._lock:
+        with self._buckets.lock:
             for dst, src in writes:
                 for d_t, s_t in (zip(dst, src) if isinstance(dst, tuple) else [(dst, src)]):
                     d_t[sl] = s_t

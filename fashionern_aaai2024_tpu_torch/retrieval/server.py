@@ -3,9 +3,10 @@
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/server.py`:
 `_ServiceBase` (`:40-89`, request count and latency percentiles),
 `RetrievalService` (`:91-302`), `MicroBatcher` (`:397-479`),
-`_make_handler` (`:482-577`) and `serve` (`:580-591`). The
-artifact-backed service (`ArtifactService`, `/reload`) waits for ROADMAP
-A7; `/reload` answers 404 here, as it does for any model-backed service.
+`ArtifactService` (`:304-395`), `_make_handler` (`:482-577`) and `serve`
+(`:580-591`). This module imports nothing of `models/` or `data/` at
+import time: the artifact-backed service runs on a host without the
+model stack.
 
 At construction the service embeds the gallery through the image tower,
 refines it through the ERN index tower, indexes it (measuring the
@@ -28,10 +29,19 @@ program's `update_rows` (no recapture), and calls `names_changed_cb`
 (the native front's name table). `add_from_paths` (`POST /add`) reads
 images and patches under `add_root` only.
 
+`ArtifactService` answers the same queries from a loaded serve artifact
+(`retrieval/artifact.py`: on the card one CUDA graph per bucket) and the
+port's tokenizer (`tokenizer.py`), k clamped to the exported `k_max`;
+`reload` (`POST /reload`) copies republished consts into the running
+programs (`ServeArtifact.reload_consts`).
+
 HTTP (stdlib `ThreadingHTTPServer`):
   POST /query   {"ref_name", "caption", "k"=10} or {"ref_names": [...],
                 "captions": [...], "k"} -> {"results", "latency_ms"}
   POST /add     {"items": [{"name", "image_path", "patch_path"}]}
+                (model-backed services; 404 for an artifact)
+  POST /reload  -> {"reloaded", "seconds", "gallery_size"} (artifact-backed
+                services; 404 for a model-backed one)
   GET  /healthz -> {"status": "ok", "gallery_size": N}
   GET  /stats   -> request count, latency percentiles, batching counts
 Concurrent single queries coalesce through the `MicroBatcher`: one
@@ -51,7 +61,6 @@ import numpy as np
 import torch
 
 from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex, embed_gallery
-from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI, last_wins_rows
 
 
 class _ServiceBase:
@@ -113,6 +122,8 @@ class RetrievalService(_ServiceBase):
     def __init__(self, api: InferenceAPI, classic_loader: Iterable[dict], caption_join=None,
                  warmup: bool = True, capacity: int | None = None,
                  image_spec: dict | None = None, add_root: str | None = None):
+        from fashionern_aaai2024_tpu_torch.retrieval.evaluate import last_wins_rows
+
         self.api = api
         self.image_spec = image_spec or {}
         self.add_root = add_root
@@ -264,6 +275,89 @@ class RetrievalService(_ServiceBase):
         return self._format_results(names, scores, idx, len(ref_names)), latency
 
 
+class ArtifactService(_ServiceBase):
+    """The service over a loaded serve artifact, with no model code
+    (JAX `server.py:304-395`): the live service's `query`, `stats`,
+    `gallery_size` and `rows`; the artifact on `device` (the card unless
+    the caller asks for the CPU) and the port's tokenizer, which finds
+    its table as `tokenizer.py default_bpe_path` does. Startup reads the
+    programs and the consts and, on the card, captures each bucket. `k`
+    is clamped to the exported `k_max`: the artifact holds the top-k
+    program only, not the gallery matrix the live service searches for a
+    larger k."""
+
+    def __init__(self, artifact_dir: str, caption_join=None, warmup: bool = True,
+                 allow_platform_mismatch: bool = False,
+                 device: torch.device | str = "cuda"):
+        from fashionern_aaai2024_tpu_torch.retrieval.artifact import load_serve_artifact
+        from fashionern_aaai2024_tpu_torch.tokenizer import tokenize
+
+        t0 = time.perf_counter()
+        self.artifact = load_serve_artifact(artifact_dir, device=device,
+                                            allow_platform_mismatch=allow_platform_mismatch)
+        if self.artifact.names is None:
+            raise ValueError("the artifact has no names.json (exported without "
+                             "gallery_names); the HTTP service needs the row -> name map")
+        self._tokenize = tokenize
+        self._ctx = self.artifact.context_length
+        self._set_names(self.artifact.names)
+        # serve() reads ._serve_fn.buckets for the micro-batcher's cap
+        self._serve_fn = self.artifact
+        if warmup:  # on the CPU, the first call of each program; the card captured them
+            for b in self.artifact.buckets:
+                self.artifact.query(np.zeros((b, self._ctx), np.int32), np.zeros(b, np.int64),
+                                    k=1)
+        self.startup_seconds = time.perf_counter() - t0
+        self.caption_join = caption_join or (lambda c: c)
+        self._init_stats()
+
+    def _set_names(self, names: Sequence[str]) -> None:
+        # the last duplicate wins, as `evaluate.last_wins_rows`
+        self.rows = {n: i for i, n in enumerate(names)}
+        self._names = np.asarray(names, dtype=object)
+
+    @property
+    def gallery_size(self) -> int:
+        return len(self._names)
+
+    def query(self, ref_names: Sequence[str], captions: Sequence[str], k: int = 10):
+        if len(ref_names) != len(captions):
+            raise ValueError("ref_names and captions length mismatch")
+        t0 = time.perf_counter()
+        caps = [self.caption_join(c) for c in captions]
+        # rows, the call and the row -> name map under one hold of the
+        # lock: a /reload swaps names and consts together
+        with self._lock:
+            unknown = [r for r in ref_names if r not in self.rows]
+            if unknown:
+                raise KeyError(f"unknown reference image(s): {unknown[:5]}")
+            rows = [self.rows[r] for r in ref_names]
+            ids = self._tokenize(caps, self._ctx)
+            scores, idx = self.artifact.query(ids, rows, k=k)
+            names = self._names
+        latency = time.perf_counter() - t0
+        self._record_latency(latency)
+        return self._format_results(names, scores, idx, len(ref_names)), latency
+
+    def reload(self) -> dict:
+        """POST /reload: the republished consts (and names) into the running
+        programs, with no restart and no recapture; returns the swap's
+        seconds."""
+        t0 = time.perf_counter()
+        with self._lock:
+            self.artifact.reload_consts()
+            self._set_names(self.artifact.names)
+        return {"reloaded": True, "seconds": round(time.perf_counter() - t0, 3),
+                "gallery_size": self.gallery_size}
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["artifact"] = {"dir": self.artifact.dir,
+                           "platform": self.artifact.manifest["platform"],
+                           "model_name": self.artifact.manifest.get("model_name", "")}
+        return out
+
+
 class MicroBatcher:
     """Coalesces concurrent single composed queries into one call.
 
@@ -372,9 +466,14 @@ def _make_handler(service: RetrievalService):
 
         def do_POST(self):
             if self.path == "/reload":
-                # the consts swap of artifact-backed services (ROADMAP A7)
-                self._send(404, {"error": "reload is only supported by "
-                                          "artifact-backed services"})
+                if not hasattr(service, "reload"):
+                    self._send(404, {"error": "reload is only supported by "
+                                              "artifact-backed services"})
+                    return
+                try:
+                    self._send(200, service.reload())
+                except (ValueError, OSError) as e:
+                    self._send(409, {"error": f"{type(e).__name__}: {e}"})
                 return
             if self.path == "/add":
                 if not hasattr(service, "add_from_paths"):

@@ -461,7 +461,10 @@ def test_cuda_wrappers_refuse_operands_that_require_grad(device):
 
 # --- B5 and B6: the int8 sub-blocks -------------------------------------
 
-INT8_SHAPES = [(2, 9, 128, 2, False)] + SHAPES
+# and RN50x4's text tower (W = 640, 10 heads of 64; B5's hidden in two
+# groups of 1,280)
+INT8_SHAPES = [(2, 9, 128, 2, False)] + SHAPES + [(1, 77, 640, 10, True),
+                                                  (4, 77, 640, 10, True)]
 INT8_STEP = {torch.float32: 1.2e-2, torch.bfloat16: 0.0}
 INT8_MEAN = {torch.float32: 4e-5, torch.bfloat16: 3e-5}
 
@@ -729,6 +732,24 @@ def test_mha_autograd_matches_plain_autograd(device):
     g = np.random.default_rng(21)
     q0, k0, v0 = _mha_operands(g, 4, 8, 77, 13, 64, "rows", torch.float32, device)
     up = _t(g, (4, 8, 77, 64), 1.0, torch.float32, device)
+    ours = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
+    plain = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
+    n0 = A.multi_head_attention.launches
+    (A.multi_head_attention(*ours) * up).sum().backward()
+    assert A.multi_head_attention.launches == n0 + 1
+    (A.mha_plain(*plain) * up).sum().backward()
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * b.grad.abs().max().item())
+
+
+def test_mha_autograd_matches_plain_autograd_at_head_dim_80(device):
+    """B9's backward at RN50x4's TME (d = 640, 8 heads of 80), as the TME
+    train step takes it: `MHAFunction` against the plain version's
+    autograd."""
+    g = np.random.default_rng(22)
+    q0, k0, v0 = _mha_operands(g, 4, 8, 77, 13, 80, "rows", torch.float32, device)
+    up = _t(g, (4, 8, 77, 80), 1.0, torch.float32, device)
     ours = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
     plain = [t.detach().clone().requires_grad_() for t in (q0, k0, v0)]
     n0 = A.multi_head_attention.launches
@@ -1589,10 +1610,10 @@ def test_extract_patches_card_against_cpu(device, tmp_path):
 # --- the serve program as CUDA graphs (retrieval/evaluate.py ServeFn) -----------
 
 
-def _serve_api(device, tme=False):
+def _serve_api(device, tme=False, quantize=False):
     """A seeded model whose text tower takes B10 (width 512, 8 heads of
-    64, 16 tokens) and whose DVR runs at d = 512, under the bf16 serve
-    policy, on the card."""
+    64, 16 tokens; with `quantize`, the int8 blocks B5 and B6) and whose
+    DVR runs at d = 512, under the bf16 serve policy, on the card."""
     from fashionern_aaai2024_tpu_torch.models.clip import config as C
     from fashionern_aaai2024_tpu_torch.models.composed import (
         ComposedCIRModel,
@@ -1604,7 +1625,7 @@ def _serve_api(device, tme=False):
     cfg = C.CLIPConfig(name="serve-small", vision=C.VisionConfig(
         kind="vit", image_size=32, embed_dim=512, width=128, layers=1, heads=2, patch_size=16),
         text=C.TextConfig(vocab_size=1000, context_length=16, width=512, heads=8, layers=2,
-                          embed_dim=512, tme=tme))
+                          embed_dim=512, tme=tme), quantize_mlp=quantize)
     model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
     apply_precision(model, "bf16")
     return InferenceAPI(model, tokenizer=None, device=device, context_length=16)
@@ -1822,3 +1843,98 @@ def test_fold_matches_numpy_twin_on_the_card(device):
         assert np.array_equal(got_i.cpu().numpy(),
                               np.take_along_axis(slot, chosen, 1) * bins + chosen)
         assert np.array_equal(got_s.cpu().numpy(), np.take_along_axis(best, chosen, 1))
+
+
+def _exported(device, tmp_path, gallery_scale=1.0):
+    """A by-rows serve program of `_serve_api` over 300 rows, and its
+    artifact."""
+    from fashionern_aaai2024_tpu_torch.retrieval import artifact as ART
+
+    gal, rf, rp = _serve_arrays(300, 3)
+    fn = _serve_api(device).build_serve_fn(gal * gallery_scale, k_max=50, ref_features=rf,
+                                           ref_patches=rp)
+    out = str(tmp_path / "artifact")
+    ART.export_serve_artifact(fn, out, gallery_names=[f"n{i}" for i in range(300)])
+    return fn, out
+
+
+def test_exported_programs_run_the_kernels_as_the_live_body(device, tmp_path):
+    """The exported program of each bucket, called on CUDA tensors, runs
+    the registered ops' kernels (their launch counters move) and answers
+    as the live body: equal rows, scores within 1e-6."""
+    import json
+
+    fn, out = _exported(device, tmp_path)
+    manifest = json.load(open(f"{out}/manifest.json"))
+    assert manifest["platform"] == "cuda"
+    consts = fn.consts
+    for b in fn.buckets:
+        program = torch.export.load(f"{out}/serve_b{b}.pt2").module()
+        ids = torch.from_numpy(_serve_ids(b, b)).to(device)
+        rows = torch.from_numpy(np.random.default_rng(b).integers(0, 300, b)).to(device)
+        n0 = TB.transformer_block.launches
+        with torch.no_grad():
+            got_s, got_i = program(consts, ids, rows)
+        assert TB.transformer_block.launches == n0 + 2   # the text tower's 2 blocks
+        want_s, want_i = fn.body(ids, rows)
+        assert torch.equal(got_i, want_i)
+        torch.testing.assert_close(got_s, want_s, atol=1e-6, rtol=0)
+
+
+def test_artifact_graphs_hold_their_launches_and_reload_without_recapture(device, tmp_path):
+    """`load_serve_artifact` on the card captures each bucket as one CUDA
+    graph whose port kernel nodes are the launches its capture recorded;
+    `reload_consts` after `refresh_consts` (a 2x gallery) copies into the
+    static consts: the same graphs then give doubled scores."""
+    from fashionern_aaai2024_tpu_torch.retrieval import artifact as ART
+
+    fn, out = _exported(device, tmp_path)
+    art = ART.load_serve_artifact(out, device=device)
+    graphs = {b: art._buckets[b].graph for b in art.buckets}
+    for b, graph in graphs.items():
+        assert graph is not None and sum(graph.kernel_nodes.values()) > 0
+        assert graph.launches[TB.transformer_block] == 2
+    ids = _serve_ids(5, 5)
+    rows = np.random.default_rng(5).integers(0, 300, 5)
+    s1, i1 = art.query(ids, rows, k=10)
+    live_s, live_i = fn(ids, rows, k=10)
+    assert np.array_equal(i1, live_i)
+    np.testing.assert_allclose(s1, live_s, atol=1e-6, rtol=0)
+    doubled, _ = _exported(device, tmp_path / "x2", gallery_scale=2.0)
+    ART.refresh_consts(out, doubled)
+    art.reload_consts()
+    assert all(art._buckets[b].graph is g for b, g in graphs.items())
+    s2, i2 = art.query(ids, rows, k=10)
+    assert np.array_equal(i2, i1)
+    np.testing.assert_allclose(s2, 2 * s1, rtol=1e-5, atol=1e-6)
+
+
+def test_int8_serve_graphs_survive_a_rebuilt_weight_cache(device):
+    """An int8-tower serve program's graphs read the int8 weight sets
+    cached at capture. Another `InferenceAPI` over the same model (its
+    `.to()` drops every block's cache) and an eager query (which rebuilds
+    it) must leave the replays' answers as they were: the program holds
+    the sets its graphs read."""
+    from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
+
+    api = _serve_api(device, quantize=True)
+    model = api.model
+    gal, rf, rp = _serve_arrays(300, 4)
+    fn = api.build_serve_fn(gal, k_max=50, ref_features=rf, ref_patches=rp)
+    ids, rows = _serve_ids(5, 5), np.random.default_rng(5).integers(0, 300, 5)
+    before = fn(ids, rows, k=20)
+    n0 = Q.int8_mlp_subblock.launches
+    other = InferenceAPI(model, device=device, context_length=16)
+    other.encode_text(ids)
+    assert Q.int8_mlp_subblock.launches == n0 + 2   # the eager query ran the int8 blocks
+    # blocks of the cached sets' sizes, zero-filled: where the caching
+    # allocator hands out memory the captured sets held, a replay that
+    # read it would see zeros
+    sets = [m._int8[1] for m in model.modules() if getattr(m, "_int8", None) is not None]
+    junk = [torch.zeros(t.numel() * t.element_size(), dtype=torch.uint8, device=device)
+            for weights in sets for pair in weights.values() for t in pair for _ in range(4)]
+    torch.cuda.synchronize()
+    after = fn(ids, rows, k=20)
+    del junk
+    assert np.array_equal(after[1], before[1])
+    assert np.array_equal(after[0], before[0])

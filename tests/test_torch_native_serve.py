@@ -356,3 +356,43 @@ def test_failed_build_raises(monkeypatch, tmp_path):
                         lambda self, flags: tmp_path / "out" / self.name)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         SF.NativeFrontend(["a"], ctx=CTX)
+
+
+class TestSanitizedFuzz:
+    """Adversarial byte-level drive of the port's C++ front under
+    sanitizers (tests/test_native_serve.py `TestSanitizedFuzz`, case for
+    case). `native/fastserve_fuzz.cpp` embeds the port's server, a
+    device-thread stub and an fs_set_names race thread, and attacks the
+    socket with the committed regression corpus
+    (tests/fixtures/fastserve_corpus/) plus generated hostile traffic:
+    ASAN + UBSAN and TSAN builds with `g++`, 120 iterations each."""
+
+    @pytest.fixture(scope="class")
+    def fuzz_src(self):
+        import os
+
+        src = os.path.join(os.path.dirname(SF.__file__), "fastserve_fuzz.cpp")
+        corpus = os.path.join(os.path.dirname(__file__), "fixtures", "fastserve_corpus")
+        assert os.path.exists(src) and os.path.isdir(corpus)
+        return src, corpus
+
+    @pytest.mark.slow
+    @pytest.mark.parametrize("san,iters", [("address,undefined", 120), ("thread", 120)])
+    def test_fuzz_sanitizer_clean(self, fuzz_src, tmp_path, san, iters):
+        import shutil
+        import subprocess
+
+        if shutil.which("g++") is None:
+            pytest.skip("no g++")
+        src, corpus = fuzz_src
+        exe = str(tmp_path / "fuzz")
+        build = subprocess.run(["g++", "-O1", "-g", f"-fsanitize={san}", "-pthread",
+                                "-std=c++17", src, "-o", exe],
+                               capture_output=True, text=True, timeout=300)
+        if build.returncode != 0:
+            pytest.skip(f"sanitizer build unavailable: {build.stderr[-200:]}")
+        run = subprocess.run([exe, str(iters), corpus], capture_output=True, text=True,
+                             timeout=560)
+        assert run.returncode == 0, run.stderr[-2000:]
+        assert "control failures=0" in run.stderr
+        assert "WARNING" not in run.stderr

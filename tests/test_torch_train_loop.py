@@ -400,7 +400,9 @@ def test_port_imports_nothing_of_jax_optax_or_orbax():
                  "data.patch_store", "data.fashioniq", "data.cirr", "data.shoes",
                  "data.fashion200k", "native.build", "native.image", "tools.make_fixture",
                  "tools.extract_patches", "tools.convert_patches", "cli.main", "run.train_fiq",
-                 "run.test_200k", "benchmarks.accuracy_soak"):
+                 "run.test_200k", "benchmarks.accuracy_soak", "ops.library",
+                 "retrieval.artifact", "retrieval.server", "tokenizer", "tools.visualize",
+                 "benchmarks.flax_init", "ops.graphs"):
         assert f"fashionern_aaai2024_tpu_torch.{name}" in mods, name
 
 
