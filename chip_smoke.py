@@ -109,7 +109,7 @@ Phases (each raises on failure; nothing is caught):
       `evaluate_cirr` of ViT-B-16 at full width, seeded weights, over
       in-memory FashionIQ- and CIRR-shaped loaders (galleries of 512,
       256 queries each, batches of 32), on the card under the bf16 serve
-      policy and, for the first 32 queries of every evaluator over a
+      policy and, for the first 8 queries of every evaluator over a
       gallery cut to the images they name, on the CPU in fp32 with the
       plain versions: launch counts on the card, every CPU query's
       prediction card against CPU at cosine >= 0.99, and the recall dicts
@@ -143,13 +143,13 @@ Phases (each raises on failure; nothing is caught):
       exit): soak legs B (learnable FashionIQ) and C (learnable CIRR) of
       `benchmarks/accuracy_soak.py`, each `make-fixture --learnable` (64
       images a type, 128 triplets) -> untrained `eval --seed 7` -> `train`
-      at ViT-B-16, B = 16, 12 epochs (the soak's 15, cut to keep the run
+      at ViT-B-16, B = 16, 11 epochs (the soak's 15, cut to keep the run
       under 900 s), validation every epoch, the uint8
       feed -> `eval` with the best checkpoint; the trained eval must equal
       the sidecar's best validation metric exactly and beat the untrained
       eval by 20 points (the two legs' chains run side by side). Then the
       host time of `load_and_preprocess` per decode route (a fixture PNG
-      and the same pixels as a JPEG), and `extract-patches` on 8 fixture
+      and the same pixels as a JPEG), and `extract-patches` on 4 fixture
       images: the CLI on the card (fp32), and the tool's extractor with
       the CLI's model on the card under the bf16 policy and on the CPU in
       fp32 (plain versions), each card crop's feature at cosine >= 0.99
@@ -211,6 +211,31 @@ Phases (each raises on failure; nothing is caught):
       new seeded weights, `POST /reload`, and the daemon's answers must
       become the new service's. Launch counts of the loading process
       (`launches_by_path["artifact"]`).
+  19. data parallel (`parallel/mesh.py`, last): (a) an NCCL process group
+      of world size 1 in this process (the card's machine holds one GPU,
+      and NCCL refuses two ranks on one): one full-width ViT-B-16 train
+      step at B = 1,024 (bf16 towers) with negatives="global" (B4 over
+      the all-gathered targets, one flat all-reduce) against the
+      unsharded step on the same weights, batch and dropout masks (loss
+      rtol 1e-5, ERN gradient cosine >= 0.99999, launch counts of one
+      train step); `sharded_search` against `blocked_top_k_similarity`
+      on a 512-item gallery (rows equal); the gallery-sharded serve
+      program (bf16 serve policy, buckets 1, 8, 32, each one CUDA graph
+      with its NCCL collectives inside) at b = 1 and 32 against the
+      single-device program (rows equal, scores within 1e-6, the same
+      launches), with each bucket's graph's kernel nodes (NCCL's
+      counted apart); the group destroyed. (b) a 2-rank gang on the one
+      card, two spawned processes over gloo (which takes CUDA tensors
+      there): one full-width step, B = 256 a rank, global negatives,
+      every dropout unit kept, against this process's step on the whole
+      512-row batch as one process standing for two shards
+      (`parallel/multiprocess.py one_process_step`: the same shards;
+      loss rtol 1e-4, ERN gradient cosine >= 0.99999).
+      Each rank times its second step; (a) times both steps after a
+      warm-up step.
+      Phase 7 holds B4's offset case (pred [512, 512] against tar
+      [1,024, 512] at offset 512, the data-parallel loss's call) against
+      its plain version.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -328,13 +353,15 @@ from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
 from fashionern_aaai2024_tpu_torch.ops import similarity as S
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
+from fashionern_aaai2024_tpu_torch.parallel import mesh as PM
+from fashionern_aaai2024_tpu_torch.parallel import multiprocess as MP
 from fashionern_aaai2024_tpu_torch.retrieval import artifact as ART
 from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
-from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex
+from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex, sharded_search
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService, serve
 from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
-from fashionern_aaai2024_tpu_torch.train.state import create_train_state
+from fashionern_aaai2024_tpu_torch.train.state import cast_frozen_clip_bf16, create_train_state
 from fashionern_aaai2024_tpu_torch.train.step import build_train_step
 from fashionern_aaai2024_tpu_torch.tools import extract_patches as Extract
 from fashionern_aaai2024_tpu_torch.train.trainer import (
@@ -518,6 +545,9 @@ PEAK_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12
 # B4 at the train path's shape first: its timings go into the kernels line
 BBC_SHAPES = [(1024, 512), (1000, 512), (13, 24), (1024, 640)]
+# the data-parallel loss's call: a rank's 512 rows against 1,024 gathered targets
+BBC_OFFSET_CASE = dict(b=512, n=1024, d=512, offset=512)
+DP_GANG_RANKS, DP_GANG_BATCH = 2, 256     # phase 19 (b): rows a rank
 BBC_TOL = dict(atol=5e-4, rtol=1e-5)
 # the train slice: the recipe's batch and lr (cli/main.py:64-65)
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 1024, 4e-5, 6
@@ -557,8 +587,9 @@ FIQ_TYPES = ("dress", "shirt", "toptee")
 # slowest phase) runs every evaluator on its first CPU_QUERIES queries
 # over a gallery cut to the images they name (`cpu_loaders`): the image
 # embeds (~35 GFLOP an image against ~6 a query) take most of its time;
-# one batch of queries since PR 16 (64 took 130.77 s of a 1,079.4 s run)
-CPU_QUERIES = 32
+# 64 queries took 130.77 s of a 1,079.4 s run, 32 took 67.6 s of a 940.4 s
+# run once phase 19 came in (H100, PERF.md): 8 since
+CPU_QUERIES = 8
 EVAL_GALLERY, EVAL_QUERIES, CIRR_GROUP = 512, 256, 6
 CIRR_CAPTIONS = ["has two dogs instead of one", "the same bag but in black leather",
                  "show it from the side", "make the background a beach",
@@ -2021,6 +2052,28 @@ def phase_bbc() -> list[dict]:
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library "
             f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
             + row_extras(row))
+    c = BBC_OFFSET_CASE
+    pred, tar = unit_rows(c["n"], c["d"], seed=7)
+    pred = pred[c["offset"]:c["offset"] + c["b"]].contiguous()
+    got = L.bbc_rowloss(pred, tar, offset=c["offset"])
+    want = L.bbc_rowloss_plain(pred, tar, offset=c["offset"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **BBC_TOL)
+    labels = c["offset"] + torch.arange(c["b"], device="cuda")
+    kernel = lambda: L.bbc_rowloss(pred, tar, offset=c["offset"])  # noqa: E731
+    library = lambda: F.cross_entropy(100.0 * pred @ tar.t(), labels,  # noqa: E731
+                                      reduction="none")
+    row = dict(shape=[c["b"], c["d"]], n=c["n"], offset=c["offset"],
+               max_abs_err=(got - want).abs().max().item(), ms=median_ms(kernel),
+               plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar, offset=c["offset"])),
+               library_ms=median_ms(library), burst_ms=burst_ms(kernel),
+               library_burst_ms=burst_ms(library),
+               **tf32_bound(*L.bbc_flops_bytes(c["b"], c["d"], c["n"])))
+    rows.append(row)
+    log(f"  {B4} B={c['b']} N={c['n']} d={c['d']} offset={c['offset']} err "
+        f"{row['max_abs_err']:.3e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+        f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})" + row_extras(row))
     return rows
 
 
@@ -2753,11 +2806,11 @@ def eval_loaders(side: int, dim: int, prefix: str, seed: int, cirr: bool) -> tup
 
 def cpu_loaders(classic: list, relative: list, queries: int) -> tuple[list, list]:
     """An evaluator's loaders cut for the CPU leg: its first `queries`
-    queries (whole batches) and its gallery cut to the images they name
-    (references, targets, CIRR group members), in gallery order, in
-    batches of BATCH. A query's prediction reads only its reference's
-    gallery row, so it is the one the card makes on the whole loaders."""
-    relative = relative[:queries // BATCH]
+    queries and its gallery cut to the images they name (references,
+    targets, CIRR group members), in gallery order, in batches of BATCH.
+    A query's prediction reads only its reference's gallery row, so it is
+    the one the card makes on the whole loaders."""
+    relative = [{k: v[:queries] for k, v in relative[0].items()}] + relative[1:queries // BATCH]
     named = {n for batch in relative for key in ("ref_name", "tar_name") for n in batch[key]}
     named |= {n for batch in relative for group in batch.get("group_members", ())
               for n in group}
@@ -2831,15 +2884,17 @@ def phase_eval(card: str) -> dict:
 # the legs' limits: the trained CLI eval equals the sidecar's best
 # validation metric, which beats the untrained eval by this many points
 LEG_MIN_GAIN = 20.0
-# phase 15's legs run 12 of the soak's 15 epochs: the whole run passed
-# 900 s of its 1,200 once phases 17 and 18 came in (PERF.md, PR 16)
-LEG_EPOCHS = 12
+# phase 15's legs run 11 of the soak's 15 epochs: the whole run passed
+# 900 s of its 1,200 once phases 17 and 18 came in (then 12 epochs), and
+# again with phase 19; both legs' validation curves peaked by epoch 11 in
+# those runs (PERF.md, ROADMAP C3)
+LEG_EPOCHS = 11
 # the kernels a leg runs at the CLI's defaults (ViT-B-16, fp32): the
 # towers' sub-blocks (B1-B3; B10 in the eval text towers), B4 in the train
 # step, the DVR query tower's B7 and B8, B11 at the standalone LNs, B12 at
 # the eval combiners
 LEG_KERNELS = (B1, B2, B3, B4, B7, B8, B10, B11, B12)
-EXTRACT_IMAGES = 8
+EXTRACT_IMAGES = 4     # 8 until phase 19 came in (the CPU run of 8 took ~14.5 s)
 ROUTE_LOADS = 64
 
 
@@ -3684,6 +3739,197 @@ def phase_artifacts(card: str, service: RetrievalService, int8_service: Retrieva
     return out
 
 
+def dp_batch(cfg, b: int, seed: int) -> dict:
+    """A train batch of b rows on the host: uint8 images, token ids of the
+    phases' captions, patches."""
+    g = np.random.default_rng(seed)
+    side = cfg.vision.image_size
+    caps = [CAPTIONS[i % len(CAPTIONS)] for i in range(b)]
+    return {"ref_image": torch.from_numpy(g.integers(0, 256, (b, side, side, 3), dtype=np.uint8)),
+            "tar_image": torch.from_numpy(g.integers(0, 256, (b, side, side, 3), dtype=np.uint8)),
+            "text_ids": torch.from_numpy(tokenizer()(caps)).long(),
+            "ref_patch": torch.from_numpy(g.standard_normal((b, 13, cfg.feature_dim),
+                                                            dtype=np.float32)),
+            "tar_patch": torch.from_numpy(g.standard_normal((b, 13, cfg.feature_dim),
+                                                            dtype=np.float32))}
+
+
+def dp_step(model, weights: dict, batch: dict, mesh, shards: int = 1) -> dict:
+    """One train step (bf16 towers, global negatives) from `weights` on
+    this rank's rows of `batch` (`shards` > 1: one process standing for
+    that many shards): the loss, the flat ERN gradient (fp64, on the
+    card), the step's ms and launches."""
+    model.load_state_dict(weights)
+    state = cast_frozen_clip_bf16(create_train_state(model, seed=0))
+    if shards > 1:
+        step = MP.one_process_step(model, lambda s: TRAIN_LR, shards, negatives="global")
+    else:
+        step = build_train_step(model, lambda s: TRAIN_LR, negatives="global", mesh=mesh)
+    rows = PM.shard_batch(mesh, batch) if mesh is not None else {
+        k: v.cuda() for k, v in batch.items()}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = step(state, rows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = torch.cat([p.grad.flatten().double() for p in model.ern.parameters()
+                       if p.grad is not None])
+    return dict(loss=loss.item(), grads=grads, ms=ms, launches=launch_counts())
+
+
+def dp_gang_rank(mesh, weights_path: str, batch_path: str, out_dir: str) -> dict:
+    """Phase 19 (b): one rank of the gloo gang on the card (spawned: it
+    loads the built kernel library and phase 19's weights and batch)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    common.LIBRARY.load()
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    model = ComposedCIRModel(cfg).cuda()
+    weights = torch.load(weights_path, weights_only=True)
+    batch = torch.load(batch_path, weights_only=True)
+    with mock.patch.object(Dr, "dropout_mask", _keep_all):
+        dp_step(model, weights, batch, mesh)      # warm-up: the timed step is the second
+        out = dp_step(model, weights, batch, mesh)
+    if mesh.rank == 0:
+        torch.save(out["grads"].cpu(), os.path.join(out_dir, "gang_grads.pt"))
+    return dict(loss=out["loss"], ms=out["ms"], launches=out["launches"])
+
+
+def graph_nodes(program) -> dict:
+    """Kernel nodes of each bucket's graph of a serve program: all, and
+    NCCL's."""
+    out = {}
+    for b, bucket in program._buckets.items():
+        names = GR.graph_kernel_names(bucket.graph.graph.raw_cuda_graph())
+        out[b] = dict(kernel_nodes=len(names), nccl_nodes=sum("nccl" in n.lower()
+                                                              for n in names))
+    return out
+
+
+def phase_data_parallel(card: str) -> dict:
+    """Phase 19 (module docstring)."""
+    t0 = time.perf_counter()
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(5)).cuda()
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = dp_batch(cfg, TRAIN_BATCH, seed=6)
+    mesh = PM.initialize_distributed(device="cuda", timeout=300.0)
+    if (mesh.backend, mesh.size) != ("nccl", 1):
+        raise AssertionError(f"phase 19: a {mesh.backend} group of {mesh.size} ranks")
+    out: dict = {"nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+    try:
+        # (a) the world-1 NCCL step against the unsharded one, after a
+        # warm-up step (the first call of a process builds cuBLAS handles)
+        dp_step(model, weights, batch, None)
+        ref = dp_step(model, weights, batch, None)
+        got = dp_step(model, weights, batch, mesh)
+        rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        cos = F.cosine_similarity(got["grads"], ref["grads"], dim=0).item()
+        check_launches("data-parallel step", got["launches"], train_launches(1))
+        out["step"] = dict(loss=got["loss"], loss_unsharded=ref["loss"], loss_rel=rel,
+                           grad_cosine=cos, ms=got["ms"], unsharded_ms=ref["ms"],
+                           launches=got["launches"])
+        log(f"  (a) NCCL {out['nccl_version']} world 1: ViT-B-16 step B={TRAIN_BATCH}, global "
+            f"negatives: loss {got['loss']:.6f} vs unsharded {ref['loss']:.6f} (rel {rel:.3e}), "
+            f"ERN gradient cosine {cos:.8f}; {got['ms']:.1f} ms vs {ref['ms']:.1f} ms ({card})")
+        if not rel <= 1e-5 or not cos >= 0.99999:
+            raise AssertionError("the world-1 data-parallel step disagrees with the unsharded one")
+        del ref, got
+        launches = dict(out["step"]["launches"])
+
+        g = torch.Generator(device="cuda").manual_seed(8)
+        gal = F.normalize(torch.randn(GALLERY, 512, generator=g, device="cuda"), dim=-1)
+        q = F.normalize(torch.randn(BATCH, 512, generator=g, device="cuda"), dim=-1)
+        s_got, i_got = sharded_search(mesh, q, gal, k=K)
+        s_want, i_want = S.blocked_top_k_similarity(q, gal, k=K)
+        if not np.array_equal(i_got, i_want.cpu().numpy()):
+            raise AssertionError("sharded_search rows differ from blocked_top_k_similarity's")
+        out["search_max_score_err"] = float(np.abs(s_got - s_want.cpu().numpy()).max())
+
+        # the gallery-sharded serve program against the single-device one
+        model.load_state_dict(weights)
+        apply_precision(model, "bf16")
+        api = InferenceAPI(model, tokenizer=tokenizer(), device="cuda", batch_size=BATCH,
+                           context_length=CTX, mesh=mesh)
+        hg = np.random.default_rng(9)
+        arrays = dict(gallery_features=gal.cpu().numpy(),
+                      ref_features=hg.standard_normal((GALLERY, 512), dtype=np.float32),
+                      ref_patches=hg.standard_normal((GALLERY, 13, 512), dtype=np.float32))
+        sharded = api.build_serve_fn(**arrays)
+        api.mesh = None
+        single = api.build_serve_fn(**arrays)
+        serve = {}
+        for b in (1, BATCH):
+            ids = tokenizer()([CAPTIONS[i % len(CAPTIONS)] for i in range(b)])
+            rows = hg.integers(0, GALLERY, b)
+            before = launch_counts()
+            s1, i1 = sharded(ids, rows, k=K)
+            mid = launch_counts()
+            s2, i2 = single(ids, rows, k=K)
+            after = launch_counts()
+            sharded_launches = {n: mid[n] - before[n] for n in mid}
+            check_launches(f"sharded serve b={b}", sharded_launches,
+                           {n: after[n] - mid[n] for n in mid})
+            for name, n in sharded_launches.items():
+                launches[name] += n
+            err = float(np.abs(s1 - s2).max())
+            if not np.array_equal(i1, i2) or err > 1e-6:
+                raise AssertionError(f"sharded serve b={b}: rows equal {np.array_equal(i1, i2)}, "
+                                     f"max score err {err}")
+            serve[b] = dict(max_score_err=err,
+                            ms=median_ms(lambda: sharded(ids, rows, k=K)),
+                            single_ms=median_ms(lambda: single(ids, rows, k=K)))
+        nodes = {"sharded": graph_nodes(sharded), "single": graph_nodes(single)}
+        sharded.close()
+        out["serve"] = dict(by_batch=serve, graph_nodes=nodes, per=sharded.per)
+        log(f"  (a) sharded_search == blocked_top_k_similarity on {GALLERY} items; sharded serve "
+            f"== single-device at b=1 and {BATCH} (max score err "
+            f"{max(v['max_score_err'] for v in serve.values()):.2e}); per-call ms sharded / "
+            f"single: " + ", ".join(f"b={b} {v['ms']:.3f} / {v['single_ms']:.3f}"
+                                    for b, v in serve.items())
+            + f"; graph kernel nodes (NCCL) by bucket: sharded "
+            + ", ".join(f"{b}: {v['kernel_nodes']} ({v['nccl_nodes']})"
+                        for b, v in nodes["sharded"].items())
+            + "; single " + ", ".join(f"{b}: {v['kernel_nodes']}"
+                                      for b, v in nodes["single"].items()) + f" ({card})")
+        del api, sharded, single
+    finally:
+        PM.destroy(mesh)
+    out["launches"] = launches
+
+    # (b) two ranks on the one card over gloo against one process of two shards
+    common.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=common.BUILD_ROOT.parent) as work:
+        gang_batch = {k: v[:DP_GANG_RANKS * DP_GANG_BATCH] for k, v in batch.items()}
+        torch.save(weights, os.path.join(work, "weights.pt"))
+        torch.save(gang_batch, os.path.join(work, "batch.pt"))
+        t1 = time.perf_counter()
+        ranks = PM.spawn_cpu_gang(DP_GANG_RANKS, dp_gang_rank, os.path.join(work, "weights.pt"),
+                                  os.path.join(work, "batch.pt"), work, timeout=300.0,
+                                  store_dir=work, device="cuda")
+        gang_s = time.perf_counter() - t1
+        model = ComposedCIRModel(cfg).cuda()
+        one_rank = PM.ProcessMesh(None, 0, 1, torch.device("cuda"))
+        with mock.patch.object(Dr, "dropout_mask", _keep_all):
+            one = dp_step(model, weights, gang_batch, one_rank, shards=DP_GANG_RANKS)
+        gang_grads = torch.load(os.path.join(work, "gang_grads.pt")).cuda()
+    rel = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    cos = F.cosine_similarity(gang_grads, one["grads"], dim=0).item()
+    out["gang"] = dict(loss=ranks[0]["loss"], loss_one_rank=one["loss"], loss_rel=rel,
+                       grad_cosine=cos, rank_ms=[r["ms"] for r in ranks], seconds=gang_s,
+                       one_rank_ms=one["ms"], launches=ranks[0]["launches"])
+    log(f"  (b) gloo gang of {DP_GANG_RANKS} ranks on the card, B={DP_GANG_BATCH} a rank, "
+        f"global negatives, dropout kept: loss {ranks[0]['loss']:.6f} vs one process of two "
+        f"shards {one['loss']:.6f} (rel {rel:.3e}), ERN gradient cosine {cos:.8f}; rank step "
+        f"ms {[round(r['ms'], 1) for r in ranks]}, gang {gang_s:.1f} s ({card})")
+    if ranks[0]["loss"] != ranks[1]["loss"] or not rel <= 1e-4 or not cos >= 0.99999:
+        raise AssertionError("the 2-rank gang disagrees with one process of two shards")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 
 def jpeg_copy(png: str, work: str) -> str:
     """The same pixels as a JPEG (PIL writes it), for the JPEG route's time."""
@@ -3827,6 +4073,9 @@ def main() -> None:
     log(f"phase 16: the serving front: graphs against the eager body, live adds, "
         f"quantize_refs and the approximate tier, HTTP, the native front, the serve CLI ({card})")
     front = phase_serving_front(card)
+    log(f"phase 19: data parallel: an NCCL group of world size 1 (train step, sharded search, "
+        f"the gallery-sharded serve program), then a 2-rank gloo gang on the card ({card})")
+    dp = phase_data_parallel(card)
     log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
         f"({card})")
 
@@ -3881,7 +4130,9 @@ def main() -> None:
                       "rn50x4_train": rn_tiers["train"]["launches"][name],
                       "rn50x4_int8_train": rn_tiers["int8_train"]["launches"][name],
                       "rn50x4_tme": rn_tiers["tme_launches"][name],
-                      "artifact": artifacts["launches"][name]}
+                      "artifact": artifacts["launches"][name],
+                      "data_parallel": dp["launches"][name],
+                      "data_parallel_gang": dp["gang"]["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -3922,7 +4173,7 @@ def main() -> None:
                            int8_gemm_edge_max_err=int8_gemm_worst,
                            f32_gemm_edge_max_err=f32_gemm_worst,
                            host_us_per_call=host, cli=cli_info, serving_front=front,
-                           rn50x4_tiers=rn_tiers, artifacts=artifacts,
+                           rn50x4_tiers=rn_tiers, artifacts=artifacts, data_parallel=dp,
                            build_seconds=common.LIBRARY.build_seconds), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

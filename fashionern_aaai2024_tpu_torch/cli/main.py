@@ -13,11 +13,21 @@ take the reference's torch `state_dict`s (`.pth`) directly;
 `.meta.json` sidecar gives the init seed of the random-init towers
 (`load_model_variables`).
 
-Not here:
-  * `fetch-bpe` (it downloads) and `convert-ckpt` (the port needs no
-    conversion): not to port (ROADMAP).
-  * `--data-parallel` of `eval` and `serve` raises `NotImplementedError`
-    (ROADMAP A8).
+Not here: `fetch-bpe` (it downloads) and `convert-ckpt` (the port needs
+no conversion): not to port (ROADMAP).
+
+Data parallel (JAX `:124, 444-450, 594-601, 635-654`): launch one process
+a device with `torchrun --nproc-per-node N -m
+fashionern_aaai2024_tpu_torch.cli.main train ...` (as JAX's `train`
+takes every device, the port's takes every rank of the launch) or `eval
+| serve ... --data-parallel`; each process joins the group (`parallel/mesh.py initialize_distributed`:
+NCCL on `cuda:LOCAL_RANK`, gloo with `--device cpu`; without torchrun's
+environment, a group of one rank). `train` runs the Trainer on the mesh
+(`--batch-size` a rank, `--negatives local|global`); `eval` splits each
+batch over the ranks; `serve` builds the gallery-sharded serve program,
+rank 0 owns the HTTP front and the micro-batcher and the other ranks
+run each dispatch in lockstep (`ShardedServeFn.follow`). Only rank 0
+prints results and writes files.
 
 `export`, `refresh-artifact` and `serve-artifact` (JAX `:613-629`,
 `:675-721`) write, republish and serve a serve artifact
@@ -186,7 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CIRR test1: write recall_submission.json + "
                         "recall_subset_submission.json here instead of metrics")
     e.add_argument("--data-parallel", action="store_true",
-                   help="shard eval batches over all devices (not ported: ROADMAP A8)")
+                   help="shard eval batches over the ranks of a torchrun launch")
     e.add_argument("--quantize-gallery", action="store_true",
                    help="int8 gallery for the top-k search (4x less HBM)")
     e.add_argument("--quantize-towers", action="store_true",
@@ -226,7 +236,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(serving tier; exact when omitted)")
     sv.add_argument("--fold-bn", action="store_true")
     sv.add_argument("--data-parallel", action="store_true",
-                    help="gallery-sharded serving (not ported: ROADMAP A8)")
+                    help="gallery-sharded serving over the ranks of a torchrun launch "
+                         "(rank 0 serves HTTP)")
     sv.add_argument("--precision", default="bf16", choices=["fp32", "bf16"],
                    help="serving dtype")
     sv.add_argument("--capacity", default=None, type=int,
@@ -437,9 +448,23 @@ def _tokenizer(args):
     return SimpleTokenizer(args.bpe_path) if getattr(args, "bpe_path", None) else tokenize
 
 
-def _refuse_unported_eval_flags(args) -> None:
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError("--data-parallel is not ported yet (ROADMAP A8)")
+def _mesh(args):
+    """The data-parallel mesh of a run: with `--data-parallel`, or for
+    `train` under torchrun (WORLD_SIZE set; JAX's `train` always takes
+    every device), this process joins the group on `--device`; else
+    None."""
+    launched = getattr(args, "command", None) == "train" and "WORLD_SIZE" in os.environ
+    if not (getattr(args, "data_parallel", False) or launched):
+        return None
+    from fashionern_aaai2024_tpu_torch.parallel.mesh import initialize_distributed
+
+    return initialize_distributed(device=getattr(args, "device", "cuda"))
+
+
+def _is_primary() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _dataset_kwargs(args, clip_cfg) -> dict:
@@ -464,8 +489,8 @@ def build_inference_api(args):
     from fashionern_aaai2024_tpu_torch.models.composed import apply_precision
     from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI, resolve_device
 
-    _refuse_unported_eval_flags(args)
-    device = resolve_device(getattr(args, "device", "cuda"))
+    mesh = _mesh(args)
+    device = resolve_device(getattr(args, "device", "cuda") if mesh is None else mesh.device)
     clip_cfg = get_clip_config(
         args.clip_model_name,
         quantize_mlp=True if getattr(args, "quantize_towers", False) else None,
@@ -480,7 +505,7 @@ def build_inference_api(args):
                         context_length=clip_cfg.text.context_length,
                         quantize_gallery=getattr(args, "quantize_gallery", False),
                         quantize_refs=getattr(args, "quantize_refs", False),
-                        approx_recall=getattr(args, "topk_recall", None))
+                        approx_recall=getattr(args, "topk_recall", None), mesh=mesh)
 
 
 def run_eval(args) -> dict:
@@ -515,12 +540,13 @@ def run_eval(args) -> dict:
         if args.split == "test1":
             out_dir = args.submission_dir or "cirr_submission"
             payloads = E.generate_cirr_submission(api, classic, relative)
-            os.makedirs(out_dir, exist_ok=True)
             written = {}
             for name, payload in payloads.items():
                 path = os.path.join(out_dir, f"{name}.json")
-                with open(path, "w") as f:
-                    json.dump(payload, f)
+                if _is_primary():
+                    os.makedirs(out_dir, exist_ok=True)
+                    with open(path, "w") as f:
+                        json.dump(payload, f)
                 written[name] = path
             return written
         return E.evaluate_cirr(api, classic, relative)
@@ -602,7 +628,8 @@ def run_train(args):
         validate_200k=getattr(args, "validate_200k", False),
         tme=getattr(args, "tme", False),
     )
-    trainer = Trainer(cfg, device=getattr(args, "device", "cuda"), tokenizer=_tokenizer(args))
+    trainer = Trainer(cfg, device=getattr(args, "device", "cuda"), mesh=_mesh(args),
+                      tokenizer=_tokenizer(args))
     if args.clip_model_path:
         trainer.load_clip_checkpoint(_load_torch_state_dict(args.clip_model_path))
     trainer.train()
@@ -626,12 +653,28 @@ def build_service(args):
 
 def run_serve(args) -> None:
     """`serve`: the service over HTTP until interrupted; one line with the
-    bound URL once it takes requests."""
+    bound URL once it takes requests. With `--data-parallel`, rank 0
+    serves and the other ranks follow its dispatches."""
+    service = build_service(args)
+    program = service._serve_fn
+    if getattr(program, "mesh", None) is not None:
+        if program.mesh.rank != 0:
+            program.follow()   # until rank 0 closes the program
+            return
+        try:
+            _serve_http(args, service)
+        finally:
+            program.close()
+        return
+    _serve_http(args, service)
+
+
+def _serve_http(args, service) -> None:
+    """The HTTP (or native) front of `serve` over a built service."""
     import threading
 
     from fashionern_aaai2024_tpu_torch.retrieval.server import serve
 
-    service = build_service(args)
     dynamic = not args.no_dynamic_batching
     if args.native_front:
         from fashionern_aaai2024_tpu_torch.native import serve_frontend
@@ -753,9 +796,7 @@ def run_info() -> dict:
         "torch": torch.__version__,
         "cuda": {"available": cuda,
                  "device": torch.cuda.get_device_name(0) if cuda else None},
-        "not_ported": {"eval --data-parallel": "A8",
-                       "serve --data-parallel": "A8",
-                       "fetch-bpe": "not to port (it downloads)",
+        "not_ported": {"fetch-bpe": "not to port (it downloads)",
                        "convert-ckpt": "not to port (the .pth loads directly)"},
     }
 
@@ -790,6 +831,18 @@ def run_extract_patches(args) -> int:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    joined = dist.is_initialized()
+    try:
+        return _main(argv)
+    finally:
+        # a group that --data-parallel started ends with the command
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
+
+
+def _main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["serve-artifact"]:
         run_serve_artifact(build_serve_artifact_parser().parse_args(argv))
@@ -808,6 +861,8 @@ def main(argv=None) -> int:
         return 0
     if args.command == "eval":
         metrics = run_eval(args)
+        if not _is_primary():
+            return 0
         if args.json:
             print(json.dumps(metrics))
         else:

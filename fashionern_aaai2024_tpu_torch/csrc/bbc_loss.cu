@@ -1,10 +1,15 @@
 // Kernel B4: the forward of the batch-based classification loss, one
 // fp32 row loss per query,
 //
-//     row[i] = logsumexp_j(temp * p_i . t_j) - temp * p_i . t_i,
+//     row[i] = logsumexp_j(temp * p_i . t_j) - temp * p_i . t_(offset + i),
 //
-// for pred, tar [B, d] fp32 (contiguous, d % 4 == 0, 16-byte aligned: the
-// wrapper pads and copies where they are not) and row [B] fp32.
+// for pred [B, d] and tar [N, d] fp32 (contiguous, d % 4 == 0, 16-byte
+// aligned: the wrapper pads and copies where they are not), N >= offset + B,
+// and row [B] fp32. With N = B and offset = 0 it is the loss over local
+// negatives (the positive on the diagonal); the global negatives of a
+// data-parallel step pass the all-gathered targets [size * B, d] and
+// offset = rank * B (JAX `ops/losses.py:120-139`, which computes the same
+// function with XLA's matmul and logsumexp).
 //
 // Replaces: `_bbc_rowloss_pallas` (fashionern_aaai2024_tpu/ops/losses.py:55,
 // kernel body `_bbc_fwd_kernel` at :33). Like the Pallas kernel it never
@@ -13,12 +18,12 @@
 // (the online log-sum-exp). The Pallas kernel padded B to 128 and d to
 // 128 in device memory (:59-60) and masked the padded target columns
 // (:44); here TMA zero-fills rows and columns past the matrices, and the
-// columns past B are masked to -inf in the epilogue (a zero-filled column
+// columns past N are masked to -inf in the epilogue (a zero-filled column
 // would enter the sum as a score of 0).
 //
-// Bound: operations. 2 B^2 d flops at fp32 accuracy: three TF32 passes
-// on the tensor cores (6 B^2 d at 495 TFLOP/s: 6.5 us at B = 1024,
-// d = 512), against (2 B d + B) x 4 bytes (4.2 MB, 1.3 us at 3.35 TB/s).
+// Bound: operations. 2 B N d flops at fp32 accuracy: three TF32 passes
+// on the tensor cores (6 B N d at 495 TFLOP/s: 6.5 us at B = N = 1024,
+// d = 512), against (B d + N d + B) x 4 bytes (4.2 MB, 1.3 us at 3.35 TB/s).
 // Scores are multiplied by temp = 100 before the exponential, so one tf32
 // pass (about three decimal digits) would not hold the fp32 tolerance.
 // Design: the 3xTF32 body of `gemm_tf32.cuh` on the TMA ring, pred rows
@@ -29,13 +34,13 @@
 //     128 query rows and a run of 64-wide column tiles of tar; the
 //     (pred, tar) K tiles of every column tile stream in turn through a
 //     five-stage TMA ring. Per column tile the block forms the 128 x 64
-//     scores (`tf32_ktiles`), then, in registers: multiply by temp, mask columns >= B to -inf, take
+//     scores (`tf32_ktiles`), then, in registers: multiply by temp, mask columns >= N to -inf, take
 //     each row's tile max across the four lanes that share a row of the
 //     m64n64k8 fragment (two shuffles), one exponential a score against
 //     that max, and merge the tile's (max, sum) into the row's running
 //     pair once a tile (the four lanes hold the same max, each its own
-//     part of the sum); the thread that holds a diagonal score writes it
-//     out. After the last tile the four lanes add their sums and write one
+//     part of the sum); the thread that holds a row's positive score
+//     (column offset + row) writes it out. After the last tile the four lanes add their sums and write one
 //     partial per (split, row).
 //   * pass 2, `bbc_combine_kernel`: one thread per row merges the
 //     splits' partials into the log-sum-exp and subtracts the diagonal.
@@ -67,14 +72,14 @@ __device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2
 __global__ void __launch_bounds__(kTfThreads, 1)
 bbc_partial_kernel(const __grid_constant__ CUtensorMap map_p,
                    const __grid_constant__ CUtensorMap map_t, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ diag, int B, int d,
-                   float temp, int tiles_per_split) {
+                   float* __restrict__ part_l, float* __restrict__ diag, int B, int N,
+                   int d, int offset, float temp, int tiles_per_split) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* operands = smem + BbcRing::kRing;
   const uint32_t full = smem_addr(operands + 2 * BbcRing::kOperandBytes);
   const int row0 = blockIdx.x * kTfBM;
-  const int n_col_tiles = (B + kBbcBN - 1) / kBbcBN;
+  const int n_col_tiles = (N + kBbcBN - 1) / kBbcBN;
   const int ct_begin = blockIdx.y * tiles_per_split;
   const int ct_end = min(n_col_tiles, ct_begin + tiles_per_split);
   const int kt_count = (d + kTfBK - 1) / kTfBK;
@@ -106,8 +111,8 @@ bbc_partial_kernel(const __grid_constant__ CUtensorMap map_p,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = ct * kBbcBN + 8 * j + 2 * (t % 4) + e;
-          const float v = col < B ? temp * acc[4 * j + 2 * h + e] : -INFINITY;
-          if (row == col && row < B) diag[row] = v;
+          const float v = col < N ? temp * acc[4 * j + 2 * h + e] : -INFINITY;
+          if (col == row + offset && row < B) diag[row] = v;
           s[2 * j + e] = v;
           mt = fmaxf(mt, v);
         }
@@ -146,17 +151,20 @@ __global__ void bbc_combine_kernel(const float* __restrict__ part_m,
 
 }  // namespace fern
 
-// pred, tar [B, d] fp32 at 16-byte aligned addresses, d % 4 == 0 (TMA's
-// rules); row [B] fp32; part_m, part_l [splits, B] and diag [B] fp32
-// scratch. Every split must own at least one 64-wide column tile:
-// splits == ceil(ceil(B / 64) / tiles_per_split).
+// pred [B, d], tar [N, d] fp32 at 16-byte aligned addresses, d % 4 == 0
+// (TMA's rules), 0 <= offset, offset + B <= N; row [B] fp32; part_m,
+// part_l [splits, B] and diag [B] fp32 scratch. Every split must own at
+// least one 64-wide column tile: splits == ceil(ceil(N / 64) /
+// tiles_per_split).
 extern "C" int fern_bbc_rowloss(const void* pred, const void* tar, void* row, void* part_m,
                                 void* part_l, void* diag, int B, int d, float temp,
-                                int splits, int tiles_per_split, int device, void* stream) {
+                                int splits, int tiles_per_split, int N, int offset,
+                                int device, void* stream) {
   cudaError_t err = fern::use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  const int n_tiles = (B + fern::kBbcBN - 1) / fern::kBbcBN;
+  if (offset < 0 || N < offset + B) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (N + fern::kBbcBN - 1) / fern::kBbcBN;
   const unsigned long long addr =
       reinterpret_cast<unsigned long long>(pred) | reinterpret_cast<unsigned long long>(tar);
   if (d <= 0 || d % 4 || addr % 16 || tiles_per_split <= 0 ||
@@ -178,14 +186,14 @@ extern "C" int fern_bbc_rowloss(const void* pred, const void* tar, void* row, vo
   err = fern::tile_map(&map_p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), pred, B, d,
                        fern::kTfBK, fern::kTfBM);
   if (err != cudaSuccess) return (int)err;
-  err = fern::tile_map(&map_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), tar, B, d,
+  err = fern::tile_map(&map_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), tar, N, d,
                        fern::kTfBK, fern::kBbcBN);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + fern::kTfBM - 1) / fern::kTfBM, splits);
   fern::bbc_partial_kernel<<<grid, fern::kTfThreads, fern::BbcRing::kSmem, s>>>(
       map_p, map_t, static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(diag), B, d, temp, tiles_per_split);
+      static_cast<float*>(diag), B, N, d, offset, temp, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fern::bbc_combine_kernel<<<(B + 255) / 256, 256, 0, s>>>(

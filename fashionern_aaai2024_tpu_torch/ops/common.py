@@ -72,8 +72,8 @@ _SIGNATURES = {
     # act, dtype, out_f32, tile, device, stream
     "fern_qgemm": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # pred, tar, row, part_m, part_l, diag, B, d, temp, splits,
-    # tiles_per_split, device, stream
-    "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    # tiles_per_split, N, offset, device, stream
+    "fern_bbc_rowloss": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # x, ln1_w, ln1_b, in_w, in_b, out_w, out_b, ln2_w, ln2_b, fc_w, fc_b,
     # proj_w, proj_b, workspace, barrier, out, batch, seq, width, ffn, heads,
     # causal, scale, eps, act, dtype, device, stream

@@ -223,12 +223,18 @@ class BucketedCall(Mapping):
     `CapturedCall`, all in one memory pool, captured here, so no capture
     runs once it serves; on the CPU `fn` runs eagerly. Calls hold `lock`:
     the static tensors serve one request at a time, and a caller that
-    writes other tensors `fn` reads (weights, gallery rows) holds it too."""
+    writes other tensors `fn` reads (weights, gallery rows) holds it too.
+
+    `on_dispatch(b, n, bucket)` runs under the lock after the inputs are
+    copied in and before the bucket runs (the sharded serve program
+    broadcasts them to its other ranks there)."""
 
     def __init__(self, fn: Callable, make_inputs: Callable[[int], tuple],
-                 sizes: Iterable[int], device: torch.device):
+                 sizes: Iterable[int], device: torch.device,
+                 on_dispatch: Callable[[int, int, "_Bucket"], None] | None = None):
         self.sizes = tuple(sorted(sizes))
         self.lock = threading.Lock()
+        self.on_dispatch = on_dispatch
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._buckets = {b: _Bucket(fn, make_inputs(b), device, pool) for b in self.sizes}
 
@@ -259,5 +265,7 @@ class BucketedCall(Mapping):
         with self.lock:
             for static, host in zip(bucket.inputs, padded):
                 static.copy_(host)
+            if self.on_dispatch is not None:
+                self.on_dispatch(b, n, bucket)
             bucket.run()
             return tuple(o[:n, :k].cpu().numpy() for o in bucket.outputs)

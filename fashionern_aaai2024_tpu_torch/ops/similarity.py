@@ -142,16 +142,18 @@ def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def chunked_top_k(score_chunk: Callable[[int, int], torch.Tensor], n: int, k: int,
-                  chunk: int, approx_recall: float | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  chunk: int, approx_recall: float | None = None,
+                  n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Running top-k over a gallery of `n` rows scanned in chunks.
     `score_chunk(start, chunk)` gives the [Q, chunk] scores of rows
     start:start + chunk, the rows past the gallery's end zero-padded;
-    their columns are masked to -inf here. Each chunk's candidates come
-    from `select_top_k`; the merge is exact."""
+    their columns, and those at or past `n_valid` (rows of external
+    padding, JAX `similarity.py:82-87`), are masked to -inf here. Each
+    chunk's candidates come from `select_top_k`; the merge is exact."""
+    nv = n if n_valid is None else min(n_valid, n)
     best_s = best_i = None
     for start in range(0, n, chunk):
-        valid = min(chunk, n - start)
+        valid = max(0, min(chunk, nv - start))
         s = score_chunk(start, chunk)
         s[:, valid:] = -torch.inf
         cs, ci = select_top_k(s, min(k, chunk), approx_recall)
@@ -165,7 +167,8 @@ def chunked_top_k(score_chunk: Callable[[int, int], torch.Tensor], n: int, k: in
 
 
 def blocked_top_k_similarity(queries: torch.Tensor, gallery: torch.Tensor, k: int = 51,
-                             chunk: int | None = None, approx_recall: float | None = None
+                             chunk: int | None = None, approx_recall: float | None = None,
+                             n_valid: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k cosine similarity of queries [Q, d] against gallery [N, d]
     (both L2-normalized by the caller). Returns (scores [Q, k] fp32
@@ -176,7 +179,9 @@ def blocked_top_k_similarity(queries: torch.Tensor, gallery: torch.Tensor, k: in
     chunk is then one product of one shape, so duplicate gallery rows
     score bit-identically wherever they sit and ties stay ties.
     `approx_recall`: None is the exact tier; a float selects each chunk's
-    candidates through the approximate tier at that recall target."""
+    candidates through the approximate tier at that recall target.
+    `n_valid`: rows at or past it are padding and score -inf (the
+    sharded callers' pad tail)."""
     n = gallery.shape[0]
     chunk = _auto_chunk(queries.shape[0], n) if chunk is None else min(chunk, n)
     qf = queries.float()
@@ -184,7 +189,7 @@ def blocked_top_k_similarity(queries: torch.Tensor, gallery: torch.Tensor, k: in
     def score_chunk(start: int, size: int) -> torch.Tensor:
         return qf @ pad_rows(gallery[start:start + size].float(), size).t()
 
-    return chunked_top_k(score_chunk, n, min(k, n), chunk, approx_recall)
+    return chunked_top_k(score_chunk, n, min(k, n), chunk, approx_recall, n_valid)
 
 
 def measured_approx_recall(gallery: torch.Tensor, k: int = 51, recall_target: float = 0.95,

@@ -6,8 +6,9 @@ JAX counterpart: `fashionern_aaai2024_tpu/retrieval/engine.py`:
 `--quantize-gallery`), exact or approximate (`approx_recall`,
 `--topk-recall`, with `calibrate_approx`), with the name ids, top-k
 ids, member scores and row lookups the evaluators use. `embed_gallery`
-is serial here; the JAX version's prefetch thread and mesh sharding
-(`sharded_search`) are not ported (ROADMAP A8).
+is serial here (the JAX version's prefetch thread is not ported).
+`sharded_search` (`:238-286`) is the top-k over a gallery row-sharded
+over a data-parallel mesh (`parallel/mesh.py`).
 
 Features stay on the model's device as fp32 tensors, so a query's
 reference-row gather and the search run there without a host round
@@ -30,7 +31,10 @@ from fashionern_aaai2024_tpu_torch.ops.quant import (
 from fashionern_aaai2024_tpu_torch.ops.similarity import (
     blocked_top_k_similarity,
     measured_approx_recall,
+    merge_top_k,
+    pad_rows,
 )
+from fashionern_aaai2024_tpu_torch.parallel.mesh import ProcessMesh, all_gather_cols
 
 
 def names_to_ids(names: Sequence[str]) -> tuple[np.ndarray, dict[str, int]]:
@@ -154,3 +158,29 @@ class RetrievalIndex:
             for i, n in enumerate(self.names):
                 self._rows.setdefault(n, i)
         return self._rows[name]
+
+
+def sharded_search(mesh: ProcessMesh, query_features, gallery_features, k: int = 51,
+                   chunk: int | None = None, approx_recall: float | None = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Top-k over a gallery row-sharded over the mesh (JAX `:238-286`),
+    called by every rank with the same queries and the whole gallery:
+    this rank keeps rows [r · per, (r + 1) · per) of it, per = ceil(n /
+    size), zero-padded on the last shards; the pad tail is masked before
+    the local top-k (a zero row scores 0, above real negative-scoring
+    rows); the candidates carry global row ids (invalid ones the largest
+    id) and only the [Q, k] candidate sets cross the mesh (an all-gather)
+    before the exact merge. -> (scores [Q, k], gallery rows [Q, k]) as
+    host arrays, the same on every rank."""
+    gallery = torch.as_tensor(gallery_features)
+    n = gallery.shape[0]
+    per = -(-n // mesh.size)
+    start = mesh.rank * per
+    local = pad_rows(gallery[start:start + per].to(mesh.device, torch.float32), per)
+    q = torch.as_tensor(query_features).to(mesh.device, torch.float32)
+    s, i = blocked_top_k_similarity(q, local, k=min(k, per), chunk=chunk,
+                                    approx_recall=approx_recall,
+                                    n_valid=max(0, min(per, n - start)))
+    gi = torch.where(s > -torch.inf, i + start, torch.iinfo(torch.int64).max)
+    scores, idx = merge_top_k(all_gather_cols(mesh, s), all_gather_cols(mesh, gi), min(k, n))
+    return scores.cpu().numpy(), idx.cpu().numpy()

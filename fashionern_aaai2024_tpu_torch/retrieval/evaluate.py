@@ -13,7 +13,14 @@ take the top-k, and score Recall@K (`retrieval/metrics.py`); and
 (`ServeFn`), which on the card runs as one CUDA graph per batch bucket.
 Its export handles (JAX `jfn` and `consts`, `:540-572`) are
 `ServeFn.consts` and `ServeFn.program`, which `retrieval/artifact.py`
-exports. The mesh path is not ported (ROADMAP A8).
+exports.
+
+Data parallel (`mesh`, a `parallel/mesh.py ProcessMesh`): every rank
+makes the same calls. The batch wrappers give each rank its slice of a
+batch, through the same kernels, and an all-gather gives every rank the
+whole batch (JAX's `shard_map` towers, `:76-160`); `build_serve_fn`
+builds the gallery-sharded serve program (`ShardedServeFn`, JAX
+`_build_sharded_serve_fn`, `:574-720`).
 
 The batch wrappers take host arrays or tensors and run in slices of
 `batch_size`. JAX padded the last slice to keep one compiled program;
@@ -25,6 +32,7 @@ list of batches).
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -36,7 +44,14 @@ from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel
 from fashionern_aaai2024_tpu_torch.ops.graphs import BucketedCall
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product
 from fashionern_aaai2024_tpu_torch.ops.quant import quantize_rows
-from fashionern_aaai2024_tpu_torch.ops.similarity import select_top_k
+from fashionern_aaai2024_tpu_torch.ops.similarity import merge_top_k, select_top_k
+from fashionern_aaai2024_tpu_torch.parallel.mesh import (
+    ProcessMesh,
+    all_gather_cols,
+    all_gather_rows,
+    all_reduce_sum,
+    broadcast,
+)
 from fashionern_aaai2024_tpu_torch.retrieval import metrics as M
 from fashionern_aaai2024_tpu_torch.retrieval.engine import (
     GalleryFeatures,
@@ -60,7 +75,8 @@ class InferenceAPI:
     def __init__(self, model: ComposedCIRModel, *, tokenizer: Callable | None = None,
                  device: torch.device | str = "cuda", batch_size: int = 32,
                  context_length: int = 77, quantize_gallery: bool = False,
-                 quantize_refs: bool = False, approx_recall: float | None = None):
+                 quantize_refs: bool = False, approx_recall: float | None = None,
+                 mesh: ProcessMesh | None = None):
         """`tokenizer`: callable (captions, context_length) -> int32
         [B, L]; by default the port's CLIP BPE (`models/clip/tokenizer.py
         tokenize`), which finds its table at the first call
@@ -74,8 +90,15 @@ class InferenceAPI:
         None is the exact top-k; a float selects every gallery-wide top-k
         this API builds (the evaluators' search, the serve program)
         through the approximate tier at that recall target
-        (`--topk-recall`, `ops/similarity.py`)."""
-        self.device = resolve_device(device)
+        (`--topk-recall`, `ops/similarity.py`). `mesh`: every batch is
+        split over the mesh's ranks (each encodes its slice on the mesh's
+        device, then an all-gather) and the serve program is
+        gallery-sharded; `batch_size` must divide by the mesh size."""
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by mesh size "
+                             f"{mesh.size}")
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.quantize_gallery = quantize_gallery
         self.quantize_refs = quantize_refs
         self.approx_recall = approx_recall
@@ -84,17 +107,42 @@ class InferenceAPI:
         self.context_length = context_length
         self._tokenizer = tokenizer if tokenizer is not None else tokenize
 
-    def _slices(self, n: int):
-        return (slice(i, i + self.batch_size) for i in range(0, n, self.batch_size))
-
     def _to_device(self, a, dtype: torch.dtype | None = None) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, dtype)
+
+    def _map(self, fn: Callable, n: int, *arrays, chunk: int | None = None) -> list:
+        """`fn` over slices of `chunk` (default batch_size) rows of the
+        arrays, as device tensors. On a mesh each slice is padded to a
+        multiple of the mesh size (repeating its last row), each rank runs
+        `fn` on its contiguous part, and an all-gather gives every rank
+        the slice's outputs. -> the outputs of every slice, in order."""
+        step = chunk or self.batch_size
+        out = []
+        for i in range(0, n, step):
+            xs = [a[i:i + step] for a in arrays]
+            if self.mesh is None:
+                out.append(fn(*xs))
+                continue
+            m, size = len(xs[0]), self.mesh.size
+            per = -(-m // size)
+            lo, hi = min(self.mesh.rank * per, m), min((self.mesh.rank + 1) * per, m)
+            local = []
+            for x in xs:
+                t = torch.as_tensor(x)[lo:hi] if hi > lo else torch.as_tensor(x)[m - 1:m]
+                if t.shape[0] < per:
+                    t = torch.cat([t, t[-1:].expand(per - t.shape[0], *t.shape[1:])])
+                local.append(t)
+            res = fn(*local)
+            gathered = tuple(all_gather_rows(self.mesh, r.contiguous())[:m]
+                             for r in (res if isinstance(res, tuple) else (res,)))
+            out.append(gathered if isinstance(res, tuple) else gathered[0])
+        return out
 
     @torch.inference_mode()
     def encode_image(self, images) -> tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W, 3] (normalized float or uint8) -> (global, tokens)."""
-        out = [self.model.encode_image(self._to_device(images[s]))
-               for s in self._slices(len(images))]
+        out = self._map(lambda x: self.model.encode_image(self._to_device(x)),
+                        len(images), images)
         return torch.cat([g for g, _ in out]), torch.cat([t for _, t in out])
 
     @torch.inference_mode()
@@ -105,11 +153,13 @@ class InferenceAPI:
         ignored on a vanilla one (`evaluate.py:192-207`)."""
         if not self.model.clip_config.text.tme:
             visual_emb = None
-        out = [self.model.encode_text(
-            self._to_device(token_ids[s]),
-            visual_emb=None if visual_emb is None else self._to_device(visual_emb[s],
-                                                                       torch.float32))
-            for s in self._slices(len(token_ids))]
+        if visual_emb is None:
+            out = self._map(lambda ids: self.model.encode_text(self._to_device(ids)),
+                            len(token_ids), token_ids)
+        else:
+            out = self._map(lambda ids, ve: self.model.encode_text(
+                self._to_device(ids), visual_emb=self._to_device(ve, torch.float32)),
+                len(token_ids), token_ids, visual_emb)
         return torch.cat([g for g, _ in out]), torch.cat([t for _, t in out])
 
     @torch.inference_mode()
@@ -117,24 +167,37 @@ class InferenceAPI:
         """DVR query tower; inputs are cast to fp32 first, as the JAX API
         does (`evaluate.py:213-216`)."""
         f32 = torch.float32
-        return torch.cat([
-            self.model.query(self._to_device(ref_feats[s], f32),
-                             self._to_device(ref_patch[s], f32),
-                             self._to_device(text_g[s], f32),
-                             self._to_device(text_seq[s], f32))
-            for s in self._slices(len(ref_feats))])
+        return torch.cat(self._map(
+            lambda rf, rp, tg, ts: self.model.query(
+                self._to_device(rf, f32), self._to_device(rp, f32), self._to_device(tg, f32),
+                self._to_device(ts, f32)),
+            len(ref_feats), ref_feats, ref_patch, text_g, text_seq))
 
     @torch.inference_mode()
     def refine_gallery(self, features, local_features, chunk: int = 4096) -> torch.Tensor:
         """Index tower over the gallery: L2-normalize (eps 1e-12 added,
-        `evaluate.py:101-104`), then SR + Combiner."""
-        out = []
-        for i in range(0, len(features), chunk):
-            tf = self._to_device(features[i:i + chunk], torch.float32)
-            tl = self._to_device(local_features[i:i + chunk], torch.float32)
+        `evaluate.py:101-104`), then SR + Combiner. On a mesh each chunk
+        (rounded up to a multiple of the mesh size) is split over the
+        ranks."""
+        if self.mesh is not None:
+            chunk = -(-chunk // self.mesh.size) * self.mesh.size
+
+        def index(f, lf):
+            tf = self._to_device(f, torch.float32)
             tf = tf / (torch.linalg.vector_norm(tf, dim=-1, keepdim=True) + 1e-12)
-            out.append(self.model.index(tf, tl))
-        return torch.cat(out)
+            return self.model.index(tf, self._to_device(lf, torch.float32))
+
+        return torch.cat(self._map(index, len(features), features, local_features,
+                                   chunk=chunk))
+
+    def unsharded(self) -> "InferenceAPI":
+        """This API on this rank alone: the same model, device and
+        settings, no mesh (so no collective)."""
+        if self.mesh is None:
+            return self
+        api = copy.copy(self)
+        api.mesh = None
+        return api
 
     def tokenize(self, captions: Sequence[str]) -> np.ndarray:
         return self._tokenizer(captions, self.context_length)
@@ -155,9 +218,18 @@ class InferenceAPI:
         request names gallery rows and the program gathers them.
         `capacity` (by rows): the arrays are padded to `capacity` rows
         and `update_rows` grows or rewrites the gallery in place. See
-        `ServeFn`."""
+        `ServeFn`. `mesh` (or the API's own): the gallery-sharded program
+        (`ShardedServeFn`), by rows only and without capacity."""
+        mesh = mesh if mesh is not None else self.mesh
         if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported (ROADMAP A8)")
+            if ref_features is None:
+                raise ValueError("mesh-sharded serving needs the by-rows form "
+                                 "(pass ref_features/ref_patches)")
+            if capacity is not None:
+                raise ValueError("capacity (live adds) is single-device serving only; "
+                                 "mesh-sharded galleries are static")
+            return ShardedServeFn(self, mesh, gallery_features, k_max, buckets, patch_num,
+                                  ref_features, ref_patches)
         return ServeFn(self, gallery_features, k_max, buckets, patch_num, ref_features,
                        ref_patches, capacity)
 
@@ -411,6 +483,142 @@ class ServeFn:
             self._n_valid = max(self._n_valid, start + m)
             self._n_valid_dev.fill_(self._n_valid)
             return self._n_valid
+
+
+class ShardedServeFn(ServeFn):
+    """The gallery-sharded serve program (JAX `_build_sharded_serve_fn`,
+    `evaluate.py:574-720`), by rows, over a data-parallel mesh: every rank
+    builds it with the same arguments, and each holds rows [r · per,
+    (r + 1) · per) of the gallery and of the reference features and
+    patches, per = ceil(n / size), zero-padded on the last shards (int8
+    values and scales under `quantize_gallery` / `quantize_refs`, as the
+    single-device program stores them). So the gallery, the serving
+    memory axis, divides over the mesh.
+
+    The body on each rank: the reference rows by a masked local gather
+    and an all-reduce of the sum (each row lives on one rank; the others
+    add zeros), the text tower (TME conditioned on the gathered patches)
+    and the DVR query tower on the whole request (b <= 32 rows: doing it
+    on every rank beats moving activations), the scores of the local
+    shard with its pad tail masked to -inf before the local top-k, the
+    candidates' global row ids (invalid ones the largest id), an
+    all-gather of the [b, k_local] candidates, and the exact merge
+    (`ops/similarity.py merge_top_k`) to `k_max`.
+
+    Requests come to rank 0 (`__call__`, the single-device program's
+    signature). Before its bucket runs, rank 0 broadcasts the bucket and
+    the row count, then the bucket's static inputs; the other ranks sit in
+    `follow()`, which receives each dispatch into the same bucket's
+    inputs and runs the same bucket in lockstep until `close()` (rank 0)
+    sends the shutdown message. On the card each bucket is one CUDA graph
+    with its NCCL collectives inside; a gloo group on the card is refused
+    (a graph cannot hold gloo's collectives), and on the CPU the buckets
+    run eagerly. What the card has shown is world 1 only: there an NCCL
+    collective records into a capture and the graph replays correctly,
+    but NCCL records no kernel node at world 1 (ROADMAP "Ground facts").
+    That a graph holding real NCCL kernels captures, and replays in
+    lockstep with the eager dispatch broadcasts, at world >= 2 is not
+    verified (ROADMAP C22). Not exportable and not growable (JAX refuses
+    both)."""
+
+    def __init__(self, api: InferenceAPI, mesh: ProcessMesh, gallery_features, k_max: int,
+                 buckets: Sequence[int], patch_num: int, ref_features, ref_patches):
+        if api.device.type == "cuda" and mesh.backend not in (None, "nccl"):
+            raise ValueError(f"a serve program on {api.device} needs an NCCL group, not "
+                             f"{mesh.backend}: its buckets are CUDA graphs, which cannot "
+                             "hold gloo's collectives")
+        self.api = api
+        self.mesh = mesh
+        self.device = api.device
+        self.context_length = api.context_length
+        self.patch_num = patch_num
+        n_rows = int(gallery_features.shape[0])
+        self.feat_dim = int(gallery_features.shape[1])
+        self.k_max = min(k_max, n_rows)
+        self.buckets = tuple(sorted(buckets))
+        self.by_rows, self.growable, self.capacity = True, False, None
+        self.quantized = api.quantize_gallery
+        self.quantize_refs = api.quantize_refs
+        self.approx_recall = api.approx_recall
+        self.tme = bool(api.model.clip_config.text.tme)
+        self.per = -(-n_rows // mesh.size)
+        self.start = mesh.rank * self.per
+        self.k_local = min(self.k_max, self.per)
+        self._n_valid = n_rows
+        self._local_valid = max(0, min(self.per, n_rows - self.start))
+
+        def shard(a) -> torch.Tensor:
+            t = _host_f32(a)[self.start:self.start + self.per]
+            return _pad_to(t, self.per) if t.shape[0] < self.per else t
+
+        self.gallery = self._place(shard(gallery_features), self.quantized)
+        self.ref_f = self._place(shard(ref_features), self.quantize_refs)
+        self.ref_p = self._place(shard(ref_patches), self.quantize_refs)
+        self._cols = torch.arange(self.per, device=self.device)
+        self._tower = _QueryTower(api.model, self.tme)
+        self._header = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._closed = False
+        self._buckets = BucketedCall(self.body, self._static_inputs, self.buckets,
+                                     self.device,
+                                     on_dispatch=self._dispatch if mesh.rank == 0 else None)
+        self._int8_weights = [m._int8 for m in api.model.modules()
+                              if getattr(m, "_int8", None) is not None]
+
+    @torch.no_grad()
+    def body(self, ids: torch.Tensor, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One rank's program: ids [b, L] int32 and global rows [b] ->
+        the merged (scores [b, k_max], rows [b, k_max]), the same on
+        every rank."""
+        mesh = self.mesh
+        local = rows - self.start
+        hit = (local >= 0) & (local < self.per)
+        gf, gp = self._gather(torch.where(hit, local, torch.zeros_like(local)),
+                              self.ref_f, self.ref_p)
+        rf = all_reduce_sum(mesh, gf * hit[:, None].to(gf.dtype))
+        rp = all_reduce_sum(mesh, gp * hit[:, None, None].to(gp.dtype))
+        scores = self._scores(self._tower(ids, rf, rp), self.gallery)
+        # the pad tail scores 0: it must lose to every real row
+        scores = scores.masked_fill(self._cols >= self._local_valid, -torch.inf)
+        s, i = select_top_k(scores, self.k_local, self.approx_recall)
+        gi = torch.where(s > -torch.inf, i + self.start, torch.iinfo(torch.int64).max)
+        return merge_top_k(all_gather_cols(mesh, s), all_gather_cols(mesh, gi), self.k_max)
+
+    def _dispatch(self, b: int, n: int, bucket) -> None:
+        """Rank 0, under the buckets' lock: the dispatch to the other ranks."""
+        self._header.copy_(torch.tensor([b, n]))
+        broadcast(self.mesh, self._header)
+        for t in bucket.inputs:
+            broadcast(self.mesh, t)
+
+    def follow(self) -> int:
+        """A rank other than 0: run every dispatch of rank 0 until it
+        closes the program; -> the number of dispatches run."""
+        if self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        runs = 0
+        while True:
+            broadcast(self.mesh, self._header)
+            b, _ = self._header.tolist()
+            if b == 0:
+                return runs
+            bucket = self._buckets[b]
+            for t in bucket.inputs:
+                broadcast(self.mesh, t)
+            bucket.run()
+            runs += 1
+
+    def close(self) -> None:
+        """Rank 0: end the other ranks' `follow()` loops (once)."""
+        if self.mesh.rank != 0 or self._closed:
+            return
+        with self._buckets.lock:
+            self._header.zero_()
+            broadcast(self.mesh, self._header)
+            self._closed = True
+
+    @property
+    def consts(self) -> list[torch.Tensor]:
+        raise ValueError("mesh-sharded serve programs are not exportable")
 
 
 def last_wins_rows(names: Sequence[str]) -> dict[str, int]:

@@ -211,11 +211,15 @@ class RetrievalService(_ServiceBase):
     def multi_dispatch(self, ids: np.ndarray, rows: np.ndarray,
                        k: int) -> tuple[np.ndarray, np.ndarray]:
         """The large-k path (call with the lock held): the text tower, the
-        DVR query tower and the index search, each its own launches."""
+        DVR query tower and the index search, each its own launches. On a
+        mesh rank 0 runs it alone, without the mesh's collectives (each
+        rank holds the whole gallery and its index; the other ranks wait
+        in the serve program's `follow()`)."""
+        api = self.api.unsharded()
         dev_rows = torch.as_tensor(rows, device=self.gallery.features.device)
         ref_patch = self.gallery.local_features[dev_rows]
-        tg, tseq = self.api.encode_text(ids, visual_emb=ref_patch)
-        preds = self.api.query(self.gallery.features[dev_rows], ref_patch, tg, tseq)
+        tg, tseq = api.encode_text(ids, visual_emb=ref_patch)
+        preds = api.query(self.gallery.features[dev_rows], ref_patch, tg, tseq)
         return self._fallback_index().search(preds, k=k)
 
     def add_from_paths(self, items: Sequence[dict]) -> dict:

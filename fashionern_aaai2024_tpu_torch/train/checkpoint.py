@@ -19,6 +19,12 @@ JAX counterpart: `fashionern_aaai2024_tpu/train/checkpoint.py`
   * `BestCheckpointer`: best-on-validation save with a `.meta.json`
     sidecar (init seed, CLIP name, whether CLIP came from a checkpoint).
 
+Data parallel (`mesh`): the state is the same on every rank, so rank 0
+writes and every rank waits at a barrier after the write; every rank
+restores (JAX: Orbax's collective save, the primary writing). A
+checkpoint holds no trace of the world size that saved it: one saved at
+one world size resumes at another (JAX `tests/test_topology.py:113,151`).
+
 The frozen towers are skipped on later saves only when `frozen_written`,
 a dict the caller owns (the Trainer keeps one per run), records that this
 run already wrote them under the same fingerprint, so a run that reuses
@@ -34,6 +40,7 @@ from typing import Any
 
 import torch
 
+from fashionern_aaai2024_tpu_torch.parallel.mesh import ProcessMesh
 from fashionern_aaai2024_tpu_torch.train.state import CIRTrainState
 
 
@@ -50,11 +57,19 @@ def _frozen(state: CIRTrainState) -> dict:
 
 def save_state(path: str, state: CIRTrainState, *, frozen: str = "auto",
                frozen_fingerprint: str | None = None,
-               frozen_written: dict[str, str] | None = None) -> None:
+               frozen_written: dict[str, str] | None = None,
+               mesh: ProcessMesh | None = None) -> None:
     """Write the train state (a resume point) to `path`. frozen="auto":
     the split layout, with `path + ".frozen"` rewritten unless
     `frozen_written[path + ".frozen"] == frozen_fingerprint` (with no
-    fingerprint, unless the file exists). frozen="full": one file."""
+    fingerprint, unless the file exists). frozen="full": one file. On a
+    mesh, rank 0 writes and every rank returns after the write."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_state(path, state, frozen=frozen, frozen_fingerprint=frozen_fingerprint,
+                       frozen_written=frozen_written)
+        mesh.barrier()
+        return
     path = os.path.abspath(path)
     if frozen == "full":
         torch.save({**_mutable(state), **_frozen(state)}, path)
@@ -107,11 +122,14 @@ def restore_params(path: str) -> dict:
 
 class BestCheckpointer:
     """Keeps the best state_dict by the validation metric (`:153-185`):
-    the directory is created and the metric starts at -inf."""
+    the directory is created and the metric starts at -inf. On a mesh
+    every rank tracks the metric, rank 0 writes, and every rank returns
+    after the write."""
 
-    def __init__(self, ckpt_dir: str, name: str):
+    def __init__(self, ckpt_dir: str, name: str, mesh: ProcessMesh | None = None):
         self.ckpt_dir = ckpt_dir
         self.name = name
+        self.mesh = mesh
         self.best_metric = float("-inf")
         os.makedirs(ckpt_dir, exist_ok=True)
 
@@ -125,10 +143,13 @@ class BestCheckpointer:
         if metric <= self.best_metric:
             return False
         self.best_metric = metric
-        save_params(self.best_path, state_dict)
-        if meta is not None:
-            with open(self.best_path + ".meta.json", "w") as f:
-                json.dump({**meta, "metric": metric}, f)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_params(self.best_path, state_dict)
+            if meta is not None:
+                with open(self.best_path + ".meta.json", "w") as f:
+                    json.dump({**meta, "metric": metric}, f)
+        if self.mesh is not None:
+            self.mesh.barrier()
         return True
 
 

@@ -1,7 +1,7 @@
 """The Trainer: one loop + per-dataset plugins.
 
-JAX counterpart: `fashionern_aaai2024_tpu/train/trainer.py` (`:49-651`),
-one device. Recipe parity (BASELINE.md): Adam over the fusion parameters
+JAX counterpart: `fashionern_aaai2024_tpu/train/trainer.py` (`:49-651`).
+Recipe parity (BASELINE.md): Adam over the fusion parameters
 only, batch size per device, CosineAnnealingLR(T_max =
 schedule_epochs · steps_per_epoch) stepped per iteration, validation every
 `validation_frequency` epochs, best checkpoint on the dataset's selection
@@ -10,10 +10,19 @@ metric, a kill-safe resume that reproduces the uninterrupted run's steps
 dropout from (seed, step), Adam / schedule / BatchNorm from the restored
 state).
 
+Data parallel (`mesh`, a `parallel/mesh.py ProcessMesh`; JAX
+`:278-353, 472, 549-559`): each rank loads its share of the global batch
+(`batch_size` per rank, the Loader's rank and world size the mesh's, so
+the global batch is batch_size x size), the step reduces over the mesh
+with per-rank "local" negatives (`local_groups` = the mesh size) or
+"global" ones; validation rides the mesh when the eval batch divides by
+its size (else every rank validates alone, with the same result); only
+rank 0 logs and writes sidecars and checkpoints, and every rank waits
+for the write.
+
 Differences from the JAX Trainer:
-  * `device` in place of `mesh`. A mesh of more than one device, and
-    therefore "global" negatives across devices, raise
-    `NotImplementedError` (ROADMAP A8).
+  * `device` or `mesh` (whose device the Trainer takes) in place of a
+    JAX mesh.
   * The model carries its weights: pass a `ComposedCIRModel`, or the
     Trainer builds one with seeded random weights
     (`models/composed.py random_init_`), which are not the JAX package's
@@ -52,6 +61,7 @@ from fashionern_aaai2024_tpu_torch.data.shoes import ShoesDataset
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+from fashionern_aaai2024_tpu_torch.parallel.mesh import ProcessMesh
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import (
     InferenceAPI,
     evaluate_cirr,
@@ -243,8 +253,11 @@ PLUGINS: dict[str, DatasetPlugin] = {
 }
 
 
-def _mesh_size(mesh) -> int:
-    return int(np.size(getattr(mesh, "devices", mesh)))
+class _SilentLogger:
+    """The logger of a rank other than 0: it logs nothing."""
+
+    def log(self, step: int | None = None, **metrics) -> None:
+        pass
 
 
 class Trainer:
@@ -253,11 +266,13 @@ class Trainer:
                  validator=None, plugin: DatasetPlugin | None = None, tokenizer=None):
         """Every heavyweight piece is injectable; `tokenizer` defaults to
         the port's CLIP BPE (`models/clip/tokenizer.py tokenize`), which
-        raises FileNotFoundError at its first call when no table is found."""
-        if mesh is not None and _mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                "training on a mesh of more than one device is not ported yet "
-                "(ROADMAP.md A8)")
+        raises FileNotFoundError at its first call when no table is found.
+        With a `mesh` the Trainer runs on the mesh's device."""
+        if mesh is not None and not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.ProcessMesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.is_primary = mesh is None or mesh.rank == 0
         if cfg.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be 'fp32' or 'bf16', got {cfg.precision!r}")
         self.cfg = cfg
@@ -265,7 +280,7 @@ class Trainer:
             raise ValueError(
                 f"unknown dataset {cfg.dataset!r}; expected one of {sorted(PLUGINS)}")
         self.plugin = plugin or PLUGINS[cfg.dataset]
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         if model is None:
             # the towers are frozen and run under torch.no_grad(), so the
             # forward-only int8 kernels serve the train step too
@@ -283,9 +298,12 @@ class Trainer:
 
         self.train_dataset = (train_dataset if train_dataset is not None
                               else self.plugin.make_train_dataset(cfg))
+        # batch_size rows a rank, DistributedSampler semantics over the mesh
         self.loader = Loader(self.train_dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
                              drop_last=True, num_workers=cfg.num_workers,
-                             worker_type=cfg.worker_type)
+                             worker_type=cfg.worker_type,
+                             rank=0 if mesh is None else mesh.rank,
+                             world_size=1 if mesh is None else mesh.size)
         self.schedule = cosine_annealing_schedule(
             cfg.lr, cfg.schedule_epochs * max(1, len(self.loader)))
         self.state = create_train_state(self.model, cfg.seed)
@@ -299,13 +317,13 @@ class Trainer:
             self._image_dtype = torch.float32 if cfg.precision == "fp32" else torch.bfloat16
         build = build_cached_image_train_step if cfg.cache_features else build_train_step
         self.step_fn = build(self.model, self.schedule, negatives=cfg.negatives,
-                             local_groups=1)
+                             local_groups=1 if mesh is None else mesh.size, mesh=mesh)
         self._feature_cache: dict[str, torch.Tensor] | None = None
         self.validator = (
             validator if validator is not None
             else (self.plugin.make_validator(cfg) if self.plugin.make_validator else None))
-        self.best = BestCheckpointer(cfg.ckpt_dir, cfg.dataset)
-        self.logger = MetricLogger(cfg.log_path)
+        self.best = BestCheckpointer(cfg.ckpt_dir, cfg.dataset, mesh=mesh)
+        self.logger = MetricLogger(cfg.log_path) if self.is_primary else _SilentLogger()
         self.global_step = 0
         # steps/epoch maps global_step back to (epoch, step-within-epoch)
         # on resume, so the max_steps clamp is part of it
@@ -401,7 +419,7 @@ class Trainer:
         for i, db in enumerate(feed, start=skip_steps):
             if i >= self.steps_per_epoch:
                 break
-            if cfg.profile_dir and epoch == 0:
+            if cfg.profile_dir and epoch == 0 and self.is_primary:
                 if i == 2:
                     profiler = torch.profiler.profile(activities=_profiler_activities(
                         self.device))
@@ -442,12 +460,15 @@ class Trainer:
         if self.validator is None:
             return None
         # one InferenceAPI for the run: it holds the model itself, so it
-        # sees the current weights
+        # sees the current weights; it rides the mesh when the eval batch
+        # divides by its size
         if self._val_api is None:
+            size = 1 if self.mesh is None else self.mesh.size
+            val_mesh = self.mesh if size > 1 and self.cfg.eval_batch_size % size == 0 else None
             self._val_api = InferenceAPI(
                 self.model, tokenizer=self.tokenizer, device=self.device,
                 batch_size=self.cfg.eval_batch_size,
-                context_length=self.clip_cfg.text.context_length)
+                context_length=self.clip_cfg.text.context_length, mesh=val_mesh)
         metric, detail = self.validator(self._val_api)
         flat = {k: v for k, v in detail.items() if isinstance(v, (int, float))}
         self.logger.log(step=self.global_step, epoch=epoch, val_metric=metric, **flat)
@@ -502,14 +523,15 @@ class Trainer:
         fingerprint = json.dumps({
             "init_seed": self.cfg.seed, "clip_model_name": self.cfg.clip_model_name,
             "clip_from_checkpoint": self._clip_from_checkpoint}, sort_keys=True)
-        save_state(path, self.state, frozen_fingerprint=fingerprint,
-                   frozen_written=self._frozen_written)
         # best-checkpoint selection survives the restart too
         meta = {"clip_from_checkpoint": self._clip_from_checkpoint}
         if self.best.best_metric != float("-inf"):
             meta["best_metric"] = self.best.best_metric
-        with open(path + ".meta.json", "w") as f:
-            json.dump(meta, f)
+        if self.is_primary:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(meta, f)
+        save_state(path, self.state, frozen_fingerprint=fingerprint,
+                   frozen_written=self._frozen_written, mesh=self.mesh)
         return path
 
 

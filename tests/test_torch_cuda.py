@@ -419,6 +419,28 @@ def test_bbc_rowloss_pads_what_tma_cannot_take(device):
     assert L.bbc_rowloss.launches == n0 + 2
 
 
+# B4 with the positive at column offset + i over N >= B targets (the
+# data-parallel loss's call: a rank's rows against the gathered targets):
+# N around the score tiles' 64 columns, the offset at the first and the
+# last rank, B = 512 against 1,024 (two ranks of the train batch)
+@pytest.mark.parametrize("b,n,offset", [(13, 26, 13), (64, 128, 0), (65, 130, 65),
+                                        (200, 800, 600), (512, 1024, 512), (1000, 1000, 0)])
+def test_bbc_rowloss_offset_kernel_matches_plain(device, b, n, offset):
+    pred, tar = _bbc_inputs(n, 512, device, seed=b)
+    pred = pred[offset:offset + b].contiguous()
+    n0 = L.bbc_rowloss.launches
+    got = L.bbc_rowloss(pred, tar, offset=offset)
+    torch.cuda.synchronize()
+    assert L.bbc_rowloss.launches == n0 + 1
+    torch.testing.assert_close(got, L.bbc_rowloss_plain(pred, tar, offset=offset),
+                               atol=5e-4, rtol=1e-5)
+
+
+def test_bbc_rowloss_offset_zero_is_the_local_call_bit_for_bit(device):
+    pred, tar = _bbc_inputs(1024, 512, device, seed=9)
+    assert torch.equal(L.bbc_rowloss(pred, tar, offset=0), L.bbc_rowloss(pred, tar))
+
+
 @pytest.mark.parametrize("b,d", [(13, 24), (200, 512), (1024, 512)])
 def test_bbc_autograd_matches_plain_autograd(device, b, d):
     pred, tar = _bbc_inputs(b, d, device, seed=4)
@@ -427,6 +449,31 @@ def test_bbc_autograd_matches_plain_autograd(device, b, d):
     loss.backward()
     p2, t2 = pred.clone().requires_grad_(), tar.clone().requires_grad_()
     want = L.bbc_rowloss_plain(p2, t2).mean()
+    want.backward()
+    torch.testing.assert_close(loss, want, atol=5e-4, rtol=1e-5)
+    for got, want in ((p1.grad, p2.grad), (t1.grad, t2.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=5e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_grouped_bbc_loss_runs_b4_a_group(device, groups):
+    """Per-rank negatives in one process (`train/step.py
+    grouped_bbc_loss`): one B4 launch a group; the loss and its gradients
+    against the plain version's, group by group."""
+    from fashionern_aaai2024_tpu_torch.train.step import grouped_bbc_loss
+
+    pred, tar = _bbc_inputs(1024, 512, device, seed=30 + groups)
+    p1, t1 = pred.clone().requires_grad_(), tar.clone().requires_grad_()
+    n0 = L.bbc_rowloss.launches
+    loss = grouped_bbc_loss(p1, t1, groups)
+    torch.cuda.synchronize()
+    assert L.bbc_rowloss.launches == n0 + groups
+    loss.backward()
+    p2, t2 = pred.clone().requires_grad_(), tar.clone().requires_grad_()
+    r = 1024 // groups
+    want = torch.stack([L.bbc_rowloss_plain(p2[i * r:(i + 1) * r], t2[i * r:(i + 1) * r]).mean()
+                        for i in range(groups)]).mean()
     want.backward()
     torch.testing.assert_close(loss, want, atol=5e-4, rtol=1e-5)
     for got, want in ((p1.grad, p2.grad), (t1.grad, t2.grad)):
@@ -1663,6 +1710,38 @@ def test_serve_graphs_replay_the_eager_body(device, tme):
         assert np.array_equal(got_i, want_i.cpu().numpy())
         np.testing.assert_allclose(got_s, want_s.cpu().numpy(), atol=1e-6, rtol=0)
         assert np.isfinite(got_s).all() and int(got_i.max()) < 300
+
+
+def test_nccl_world1_sharded_serve_graphs_replay_the_eager_body(device):
+    """The gallery-sharded serve program on an NCCL group of world size 1
+    (the card's machine has one GPU): each bucket's graph, NCCL
+    collectives inside, against the same body run eagerly, and against
+    the single-device program: equal rows, scores within 1e-6."""
+    from fashionern_aaai2024_tpu_torch.parallel import mesh as PM
+
+    mesh = PM.initialize_distributed(device="cuda", timeout=120.0)
+    try:
+        assert (mesh.backend, mesh.size) == ("nccl", 1)
+        api = _serve_api(device)
+        gal, rf, rp = _serve_arrays(300, 2)
+        api.mesh = mesh
+        fn = api.build_serve_fn(gal, k_max=50, ref_features=rf, ref_patches=rp)
+        api.mesh = None
+        single = api.build_serve_fn(gal, k_max=50, ref_features=rf, ref_patches=rp)
+        assert all(b.graph is not None for b in fn._buckets.values()) and fn.per == 300
+        for b in fn.buckets:
+            ids, rows = _serve_ids(b, b), np.random.default_rng(b).integers(0, 300, b)
+            got_s, got_i = fn(ids, rows, k=50)
+            want_s, want_i = fn.body(torch.from_numpy(ids).to(device),
+                                     torch.from_numpy(rows).to(device))
+            assert np.array_equal(got_i, want_i.cpu().numpy())
+            np.testing.assert_allclose(got_s, want_s.cpu().numpy(), atol=1e-6, rtol=0)
+            one_s, one_i = single(ids, rows, k=50)
+            assert np.array_equal(got_i, one_i)
+            np.testing.assert_allclose(got_s, one_s, atol=1e-6, rtol=0)
+        fn.close()
+    finally:
+        PM.destroy(mesh)
 
 
 def test_graph_barrier_words_are_isolated(device):

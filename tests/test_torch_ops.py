@@ -397,13 +397,15 @@ def test_bbc_mean_loss_and_grads_match_custom_vjp(b, d):
 
 def test_bbc_global_negatives():
     """One device: "global" negatives are the local ones, as in a
-    one-device JAX run; across a process group they are not ported."""
+    one-device JAX run, with no mesh or on a one-process mesh (the
+    process-group case: tests/test_torch_parallel.py)."""
+    from fashionern_aaai2024_tpu_torch.parallel.mesh import create_mesh
+
     pred, tar = (torch.from_numpy(a) for a in _bbc_inputs(16, 24))
     local = TL.batch_based_classification_loss(pred, tar)
     assert TL.batch_based_classification_loss(pred, tar, negatives="global") == local
-    with pytest.raises(NotImplementedError, match="A8"):
-        TL.batch_based_classification_loss(pred, tar, negatives="global",
-                                           process_group=object())
+    assert TL.batch_based_classification_loss(pred, tar, negatives="global",
+                                              mesh=create_mesh(device="cpu")) == local
     with pytest.raises(ValueError):
         TL.batch_based_classification_loss(pred, tar, negatives="nope")
 

@@ -36,6 +36,7 @@ from fashionern_aaai2024_tpu.retrieval.server import RetrievalService as JaxServ
 from fashionern_aaai2024_tpu.tools.make_fixture import make_fixture as jax_make_fixture
 from fashionern_aaai2024_tpu_torch.cli import main as cli
 from fashionern_aaai2024_tpu_torch.models.clip import config as torch_config
+from fashionern_aaai2024_tpu_torch.parallel.mesh import create_mesh
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import (
     MicroBatcher,
@@ -337,8 +338,11 @@ def test_serve_fn_errors(models):
         api.build_serve_fn(gal, ref_features=rf, ref_patches=rp, capacity=5)
     with pytest.raises(ValueError, match="by-rows"):
         api.build_serve_fn(gal, capacity=20)
-    with pytest.raises(NotImplementedError, match="A8"):
-        api.build_serve_fn(gal, ref_features=rf, ref_patches=rp, mesh=object())
+    mesh = create_mesh(device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        api.build_serve_fn(gal, ref_features=rf, ref_patches=rp, mesh=mesh, capacity=12)
+    with pytest.raises(ValueError, match="by-rows"):
+        api.build_serve_fn(gal, mesh=mesh)
     grow = api.build_serve_fn(gal, k_max=7, buckets=(4,), ref_features=rf, ref_patches=rp,
                               capacity=12)
     more = _arrays(29, 5)
@@ -533,8 +537,13 @@ def test_build_service_and_http(monkeypatch, fixture_root, flags):
         service.batcher.close()
 
 
-def test_serve_data_parallel_raises(fixture_root):
-    with pytest.raises(NotImplementedError, match="A8"):
+def test_serve_data_parallel_raises(fixture_root, monkeypatch):
+    """`--data-parallel` of many ranks without torchrun's coordinator
+    raises before any group starts (the sharded service itself:
+    tests/test_torch_parallel.py)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
         cli.build_service(_serve_args(fixture_root, data_parallel=True))
 
 

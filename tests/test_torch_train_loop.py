@@ -34,6 +34,7 @@ from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
 from fashionern_aaai2024_tpu_torch.data.shoes import ShoesDataset
 from fashionern_aaai2024_tpu_torch.models.clip import config as torch_config
 from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+from fashionern_aaai2024_tpu_torch.parallel.mesh import create_mesh
 from fashionern_aaai2024_tpu_torch.retrieval import metrics as TMet
 from fashionern_aaai2024_tpu_torch.tools.make_fixture import make_fixture
 from fashionern_aaai2024_tpu_torch.train import checkpoint as ckpt
@@ -253,20 +254,22 @@ def test_trainer_trains_with_tme(tmp_path, cache_features):
 
 
 def test_trainer_raises_on_a_mesh_and_on_missing_datasets(tmp_path, monkeypatch):
-    """A mesh of more than one device raises (A8). Without an injected
-    dataset or validator, each dataset's plugin builds its dataset class
-    and its validator from a fixture tree (`tools/make_fixture.py`), and
-    the validation runs; Fashion200k validates only when asked."""
+    """A mesh that is not a `ProcessMesh` raises (the data-parallel runs:
+    tests/test_torch_parallel.py). Without an injected dataset or
+    validator, each dataset's plugin builds its dataset class and its
+    validator from a fixture tree (`tools/make_fixture.py`), and the
+    validation runs; Fashion200k validates only when asked."""
     class Mesh:
         devices = np.empty((2, 4), object)
 
     cfg = TrainConfig(dataset="fashioniq", num_workers=0, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         Trainer(cfg, device="cpu", mesh=Mesh(), model=_model(), tokenizer=crc_tokenizer)
-    # a one-device mesh is the default path
-    Trainer(cfg, device="cpu", mesh=[torch.device("cpu")], model=_model(),
-            tokenizer=crc_tokenizer, train_dataset=SyntheticRelativeDataset(),
-            plugin=DatasetPlugin("s", lambda c: None, _fiq_captions))
+    # a one-process mesh is the default path
+    tr = Trainer(cfg, mesh=create_mesh(device="cpu"), model=_model(),
+                 tokenizer=crc_tokenizer, train_dataset=SyntheticRelativeDataset(),
+                 plugin=DatasetPlugin("s", lambda c: None, _fiq_captions))
+    assert tr.device == torch.device("cpu") and tr.loader.world_size == 1
     monkeypatch.setitem(torch_config._CONFIGS, "port-test", small_config(torch_config))
     classes = {"fashioniq": FashionIQDataset, "cirr": CIRRDataset, "shoes": ShoesDataset,
                "fashion200k": Fashion200kDataset}
