@@ -15,7 +15,8 @@ Phases (each raises on failure; nothing is caught):
      attention pool's and the MR cross-attention's, B11 (LayerNorm) at
      ln_final, the BERT's and the ViT's ln_pre, each in bf16 and fp32;
      with per-call times (CUDA
-     events, median of 25, the host's enqueue included) beside one PyTorch
+     events, median of 25, the host's enqueue included; the plain
+     versions' median of `PLAIN_RUNS`) beside one PyTorch
      library call computing the same function (`library_ms`, a yardstick
      the port never calls) and the card's bound for the work (`bound_ms`);
      B11 and B12 also in bursts of 10 calls (`burst_ms`, device time a
@@ -236,6 +237,23 @@ Phases (each raises on failure; nothing is caught):
       Phase 7 holds B4's offset case (pred [512, 512] against tar
       [1,024, 512] at offset 512, the data-parallel loss's call) against
       its plain version.
+  20. the comparison zoo (`models/zoo/`, last): B8's wide route
+      (csrc/attention_wide.cu, the head dims the core does not take)
+      against its plain version at CaLa's single heads (B = 128: 13
+      tokens at head dim 512 and 640, 32 at 256) and at [3, 5, 16], fp32
+      and bf16, timed beside SDPA on the same [B, 1, S, dh] operands; then
+      every model of the zoo's registry at ViT-B-16 width over the seeded
+      ViT-B-16's fp32 features of 128 reference and target images and 128
+      captions (image globals, tower tokens 1-13, text globals and 77 token
+      features; seeded [128, 1,024] inputs for Clip4Cir and VTF at
+      projection 2,048 and hidden 4,096; CompoDiff at dim 768, depth 4, 8
+      heads of 64, text 77 x 1,280, mask 64 x 64, B = 32, guided at (1.5,
+      7.5)), card against the port's CPU run in fp32 at cosine >= 0.99999
+      a row, each head's card ms, launch counts
+      (`launches_by_path["zoo"]`: CaLa's 8 attentions on B8's wide route,
+      one B4); the registry's "bbc" on CaLa's card queries against the
+      target globals, card against CPU at rel 1e-5. The run ends with each
+      phase's seconds.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -335,6 +353,7 @@ from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import (
     write_bpe_table,
 )
 from fashionern_aaai2024_tpu_torch.native import image as native_image
+from fashionern_aaai2024_tpu_torch.models import zoo as TZ
 from fashionern_aaai2024_tpu_torch.models.composed import (
     ComposedCIRModel,
     apply_precision,
@@ -352,6 +371,7 @@ from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
 from fashionern_aaai2024_tpu_torch.ops import similarity as S
+from fashionern_aaai2024_tpu_torch.ops.extra_losses import get_loss
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
 from fashionern_aaai2024_tpu_torch.parallel import mesh as PM
 from fashionern_aaai2024_tpu_torch.parallel import multiprocess as MP
@@ -405,8 +425,13 @@ LN_SHAPES = [("ln_final", dict(rows=32 * 77, w=640, eps=1e-5)),
 BERT_LAYERS = 2
 BERT_LNS = 1 + 2 * BERT_LAYERS
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
-# host-clock samples of each query route at b = 1 and 32 (phase 4)
-ROUTE_SAMPLES = 1000
+# host-clock samples of each query route at b = 1 and 32 (phase 4): 1,000
+# until phase 20 came in; at 500 the routes take half their ~21 s
+ROUTE_SAMPLES = 500
+# timed calls of a plain version (after 3 warm-ups): a plain version
+# repeats its kernel's arithmetic and is no yardstick of speed; 25 until
+# phase 20 came in (a round of every row's plain version took 556 ms)
+PLAIN_RUNS = 5
 # phase 16: the live-add service's rows, the items it adds, the HTTP
 # clients, the synthetic gallery the approximate tier folds
 FRONT_CAPACITY, FRONT_ADDS, HTTP_CLIENTS, FOLD_GALLERY = 1024, 16, 64, 200_000
@@ -422,6 +447,7 @@ B7, B8, B11 = ("fused_qkv_self_attention (B7)", "packed_kv_cross_attention (B8)"
 B9, B12 = "multi_head_attention (B9)", "combiner_apply (B12)"
 B10 = "transformer_block (B10)"
 X1, X2, X3, X4 = ("mha_grouped (X1)", "mha_packed (X2)", "qkvattn (X3)", "attnblock (X4)")
+B8W = "packed_kv_cross_attention wide (B8)"
 KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
     B1: (A.attention_subblock, "fashionern_aaai2024_tpu_torch/csrc",
          "fashionern_aaai2024_tpu/ops/attention.py:520"),
@@ -439,6 +465,9 @@ KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
          "fashionern_aaai2024_tpu/ops/attention.py:388"),
     B8: (A.packed_kv_cross_attention, "fashionern_aaai2024_tpu_torch/csrc/attention.cu",
          "fashionern_aaai2024_tpu/ops/attention.py:264"),
+    # B8 at the head dims the core does not take (CaLa's single heads)
+    B8W: (A.wide_cross_attention, "fashionern_aaai2024_tpu_torch/csrc/attention_wide.cu",
+          "fashionern_aaai2024_tpu/ops/attention.py:264"),
     B11: (LN.layer_norm, "fashionern_aaai2024_tpu_torch/csrc/layernorm.cu",
           "fashionern_aaai2024_tpu/ops/layernorm.py:46"),
     B9: (A.multi_head_attention, "fashionern_aaai2024_tpu_torch/csrc",
@@ -469,7 +498,7 @@ INT8 = ["quant.cu", "layernorm_row.cuh", "qgemm.cu", "gemm_wgmma.cuh", "tma.cuh"
 SOURCES = {B1: [*LN_SRC, *GEMM, *CORE], B2: [*LN_SRC, *GEMM],
            B3: CORE, B4: ["bbc_loss.cu", *TF32], B5: INT8,
            B6: [*INT8, *CORE], B7: [*GEMM, *CORE],
-           B8: CORE, B11: LN_SRC,
+           B8: CORE, B8W: ["attention_wide.cu", "common.cuh"], B11: LN_SRC,
            B9: [*CORE, "attention_grouped.cu"],
            B12: [*GEMM, "combiner.cu"],
            B10: ["block.cu", *TF32[:2], "attention_core.cuh", "attention_mma.cuh",
@@ -778,7 +807,7 @@ def phase_kernels() -> tuple[dict, list]:
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
                        max_abs_err=err,
                        ms=median_ms(lambda: wrapper(*args, *pos, **kw)),
-                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)),
+                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw), PLAIN_RUNS),
                        library_ms=median_ms(library_call(name, args, shp["heads"],
                                                          shp["causal"])),
                        **dtype_bound(flops, nbytes, dtype))
@@ -845,7 +874,7 @@ def phase_block_kernel() -> tuple[float, list, dict]:
         f2, _ = tower_work(B2, shp["b"], shp["s"], shp["w"], shp["heads"], shp["causal"], dtype)
         e, m, w = torch.finfo(dtype).bits // 8, shp["b"] * shp["s"], shp["w"]
         row = dict(kernel=B10, shape=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
-                   ms=median_ms(calls["kernel"]), plain_ms=median_ms(calls["plain"]),
+                   ms=median_ms(calls["kernel"]), plain_ms=median_ms(calls["plain"], PLAIN_RUNS),
                    pair_ms=median_ms(calls["pair"]), library_ms=median_ms(calls["library"]),
                    rule_takes_b10=TB.use_block_kernel(m),
                    **bound(f1 + f2, e * (2 * m * w + 12 * w * w + 13 * w), dtype))
@@ -1293,7 +1322,7 @@ def phase_new_kernels() -> tuple[dict, list]:
             worst[name] = max(worst[name], err)
             del got, want
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
-                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
+                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain, PLAIN_RUNS),
                        library_ms=median_ms(library), **new_kernel_work(name, shp, dtype))
             if name in (B7, B11):
                 row.update(burst_ms=burst_ms(kernel), library_burst_ms=burst_ms(library))
@@ -1419,7 +1448,7 @@ def phase_tme_kernels() -> tuple[dict, list]:
             worst[name] = max(worst[name], err)
             del got, want
             row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
-                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain),
+                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain, PLAIN_RUNS),
                        library_ms=median_ms(library), **work)
             if name == B12:
                 row.update(burst_ms=burst_ms(kernel), library_burst_ms=burst_ms(library))
@@ -1576,7 +1605,7 @@ def check_row(name: str, label: str, dtype: torch.dtype, kernel, plain, library,
         err = (got.float() - want.float()).abs().max().item()
         del got, want
         row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
-                   ms=median_ms(kernel), plain_ms=median_ms(plain),
+                   ms=median_ms(kernel), plain_ms=median_ms(plain, PLAIN_RUNS),
                    library_ms=median_ms(library), **work)
     log(f"  {name:32s} {label:21s} {row['dtype']:9s} err {err:.3e}  "
         f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
@@ -1602,7 +1631,7 @@ def phase_experiment_kernels() -> tuple[dict, list]:
             with torch.no_grad():
                 want = plain().float()
                 # the plain version and the library call do not depend on G / gb
-                plain_ms, library_ms = median_ms(plain), median_ms(library)
+                plain_ms, library_ms = median_ms(plain, PLAIN_RUNS), median_ms(library)
                 for per_program in sweep:
                     kernel = experiment_calls(name, args, per_program)[0]
                     got = kernel()
@@ -2044,7 +2073,7 @@ def phase_bbc() -> list[dict]:
                                           reduction="none")
         row = dict(shape=[b, d], max_abs_err=(got - want).abs().max().item(),
                    ms=median_ms(kernel),
-                   plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar)),
+                   plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar), PLAIN_RUNS),
                    library_ms=median_ms(library), burst_ms=burst_ms(kernel),
                    library_burst_ms=burst_ms(library), **tf32_bound(*L.bbc_flops_bytes(b, d)))
         rows.append(row)
@@ -2065,7 +2094,8 @@ def phase_bbc() -> list[dict]:
                                       reduction="none")
     row = dict(shape=[c["b"], c["d"]], n=c["n"], offset=c["offset"],
                max_abs_err=(got - want).abs().max().item(), ms=median_ms(kernel),
-               plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar, offset=c["offset"])),
+               plain_ms=median_ms(lambda: L.bbc_rowloss_plain(pred, tar, offset=c["offset"]),
+                                  PLAIN_RUNS),
                library_ms=median_ms(library), burst_ms=burst_ms(kernel),
                library_burst_ms=burst_ms(library),
                **tf32_bound(*L.bbc_flops_bytes(c["b"], c["d"], c["n"])))
@@ -2651,7 +2681,7 @@ def phase_int8_kernels() -> tuple[dict, list]:
                        control_max_abs_err=ctl["max_abs_err"],
                        control_mean_abs_err=ctl["mean_abs_err"],
                        ms=median_ms(lambda: wrapper(*args, *pos, **kw)),
-                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw)),
+                       plain_ms=median_ms(lambda: plain[name](*args, *pos, **kw), PLAIN_RUNS),
                        library_ms=median_ms(int8_library_call(name, args, shp["heads"],
                                                               shp["causal"])),
                        **int8_bound(ops, flops, nbytes, dtype))
@@ -3931,6 +3961,195 @@ def phase_data_parallel(card: str) -> dict:
 
 
 
+# phase 20: the comparison zoo. B8's wide route against its plain version
+# at CaLa's single heads on the ViT-B-16 tower's 13 patch tokens (512) and
+# RN50x4's (640), a BLIP-2 Q-Former's 32 tokens (256, CaLa's own source)
+# and a small case, one head each: (label, B, S, head dim)
+WIDE_SHAPES = [("cala_vit_b16", 128, 13, 512), ("cala_rn50x4", 128, 13, 640),
+               ("qformer", 128, 32, 256), ("small", 3, 5, 16)]
+# the heads at ViT-B-16 width (d = 512), card against the port's CPU run in
+# fp32: every row's cosine (both run fp32 and differ only in summation
+# order); CompoDiff at JAX's defaults with dim 768 (ViT-L/14's, CompoDiff's
+# own), B = 32, guided (the triple batch)
+ZOO_BATCH, ZOO_WIDTH, ZOO_COSINE_MIN = 128, 512, 0.99999
+COMPODIFF = dict(dim=768, depth=4, dim_head=64, heads=8, text_cond_dim=1280, mask_hw=64)
+COMPODIFF_BATCH, COMPODIFF_SCALE = 32, (1.5, 7.5)
+# CaLa's eight attentions a call are B8 on the wide route; the registry's
+# "bbc" is one B4 launch
+ZOO_LAUNCHES = {B8: 8, B8W: 8, B4: 1}
+ZOO_BBC_RTOL = 1e-5
+
+
+def phase_wide_kernel() -> tuple[float, list]:
+    """B8's wide route (csrc/attention_wide.cu) against its plain version
+    at `WIDE_SHAPES` in fp32 and bf16, timed (a call, and in bursts of 10
+    calls: device time a call) beside SDPA on the same [B, 1, S, dh]
+    operands (its library call, never called by the port)."""
+    rows, worst = [], 0.0
+    for label, b, s, dh in WIDE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(300 + len(rows))
+            q = torch.randn((b, s, dh), generator=g).to(dtype).cuda()
+            kv = torch.randn((b, s, 2 * dh), generator=g).to(dtype).cuda()
+            k, v = kv[..., :dh].contiguous()[:, None], kv[..., dh:].contiguous()[:, None]
+
+            def kernel():
+                return A.packed_kv_cross_attention(q, kv, 1)
+
+            def plain():
+                return A.packed_kv_cross_attention_plain(q, kv, 1)
+
+            def library():
+                return F.scaled_dot_product_attention(q[:, None], k, v)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            e = torch.finfo(dtype).bits // 8
+            row = dict(kernel=B8W, shape=label, dtype=str(dtype).split(".")[1],
+                       max_abs_err=err, ms=median_ms(kernel), plain_ms=median_ms(plain, PLAIN_RUNS),
+                       library_ms=median_ms(library), burst_ms=burst_ms(kernel),
+                       library_burst_ms=burst_ms(library),
+                       **dtype_bound(4 * b * s * s * dh, e * 4 * b * s * dh, dtype))
+            rows.append(row)
+            log(f"  {B8W:36s} {label:12s} {row['dtype']:9s} err {err:.3e}  "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                f"SDPA {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})" + row_extras(row))
+    return worst, rows
+
+
+def zoo_features(seed: int) -> dict:
+    """The seeded ViT-B-16's fp32 features on the card: image globals and 13
+    patch tokens (tower tokens 1-13) of `ZOO_BATCH` reference and target
+    images, text globals and 77 token features of as many captions."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu")
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(seed)).cuda()
+    g = np.random.default_rng(seed)
+    side = cfg.vision.image_size
+    images = torch.from_numpy(g.integers(0, 256, (2 * ZOO_BATCH, side, side, 3),
+                                         dtype=np.uint8)).cuda()
+    ids = torch.from_numpy(tokenizer()([CAPTIONS[i % len(CAPTIONS)] + f" {i}"
+                                        for i in range(ZOO_BATCH)])).long().cuda()
+    with torch.no_grad():
+        img_g, tokens = model.encode_image(images)
+        txt_g, txt_seq = model.encode_text(ids)
+    n = ZOO_BATCH
+    return dict(ref_g=img_g[:n], tar_g=img_g[n:], ref_tok=tokens[:n, 1:14],
+                tar_tok=tokens[n:, 1:14], txt_g=txt_g, txt_seq=txt_seq)
+
+
+def zoo_heads(f: dict) -> dict:
+    """name -> (seeded port module, its call on the features): every model
+    of the zoo's registry at ViT-B-16 width; Clip4Cir and VTF on seeded
+    [B, 2d] features (their inputs are 2d wide), CompoDiff on seeded
+    conditioning (its dim is 768)."""
+    d, b = ZOO_WIDTH, ZOO_BATCH
+    g = torch.Generator().manual_seed(21)
+
+    def seeded(*shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    pair = (seeded(b, 2 * d), seeded(b, 2 * d))
+    amc = (f["ref_tok"], f["ref_g"], f["txt_seq"], f["txt_g"])
+    cb = COMPODIFF_BATCH
+    cd = COMPODIFF["dim"]
+    mask = (torch.rand((cb, COMPODIFF["mask_hw"], COMPODIFF["mask_hw"]), generator=g) > 0.5)
+    compodiff = (seeded(cb, 1, cd), seeded(cb, 1, cd), seeded(cb, 77, COMPODIFF["text_cond_dim"]),
+                 mask.float().cuda(), torch.randint(0, 1000, (cb,), generator=g).float().cuda(),
+                 seeded(cb, 77, COMPODIFF["text_cond_dim"]))
+    calls = {
+        "clip4cir_combiner": (lambda: TZ.Clip4CirCombiner(d, 4 * d, 8 * d), pair, {}),
+        "vtf": (lambda: TZ.VTFModule(d, 4 * d, 8 * d), pair, {}),
+        "attention_pooling": (lambda: TZ.AttentionPooling(d, 13), (f["ref_tok"],), {}),
+        "cala": (lambda: TZ.TwinAttentionCompositor(d), (f["ref_tok"], f["tar_tok"]), {}),
+        "artemis": (lambda: TZ.Artemis(d), (f["ref_g"], f["txt_g"], f["tar_g"]), {}),
+        "artemis_broadcast": (lambda: TZ.Artemis(d), (f["ref_g"], f["txt_g"], f["tar_g"]),
+                              {"broadcast": True}),
+        "dqu_cir": (lambda: TZ.DQUCIRHead(d, hidden_dim=2 * d), (f["txt_g"], f["ref_g"]), {}),
+        "amc": (lambda: TZ.AMCInteractionModule(d, d), amc, {}),
+        "amc_ensemble": (lambda: TZ.AMCEnsemble(d), amc, {}),
+        "compodiff": (lambda: TZ.CompoDiffNetwork(**COMPODIFF), compodiff,
+                      {"cond_scale": COMPODIFF_SCALE}),
+    }
+    heads = {}
+    for i, (name, (build, args, kw)) in enumerate(calls.items()):
+        torch.manual_seed(40 + i)
+        module = build().eval()
+        fn = module.forward_with_cond_scale if name == "compodiff" else module
+        heads[name] = (module.cuda(), fn, args, kw)
+    return heads
+
+
+def row_cosines(got, want) -> float:
+    """The least cosine of a row (the last axis) over every output."""
+    outs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return min(cosine(a.reshape(-1, a.shape[-1]), w.reshape(-1, w.shape[-1])).min().item()
+               for a, w in outs)
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 20 (module docstring)."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    out["wide_worst"], out["wide_rows"] = phase_wide_kernel()
+    features = zoo_features(seed=20)
+    heads = zoo_heads(features)
+    cpu = {name: copy.deepcopy(module).cpu() for name, (module, _, _, _) in heads.items()}
+    reset_launches()
+    with torch.no_grad():
+        card_out = {name: fn(*args, **kw) for name, (_, fn, args, kw) in heads.items()}
+        pred = F.normalize(card_out["cala"], dim=-1)
+        target = F.normalize(features["tar_g"], dim=-1)
+        bbc = get_loss("bbc").fn(pred, target)
+        torch.cuda.synchronize()
+    out["launches"] = launches = launch_counts()
+    check_launches("zoo", launches, ZOO_LAUNCHES)
+    out["heads"] = {}
+    for name, (module, fn, args, kw) in heads.items():
+        cpu_fn = cpu[name].forward_with_cond_scale if name == "compodiff" else cpu[name]
+        with torch.no_grad():
+            want = cpu_fn(*(a.cpu() for a in args), **kw)
+            cos = row_cosines(card_out[name], want)
+            ms = median_ms(lambda: fn(*args, **kw))
+        out["heads"][name] = dict(min_row_cosine=cos, card_ms=ms)
+        log(f"  {name:18s} card vs CPU fp32: min row cosine {cos:.8f}; card {ms:.3f} ms a "
+            f"call ({card})")
+        if not cos >= ZOO_COSINE_MIN:
+            raise AssertionError(f"zoo head {name}: card against CPU cosine {cos} < "
+                                 f"{ZOO_COSINE_MIN}")
+    want = get_loss("bbc").fn(pred.cpu(), target.cpu())
+    rel = abs(bbc.item() - want.item()) / abs(want.item())
+    out["bbc"] = dict(loss=bbc.item(), loss_cpu=want.item(), rel=rel)
+    log(f"  registry 'bbc' (B4) on CaLa's card queries against the target globals: "
+        f"{bbc.item():.6f} vs CPU {want.item():.6f} (rel {rel:.3e}); launches "
+        f"{ {n: launches[n] for n in ZOO_LAUNCHES} } ({card})")
+    if not rel <= ZOO_BBC_RTOL:
+        raise AssertionError(f"registry bbc: card {bbc.item()} against CPU {want.item()}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+# when each phase of this run began (host clock); `phase_seconds` turns
+# them into each phase's seconds, in the order the phases ran
+PHASE_STARTS: dict[int, float] = {}
+
+
+def phase(number: int, text: str) -> None:
+    """Log a phase's header and note when it began."""
+    PHASE_STARTS[number] = time.perf_counter()
+    log(f"phase {number}: {text}")
+
+
+def phase_seconds(end: float) -> dict[int, float]:
+    order = sorted(PHASE_STARTS.items(), key=lambda kv: kv[1])
+    ends = [t for _, t in order[1:]] + [end]
+    return {number: e - t for (number, t), e in zip(order, ends)}
+
+
 def jpeg_copy(png: str, work: str) -> str:
     """The same pixels as a JPEG (PIL writes it), for the JPEG route's time."""
     from PIL import Image
@@ -3957,12 +4176,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
-    t0 = time.perf_counter()
+    t0 = PHASE_STARTS[1] = time.perf_counter()
     common.LIBRARY.load()
     log(f"phase 1: kernels built in {common.LIBRARY.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s) at {common.LIBRARY.library_path()}")
 
-    log(f"phase 2: kernels against their plain versions ({card})")
+    phase(2, f"kernels against their plain versions ({card})")
     worst, rows = phase_kernels()
     new_worst, new_rows = phase_new_kernels()
     tme_worst, tme_rows = phase_tme_kernels()
@@ -3972,10 +4191,10 @@ def main() -> None:
     f32_gemm_worst = phase_f32_gemm_edges()
     gemm_rows = phase_gemm_products(card)
     host = phase_host_us(card)
-    log(f"phase 3: the serve slice, ViT-B-16 bf16 ({card})")
+    phase(3, f"the serve slice, ViT-B-16 bf16 ({card})")
     tokenizer_info = phase_tokenizer()
     slice_info, service, api = phase_slice(card)
-    log(f"phase 4: timings ({card})")
+    phase(4, f"timings ({card})")
     timings, embed_fn, query_fn = phase_timings(service, api)
     log(f"  embed + refine {timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16); "
         f"query P50 {timings['query_p50_ms_b1']:.3f} ms at b=1, "
@@ -3984,12 +4203,12 @@ def main() -> None:
     for key, r in timings["routes"].items():
         log(f"  route {key}: P50 {r['p50_ms']:.3f} ms, P99 {r['p99_ms']:.3f} ms over "
             f"{r['samples']} samples ({card})")
-    log(f"phase 5: int8 kernels B5 and B6 against their plain versions ({card})")
+    phase(5, f"int8 kernels B5 and B6 against their plain versions ({card})")
     int8_worst, int8_rows = phase_int8_kernels()
     int8_gemm_worst = phase_int8_gemm_edges()
     int8_gemm_rows = phase_int8_products(card)
     int8_quant_rows = phase_int8_quantize(card)
-    log(f"phase 6: the int8 serve slice, ViT-B-16 bf16, int8 towers and gallery ({card})")
+    phase(6, f"the int8 serve slice, ViT-B-16 bf16, int8 towers and gallery ({card})")
     int8_info, int8_service, int8_api = phase_slice(card, quantize=True)
     int8_info["bf16_topk_overlap"] = topk_overlap(slice_info["results"], int8_info["results"])
     int8_timings, int8_embed_fn, _ = phase_timings(int8_service, int8_api)
@@ -3998,33 +4217,33 @@ def main() -> None:
         f"int8 towers); query P50 {int8_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{int8_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
     del int8_api
-    log(f"phase 7: {B4} against its plain version ({card})")
+    phase(7, f"{B4} against its plain version ({card})")
     bbc_rows = phase_bbc()
-    log(f"phase 8: the int8 train slice, B={TRAIN_BATCH}, quantize_towers ({card})")
+    phase(8, f"the int8 train slice, B={TRAIN_BATCH}, quantize_towers ({card})")
     int8_train = phase_int8_train(card)
-    log(f"phase 9: the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
+    phase(9, f"the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
     train = phase_train(card)
-    log(f"phase 10: the RN50x4 serve slice, bf16 towers ({card})")
+    phase(10, f"the RN50x4 serve slice, bf16 towers ({card})")
     rn_info, rn_service, rn_api = phase_slice(card, model_name="RN50x4")
     rn_timings, rn_embed_fn, rn_query_fn = phase_timings(rn_service, rn_api)
     log(f"  embed + refine {rn_timings['embed_refine_img_per_s']:.2f} img/s (B=128 bf16, "
         f"RN50x4); query P50 {rn_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{rn_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
-    log(f"phase 11: the TME slice, ViT-B-16, tme=True, bf16 serve policy ({card})")
+    phase(11, f"the TME slice, ViT-B-16, tme=True, bf16 serve policy ({card})")
     tme_info, tme_service, tme_api = phase_slice(card, tme=True)
     tme_timings, _, tme_query_fn = phase_timings(tme_service, tme_api)
     log(f"  TME query P50 {tme_timings['query_p50_ms_b1']:.3f} ms at b=1, "
         f"{tme_timings['query_p50_ms_b32']:.3f} ms at b=32 ({card})")
     tme_train = phase_train(card, tme=True)
-    log(f"phase 12: evaluate_fiq and evaluate_cirr, ViT-B-16, card bf16 and CPU fp32 ({card})")
+    phase(12, f"evaluate_fiq and evaluate_cirr, ViT-B-16, card bf16 and CPU fp32 ({card})")
     eval_info = phase_eval(card)
-    log(f"phase 13: the attention experiment: X1-X4 and B9's grouped route against their "
-        f"plain versions, then its runner, --all, at B={XA.B} ({card})")
+    phase(13, f"the attention experiment: X1-X4 and B9's grouped route against their "
+          f"plain versions, then its runner, --all, at B={XA.B} ({card})")
     exp_worst, exp_rows = phase_experiment_kernels()
     experiment = phase_experiment(card)
-    log(f"phase 14: profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
-        f"of the ViT-B-16 serve program at b=1 and 32, "
-        f"and of an RN50x4 and a TME query at b=32 ({card})")
+    phase(14, f"profiles of embed + refine, B=128, of ViT-B-16 and RN50x4 queries at b=1, "
+          f"of the ViT-B-16 serve program at b=1 and 32, "
+          f"and of an RN50x4 and a TME query at b=32 ({card})")
     vit_spans = ("embed/image_tower", "embed/index_refine")
     profiles = (("ViT-B-16 bf16 embed + refine", embed_fn, timings, "embed_refine_profile",
                  vit_spans),
@@ -4058,26 +4277,31 @@ def main() -> None:
     del rn_service, rn_api, tme_service, tme_api, profiles, embed_fn, query_fn
     del int8_embed_fn, rn_embed_fn, rn_query_fn, tme_query_fn, fn
     torch.cuda.empty_cache()
-    log(f"phase 17: the RN50x4 tiers: train, int8 train and TME at full width ({card})")
+    phase(17, f"the RN50x4 tiers: train, int8 train and TME at full width ({card})")
     rn_tiers = phase_rn50x4_tiers(card)
-    log(f"phase 18: serve artifacts of phase 3's and phase 6's services: export, a fresh "
-        f"loading process, graphs, answers against the live programs, serve-artifact, "
-        f"refresh and /reload ({card})")
+    phase(18, f"serve artifacts of phase 3's and phase 6's services: export, a fresh "
+          f"loading process, graphs, answers against the live programs, serve-artifact, "
+          f"refresh and /reload ({card})")
     artifacts = phase_artifacts(card, service, int8_service)
     # the CLI's processes get the card's memory that the services held
     del service, api, int8_service
     torch.cuda.empty_cache()
-    log(f"phase 15: the dataset and CLI path through the port's CLI: soak legs B and C, "
-        f"extract-patches ({card})")
+    phase(15, f"the dataset and CLI path through the port's CLI: soak legs B and C, "
+          f"extract-patches ({card})")
     cli_info = phase_cli(card)
-    log(f"phase 16: the serving front: graphs against the eager body, live adds, "
-        f"quantize_refs and the approximate tier, HTTP, the native front, the serve CLI ({card})")
+    phase(16, f"the serving front: graphs against the eager body, live adds, "
+          f"quantize_refs and the approximate tier, HTTP, the native front, the serve CLI ({card})")
     front = phase_serving_front(card)
-    log(f"phase 19: data parallel: an NCCL group of world size 1 (train step, sharded search, "
-        f"the gallery-sharded serve program), then a 2-rank gloo gang on the card ({card})")
+    phase(19, f"data parallel: an NCCL group of world size 1 (train step, sharded search, "
+          f"the gallery-sharded serve program), then a 2-rank gloo gang on the card ({card})")
     dp = phase_data_parallel(card)
-    log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {time.perf_counter() - t0:.1f} s "
-        f"({card})")
+    phase(20, f"the comparison zoo: {B8W} against its plain version, every zoo head card "
+              f"against CPU at ViT-B-16 width, the registry's bbc loss ({card})")
+    zoo = phase_zoo(card)
+    end = time.perf_counter()
+    seconds = phase_seconds(end)
+    log(f"  build {common.LIBRARY.build_seconds:.1f} s; total {end - t0:.1f} s; by phase "
+        + ", ".join(f"{n}: {t:.1f}" for n, t in seconds.items()) + f" ({card})")
 
     timed = {r["kernel"]: r for r in rows + int8_rows
              if r["shape"] == "vit_b32" and r["dtype"] == "bfloat16"}
@@ -4097,6 +4321,10 @@ def main() -> None:
     worst[B10] = block_worst
     timed[B4] = bbc_rows[0]
     worst[B4] = max(r["max_abs_err"] for r in bbc_rows)
+    # B8's wide route at CaLa's ViT-B-16 site in fp32, the zoo phase's dtype
+    timed[B8W] = next(r for r in zoo["wide_rows"]
+                      if r["shape"] == "cala_vit_b16" and r["dtype"] == "float32")
+    worst[B8W] = zoo["wide_worst"]
     worst.update(int8_worst)
     # the int8 GEMM's edge cases: the device code of B5's and B6's products
     for name in INT8_KERNELS:
@@ -4132,7 +4360,8 @@ def main() -> None:
                       "rn50x4_tme": rn_tiers["tme_launches"][name],
                       "artifact": artifacts["launches"][name],
                       "data_parallel": dp["launches"][name],
-                      "data_parallel_gang": dp["gang"]["launches"][name]}
+                      "data_parallel_gang": dp["gang"]["launches"][name],
+                      "zoo": zoo["launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -4174,7 +4403,8 @@ def main() -> None:
                            f32_gemm_edge_max_err=f32_gemm_worst,
                            host_us_per_call=host, cli=cli_info, serving_front=front,
                            rn50x4_tiers=rn_tiers, artifacts=artifacts, data_parallel=dp,
-                           build_seconds=common.LIBRARY.build_seconds), f, indent=1)
+                           zoo=zoo, build_seconds=common.LIBRARY.build_seconds,
+                           phase_seconds=seconds, total_seconds=end - t0), f, indent=1)
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -773,20 +773,24 @@ def _native_status(probe) -> object:
 
 
 def run_info() -> dict:
-    """Backbones, datasets, the native libraries and the image routes, the
-    device, and what is not ported."""
+    """Backbones, datasets, the losses and the comparison zoo, the native
+    libraries and the image routes, the device, and what is not ported."""
     import torch
 
     from fashionern_aaai2024_tpu_torch import native
+    from fashionern_aaai2024_tpu_torch.models.zoo import _ZOO
     from fashionern_aaai2024_tpu_torch.native import image as native_image
     from fashionern_aaai2024_tpu_torch.native import serve_frontend
     from fashionern_aaai2024_tpu_torch.native import tokenizer as native_tokenizer
+    from fashionern_aaai2024_tpu_torch.ops.extra_losses import LOSS_REGISTRY
     from fashionern_aaai2024_tpu_torch.train.trainer import PLUGINS
 
     cuda = torch.cuda.is_available()
     return {
         "backbones": _backbones(),
         "datasets": sorted(PLUGINS),
+        "losses": sorted(LOSS_REGISTRY),
+        "zoo_models": sorted(_ZOO),
         "native_loader": _native_status(lambda: native.LIBRARY.load() is not None),
         "native_tokenizer": _native_status(lambda: native_tokenizer.load() is not None),
         "native_image": _native_status(lambda: native_image.library().load() is not None),

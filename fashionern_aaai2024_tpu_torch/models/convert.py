@@ -30,6 +30,20 @@ TME is closed source); it maps onto the port's own `ern.TME.*` names
 DenseGeneral kernels [d, H, Dh] / [H, Dh, d] and biases [H, Dh] flattened
 over (H, Dh), the LayerNorm's scale as weight.
 
+The comparison zoo (`models/zoo/`): one function per module turns the
+JAX module's variables (`{"params": ...}`, as `Module.init` returns them)
+into the port module's `state_dict`. For the modules the JAX package
+converts from torch (`combiner_from_torch`, `vtf_from_torch`,
+`attention_pooling_from_torch`, `cala_from_torch`, `artemis_from_torch`,
+`dqu_cir_from_torch`, `amc_interaction_from_torch`) each is the exact
+inverse: its output fed back through the JAX converter gives the
+variables leaf for leaf. `AMCEnsemble` and `CompoDiffNetwork` have no JAX
+converter; their port names follow flax's tree (`models/zoo/amc.py`,
+`compodiff.py`). The walk: a Dense `{kernel[, bias]}` becomes a Linear's
+`weight` (transposed) and `bias`, a LayerNorm `{scale, bias}` its
+`weight` and `bias`, a module name ending `_<i>` the `.<i>` of an
+`nn.Sequential` or `nn.ModuleList`, and every other leaf keeps its name.
+
 `load_jax_train_state` carries a whole JAX `CIRTrainState`
 (`fashionern_aaai2024_tpu/train/state.py:26`) into the port's train
 state, so a run can continue here: the weights and ERN batch statistics
@@ -43,7 +57,8 @@ seeds its masks from (seed, step), and `jax.random` and
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import re
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -283,3 +298,99 @@ def attn_experiment_params_from_jax(params: Mapping[str, Any], *,
             t = t.t()
         out[_EXPERIMENT_NAMES[name]] = t.to(device, dtype).contiguous()
     return out
+
+
+# --- the comparison zoo --------------------------------------------------
+
+
+def _zoo_tree(p: Mapping, rename: Mapping[str, str] | None = None, prefix: str = "") -> dict:
+    """A flax params subtree -> state_dict entries under `prefix` (see the
+    module docstring); `rename` maps a flax module name to the port's."""
+    rename = rename or {}
+    sd: dict = {}
+    for key, v in p.items():
+        name = rename.get(key) or re.sub(r"_(\d+)$", r".\1", key)
+        path = f"{prefix}{name}"
+        if not isinstance(v, Mapping):
+            sd[path] = _t(v)
+        elif "kernel" in v:
+            sd[f"{path}.weight"] = _t(v["kernel"]).t().contiguous()
+            if "bias" in v:
+                sd[f"{path}.bias"] = _t(v["bias"])
+        elif "scale" in v:
+            sd.update(_norm(v["scale"], v["bias"], path))
+        else:
+            sd.update(_zoo_tree(v, rename, f"{path}."))
+    return sd
+
+
+def combiner_state_dict(variables: Mapping) -> dict:
+    """`Clip4CirCombiner`: inverse of `combiner_from_torch`."""
+    return _zoo_tree(variables["params"])
+
+
+def vtf_state_dict(variables: Mapping) -> dict:
+    """`VTFModule`: inverse of `vtf_from_torch`. The JAX tree holds a copy
+    of `text_mlp` as `text_mlp_shared` (the reference's image stream calls
+    `text_mlp`); the port holds one `text_mlp`, so the copy must equal it."""
+    p = dict(variables["params"])
+    for i in (0, 3):
+        shared, own = p.pop(f"text_mlp_shared_{i}"), p[f"text_mlp_{i}"]
+        if any(not np.array_equal(np.asarray(shared[k]), np.asarray(own[k])) for k in own):
+            raise ValueError(f"vtf_state_dict: text_mlp_shared_{i} differs from text_mlp_{i}; "
+                             "the port, like the reference, holds one text_mlp")
+    return _zoo_tree(p)
+
+
+def attention_pooling_state_dict(variables: Mapping) -> dict:
+    """`AttentionPooling`: inverse of `attention_pooling_from_torch`."""
+    return _zoo_tree(variables["params"])
+
+
+def cala_state_dict(variables: Mapping) -> dict:
+    """`TwinAttentionCompositor`: inverse of `cala_from_torch`."""
+    return _zoo_tree(variables["params"])
+
+
+def artemis_state_dict(variables: Mapping) -> dict:
+    """`Artemis`: inverse of `artemis_from_torch`."""
+    return _zoo_tree(variables["params"], {"Transform_m": "Transform_m.0"})
+
+
+def dqu_cir_state_dict(variables: Mapping) -> dict:
+    """`DQUCIRHead`: inverse of `dqu_cir_from_torch`."""
+    return _zoo_tree(variables["params"])
+
+
+_AMC_NAMES = {"att_q": "att_layer.linears.0", "att_k": "att_layer.linears.1",
+              "att_v": "att_layer.linears.2", "ff_1": "feed_forward_layer.fc1",
+              "ff_2": "feed_forward_layer.fc2"}
+
+
+def amc_interaction_state_dict(variables: Mapping) -> dict:
+    """`AMCInteractionModule`: inverse of `amc_interaction_from_torch`."""
+    return _zoo_tree(variables["params"], _AMC_NAMES)
+
+
+def amc_ensemble_state_dict(variables: Mapping) -> dict:
+    """`AMCEnsemble` (no JAX converter): its cells under the interaction
+    layers' names (`glo.*`, `sty.*`)."""
+    return _zoo_tree(variables["params"], _AMC_NAMES)
+
+
+def compodiff_state_dict(variables: Mapping) -> dict:
+    """`CompoDiffNetwork` (no JAX converter): flax's tree under the port's
+    names (`models/zoo/compodiff.py`)."""
+    sd = _zoo_tree(variables["params"], {"in": "proj_in", "out": "proj_out"})
+    return {(f"{k}.weight" if k.endswith("relative_attention_bias") else k): v
+            for k, v in sd.items()}
+
+
+# zoo registry name -> its variables -> state_dict function
+ZOO_STATE_DICTS: dict[str, Callable[[Mapping], dict]] = {
+    "clip4cir_combiner": combiner_state_dict, "vtf": vtf_state_dict,
+    "attention_pooling": attention_pooling_state_dict, "cala": cala_state_dict,
+    "artemis": artemis_state_dict, "dqu_cir": dqu_cir_state_dict,
+    "amc": amc_interaction_state_dict, "amc_ensemble": amc_ensemble_state_dict,
+    "compodiff": compodiff_state_dict,
+}

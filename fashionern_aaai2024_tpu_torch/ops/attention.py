@@ -19,8 +19,12 @@ JAX counterpart: `fashionern_aaai2024_tpu/ops/attention.py`.
     mini-BERT in eval.
   * `packed_kv_cross_attention` (B8, TPU kernel `_packed_cross_pallas`,
     `:264`): cross-attention of q [B, Sq, W] against packed kv
-    [B, Sk, 2W], the attention core in its cross layout, for the RN50x4
-    attention pool and the DVR query tower's MR cross-attention.
+    [B, Sk, 2W], the attention core in its cross layout at head dim 64
+    or 80 (the RN50x4 attention pool, the DVR query tower's MR
+    cross-attention), and every other head dim up to 1,024 on the wide
+    route (csrc/attention_wide.cu: CaLa's single heads of 512 and 640,
+    `models/zoo/cala.py`), where JAX runs the same formula in XLA
+    (`_packed_cross_ref`, `:286-296`).
   * `multi_head_attention` (B9, TPU kernel `_mha_pallas`, `:84`):
     [B, H, Sq, Dh] queries against [B, H, Sk, Dh] keys and values with
     an optional shared [Sq, Sk] fp32 bias (causal, padding). With
@@ -83,6 +87,10 @@ _HEAD_DIMS = (64, 80)
 _MAX_SEQ = 256
 # the grouped kernel: even head dims up to this, any key count
 MAX_GROUPED_HEAD_DIM = 128
+# B8's wide route (csrc/attention_wide.cu): every head dim up to this
+# that the core does not take, at most MAX_WIDE_KEYS keys
+MAX_WIDE_HEAD_DIM = 1024
+MAX_WIDE_KEYS = 256
 # B9 on the grouped kernel: one (b, h) pair and one query row tile (128
 # rows) a block, the most blocks for the card's 132
 # SMs (X1's G sweep: time grows with G past 4, as blocks run out)
@@ -468,13 +476,42 @@ def packed_kv_cross_attention_plain(q: torch.Tensor, kv: torch.Tensor, heads: in
     return attention_core_plain(q, k, v, heads, scale=scale)
 
 
+def wide_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int,
+                         scale: float | None) -> torch.Tensor:
+    """B8's wide route (csrc/attention_wide.cu) on checked contiguous CUDA
+    q [B, Sq, W] and kv [B, Sk, 2W]: any head dim up to
+    `MAX_WIDE_HEAD_DIM`, any Sq, Sk up to `MAX_WIDE_KEYS`, fp32 or bf16.
+    Counts its own launches; `packed_kv_cross_attention` counts B8's."""
+    b, sq, w = q.shape
+    sk = kv.shape[1]
+    dh = w // heads
+    if dh * heads != w or not 1 <= dh <= MAX_WIDE_HEAD_DIM or not 1 <= sk <= MAX_WIDE_KEYS:
+        raise ValueError(f"packed_kv_cross_attention: width {w} in {heads} heads at S={sk} "
+                         f"keys; the kernels take head dim 64 or 80 at S <= {_MAX_SEQ} (the "
+                         f"core) and any head dim up to {MAX_WIDE_HEAD_DIM} at S <= "
+                         f"{MAX_WIDE_KEYS} (the wide route)")
+    out = torch.empty((b, sq, w), dtype=q.dtype, device=q.device)
+    base = kv.data_ptr()
+    common.launch("fern_attention_wide", q.data_ptr(), base, base + kv.element_size() * w,
+                  out.data_ptr(), b, sq, sk, heads, dh, w, 2 * w,
+                  dh ** -0.5 if scale is None else scale, common.DTYPE_CODES[q.dtype],
+                  q.get_device(), common.stream_of(q))
+    common.count(wide_cross_attention)
+    return out
+
+
+wide_cross_attention.launches = 0
+
+
 @library.exportable(library.like)
 def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
                               scale: float | None = None) -> torch.Tensor:
     """q [B, Sq, W] against kv [B, Sk, 2W] (k | v) -> [B, Sq, W] (B8).
 
-    CUDA: the attention core in its cross layout, head dim 64 or 80 and
-    Sk <= 256 only. CPU: the plain version."""
+    CUDA: the attention core in its cross layout at head dim 64 or 80
+    and Sk <= 256; every other head dim up to 1,024 at Sk <= 256 on the
+    wide route (`wide_cross_attention`); anything else raises. CPU: the
+    plain version."""
     if not common.is_cuda(q):
         return packed_kv_cross_attention_plain(q, kv, heads, scale=scale)
     b, sq, w = q.shape
@@ -482,9 +519,12 @@ def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
         raise ValueError(f"packed_kv_cross_attention: q {tuple(q.shape)} with kv "
                          f"{tuple(kv.shape)}; kv must be [B, Sk, 2W]")
     common.check_cuda_operands("packed_kv_cross_attention", q, kv)
-    out = _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1], heads=heads,
-                       q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False, scale=scale,
-                       out_dtype=q.dtype)
+    if w % heads == 0 and w // heads in _HEAD_DIMS and kv.shape[1] <= _MAX_SEQ:
+        out = _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1],
+                           heads=heads, q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False,
+                           scale=scale, out_dtype=q.dtype)
+    else:
+        out = wide_cross_attention(q, kv, heads, scale)
     common.count(packed_kv_cross_attention)
     return out
 

@@ -55,6 +55,9 @@ _SIGNATURES = {
     # scale, dtype, out_dtype, images_per_block, device, stream
     "fern_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                        _I, _P),
+    # q, k, v, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, scale, dtype,
+    # device, stream
+    "fern_attention_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, bias, out, batch, sq, sk, heads, head_dim, q_ld, kv_ld, group,
     # split_rows, scale, dtype, device, stream
     "fern_attention_grouped": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,

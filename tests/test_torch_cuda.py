@@ -46,7 +46,10 @@ row included), and the LN + quantize kernel is held at the
 tower widths, the general routine's widths and W = 2,056.
 
 B7 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and
-B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B11
+B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B8's
+wide route (csrc/attention_wide.cu: other head dims, CaLa's single heads
+of 512 and 640) at CaLa's shapes, the core's sites bit for bit on the
+core, and the shapes past both raising; B11
 also at widths 512-1280, 100 and 642 (every vector instance and the
 general one) and 1 to 25,216 rows, with a SASS check for its 16-byte
 loads and stores, and B10 bit for bit against B1 + B2 at W = 640 and
@@ -239,6 +242,50 @@ def test_cross_attention_kernel_matches_plain(device, dtype, b, sq, sk, heads, d
     _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), dtype)
 
 
+# B8's wide route (csrc/attention_wide.cu), one head: CaLa on the ViT-B-16
+# tower's 13 patch tokens (512) and RN50x4's (640), a BLIP-2 Q-Former's 32
+# tokens (256, CaLa's own source), and a small case
+WIDE_SHAPES = [(128, 13, 13, 512), (128, 13, 13, 640), (128, 32, 32, 256), (3, 5, 5, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,dh", WIDE_SHAPES)
+def test_wide_cross_attention_matches_plain(device, dtype, b, sq, sk, dh):
+    g = np.random.default_rng(12)
+    q, kv = _t(g, (b, sq, dh), 1.0, dtype, device), _t(g, (b, sk, 2 * dh), 1.0, dtype, device)
+    n8, nw = A.packed_kv_cross_attention.launches, A.wide_cross_attention.launches
+    got = A.packed_kv_cross_attention(q, kv, 1)
+    torch.cuda.synchronize()
+    assert A.packed_kv_cross_attention.launches == n8 + 1
+    assert A.wide_cross_attention.launches == nw + 1
+    _close(got, A.packed_kv_cross_attention_plain(q, kv, 1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,heads,dh", CROSS_SHAPES)
+def test_core_cross_attention_is_the_core_bit_for_bit(device, dtype, b, sq, sk, heads, dh):
+    """The MR rows and the RN50x4 pool (head dim 64 and 80) stay on the
+    attention core: B8 equals the core's launch bit for bit, and the wide
+    route launches nothing."""
+    g = np.random.default_rng(13)
+    w = heads * dh
+    q, kv = _t(g, (b, sq, w), 1.0, dtype, device), _t(g, (b, sk, 2 * w), 1.0, dtype, device)
+    nw = A.wide_cross_attention.launches
+    got = A.packed_kv_cross_attention(q, kv, heads)
+    want = A._launch_core("core", q, kv, w=w, sk=sk, heads=heads, q_ld=w, kv_ld=2 * w,
+                          k_col=0, v_col=w, causal=False, scale=None, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert A.wide_cross_attention.launches == nw
+
+
+def test_wide_cross_attention_refuses_what_it_does_not_take(device):
+    for sk, w, heads in ((13, 2048, 1), (300, 512, 1), (300, 640, 8)):
+        q, kv = torch.zeros((2, 3, w), device=device), torch.zeros((2, sk, 2 * w), device=device)
+        with pytest.raises(ValueError, match="up to 1024 at S <= 256"):
+            A.packed_kv_cross_attention(q, kv, heads)
+
+
 # (batch, seq, heads, head dim, causal): the DVR BERT at d = 640 and 512,
 # a short sequence, and a causal case of the core at head dim 80
 QKV_SHAPES = [(4, 91, 8, 80, False), (4, 91, 8, 64, False), (2, 11, 2, 80, False),
@@ -339,8 +386,8 @@ def test_b7_b8_refuse_operands_that_require_grad(device):
     with pytest.raises(RuntimeError, match="requires grad"):
         A.packed_kv_cross_attention(x, torch.zeros(2, 13, 2 * w, device=device), 2)
     with pytest.raises(ValueError, match="head dim"):
-        A.packed_kv_cross_attention(torch.zeros(2, 9, 96, device=device),
-                                    torch.zeros(2, 13, 192, device=device), 2)
+        A.packed_kv_cross_attention(torch.zeros(2, 9, 2 * 1040, device=device),
+                                    torch.zeros(2, 13, 4 * 1040, device=device), 2)
     with pytest.raises(ValueError, match="S=300"):
         A.packed_kv_cross_attention(torch.zeros(2, 9, w, device=device),
                                     torch.zeros(2, 300, 2 * w, device=device), 2)

@@ -644,7 +644,8 @@ def test_launch_counters_are_every_kernel_wrapper():
     from fashionern_aaai2024_tpu_torch.ops import block, combiner, layernorm, losses, mlp, qmlp
 
     want = {A.attention_subblock, A.packed_qkv_self_attention, A.fused_qkv_self_attention,
-            A.packed_kv_cross_attention, A.multi_head_attention, mlp.mlp_subblock,
+            A.packed_kv_cross_attention, A.wide_cross_attention, A.multi_head_attention,
+            mlp.mlp_subblock,
             block.transformer_block, layernorm.layer_norm, combiner.combiner_apply,
             losses.bbc_rowloss, qmlp.int8_mlp_subblock, qmlp.int8_attention_subblock}
     got = _kernel_wrappers()
