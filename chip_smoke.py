@@ -252,8 +252,26 @@ Phases (each raises on failure; nothing is caught):
       a row, each head's card ms, launch counts
       (`launches_by_path["zoo"]`: CaLa's 8 attentions on B8's wide route,
       one B4); the registry's "bbc" on CaLa's card queries against the
-      target globals, card against CPU at rel 1e-5. The run ends with each
-      phase's seconds.
+      target globals, card against CPU at rel 1e-5. Then the gradients of
+      the kernels' autograd Functions (B1, B2, B3, B7, B8 on the core and
+      on the wide route) at their PERF.md sites (B1-B3 ViT-B-16 B = 32,
+      B7 the DVR BERT at d = 640, B8 the RN50x4 pool, the wide route at
+      CaLa's [128, 13, 512]), in fp32 and bf16: the forward equal to the
+      grad-free call bit for bit with the same launches, the backward
+      launching nothing, every gradient against the plain version's
+      autograd on the card at cosine >= 0.99999 (fp32) / 0.99 (bf16);
+      forward + backward timed in the site's dtype beside the plain
+      version's and a library composition's (SDPA, `F.linear`,
+      `F.layer_norm`), with the bound of the work. Last, CaLa trains on
+      the card: a seeded `TwinAttentionCompositor` at ViT-B-16 width
+      (d = 512, the tower's 13 patch tokens of 128 reference and target
+      images) and at RN50x4 width (d = 640, seeded tokens), the registry's
+      bbc on its queries against the target globals, Adam at lr 4e-5:
+      step 1 card against the CPU in fp32 (loss rtol 1e-5, every
+      parameter gradient at cosine >= 0.99999), 8 wide-route launches a
+      forward and none in a backward, 3 steps with the loss finite and
+      falling (`launches_by_path["cala_train"]`), and a step's ms. The
+      run ends with each phase's seconds.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -1233,21 +1251,28 @@ def new_kernel_inputs(name: str, shp: dict, dtype: torch.dtype, seed: int) -> tu
     return t(shp["rows"], w, scale=1.0, offset=2.0), t(w, scale=0.1, offset=1.0), t(w, scale=0.1)
 
 
-def new_kernel_work(name: str, shp: dict, dtype: torch.dtype) -> dict:
-    """Bound of one B7 / B8 / B11 call: every input read once and the
-    output written once. B7: the projection's 6·m·w² and the attention's
-    4·b·s²·w FLOPs at the dtype's peak (fp32: `tf32_bound`, the 67
-    TFLOP/s bound beside it); B8: 4·b·sq·sk·w; B11: its ~8 fp32
-    operations an element, on the CUDA cores (67 TFLOP/s)."""
+def cross_work(name: str, shp: dict, dtype: torch.dtype) -> tuple[float, float]:
+    """(flops, bytes) of one B7 or B8 call: every input read once and the
+    output written once; B7 the projection's 6·m·w² and the attention's
+    4·b·s²·w FLOPs, B8 4·b·sq·sk·w."""
     e = torch.finfo(dtype).bits // 8
     w = shp["w"]
     if name == B7:
         b, s = shp["b"], shp["s"]
-        work = (6 * b * s * w * w + 4 * b * s * s * w, e * (2 * b * s * w + 3 * w * w + 3 * w))
-        return dtype_bound(*work, dtype)
-    if name == B8:
-        b, sq, sk = shp["b"], shp["sq"], shp["sk"]
-        return dtype_bound(4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w), dtype)
+        return 6 * b * s * w * w + 4 * b * s * s * w, e * (2 * b * s * w + 3 * w * w + 3 * w)
+    b, sq, sk = shp["b"], shp["sq"], shp["sk"]
+    return 4 * b * sq * sk * w, e * (2 * b * sq * w + 2 * b * sk * w)
+
+
+def new_kernel_work(name: str, shp: dict, dtype: torch.dtype) -> dict:
+    """Bound of one B7 / B8 / B11 call (`cross_work` for B7 and B8) at the
+    dtype's peak (fp32: `tf32_bound`, the 67 TFLOP/s bound beside it);
+    B11: its ~8 fp32 operations an element, on the CUDA cores (67
+    TFLOP/s), every input read once and the output written once."""
+    if name in (B7, B8):
+        return dtype_bound(*cross_work(name, shp, dtype), dtype)
+    e = torch.finfo(dtype).bits // 8
+    w = shp["w"]
     rows = shp["rows"]
     return bound(8 * rows * w, e * (2 * rows * w + 2 * w), torch.float32)
 
@@ -3978,6 +4003,23 @@ COMPODIFF_BATCH, COMPODIFF_SCALE = 32, (1.5, 7.5)
 # "bbc" is one B4 launch
 ZOO_LAUNCHES = {B8: 8, B8W: 8, B4: 1}
 ZOO_BBC_RTOL = 1e-5
+# the autograd Functions of B1, B2, B3, B7 and B8 (both routes) at the
+# PERF.md §6 sites: (kernel, site, the dtype timed, shape); each site's
+# gradients are checked in both dtypes against the plain version's
+# autograd on the card, at B10's thresholds
+GRAD_SITES = [(B1, "vit_b32", torch.bfloat16, VIT), (B2, "vit_b32", torch.bfloat16, VIT),
+              (B3, "vit_b32", torch.bfloat16, VIT),
+              (B7, "bert640", torch.float32, dict(BERT_SHAPES)["bert640"]),
+              (B8, "attnpool", torch.bfloat16, dict(CROSS_SHAPES)["attnpool"]),
+              (B8W, "cala_vit_b16", torch.float32, dict(b=128, sq=13, sk=13, w=512, heads=1))]
+GRAD_COSINE_MIN = {torch.float32: 0.99999, torch.bfloat16: 0.99}
+# CaLa's train step (the registry's bbc on CaLa's queries against the
+# target globals, Adam at the train path's lr): card against the CPU in
+# fp32 on step 1 (loss rtol, every parameter gradient's cosine), then
+# CALA_STEPS steps whose loss must fall; every forward is CaLa's 8 B8
+# calls on the wide route and one B4, every backward launches nothing
+CALA_STEPS, CALA_LOSS_RTOL, CALA_GRAD_COSINE_MIN = 3, 1e-5, 0.99999
+CALA_WIDTHS = (("vit_b16", ZOO_WIDTH), ("rn50x4", 640))
 
 
 def phase_wide_kernel() -> tuple[float, list]:
@@ -4090,6 +4132,170 @@ def row_cosines(got, want) -> float:
                for a, w in outs)
 
 
+def grad_case(name: str, shp: dict, dtype: torch.dtype, seed: int):
+    """(leaves, kernel, plain, library, flops, bytes) of one forward of
+    `name` at `shp`: the operands as leaves that require grad, the
+    wrapper (through its autograd Function), its plain version and a
+    library composition (SDPA, `F.linear`, `F.layer_norm`; never called
+    by the port) as functions of nothing, and the forward's work."""
+    if name in TOWER_KERNELS:
+        b, s, w, heads, causal = (shp[k] for k in ("b", "s", "w", "heads", "causal"))
+        leaves = tuple(t.requires_grad_() for t in kernel_inputs(b, s, w, dtype, seed)[name])
+        kw = {"activation": "quick_gelu"} if name == B2 else {"causal": causal}
+        pos = () if name == B2 else (heads,)
+        plain = {B1: A.attention_subblock_plain, B2: M.mlp_subblock_plain,
+                 B3: A.packed_qkv_self_attention_plain}[name]
+        return (leaves, lambda: KERNELS[name][0](*leaves, *pos, **kw),
+                lambda: plain(*leaves, *pos, **kw), library_call(name, leaves, heads, causal),
+                *tower_work(name, b, s, w, heads, causal, dtype))
+    if name == B7:
+        leaves = tuple(t.requires_grad_() for t in new_kernel_inputs(B7, shp, dtype, seed))
+        return (leaves, *new_kernel_calls(B7, leaves, shp), *cross_work(B7, shp, dtype))
+    leaves = tuple(t.requires_grad_() for t in new_kernel_inputs(B8, shp, dtype, seed))
+    kernel, plain, library = new_kernel_calls(B8, leaves, shp)
+    if name == B8W:    # one head: SDPA on [B, 1, S, dh]
+        q, kv, w = *leaves, shp["w"]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, None], kv[..., :w][:, None], kv[..., w:][:, None])[:, 0]
+    return (leaves, kernel, plain, library, *cross_work(B8, shp, dtype))
+
+
+def phase_grad_functions(card: str) -> tuple[float, list]:
+    """The autograd Functions of B1, B2, B3, B7 and B8 (the core and the
+    wide route) at `GRAD_SITES`, each in fp32 and bf16: the forward equal
+    to the grad-free call bit for bit with the same launches (one count
+    of the wrapper), the backward launching nothing, and every gradient
+    against the plain version's autograd on the card at
+    `GRAD_COSINE_MIN`; in the site's dtype, forward + backward timed
+    (`torch.autograd.grad` of the output against a seeded upstream
+    gradient, CUDA events) beside the plain version's and the library
+    composition's, with the bound of the work (3x the forward's FLOPs:
+    each product's backward is two products; 2x its bytes: each input's
+    gradient written once, the output's read once). Returns the least
+    cosine and the rows."""
+    rows, least = [], 1.0
+    for name, label, timed, shp in GRAD_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves, kernel, plain, library, flops, nbytes = grad_case(name, shp, dtype,
+                                                                     seed=700 + len(rows))
+            wrapper = KERNELS[B8 if name == B8W else name][0]
+            with torch.no_grad(), common.recording() as free:
+                want = kernel()
+            n0 = wrapper.launches
+            with common.recording() as forward:
+                out = kernel()
+            if (wrapper.launches != n0 + 1 or forward.entries != free.entries
+                    or forward.wrappers != free.wrappers or not torch.equal(out, want)):
+                raise AssertionError(f"{name} {label} {dtype}: the Function's forward "
+                                     f"launched {dict(forward.entries)}, the grad-free call "
+                                     f"{dict(free.entries)}, or their outputs differ")
+            up = torch.randn(out.shape, generator=torch.Generator().manual_seed(701)).to(
+                dtype).cuda()
+            with common.recording() as backward:
+                got = torch.autograd.grad(out, leaves, up)
+                torch.cuda.synchronize()
+            if backward.entries or backward.wrappers:
+                raise AssertionError(f"{name} {label}: the backward launched "
+                                     f"{dict(backward.entries)}")
+            ref = torch.autograd.grad(plain(), leaves, up)
+            cos = [F.cosine_similarity(a.double().flatten(), r.double().flatten(), dim=0).item()
+                   for a, r in zip(got, ref)]
+            least = min(least, *cos)
+            if min(cos) < GRAD_COSINE_MIN[dtype]:
+                raise AssertionError(f"{name} {label} {dtype}: gradient cosines {cos}")
+            row = dict(kernel=name, shape=label, dtype=str(dtype).split(".")[1],
+                       min_grad_cosine=min(cos))
+            if dtype == timed:
+                row.update(ms=median_ms(lambda: torch.autograd.grad(kernel(), leaves, up)),
+                           plain_ms=median_ms(lambda: torch.autograd.grad(plain(), leaves, up),
+                                              PLAIN_RUNS),
+                           library_ms=median_ms(lambda: torch.autograd.grad(
+                               library(), leaves, up)),
+                           **dtype_bound(3 * flops, 2 * nbytes, dtype))
+            rows.append(row)
+            log(f"  {name:36s} {label:12s} {row['dtype']:9s} Function: {len(cos)} gradient "
+                f"cosines against plain autograd, min {min(cos):.8f}; the backward launched "
+                f"nothing" + (f"; forward + backward {row['ms']:.4f} ms, plain "
+                              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+                              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) ({card})"
+                              if "ms" in row else ""))
+            del leaves, kernel, plain, library, out, want, got, ref, up
+        torch.cuda.empty_cache()
+    return least, rows
+
+
+def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
+               target: torch.Tensor) -> dict:
+    """CaLa's train step at ref / tar [B, 13, d]: a seeded
+    `TwinAttentionCompositor(d)`, the registry's bbc on its normalized
+    queries against the normalized `target`, Adam at `TRAIN_LR`. Step 1
+    card against the same step on the CPU (loss at `CALA_LOSS_RTOL`,
+    every parameter gradient's cosine at `CALA_GRAD_COSINE_MIN`), the
+    forward's launches (8 B8 on the wide route, 1 B4) and none in the
+    backward; `CALA_STEPS` steps whose loss must be finite and falling,
+    their launches (set to 0 just before, read just after); then a step's
+    ms (CUDA events, median of 10)."""
+    d = ref.shape[-1]
+    torch.manual_seed(60 + d)
+    model = TZ.TwinAttentionCompositor(d)
+    cpu = copy.deepcopy(model)
+    model.cuda()
+    bbc = get_loss("bbc").fn
+
+    def loss_of(m, r, t, y):
+        return bbc(F.normalize(m(r, t), dim=-1), F.normalize(y, dim=-1))
+
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, ref, tar, target)
+        loss.backward()
+        opt.step()
+        return loss
+
+    reset_launches()
+    loss = loss_of(model, ref, tar, target)
+    torch.cuda.synchronize()
+    check_launches(f"CaLa {label} forward", launch_counts(), ZOO_LAUNCHES)
+    loss.backward()
+    torch.cuda.synchronize()
+    check_launches(f"CaLa {label} backward", launch_counts(), ZOO_LAUNCHES)
+    t_cpu = time.perf_counter()
+    want = loss_of(cpu, ref.cpu(), tar.cpu(), target.cpu())
+    want.backward()
+    t_cpu = time.perf_counter() - t_cpu
+    rel = abs(loss.item() - want.item()) / abs(want.item())
+    cos = {n: F.cosine_similarity(p.grad.double().flatten().cpu(), c.grad.double().flatten(),
+                                  dim=0).item()
+           for (n, p), c in zip(model.named_parameters(), cpu.parameters())}
+    losses = [loss.item()]
+    opt.step()
+    for _ in range(CALA_STEPS - 1):
+        losses.append(step().item())
+    launches = launch_counts()
+    check_launches(f"CaLa {label} train", launches,
+                   {k: CALA_STEPS * v for k, v in ZOO_LAUNCHES.items()})
+    with torch.no_grad():
+        losses.append(loss_of(model, ref, tar, target).item())
+    out = dict(loss_cpu=want.item(), rel=rel, grad_cosines=cos, losses=losses,
+               launches=launches, step_ms=median_ms(step, runs=10), cpu_seconds=t_cpu)
+    log(f"  CaLa train step {label} (d = {d}, B = {ref.shape[0]}, fp32): step-1 loss "
+        f"{losses[0]:.6f} vs CPU {want.item():.6f} (rel {rel:.3e}); {len(cos)} parameter "
+        f"gradients card vs CPU, min cosine {min(cos.values()):.8f}; losses over "
+        f"{CALA_STEPS} Adam steps {', '.join(f'{v:.6f}' for v in losses)}; launches "
+        f"{ {n: launches[n] for n in ZOO_LAUNCHES} } (8 B8 a forward on the wide route, "
+        f"none in a backward); a step {out['step_ms']:.3f} ms; the CPU's step took "
+        f"{t_cpu:.1f} s ({card})")
+    if not rel <= CALA_LOSS_RTOL:
+        raise AssertionError(f"CaLa {label}: step-1 loss {losses[0]} against CPU {want.item()}")
+    if min(cos.values()) < CALA_GRAD_COSINE_MIN:
+        raise AssertionError(f"CaLa {label}: gradient cosines {cos}")
+    if not (np.isfinite(losses).all() and all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"CaLa {label}: losses {losses} not finite and falling")
+    return out
+
+
 def phase_zoo(card: str) -> dict:
     """Phase 20 (module docstring)."""
     t0 = time.perf_counter()
@@ -4128,6 +4334,24 @@ def phase_zoo(card: str) -> dict:
         f"{ {n: launches[n] for n in ZOO_LAUNCHES} } ({card})")
     if not rel <= ZOO_BBC_RTOL:
         raise AssertionError(f"registry bbc: card {bbc.item()} against CPU {want.item()}")
+    t1 = time.perf_counter()
+    out["grad_least_cosine"], out["grad_rows"] = phase_grad_functions(card)
+    out["grad_seconds"] = time.perf_counter() - t1
+    del heads, cpu, card_out
+    # ViT-B-16 width on the tower's features, RN50x4's on seeded ones
+    g = torch.Generator().manual_seed(22)
+    out["cala_train"] = {}
+    for label, d in CALA_WIDTHS:
+        inputs = ((features["ref_tok"], features["tar_tok"], features["tar_g"]) if d == ZOO_WIDTH
+                  else tuple(torch.randn(shape, generator=g).cuda() for shape in (
+                      (ZOO_BATCH, 13, d), (ZOO_BATCH, 13, d), (ZOO_BATCH, d))))
+        out["cala_train"][label] = cala_train(card, label, *inputs)
+    out["train_launches"] = {name: sum(r["launches"][name] for r in out["cala_train"].values())
+                             for name in KERNELS}
+    out["train_seconds"] = time.perf_counter() - t1
+    log(f"  the Functions' gradients and CaLa's train steps took "
+        f"{out['train_seconds']:.1f} s, the gradients {out['grad_seconds']:.1f} s of it "
+        f"({card})")
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 20 took {out['seconds']:.1f} s ({card})")
     return out
@@ -4296,7 +4520,8 @@ def main() -> None:
           f"the gallery-sharded serve program), then a 2-rank gloo gang on the card ({card})")
     dp = phase_data_parallel(card)
     phase(20, f"the comparison zoo: {B8W} against its plain version, every zoo head card "
-              f"against CPU at ViT-B-16 width, the registry's bbc loss ({card})")
+              f"against CPU at ViT-B-16 width, the registry's bbc loss, the kernels' "
+              f"autograd Functions, CaLa's train steps ({card})")
     zoo = phase_zoo(card)
     end = time.perf_counter()
     seconds = phase_seconds(end)
@@ -4361,7 +4586,8 @@ def main() -> None:
                       "artifact": artifacts["launches"][name],
                       "data_parallel": dp["launches"][name],
                       "data_parallel_gang": dp["gang"]["launches"][name],
-                      "zoo": zoo["launches"][name]}
+                      "zoo": zoo["launches"][name],
+                      "cala_train": zoo["train_launches"][name]}
                for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[name].values()), launches_by_path=by_path[name],
@@ -4380,7 +4606,12 @@ def main() -> None:
                   X1: [r for r in exp_rows if r["kernel"] == X1]}
     fp32_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by", "core_burst_ms", "core_library_burst_ms", "core_bound_ms")
+    # forward + backward through the autograd Functions at their sites
+    grad_keys = ("shape", "dtype", "min_grad_cosine", "ms", "plain_ms", "library_ms",
+                 "bound_ms", "bound_by")
     for entry in kernels:
+        entry["grad_rows"] = [{k: r[k] for k in grad_keys if k in r}
+                              for r in zoo["grad_rows"] if r["kernel"] == entry["name"]]
         if entry["name"] in fp32_sites:
             entry["fp32_rows"] = [{k: r[k] for k in fp32_keys if k in r}
                                   for r in fp32_sites[entry["name"]] if r["dtype"] == "float32"]

@@ -10,9 +10,11 @@ One head over the whole width makes the head dim 512 on ViT-B-16 and 640
 on RN50x4, which the attention core does not take: on the card each
 attention runs kernel B8's wide route (`ops/attention.py
 wide_cross_attention`, csrc/attention_wide.cu), on a CPU tensor B8's
-plain version. B8 has no backward on the card: train CaLa there under
-autograd and the kernel refuses the operands (`ops/common.py
-check_no_grad`); eval runs under `torch.no_grad()`.
+plain version. CaLa trains on the card: under autograd each attention
+runs the same wide-route launch inside `PackedCrossFunction`, whose
+backward is autograd of B8's plain version, as JAX differentiates
+`_packed_cross_ref` in XLA (`chip_smoke.py` phase 20 takes Adam steps
+of it against the CPU).
 """
 
 from __future__ import annotations

@@ -71,6 +71,18 @@ accumulator before the cast, scores and softmax in fp32, probabilities
 normalized in fp32 then cast, each head's output cast, the projection
 cast before `x + proj`). A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
+
+Every entry here differentiates on the card, as the JAX package's custom
+VJPs do (`_packed_diff`, `_packed_cross_diff`, `_qkv_fused_diff`,
+`_subblock_diff`, `_mha_pallas_diff`): where grad mode is on and an
+operand requires grad, the launches run inside an autograd Function
+(B1 `SubblockFunction`, B3 `PackedQKVFunction`, B7 `FusedQKVFunction`,
+B8 `PackedCrossFunction` on either route, B9 `MHAFunction`) whose
+backward is autograd of the plain version (B9's: `mha_ref`), recomputed
+from the saved inputs (`ops/common.py plain_vjp`). The JAX package has
+no Pallas backward for any of them, so neither has the port: the
+backward is plain PyTorch. A call without gradients launches exactly as
+it would without the Functions.
 """
 
 from __future__ import annotations
@@ -366,14 +378,7 @@ class MHAFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        saved = [None if t is None else t.detach().requires_grad_(need)
-                 for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
-        wanted = [t for t in saved if t is not None and t.requires_grad]
-        with torch.enable_grad():
-            out = mha_ref(*saved, ctx.scale)
-        grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t is not None and t.requires_grad else None for t in saved),
-                None)
+        return common.plain_vjp(ctx, g, lambda q, k, v, bias: mha_ref(q, k, v, bias, ctx.scale))
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -418,8 +423,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
     bias32 = shared_bias(causal, bias, sq, sk, q.device)
     if not common.is_cuda(q):
         return mha_plain(q, k, v, bias32, scale)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (q, k, v, bias32)):
+    if common.wants_grad(q, k, v, bias32):
         out = MHAFunction.apply(q, k, v, bias32, scale)
     else:
         out = _launch_mha(q, k, v, bias32, scale)
@@ -450,19 +454,49 @@ def packed_qkv_self_attention(qkv: torch.Tensor, heads: int, *, causal: bool = F
     scores.
 
     CUDA: csrc/attention.cu, head dim 64 or 80 and S <= 256 only,
-    `images_per_block` images a block (dividing B). CPU: the plain
-    version."""
+    `images_per_block` images a block (dividing B), through
+    `PackedQKVFunction` when autograd has to reach qkv or the bias. CPU:
+    the plain version."""
     if not common.is_cuda(qkv):
         return packed_qkv_self_attention_plain(qkv, heads, causal=causal, scale=scale,
                                                attn_bias=attn_bias)
-    common.check_cuda_operands("packed_qkv_self_attention", qkv)
-    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype,
-                                bias=attn_bias, images_per_block=images_per_block)
+    if common.wants_grad(qkv, attn_bias):
+        out = PackedQKVFunction.apply(qkv, attn_bias, heads, causal, scale, images_per_block)
+    else:
+        out = _launch_packed(qkv, attn_bias, heads, causal, scale, images_per_block)
     common.count(packed_qkv_self_attention)
     return out
 
 
 packed_qkv_self_attention.launches = 0
+
+
+def _launch_packed(qkv: torch.Tensor, attn_bias: torch.Tensor | None, heads: int,
+                   causal: bool, scale: float | None, images_per_block: int) -> torch.Tensor:
+    """B3's launch: the attention core on a CUDA qkv. Counts nothing."""
+    common.check_cuda_operands("packed_qkv_self_attention", qkv)
+    return launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=qkv.dtype,
+                                 bias=attn_bias, images_per_block=images_per_block)
+
+
+class PackedQKVFunction(torch.autograd.Function):
+    """Forward: kernel B3. Backward: autograd of
+    `packed_qkv_self_attention_plain`, recomputed (`_packed_diff_bwd`,
+    `:190-193`), with the shared bias's gradient summed over the batch
+    and the heads."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, attn_bias: torch.Tensor | None, heads: int,
+                causal: bool, scale: float | None, images_per_block: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv, attn_bias)
+        ctx.config = (heads, causal, scale)
+        return _launch_packed(qkv, attn_bias, heads, causal, scale, images_per_block)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        heads, causal, scale = ctx.config
+        return common.plain_vjp(ctx, g, lambda qkv, bias: packed_qkv_self_attention_plain(
+            qkv, heads, causal=causal, scale=scale, attn_bias=bias))
 
 
 # --- B8: cross-attention over packed kv ----------------------------------
@@ -476,20 +510,32 @@ def packed_kv_cross_attention_plain(q: torch.Tensor, kv: torch.Tensor, heads: in
     return attention_core_plain(q, k, v, heads, scale=scale)
 
 
-def wide_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int,
-                         scale: float | None) -> torch.Tensor:
-    """B8's wide route (csrc/attention_wide.cu) on checked contiguous CUDA
-    q [B, Sq, W] and kv [B, Sk, 2W]: any head dim up to
-    `MAX_WIDE_HEAD_DIM`, any Sq, Sk up to `MAX_WIDE_KEYS`, fp32 or bf16.
-    Counts its own launches; `packed_kv_cross_attention` counts B8's."""
-    b, sq, w = q.shape
-    sk = kv.shape[1]
+def _cross_on_core(w: int, heads: int, sk: int) -> bool:
+    """B8's route for width `w` in `heads` heads over `sk` keys: True for
+    the attention core (head dim 64 or 80, Sk <= 256), False for the wide
+    route (any other head dim up to `MAX_WIDE_HEAD_DIM`, Sk up to
+    `MAX_WIDE_KEYS`); anything else raises."""
     dh = w // heads
+    if dh * heads == w and dh in _HEAD_DIMS and sk <= _MAX_SEQ:
+        return True
     if dh * heads != w or not 1 <= dh <= MAX_WIDE_HEAD_DIM or not 1 <= sk <= MAX_WIDE_KEYS:
         raise ValueError(f"packed_kv_cross_attention: width {w} in {heads} heads at S={sk} "
                          f"keys; the kernels take head dim 64 or 80 at S <= {_MAX_SEQ} (the "
                          f"core) and any head dim up to {MAX_WIDE_HEAD_DIM} at S <= "
                          f"{MAX_WIDE_KEYS} (the wide route)")
+    return False
+
+
+def wide_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int,
+                         scale: float | None) -> torch.Tensor:
+    """B8's wide route (csrc/attention_wide.cu) on checked contiguous CUDA
+    q [B, Sq, W] and kv [B, Sk, 2W], within the limits `_cross_on_core`
+    checks: any head dim up to `MAX_WIDE_HEAD_DIM`, any Sq, Sk up to
+    `MAX_WIDE_KEYS`, fp32 or bf16. Counts its own launches;
+    `packed_kv_cross_attention` counts B8's."""
+    b, sq, w = q.shape
+    sk = kv.shape[1]
+    dh = w // heads
     out = torch.empty((b, sq, w), dtype=q.dtype, device=q.device)
     base = kv.data_ptr()
     common.launch("fern_attention_wide", q.data_ptr(), base, base + kv.element_size() * w,
@@ -510,26 +556,59 @@ def packed_kv_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int, *,
 
     CUDA: the attention core in its cross layout at head dim 64 or 80
     and Sk <= 256; every other head dim up to 1,024 at Sk <= 256 on the
-    wide route (`wide_cross_attention`); anything else raises. CPU: the
-    plain version."""
+    wide route (`wide_cross_attention`); anything else raises. Either
+    route through `PackedCrossFunction` when autograd has to reach q or
+    kv (CaLa's training). CPU: the plain version."""
     if not common.is_cuda(q):
         return packed_kv_cross_attention_plain(q, kv, heads, scale=scale)
     b, sq, w = q.shape
     if kv.ndim != 3 or kv.shape[0] != b or kv.shape[2] != 2 * w:
         raise ValueError(f"packed_kv_cross_attention: q {tuple(q.shape)} with kv "
                          f"{tuple(kv.shape)}; kv must be [B, Sk, 2W]")
-    common.check_cuda_operands("packed_kv_cross_attention", q, kv)
-    if w % heads == 0 and w // heads in _HEAD_DIMS and kv.shape[1] <= _MAX_SEQ:
-        out = _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1],
-                           heads=heads, q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False,
-                           scale=scale, out_dtype=q.dtype)
+    core = _cross_on_core(w, heads, kv.shape[1])
+    if common.wants_grad(q, kv):
+        out = PackedCrossFunction.apply(q, kv, heads, scale, core)
     else:
-        out = wide_cross_attention(q, kv, heads, scale)
+        out = _launch_cross(q, kv, heads, scale, core)
     common.count(packed_kv_cross_attention)
     return out
 
 
 packed_kv_cross_attention.launches = 0
+
+
+def _launch_cross(q: torch.Tensor, kv: torch.Tensor, heads: int, scale: float | None,
+                  core: bool) -> torch.Tensor:
+    """B8's launch on CUDA q and kv: the attention core, or the wide
+    route where `core` is False. Counts nothing but the wide route's
+    own count."""
+    common.check_cuda_operands("packed_kv_cross_attention", q, kv)
+    if not core:
+        return wide_cross_attention(q, kv, heads, scale)
+    w = q.shape[2]
+    return _launch_core("packed_kv_cross_attention", q, kv, w=w, sk=kv.shape[1], heads=heads,
+                        q_ld=w, kv_ld=2 * w, k_col=0, v_col=w, causal=False, scale=scale,
+                        out_dtype=q.dtype)
+
+
+class PackedCrossFunction(torch.autograd.Function):
+    """Forward: kernel B8 on the route `_cross_on_core` chose. Backward:
+    autograd of `packed_kv_cross_attention_plain`, recomputed, on both
+    routes (`_packed_cross_diff_bwd`, `:309-314`; at the wide route's
+    head dims JAX differentiates the same formula in XLA)."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, kv: torch.Tensor, heads: int, scale: float | None,
+                core: bool) -> torch.Tensor:
+        ctx.save_for_backward(q, kv)
+        ctx.config = (heads, scale)
+        return _launch_cross(q, kv, heads, scale, core)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        heads, scale = ctx.config
+        return common.plain_vjp(ctx, g, lambda q, kv: packed_kv_cross_attention_plain(
+            q, kv, heads, scale=scale))
 
 
 # --- B7: QKV projection + self-attention ---------------------------------
@@ -558,23 +637,58 @@ def fused_qkv_self_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.
 
     CUDA: csrc/gemm.cu (GEMM + bias into packed [B, S, 3W] qkv, in
     x.dtype) and then the attention core, head dim 64 or 80 and S <= 256
-    only. CPU: the plain version."""
+    only, through `FusedQKVFunction` when autograd has to reach an
+    operand. CPU: the plain version."""
     if not common.is_cuda(x):
         return fused_qkv_self_attention_plain(x, weight, bias, heads, causal=causal,
                                               scale=scale, attn_bias=attn_bias)
-    b, s, w = x.shape
+    w = x.shape[2]
     if weight.shape != (3 * w, w) or bias.shape != (3 * w,):
         raise ValueError(f"fused_qkv_self_attention: weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)} for width {w}")
-    common.check_cuda_operands("fused_qkv_self_attention", x, weight, bias)
-    qkv = common.launch_gemm(x.view(b * s, w), weight, bias).view(b, s, 3 * w)
-    out = launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype,
-                                bias=attn_bias)
+    if common.wants_grad(x, weight, bias, attn_bias):
+        out = FusedQKVFunction.apply(x, weight, bias, attn_bias, heads, causal, scale)
+    else:
+        out = _launch_fused_qkv(x, weight, bias, attn_bias, heads, causal, scale)
     common.count(fused_qkv_self_attention)
     return out
 
 
 fused_qkv_self_attention.launches = 0
+
+
+def _launch_fused_qkv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      attn_bias: torch.Tensor | None, heads: int, causal: bool,
+                      scale: float | None) -> torch.Tensor:
+    """B7's launches on CUDA operands: GEMM + bias, then the attention
+    core. Counts nothing."""
+    b, s, w = x.shape
+    common.check_cuda_operands("fused_qkv_self_attention", x, weight, bias)
+    qkv = common.launch_gemm(x.view(b * s, w), weight, bias).view(b, s, 3 * w)
+    return launch_attention_core(qkv, heads, causal=causal, scale=scale, out_dtype=x.dtype,
+                                 bias=attn_bias)
+
+
+class FusedQKVFunction(torch.autograd.Function):
+    """Forward: kernel B7. Backward: autograd of
+    `fused_qkv_self_attention_plain`, recomputed, for x, the weight, the
+    bias and the shared attention bias (`_qkv_fused_diff_bwd`,
+    `:424-430`)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                attn_bias: torch.Tensor | None, heads: int, causal: bool,
+                scale: float | None) -> torch.Tensor:
+        ctx.save_for_backward(x, weight, bias, attn_bias)
+        ctx.config = (heads, causal, scale)
+        return _launch_fused_qkv(x, weight, bias, attn_bias, heads, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        heads, causal, scale = ctx.config
+        return common.plain_vjp(ctx, g, lambda x, weight, bias, attn_bias: (
+            fused_qkv_self_attention_plain(x, weight, bias, heads, causal=causal, scale=scale,
+                                           attn_bias=attn_bias)))
 
 
 # --- B1: the whole attention sub-block ----------------------------------
@@ -608,16 +722,37 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
 
     in_proj_weight [3W, W], out_weight [W, W] (torch layout). CUDA:
     LN kernel -> GEMM + bias -> B3 core -> GEMM + bias + residual, all
-    in x.dtype (fp32 or bf16) with every weight in the same dtype. CPU:
-    the plain version."""
+    in x.dtype (fp32 or bf16) with every weight in the same dtype,
+    through `SubblockFunction` when autograd has to reach an operand.
+    CPU: the plain version."""
+    tensors = (x, ln_weight, ln_bias, in_proj_weight, in_proj_bias, out_weight, out_bias,
+               attn_bias)
     if not common.is_cuda(x):
-        return attention_subblock_plain(
-            x, ln_weight, ln_bias, in_proj_weight, in_proj_bias, out_weight, out_bias,
-            heads, causal=causal, scale=scale, eps=eps, attn_bias=attn_bias)
-    b, s, w = x.shape
+        return attention_subblock_plain(*tensors[:7], heads, causal=causal, scale=scale,
+                                        eps=eps, attn_bias=attn_bias)
+    w = x.shape[2]
     if in_proj_weight.shape != (3 * w, w) or out_weight.shape != (w, w):
         raise ValueError(f"attention_subblock: weights {tuple(in_proj_weight.shape)}, "
                          f"{tuple(out_weight.shape)} for width {w}")
+    if common.wants_grad(*tensors):
+        out = SubblockFunction.apply(*tensors, heads, causal, scale, eps)
+    else:
+        out = _launch_subblock(*tensors, heads, causal, scale, eps)
+    common.count(attention_subblock)
+    return out
+
+
+attention_subblock.launches = 0
+
+
+def _launch_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
+                     in_proj_weight: torch.Tensor, in_proj_bias: torch.Tensor,
+                     out_weight: torch.Tensor, out_bias: torch.Tensor,
+                     attn_bias: torch.Tensor | None, heads: int, causal: bool,
+                     scale: float | None, eps: float) -> torch.Tensor:
+    """B1's launches on CUDA operands: LN, GEMM + bias, B3 (which counts
+    its own launch), GEMM + bias + residual. Counts nothing else."""
+    b, s, w = x.shape
     common.check_cuda_operands("attention_subblock", x, ln_weight, ln_bias, in_proj_weight,
                                in_proj_bias, out_weight, out_bias)
     x2 = x.view(b * s, w)
@@ -626,8 +761,27 @@ def attention_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.
     o = packed_qkv_self_attention(qkv.view(b, s, 3 * w), heads, causal=causal, scale=scale,
                                   attn_bias=attn_bias)
     out = common.launch_gemm(o.view(b * s, w), out_weight, out_bias, residual=x2)
-    common.count(attention_subblock)
     return out.view(b, s, w)
 
 
-attention_subblock.launches = 0
+class SubblockFunction(torch.autograd.Function):
+    """Forward: kernel B1 (grad mode is off inside, so its B3 launch
+    takes no Function of its own). Backward: autograd of
+    `attention_subblock_plain`, recomputed, for the seven tensors and the
+    shared attention bias (`_subblock_diff_bwd`, `:572-575`)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_weight, ln_bias, in_proj_weight, in_proj_bias, out_weight, out_bias,
+                attn_bias, heads: int, causal: bool, scale: float | None,
+                eps: float) -> torch.Tensor:
+        tensors = (x, ln_weight, ln_bias, in_proj_weight, in_proj_bias, out_weight, out_bias,
+                   attn_bias)
+        ctx.save_for_backward(*tensors)
+        ctx.config = (heads, causal, scale, eps)
+        return _launch_subblock(*tensors, heads, causal, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        heads, causal, scale, eps = ctx.config
+        return common.plain_vjp(ctx, g, lambda *t: attention_subblock_plain(
+            *t[:7], heads, causal=causal, scale=scale, eps=eps, attn_bias=t[7]))

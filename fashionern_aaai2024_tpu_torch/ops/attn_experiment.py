@@ -21,7 +21,10 @@ of 64, 197 tokens) on the TPU:
 
 X2-X4 are adapters: they take the experiment's arguments, derive the
 heads from the width, and call B3, B7 or B1 with `attn_bias`; each keeps
-its own launch count beside the one B3, B7 or B1 counts.
+its own launch count beside the one B3, B7 or B1 counts. The JAX kernels
+have no VJP, so on a CUDA tensor all four refuse an operand that
+requires grad while grad mode is on (`ops/common.py check_no_grad`),
+though B3, B7 and B1 themselves differentiate.
 
 Weights are in the torch layout: w_qkv [3W, W], w_out [W, W]
 (`models/convert.py attn_experiment_params_from_jax` carries the JAX
@@ -132,6 +135,7 @@ def mha_packed(qkv: torch.Tensor, bias: torch.Tensor | None, scale: float,
     if not common.is_cuda(qkv):
         return mha_packed_plain(qkv, bias, scale, gb)
     _check_divides("mha_packed", qkv.shape[0], gb, "images")
+    common.check_no_grad("mha_packed", qkv, bias)
     out = A.packed_qkv_self_attention(qkv, _heads("mha_packed", qkv.shape[-1] // 3),
                                       scale=scale, attn_bias=bias, images_per_block=gb)
     common.count(mha_packed)
@@ -160,6 +164,7 @@ def qkvattn(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     the attention core), S <= 256. CPU: the plain version."""
     if not common.is_cuda(x):
         return qkvattn_plain(x, w_qkv, b_qkv, bias, scale)
+    common.check_no_grad("qkvattn", x, w_qkv, b_qkv, bias)
     out = A.fused_qkv_self_attention(x, w_qkv, b_qkv, _heads("qkvattn", x.shape[-1]),
                                      scale=scale, attn_bias=bias)
     common.count(qkvattn)
@@ -192,6 +197,7 @@ def attnblock(x: torch.Tensor, g: torch.Tensor, be: torch.Tensor, w_qkv: torch.T
     version."""
     if not common.is_cuda(x):
         return attnblock_plain(x, g, be, w_qkv, b_qkv, w_out, b_out, bias, scale)
+    common.check_no_grad("attnblock", x, g, be, w_qkv, b_qkv, w_out, b_out, bias)
     out = A.attention_subblock(x, g, be, w_qkv, b_qkv, w_out, b_out,
                                _heads("attnblock", x.shape[-1]), scale=scale, eps=LN_EPS,
                                attn_bias=bias)

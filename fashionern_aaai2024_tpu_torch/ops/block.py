@@ -179,15 +179,8 @@ class BlockFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         heads, causal, activation, scale, eps = ctx.config
-        saved = [t.detach().requires_grad_(need)
-                 for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:13])]
-        wanted = [t for t in saved if t.requires_grad]
-        with torch.enable_grad():
-            out = transformer_block_plain(*saved, heads, causal=causal, activation=activation,
-                                          scale=scale, eps=eps)
-        grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in saved),
-                None, None, None, None, None)
+        return common.plain_vjp(ctx, g, lambda *t: transformer_block_plain(
+            *t, heads, causal=causal, activation=activation, scale=scale, eps=eps))
 
 
 @library.exportable(library.like)
@@ -209,8 +202,7 @@ def transformer_block(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
         return transformer_block_plain(*tensors, heads, causal=causal, activation=activation,
                                        scale=scale, eps=eps)
     b, s, _ = x.shape
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if grad:
+    if common.wants_grad(*tensors):
         out = BlockFunction.apply(*tensors, heads, causal, activation, scale, eps)
     elif use_block_kernel(b * s):
         out = _launch_block(*tensors, heads, causal, activation, scale, eps)

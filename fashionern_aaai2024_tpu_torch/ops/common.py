@@ -248,10 +248,25 @@ def check_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
 
     A kernel launched through `ctypes` writes into a tensor that autograd
     never sees: its result has no `grad_fn`, and a gradient would be
-    dropped without a word. The kernels are forward-only; a caller that
-    trains through one wraps it in a `torch.autograd.Function` (as
-    `ops/losses.py` does for B4) or runs it under `torch.no_grad()` (as
-    the frozen towers do)."""
+    dropped without a word. The launches themselves are forward-only, so
+    every launch path runs this check (most through
+    `check_cuda_operands`).
+
+    Entries that differentiate take a `torch.autograd.Function` whose
+    forward is the launch (grad mode off inside it, so the check passes)
+    and whose backward is autograd of the plain version (`plain_vjp`), as
+    the JAX package's custom VJPs differentiate their XLA twins: B1
+    `attention_subblock`, B2 `mlp_subblock`, B3
+    `packed_qkv_self_attention`, B7 `fused_qkv_self_attention`, B8
+    `packed_kv_cross_attention` (both routes), B9 `multi_head_attention`,
+    B10 `transformer_block`, B11 `layer_norm` and B4 through
+    `ops/losses.py BBCMeanLoss`. These still refuse an operand that
+    requires grad, because the JAX package gives them no VJP either: B5
+    and B6 (the int8 tier, `int8_mlp_subblock`,
+    `int8_attention_subblock`), the row-level B4 `bbc_rowloss`, B12
+    `combiner_apply` and X1-X4 (`ops/attn_experiment.py`). Run those
+    under `torch.no_grad()`, as the frozen towers and the eval
+    combiners do."""
     if not torch.is_grad_enabled():
         return
     for t in tensors:
@@ -264,6 +279,33 @@ def _raise_requires_grad(name: str, t: torch.Tensor) -> None:
         f"{name}: an operand of shape {tuple(t.shape)} requires grad, but the "
         "CUDA kernel has no backward; run it under torch.no_grad() or "
         "detach the operand")
+
+
+def wants_grad(*tensors: torch.Tensor | None) -> bool:
+    """Autograd has to reach one of `tensors`: grad mode is on and one of
+    them requires grad. A differentiable kernel entry then launches
+    through its autograd Function; otherwise it launches straight away."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def plain_vjp(ctx, g: torch.Tensor, plain) -> tuple:
+    """The backward of a kernel's autograd Function: autograd of the
+    kernel's plain version, recomputed from the inputs the forward saved,
+    as the JAX package's `_*_diff_bwd` take `jax.vjp` of a kernel's XLA
+    twin. `plain` maps the saved tensors (in `save_for_backward`'s order,
+    which must be the order of the Function's first inputs) to the
+    output. Returns one gradient per input of the Function: None where
+    `ctx.needs_input_grad` is false, for a None input and for every
+    input past the saved tensors (the non-tensor arguments)."""
+    saved = [None if t is None else t.detach().requires_grad_(need)
+             for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in saved if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        out = plain(*saved)
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return (*(next(grads) if t is not None and t.requires_grad else None for t in saved),
+            *(None,) * (len(ctx.needs_input_grad) - len(saved)))
 
 
 def check_int8_operands(name: str, device: torch.device, *pairs: torch.Tensor) -> None:

@@ -60,13 +60,8 @@ class LayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        saved = [t.detach().requires_grad_(need)
-                 for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in saved if t.requires_grad]
-        with torch.enable_grad():
-            y = layer_norm_plain(*saved, ctx.eps)
-        grads = iter(torch.autograd.grad(y, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in saved), None)
+        return common.plain_vjp(ctx, g, lambda x, weight, bias: layer_norm_plain(
+            x, weight, bias, ctx.eps))
 
 
 @library.exportable(library.like)
@@ -82,8 +77,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if weight.shape != (width,) or bias.shape != (width,):
         raise ValueError(f"layer_norm: weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)} for width {width}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
+    if common.wants_grad(x, weight, bias):
         out = LayerNormFunction.apply(x, weight, bias, eps)
     else:
         out = _launch(x, weight, bias, eps)

@@ -19,6 +19,11 @@ operands.
 
 Weights are in the torch layout: c_fc weight [F, W], c_proj weight
 [W, F].
+
+Where autograd has to reach an operand on the card, the launches run
+inside `MLPFunction`, whose backward is autograd of `mlp_subblock_plain`
+recomputed from the saved inputs, as JAX's `_mlp_diff` takes `jax.vjp`
+of `_mlp_ref` (`:163-182`).
 """
 
 from __future__ import annotations
@@ -59,25 +64,58 @@ def mlp_subblock(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor
                  eps: float = 1e-5) -> torch.Tensor:
     """x + c_proj(act(c_fc(LN(x)))) for x [B, S, W] (B2). CUDA: the
     kernels, in x.dtype (fp32 or bf16) with every weight in the same
-    dtype. CPU: the plain version."""
+    dtype, through `MLPFunction` when autograd has to reach an operand.
+    CPU: the plain version."""
     if activation not in ("quick_gelu", "gelu"):
         raise ValueError(f"unknown activation {activation!r}")
+    tensors = (x, ln_weight, ln_bias, fc_weight, fc_bias, proj_weight, proj_bias)
     if not common.is_cuda(x):
-        return mlp_subblock_plain(x, ln_weight, ln_bias, fc_weight, fc_bias, proj_weight,
-                                  proj_bias, activation=activation, eps=eps)
-    b, s, w = x.shape
+        return mlp_subblock_plain(*tensors, activation=activation, eps=eps)
+    w = x.shape[2]
     f = fc_weight.shape[0]
     if fc_weight.shape != (f, w) or proj_weight.shape != (w, f):
         raise ValueError(f"mlp_subblock: weights {tuple(fc_weight.shape)}, "
                          f"{tuple(proj_weight.shape)} for width {w}")
+    if common.wants_grad(*tensors):
+        out = MLPFunction.apply(*tensors, activation, eps)
+    else:
+        out = _launch_mlp(*tensors, activation, eps)
+    common.count(mlp_subblock)
+    return out
+
+
+mlp_subblock.launches = 0
+
+
+def _launch_mlp(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
+                fc_weight: torch.Tensor, fc_bias: torch.Tensor, proj_weight: torch.Tensor,
+                proj_bias: torch.Tensor, activation: str, eps: float) -> torch.Tensor:
+    """B2's launches on CUDA operands: LN, GEMM + bias + activation,
+    GEMM + bias + residual. Counts nothing."""
+    b, s, w = x.shape
     common.check_cuda_operands("mlp_subblock", x, ln_weight, ln_bias, fc_weight, fc_bias,
                                proj_weight, proj_bias)
     x2 = x.view(b * s, w)
     y = common.launch_layer_norm(x2, ln_weight, ln_bias, eps)
     h = common.launch_gemm(y, fc_weight, fc_bias, activation=activation)
     out = common.launch_gemm(h, proj_weight, proj_bias, residual=x2)
-    common.count(mlp_subblock)
     return out.view(b, s, w)
 
 
-mlp_subblock.launches = 0
+class MLPFunction(torch.autograd.Function):
+    """Forward: kernel B2. Backward: autograd of `mlp_subblock_plain`,
+    recomputed, for all seven tensors (`_mlp_diff_bwd`, `mlp.py:177-179`)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_weight, ln_bias, fc_weight, fc_bias, proj_weight, proj_bias,
+                activation: str, eps: float) -> torch.Tensor:
+        tensors = (x, ln_weight, ln_bias, fc_weight, fc_bias, proj_weight, proj_bias)
+        ctx.save_for_backward(*tensors)
+        ctx.config = (activation, eps)
+        return _launch_mlp(*tensors, activation, eps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        activation, eps = ctx.config
+        return common.plain_vjp(ctx, g, lambda *t: mlp_subblock_plain(
+            *t, activation=activation, eps=eps))

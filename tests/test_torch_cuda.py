@@ -123,6 +123,17 @@ the 64-wide column and 128-row tiles and d = 24, 30 (padded), 512 and
 Function against the plain version's autograd at rtol 1e-4 and an atol
 of 5e-5 times the largest gradient element (the fp32 rounding of scores
 near 75 reaches the softmax as a relative error of about 1e-5).
+
+Gradients through B1, B2, B3, B7 and B8 (their autograd Functions, whose
+backward is autograd of the plain version): at the ViT-B-16 trunk, the
+causal text tower, the DVR BERT at d = 640, the RN50x4 pool, the MR rows
+and CaLa's single heads of 512 and 640 ([128, 13, d], the wide route),
+in fp32 and bf16, every gradient (a shared attention bias's included)
+against autograd of the plain version on the card at cosine >= 0.99999
+in fp32 and 0.99 in bf16 (B10's thresholds); the Function's forward
+equals the grad-free call bit for bit with the same launches, and its
+backward launches nothing. The launches alone still refuse an operand
+that requires grad, as B4's row loss does at its entry.
 """
 
 import threading
@@ -378,13 +389,18 @@ def test_layer_norm_autograd_matches_plain_autograd_at_every_instance(device, w)
 
 
 def test_b7_b8_refuse_operands_that_require_grad(device):
+    """B7's and B8's launches are forward-only: called straight, with grad
+    mode on, they refuse an operand that requires grad (the wrappers take
+    their autograd Functions instead, below); the shape checks raise
+    before either."""
     w = 160
     x = torch.randn(2, 9, w, device=device, requires_grad=True)
     with pytest.raises(RuntimeError, match="requires grad"):
-        A.fused_qkv_self_attention(x, torch.zeros(3 * w, w, device=device),
-                                   torch.zeros(3 * w, device=device), 2)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        A.packed_kv_cross_attention(x, torch.zeros(2, 13, 2 * w, device=device), 2)
+        A._launch_fused_qkv(x, torch.zeros(3 * w, w, device=device),
+                            torch.zeros(3 * w, device=device), None, 2, False, None)
+    for core in (True, False):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            A._launch_cross(x, torch.zeros(2, 13, 2 * w, device=device), 2, None, core)
     with pytest.raises(ValueError, match="head dim"):
         A.packed_kv_cross_attention(torch.zeros(2, 9, 2 * 1040, device=device),
                                     torch.zeros(2, 13, 4 * 1040, device=device), 2)
@@ -530,27 +546,125 @@ def test_grouped_bbc_loss_runs_b4_a_group(device, groups):
 
 def test_cuda_wrappers_refuse_operands_that_require_grad(device):
     """A ctypes launch returns a tensor with no grad_fn: a gradient would
-    be dropped, so the wrappers raise instead."""
+    be dropped, so the launches raise instead. B4's row loss (its
+    gradient is `BBCMeanLoss`'s) refuses at its entry; B1, B2 and B3
+    refuse at their launches, which their wrappers reach through their
+    autograd Functions when a gradient is wanted."""
     w = 128
     x = torch.randn(2, 9, w, device=device, requires_grad=True)
     ln = torch.ones(w, device=device)
     zeros = torch.zeros(w, device=device)
     with pytest.raises(RuntimeError, match="requires grad"):
-        A.attention_subblock(x, ln, zeros, torch.zeros(3 * w, w, device=device),
-                             torch.zeros(3 * w, device=device),
-                             torch.zeros(w, w, device=device), zeros, 2)
+        A._launch_subblock(x, ln, zeros, torch.zeros(3 * w, w, device=device),
+                           torch.zeros(3 * w, device=device),
+                           torch.zeros(w, w, device=device), zeros, None, 2, False, None, 1e-5)
     with pytest.raises(RuntimeError, match="requires grad"):
-        M.mlp_subblock(x, ln, zeros, torch.zeros(4 * w, w, device=device),
-                       torch.zeros(4 * w, device=device),
-                       torch.zeros(w, 4 * w, device=device), zeros)
+        M._launch_mlp(x, ln, zeros, torch.zeros(4 * w, w, device=device),
+                      torch.zeros(4 * w, device=device),
+                      torch.zeros(w, 4 * w, device=device), zeros, "quick_gelu", 1e-5)
     with pytest.raises(RuntimeError, match="requires grad"):
-        A.packed_qkv_self_attention(torch.randn(2, 9, 3 * w, device=device,
-                                                requires_grad=True), 2)
+        A._launch_packed(torch.randn(2, 9, 3 * w, device=device, requires_grad=True), None, 2,
+                         False, None, 1)
     with pytest.raises(RuntimeError, match="requires grad"):
         L.bbc_rowloss(x[0], x[0])
     with torch.no_grad():
         A.packed_qkv_self_attention(torch.randn(2, 9, 3 * w, device=device,
                                                 requires_grad=True), 2)
+
+
+# --- gradients through B1, B2, B3, B7 and B8 (their autograd Functions) --
+
+GRAD_COSINE = {torch.float32: 0.99999, torch.bfloat16: 0.99}
+# (kernel, site): the ViT-B-16 trunk with a shared bias and the causal
+# text tower (B1, B3), both activations (B2), the DVR BERT at d = 640
+# with a shared bias (B7), the RN50x4 pool, the MR rows and CaLa's single
+# heads at ViT-B-16 and RN50x4 width on the wide route (B8)
+GRAD_SITES = [("B1", "vit"), ("B1", "text"), ("B2", "vit"), ("B2", "text_gelu"),
+              ("B3", "vit"), ("B3", "text"), ("B7", "bert640"), ("B8", "pool"), ("B8", "mr"),
+              ("B8", "cala512"), ("B8", "cala640")]
+
+
+def _grad_call(kernel, site, dtype, device):
+    """(wrapper, operands, call, plain) at a site: `call(*operands)` runs
+    the wrapper, `plain(*operands)` its plain version."""
+    g = np.random.default_rng(len(kernel + site))
+
+    def t(shape, scale=0.02, offset=0.0, dt=dtype):
+        return _t(g, shape, scale, dt, device, offset)
+
+    b, s, w, heads, causal = {"vit": (4, 197, 768, 12, False), "text": (4, 77, 512, 8, True),
+                              "text_gelu": (4, 77, 512, 8, False)}.get(site, (4, 91, 640, 8,
+                                                                             False))
+    bias = None if causal else t((s, s), 2.0, dt=torch.float32)
+    if kernel == "B1":
+        ops = (t((b, s, w), 1.0), t((w,), 0.1, 1.0), t((w,), 0.1), t((3 * w, w)), t((3 * w,)),
+               t((w, w)), t((w,)), bias)
+        return (A.attention_subblock, ops,
+                lambda *o: A.attention_subblock(*o[:7], heads, causal=causal, attn_bias=o[7]),
+                lambda *o: A.attention_subblock_plain(*o[:7], heads, causal=causal,
+                                                      attn_bias=o[7]))
+    if kernel == "B2":
+        act = "gelu" if site == "text_gelu" else "quick_gelu"
+        ops = (t((b, s, w), 1.0), t((w,), 0.1, 1.0), t((w,), 0.1), t((4 * w, w)), t((4 * w,)),
+               t((w, 4 * w)), t((w,)))
+        return (M.mlp_subblock, ops, lambda *o: M.mlp_subblock(*o, activation=act),
+                lambda *o: M.mlp_subblock_plain(*o, activation=act))
+    if kernel == "B3":
+        ops = (t((b, s, 3 * w), 1.0), bias)
+        return (A.packed_qkv_self_attention, ops,
+                lambda q, m: A.packed_qkv_self_attention(q, heads, causal=causal, attn_bias=m),
+                lambda q, m: A.packed_qkv_self_attention_plain(q, heads, causal=causal,
+                                                               attn_bias=m))
+    if kernel == "B7":
+        ops = (t((b, s, w), 1.0), t((3 * w, w)), t((3 * w,)), bias)
+        return (A.fused_qkv_self_attention, ops,
+                lambda *o: A.fused_qkv_self_attention(*o[:3], heads, attn_bias=o[3]),
+                lambda *o: A.fused_qkv_self_attention_plain(*o[:3], heads, attn_bias=o[3]))
+    b, sq, sk, heads, dh = {"pool": (4, 1, 82, 40, 64), "mr": (4, 77, 13, 8, 80),
+                            "cala512": (128, 13, 13, 1, 512),
+                            "cala640": (128, 13, 13, 1, 640)}[site]
+    ops = (t((b, sq, heads * dh), 1.0), t((b, sk, 2 * heads * dh), 1.0))
+    return (A.packed_kv_cross_attention, ops,
+            lambda q, kv: A.packed_kv_cross_attention(q, kv, heads),
+            lambda q, kv: A.packed_kv_cross_attention_plain(q, kv, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,site", GRAD_SITES)
+def test_kernel_functions_match_plain_autograd(device, dtype, kernel, site):
+    """Each wrapper that differentiates, called with operands that require
+    grad, runs its kernels inside its autograd Function: the forward
+    equals the grad-free call bit for bit with the same launches (one
+    count of the wrapper, on the wide route one more of its own), the
+    backward launches nothing, and every gradient (the shared attention
+    bias's included) holds against autograd of the plain version on the
+    card at cosine >= 0.99999 in fp32, 0.99 in bf16."""
+    wrapper, ops, call, plain = _grad_call(kernel, site, dtype, device)
+    with torch.no_grad(), common.recording() as free:
+        want_out = call(*ops)
+    ours = [None if o is None else o.detach().clone().requires_grad_() for o in ops]
+    ref = [None if o is None else o.detach().clone().requires_grad_() for o in ops]
+    n0 = wrapper.launches
+    with common.recording() as fwd:
+        out = call(*ours)
+    assert type(out.grad_fn).__name__.endswith("FunctionBackward")
+    assert wrapper.launches == n0 + 1
+    assert fwd.entries == free.entries and fwd.wrappers == free.wrappers
+    assert torch.equal(out, want_out)
+    up = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(dtype).to(device)
+    with common.recording() as bwd:
+        (out.float() * up.float()).sum().backward()
+        torch.cuda.synchronize()
+    assert not bwd.entries and not bwd.wrappers
+    want = plain(*ref)
+    (want.float() * up.float()).sum().backward()
+    _close(out.detach(), want.detach(), dtype)
+    for a, r in zip(ours, ref):
+        if a is None:
+            continue
+        cos = torch.nn.functional.cosine_similarity(a.grad.double().flatten(),
+                                                    r.grad.double().flatten(), dim=0).item()
+        assert cos >= GRAD_COSINE[dtype], (tuple(a.shape), cos)
 
 
 # --- B5 and B6: the int8 sub-blocks -------------------------------------
