@@ -68,6 +68,17 @@ kernel and the grouped kernel) side by side at the core's fp32 sites.
 times instead the bf16 GEMM products alone (the default run's "bf16
 GEMM" line), a short run for many alternations of two checkouts.
 
+    cd <checkout> && python3 <path>/ab_attention.py LABEL --wide
+
+builds the checkout's `csrc/attention_wide.cu` alone (B8's wide route,
+`nvcc -Xptxas -v` into build/wide_probe/LABEL/; prints each instance's
+registers and spills), calls its C entry `fern_attention_wide` with no
+wrapper around it at `chip_smoke.py WIDE_SHAPES` in fp32 and bf16, holds
+it against the plain version at `chip_smoke.py TOL`, and prints per row
+the kernel's device µs (`torch.profiler`, 20 calls) beside SDPA's on the
+same [B, 1, S, D] operands, a call and a burst with the host's launch,
+and the bytes bound with the kernel's share of it by device time.
+
     cd <checkout> && python3 <path>/ab_attention.py LABEL --int8
 
 times instead the int8 tier: kernels B5 and B6 (`int8_mlp_subblock`,
@@ -587,12 +598,89 @@ def bf16_gemms(label: str, g: torch.Generator) -> None:
     print(label, "bf16 GEMM ms:", "; ".join(out), flush=True)
 
 
+def kernel_device_us(fn, match, calls: int = 20) -> float:
+    """Device µs of one call of `fn` in the kernels whose profiler name
+    `match` accepts (the profiler's CUDA time over `calls` calls, after 5
+    warm-up calls)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if match(e.key)) / calls
+
+
+def wide_route(label: str) -> None:
+    """B8's wide route of this checkout (`csrc/attention_wide.cu` alone,
+    built with `-Xptxas -v` into build/wide_probe/LABEL/, its C entry
+    called with no wrapper around it) at `chip_smoke.py WIDE_SHAPES` in
+    fp32 and bf16: ptxas's registers and spills, then per row the error
+    against the plain version, the kernel's device µs (profiler), a call
+    and a burst, beside SDPA's device µs and burst and the bytes bound."""
+    import ctypes
+    import subprocess
+
+    import chip_smoke as cs
+
+    work = os.path.join(os.getcwd(), "build", "wide_probe", label)
+    os.makedirs(work, exist_ok=True)
+    lib_path = os.path.join(work, "libwide.so")
+    built = subprocess.run([common._find_nvcc(), *common.NVCC_FLAGS, "-shared", "-Xptxas", "-v",
+                            "-I", str(common.CSRC_DIR), "-o", lib_path,
+                            str(common.CSRC_DIR / "attention_wide.cu")],
+                           capture_output=True, text=True, check=True)
+    ptxas = [line.strip() for line in built.stderr.splitlines()
+             if "registers" in line or "spill" in line or "entry function" in line]
+    print(label, "wide route ptxas:", " | ".join(ptxas), flush=True)
+    entry = ctypes.CDLL(lib_path).fern_attention_wide
+    entry.argtypes, entry.restype = common._SIGNATURES["fern_attention_wide"], ctypes.c_int
+    stream = common.stream_of(torch.empty(0, device="cuda"))
+    out = []
+    for name, b, s, dh in cs.WIDE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(300 + len(out))
+            q = torch.randn((b, s, dh), generator=g).to(dtype).cuda()
+            kv = torch.randn((b, s, 2 * dh), generator=g).to(dtype).cuda()
+            k, v = kv[..., :dh].contiguous()[:, None], kv[..., dh:].contiguous()[:, None]
+            got = torch.empty_like(q)
+            e = q.element_size()
+
+            def kernel():
+                err = entry(q.data_ptr(), kv.data_ptr(), kv.data_ptr() + e * dh, got.data_ptr(),
+                            b, s, s, 1, dh, dh, 2 * dh, dh ** -0.5, common.DTYPE_CODES[dtype],
+                            torch.cuda.current_device(), stream)
+                if err:
+                    raise RuntimeError(f"fern_attention_wide: CUDA error {err}")
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(q[:, None], k, v)
+
+            kernel()
+            want = A.packed_kv_cross_attention_plain(q, kv, 1)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **cs.TOL[dtype])
+            bound = cs.dtype_bound(4 * b * s * s * dh, e * 4 * b * s * dh, dtype)
+            dev = kernel_device_us(kernel, lambda key: "wide" in key)
+            sdpa = kernel_device_us(library, lambda key: True)
+            out.append(f"{name}/{str(dtype)[6:]} err {err:.2e} device {dev:.2f} us (SDPA "
+                       f"{sdpa:.2f}) call {call_ms(kernel):.4f} burst {median_ms(kernel):.4f} "
+                       f"(SDPA {median_ms(library):.4f}) bound {bound['bound_ms'] * 1e3:.2f} us "
+                       f"({bound['bound_by']}, {bound['bound_ms'] * 1e3 / dev:.2f} of it)")
+    print(label, "wide route:", "; ".join(out), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ab_attention: CUDA is not available")
     label = sys.argv[1] if len(sys.argv) > 1 else "checkout"
     if "--slices" in sys.argv[2:]:
         slices(label)
+        return
+    if "--wide" in sys.argv[2:]:
+        wide_route(label)
         return
     g = torch.Generator().manual_seed(0)
     if "--bodies" in sys.argv[2:]:

@@ -241,7 +241,15 @@ Phases (each raises on failure; nothing is caught):
       (csrc/attention_wide.cu, the head dims the core does not take)
       against its plain version at CaLa's single heads (B = 128: 13
       tokens at head dim 512 and 640, 32 at 256) and at [3, 5, 16], fp32
-      and bf16, timed beside SDPA on the same [B, 1, S, dh] operands; then
+      and bf16, timed beside SDPA on the same [B, 1, S, dh] operands, a
+      call and in bursts (both carry the host's launch) and in device time
+      (`torch.profiler` in a process of its own, `--wide-trace`: late in
+      the long run the profiler drops kernel events; with the kernel's
+      share of its bound); its own
+      launch at `WIDE_EDGES` (Sq 1-33, Sk 1-256, head dims 1-1,024, two
+      heads, more blocks than SMs) within TOL; its 16 instances in the
+      library's SASS (fp32: HMMA.1688.F32.TF32 only, bf16: bf16 HMMA
+      only, each on LDGSTS) with no local memory (no spill); then
       every model of the zoo's registry at ViT-B-16 width over the seeded
       ViT-B-16's fp32 features of 128 reference and target images and 128
       captions (image globals, tower tokens 1-13, text globals and 77 token
@@ -270,8 +278,10 @@ Phases (each raises on failure; nothing is caught):
       step 1 card against the CPU in fp32 (loss rtol 1e-5, every
       parameter gradient at cosine >= 0.99999), 8 wide-route launches a
       forward and none in a backward, 3 steps with the loss finite and
-      falling (`launches_by_path["cala_train"]`), and a step's ms. The
-      run ends with each phase's seconds.
+      falling (`launches_by_path["cala_train"]`), a step's ms, and (in
+      the `--wide-trace` process, on seeded tokens) one profiled step's
+      device split (the wide route, B4, forward, backward, Adam) and idle
+      share. The run ends with each phase's seconds.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -444,8 +454,9 @@ BERT_LAYERS = 2
 BERT_LNS = 1 + 2 * BERT_LAYERS
 GALLERY, BATCH, K, LAYERS = 512, 32, 10, 12
 # host-clock samples of each query route at b = 1 and 32 (phase 4): 1,000
-# until phase 20 came in; at 500 the routes take half their ~21 s
-ROUTE_SAMPLES = 500
+# until phase 20 came in (the routes took ~21 s), 500 until phase 20's
+# profiled readings moved to a process of their own (~5 s more saved)
+ROUTE_SAMPLES = 250
 # timed calls of a plain version (after 3 warm-ups): a plain version
 # repeats its kernel's arithmetic and is no yardstick of speed; 25 until
 # phase 20 came in (a round of every row's plain version took 556 ms)
@@ -516,7 +527,8 @@ INT8 = ["quant.cu", "layernorm_row.cuh", "qgemm.cu", "gemm_wgmma.cuh", "tma.cuh"
 SOURCES = {B1: [*LN_SRC, *GEMM, *CORE], B2: [*LN_SRC, *GEMM],
            B3: CORE, B4: ["bbc_loss.cu", *TF32], B5: INT8,
            B6: [*INT8, *CORE], B7: [*GEMM, *CORE],
-           B8: CORE, B8W: ["attention_wide.cu", "common.cuh"], B11: LN_SRC,
+           B8: CORE, B8W: ["attention_wide.cu", "attention_tf32.cuh", "attention_mma.cuh",
+                           "common.cuh"], B11: LN_SRC,
            B9: [*CORE, "attention_grouped.cu"],
            B12: [*GEMM, "combiner.cu"],
            B10: ["block.cu", *TF32[:2], "attention_core.cuh", "attention_mma.cuh",
@@ -2949,7 +2961,8 @@ LEG_EPOCHS = 11
 # step, the DVR query tower's B7 and B8, B11 at the standalone LNs, B12 at
 # the eval combiners
 LEG_KERNELS = (B1, B2, B3, B4, B7, B8, B10, B11, B12)
-EXTRACT_IMAGES = 4     # 8 until phase 19 came in (the CPU run of 8 took ~14.5 s)
+EXTRACT_IMAGES = 2     # 8 until phase 19 came in (the CPU run of 8 took ~14.5 s), 4 until
+                       # phase 20's profiled readings moved to a process of their own
 ROUTE_LOADS = 64
 
 
@@ -3992,6 +4005,17 @@ def phase_data_parallel(card: str) -> dict:
 # and a small case, one head each: (label, B, S, head dim)
 WIDE_SHAPES = [("cala_vit_b16", 128, 13, 512), ("cala_rn50x4", 128, 13, 640),
                ("qformer", 128, 32, 256), ("small", 3, 5, 16)]
+# the wide route's tile edges, its own launch (as tests/test_torch_cuda.py
+# WIDE_EDGES): (B, Sq, Sk, heads, head dim) around its 16-row query tiles,
+# 16-key chunks and 16-column units, element and 4-byte staging, the
+# limits (1,024, 256 keys: K, then V streamed), two heads, more blocks
+# than SMs
+WIDE_EDGES = ([(2, sq, 13, 1, 512) for sq in (1, 15, 16, 17, 33)]
+              + [(2, 17, sk, 1, 65) for sk in (1, 7, 8, 9, 17, 255, 256)]
+              + [(2, 17, 33, 1, dh) for dh in (1, 6, 7, 63, 64, 65, 512, 640, 1023, 1024)]
+              + [(2, 33, 256, 1, 1024), (3, 17, 13, 2, 192), (256, 13, 13, 1, 640)])
+# profiled calls a device time reads (after 5 warm-up calls)
+DEVICE_CALLS = 20
 # the heads at ViT-B-16 width (d = 512), card against the port's CPU run in
 # fp32: every row's cosine (both run fp32 and differ only in summation
 # order); CompoDiff at JAX's defaults with dim 768 (ViT-L/14's, CompoDiff's
@@ -4022,18 +4046,88 @@ CALA_STEPS, CALA_LOSS_RTOL, CALA_GRAD_COSINE_MIN = 3, 1e-5, 0.99999
 CALA_WIDTHS = (("vit_b16", ZOO_WIDTH), ("rn50x4", 640))
 
 
+def device_pair_ms(kernel, library, calls: int = DEVICE_CALLS) -> tuple[float, float]:
+    """Device ms of one call of `kernel` (the wide route's kernels) and of
+    `library` (every other kernel of the window), from one
+    `torch.profiler` window over `calls` calls of each, after 5 warm-up
+    calls of each."""
+    for _ in range(5):
+        kernel()
+        library()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernel()
+        for _ in range(calls):
+            library()
+        torch.cuda.synchronize()
+    times = [(e.key, e.device_time_total) for e in prof.key_averages()]
+    wide = sum(t for key, t in times if "wide_" in key)
+    other = sum(t for key, t in times if "wide_" not in key)
+    return wide / calls / 1e3, other / calls / 1e3
+
+
+def wide_instances() -> dict:
+    """The wide route's kernel instances in the built library
+    (`cuobjdump -res-usage`, then `-sass` of those functions alone): for
+    each, its tensor-core products (the SASS's HMMA lines), whether it
+    stages by LDGSTS, and its registers and local memory (spilled
+    registers live in local memory). Fails unless every fp32 instance
+    issues HMMA.1688.F32.TF32 only, every bf16 instance bf16 HMMA only,
+    each on LDGSTS, none with local memory."""
+    lib = str(common.LIBRARY.library_path())
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    lines = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    out = {}
+    for line, nxt in zip(lines, lines[1:]):
+        if "Function " in line and "wide_" in line:
+            name = line.split("Function ", 1)[1].strip().rstrip(":")
+            fields = dict(f.split(":", 1) for f in nxt.split() if ":" in f)
+            out[name] = dict(hmma=set(), ldgsts=False, regs=int(fields.get("REG", -1)),
+                             local=int(fields.get("LOCAL", -1)),
+                             stack=int(fields.get("STACK", -1)))
+    sass = subprocess.run([tool, "-sass", "-fun", ",".join(out), lib], capture_output=True,
+                          text=True, check=True).stdout if out else ""
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name in out and "HMMA" in line:
+            out[name]["hmma"].add(line.split("HMMA", 1)[1].split()[0])
+        elif name in out and "LDGSTS" in line:
+            out[name]["ldgsts"] = True
+    bad = {fn: r for fn, r in out.items()
+           if not r["ldgsts"] or r["local"] != 0
+           or r["hmma"] != ({".1688.F32.TF32"} if "tf32" in fn else {".16816.F32.BF16"})}
+    if len(out) != 16 or bad:
+        raise AssertionError(f"wide route instances: {len(out)} (16 expected); at fault: {bad}")
+    # fp32 (tf32) or bf16 (mma) instance and its units a warp: "tf32<4>"
+    return {f"{'tf32' if 'tf32' in fn else 'mma'}<{fn.split('ILi', 1)[1][0]}>":
+            dict(regs=r["regs"], local=r["local"], stack=r["stack"]) for fn, r in out.items()}
+
+
+def wide_operands(i: int, b: int, s: int, dh: int, dtype: torch.dtype) -> tuple:
+    """Row i of `WIDE_SHAPES` x dtype on the card: q [b, s, dh], packed kv
+    [b, s, 2 dh], and kv's halves as [b, 1, s, dh] (SDPA's operands)."""
+    g = torch.Generator().manual_seed(300 + i)
+    q = torch.randn((b, s, dh), generator=g).to(dtype).cuda()
+    kv = torch.randn((b, s, 2 * dh), generator=g).to(dtype).cuda()
+    return q, kv, kv[..., :dh].contiguous()[:, None], kv[..., dh:].contiguous()[:, None]
+
+
 def phase_wide_kernel() -> tuple[float, list]:
     """B8's wide route (csrc/attention_wide.cu) against its plain version
     at `WIDE_SHAPES` in fp32 and bf16, timed (a call, and in bursts of 10
-    calls: device time a call) beside SDPA on the same [B, 1, S, dh]
-    operands (its library call, never called by the port)."""
+    calls, both with the host's launch) beside SDPA on the same [B, 1, S,
+    dh] operands (its library call, never called by the port); then its
+    own launch at `WIDE_EDGES` against the plain version. The device times
+    come from `wide_trace`."""
     rows, worst = [], 0.0
+    t0 = time.perf_counter()
     for label, b, s, dh in WIDE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator().manual_seed(300 + len(rows))
-            q = torch.randn((b, s, dh), generator=g).to(dtype).cuda()
-            kv = torch.randn((b, s, 2 * dh), generator=g).to(dtype).cuda()
-            k, v = kv[..., :dh].contiguous()[:, None], kv[..., dh:].contiguous()[:, None]
+            q, kv, k, v = wide_operands(len(rows), b, s, dh, dtype)
 
             def kernel():
                 return A.packed_kv_cross_attention(q, kv, 1)
@@ -4060,7 +4154,65 @@ def phase_wide_kernel() -> tuple[float, list]:
                 f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                 f"SDPA {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']})" + row_extras(row))
-    return worst, rows
+    t1 = time.perf_counter()
+    g = torch.Generator().manual_seed(14)
+    edge_worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, sq, sk, heads, dh in WIDE_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = heads * dh
+            q = torch.randn((b, sq, w), generator=g).to(dtype).cuda()
+            kv = torch.randn((b, sk, 2 * w), generator=g).to(dtype).cuda()
+            got = A.wide_cross_attention(q, kv, heads, None)
+            want = A.packed_kv_cross_attention_plain(q, kv, heads)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            edge_worst[dtype] = max(edge_worst[dtype],
+                                    (got.float() - want.float()).abs().max().item())
+    log(f"  {B8W}: {len(WIDE_EDGES)} edge cases x 2 dtypes within TOL (largest error fp32 "
+        f"{edge_worst[torch.float32]:.3e}, bf16 {edge_worst[torch.bfloat16]:.3e}); seconds: "
+        f"rows {t1 - t0:.1f}, edges {time.perf_counter() - t1:.1f}")
+    return max(worst, *edge_worst.values()), rows
+
+
+def wide_trace() -> dict:
+    """`wide_trace_process` in a process of its own: late in this one the
+    profiler drops kernel events (a whole run's phase 20 read no event of
+    the wide route, as phase 16's replays lose theirs)."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--wide-trace"],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"the wide trace exited {done.returncode}:\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def wide_trace_process() -> None:
+    """Phase 20's profiled readings, in a fresh process: the wide route's
+    and SDPA's device time at each `WIDE_SHAPES` row and dtype
+    (`device_pair_ms`, the phase's operands) and one profiled CaLa train
+    step at each of `CALA_WIDTHS` on seeded tokens (`cala_step_split`).
+    Prints them as one JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for label, b, s, dh in WIDE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kv, k, v = wide_operands(len(rows), b, s, dh, dtype)
+            rows.append(device_pair_ms(lambda: A.packed_kv_cross_attention(q, kv, 1),
+                                       lambda: F.scaled_dot_product_attention(q[:, None], k, v)))
+    g = torch.Generator().manual_seed(22)
+    splits = {}
+    for label, d in CALA_WIDTHS:
+        ref, tar, target = (torch.randn(shape, generator=g).cuda()
+                            for shape in ((ZOO_BATCH, 13, d), (ZOO_BATCH, 13, d), (ZOO_BATCH, d)))
+        model, opt, loss_of, step = cala_setup(d, ref, tar, target)
+
+        def forward_backward():
+            opt.zero_grad(set_to_none=True)
+            loss_of(model, ref, tar, target).backward()
+
+        splits[label] = cala_step_split(lambda: loss_of(model, ref, tar, target),
+                                        forward_backward, step)
+    print(json.dumps(dict(rows=rows, splits=splits)))
 
 
 def zoo_features(seed: int) -> dict:
@@ -4224,22 +4376,31 @@ def phase_grad_functions(card: str) -> tuple[float, list]:
     return least, rows
 
 
-def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
-               target: torch.Tensor) -> dict:
-    """CaLa's train step at ref / tar [B, 13, d]: a seeded
-    `TwinAttentionCompositor(d)`, the registry's bbc on its normalized
-    queries against the normalized `target`, Adam at `TRAIN_LR`. Step 1
-    card against the same step on the CPU (loss at `CALA_LOSS_RTOL`,
-    every parameter gradient's cosine at `CALA_GRAD_COSINE_MIN`), the
-    forward's launches (8 B8 on the wide route, 1 B4) and none in the
-    backward; `CALA_STEPS` steps whose loss must be finite and falling,
-    their launches (set to 0 just before, read just after); then a step's
-    ms (CUDA events, median of 10)."""
-    d = ref.shape[-1]
+def cala_step_split(forward, forward_backward, step) -> dict:
+    """One profiled CaLa train step (`kernel_split`: the card's idle share
+    over it) and its device split: the wide route and B4 by kernel name;
+    the forward, the backward (a forward and backward less the forward)
+    and Adam (the step less both), each profiled on its own."""
+    f = kernel_split(forward, top=1 << 30)
+    fb = kernel_split(forward_backward, top=1 << 30)
+    full = kernel_split(step, top=1 << 30)
+    wide = [e for e in full["top"] if "wide_" in e["kernel"]]
+    b4 = [e for e in full["top"] if "bbc_" in e["kernel"]]
+    return dict(wall_ms=full["wall_ms"], device_ms=full["device_ms"],
+                idle_share=full["idle_share"], wide_ms=sum(e["ms"] for e in wide),
+                wide_launches=sum(e["launches"] for e in wide), b4_ms=sum(e["ms"] for e in b4),
+                b4_launches=sum(e["launches"] for e in b4), forward_device_ms=f["device_ms"],
+                backward_device_ms=fb["device_ms"] - f["device_ms"],
+                adam_device_ms=full["device_ms"] - fb["device_ms"], top=full["top"][:6])
+
+
+def cala_setup(d: int, ref: torch.Tensor, tar: torch.Tensor, target: torch.Tensor) -> tuple:
+    """CaLa's train step on the card: a `TwinAttentionCompositor(d)` seeded
+    with 60 + d, the registry's bbc on its normalized queries against the
+    normalized `target`, Adam at `TRAIN_LR`. -> (model, optimizer,
+    loss_of(model, ref, tar, target), step() -> loss)."""
     torch.manual_seed(60 + d)
-    model = TZ.TwinAttentionCompositor(d)
-    cpu = copy.deepcopy(model)
-    model.cuda()
+    model = TZ.TwinAttentionCompositor(d).cuda()
     bbc = get_loss("bbc").fn
 
     def loss_of(m, r, t, y):
@@ -4253,6 +4414,25 @@ def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
         loss.backward()
         opt.step()
         return loss
+
+    return model, opt, loss_of, step
+
+
+def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
+               target: torch.Tensor) -> dict:
+    """CaLa's train step at ref / tar [B, 13, d]: a seeded
+    `TwinAttentionCompositor(d)`, the registry's bbc on its normalized
+    queries against the normalized `target`, Adam at `TRAIN_LR`. Step 1
+    card against the same step on the CPU (loss at `CALA_LOSS_RTOL`,
+    every parameter gradient's cosine at `CALA_GRAD_COSINE_MIN`), the
+    forward's launches (8 B8 on the wide route, 1 B4) and none in the
+    backward; `CALA_STEPS` steps whose loss must be finite and falling,
+    their launches (set to 0 just before, read just after); then a step's
+    ms (CUDA events, median of 10)."""
+    d = ref.shape[-1]
+    torch.manual_seed(60 + d)
+    cpu = copy.deepcopy(TZ.TwinAttentionCompositor(d))
+    model, opt, loss_of, step = cala_setup(d, ref, tar, target)
 
     reset_launches()
     loss = loss_of(model, ref, tar, target)
@@ -4300,6 +4480,8 @@ def phase_zoo(card: str) -> dict:
     """Phase 20 (module docstring)."""
     t0 = time.perf_counter()
     out: dict = {}
+    # the library's SASS is read beside the phase (cuobjdump, ~14 s)
+    sass = concurrent.futures.ThreadPoolExecutor(1).submit(wide_instances)
     out["wide_worst"], out["wide_rows"] = phase_wide_kernel()
     features = zoo_features(seed=20)
     heads = zoo_heads(features)
@@ -4352,6 +4534,30 @@ def phase_zoo(card: str) -> dict:
     log(f"  the Functions' gradients and CaLa's train steps took "
         f"{out['train_seconds']:.1f} s, the gradients {out['grad_seconds']:.1f} s of it "
         f"({card})")
+    t2 = time.perf_counter()
+    trace = wide_trace()
+    for row, (ms, library_ms) in zip(out["wide_rows"], trace["rows"]):
+        row.update(device_ms=ms, library_device_ms=library_ms,
+                   device_share_of_bound=row["bound_ms"] / ms)
+        log(f"  {B8W:36s} {row['shape']:12s} {row['dtype']:9s} device: kernel "
+            f"{ms * 1e3:.2f} us ({row['device_share_of_bound']:.2f} of its bound), SDPA "
+            f"{library_ms * 1e3:.2f} us ({card})")
+    for label, split in trace["splits"].items():
+        out["cala_train"][label]["split"] = split
+        log(f"  CaLa train step {label}, profiled on seeded tokens: wall {split['wall_ms']:.3f} "
+            f"ms, device {split['device_ms']:.3f} ms (idle share {split['idle_share']:.3f}): "
+            f"wide route {split['wide_ms']:.4f} ms in {split['wide_launches']} launches, B4 "
+            f"{split['b4_ms']:.4f} ms in {split['b4_launches']}; forward "
+            f"{split['forward_device_ms']:.3f} ms, backward {split['backward_device_ms']:.3f}, "
+            f"Adam {split['adam_device_ms']:.3f}; top kernels "
+            + "; ".join(f"{e['kernel'][:60]} {e['ms']:.3f} ms x{e['launches']}"
+                        for e in split["top"][:4]) + f" ({card})")
+    out["trace_seconds"] = time.perf_counter() - t2
+    instances = sass.result()
+    log(f"  {B8W}: {len(instances)} instances in the library, HMMA.1688.F32.TF32 (fp32) / "
+        f"HMMA.16816.F32.BF16 (bf16) on LDGSTS, no local memory; registers "
+        + ", ".join(f"{k} {v['regs']}" for k, v in sorted(instances.items()))
+        + f"; the profiled readings' process took {out['trace_seconds']:.1f} s ({card})")
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 20 took {out['seconds']:.1f} s ({card})")
     return out
@@ -4388,11 +4594,16 @@ def main() -> None:
     parser.add_argument("--json-out", help="also write every measurement to this file")
     parser.add_argument("--replay-trace", action="store_true",
                         help="only phase 16's profiled replays (phase 16 runs this itself)")
+    parser.add_argument("--wide-trace", action="store_true",
+                        help="only phase 20's profiled readings (phase 20 runs this itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs one GPU")
     if args.replay_trace:
         front_trace_process()
+        return
+    if args.wide_trace:
+        wide_trace_process()
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4609,9 +4820,14 @@ def main() -> None:
     # forward + backward through the autograd Functions at their sites
     grad_keys = ("shape", "dtype", "min_grad_cosine", "ms", "plain_ms", "library_ms",
                  "bound_ms", "bound_by")
+    # the wide route's device time (profiler) at every WIDE_SHAPES row
+    wide_keys = ("shape", "dtype", "device_ms", "library_device_ms", "bound_ms",
+                 "device_share_of_bound", "ms", "burst_ms", "library_burst_ms")
     for entry in kernels:
         entry["grad_rows"] = [{k: r[k] for k in grad_keys if k in r}
                               for r in zoo["grad_rows"] if r["kernel"] == entry["name"]]
+        if entry["name"] == B8W:
+            entry["device_rows"] = [{k: r[k] for k in wide_keys} for r in zoo["wide_rows"]]
         if entry["name"] in fp32_sites:
             entry["fp32_rows"] = [{k: r[k] for k in fp32_keys if k in r}
                                   for r in fp32_sites[entry["name"]] if r["dtype"] == "float32"]

@@ -528,11 +528,13 @@ def _cross_on_core(w: int, heads: int, sk: int) -> bool:
 
 def wide_cross_attention(q: torch.Tensor, kv: torch.Tensor, heads: int,
                          scale: float | None) -> torch.Tensor:
-    """B8's wide route (csrc/attention_wide.cu) on checked contiguous CUDA
-    q [B, Sq, W] and kv [B, Sk, 2W], within the limits `_cross_on_core`
-    checks: any head dim up to `MAX_WIDE_HEAD_DIM`, any Sq, Sk up to
-    `MAX_WIDE_KEYS`, fp32 or bf16. Counts its own launches;
-    `packed_kv_cross_attention` counts B8's."""
+    """B8's wide route (csrc/attention_wide.cu: a block per image, head and
+    16 query rows, each warp a run of 16-column units staged by
+    `cp.async`, the products on the tensor cores, fp32 by 3xTF32) on
+    checked contiguous CUDA q [B, Sq, W] and kv [B, Sk, 2W], within the
+    limits `_cross_on_core` checks: any head dim up to
+    `MAX_WIDE_HEAD_DIM`, any Sq, Sk up to `MAX_WIDE_KEYS`, fp32 or bf16.
+    Counts its own launches; `packed_kv_cross_attention` counts B8's."""
     b, sq, w = q.shape
     sk = kv.shape[1]
     dh = w // heads

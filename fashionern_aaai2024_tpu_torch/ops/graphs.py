@@ -58,7 +58,8 @@ KERNEL_ENTRY = {
     "layernorm_kernel": "fern_layernorm",
     "ln_quant_kernel": "fern_ln_quant",
     "qgemm_kernel": "fern_qgemm",
-    "wide_attention_kernel": "fern_attention_wide",
+    "wide_tf32_attention_kernel": "fern_attention_wide",
+    "wide_mma_attention_kernel": "fern_attention_wide",
     "quant_groups_kernel": "fern_quant_groups",
 }
 NODES_PER_CALL = {"fern_bbc_rowloss": 2}

@@ -48,8 +48,9 @@ tower widths, the general routine's widths and W = 2,056.
 B7 (`fused_qkv_self_attention`), B8 (`packed_kv_cross_attention`) and
 B11 (`layer_norm`) at the tolerances above, at head dim 64 and 80; B8's
 wide route (csrc/attention_wide.cu: other head dims, CaLa's single heads
-of 512 and 640) at CaLa's shapes, the core's sites bit for bit on the
-core, and the shapes past both raising; B11
+of 512 and 640) at CaLa's shapes and at its tiles' edges (Sq 1-33, Sk
+1-256, head dims 1-1,024, two heads, more blocks than SMs), the core's
+sites bit for bit on the core, and the shapes past both raising; B11
 also at widths 512-1280, 100 and 642 (every vector instance and the
 general one) and 1 to 25,216 rows, with a SASS check for its 16-byte
 loads and stores, and B10 bit for bit against B1 + B2 at W = 640 and
@@ -288,6 +289,35 @@ def test_core_cross_attention_is_the_core_bit_for_bit(device, dtype, b, sq, sk, 
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert A.wide_cross_attention.launches == nw
+
+
+# the wide route's tile edges (a block a 16-row query tile, keys in
+# chunks of 16 through a shared-memory ring, the head dim padded to 16):
+# Sq around 16 and 32; Sk around 8 and 16 and at the 256 limit; head dims
+# staged by element copies in bf16 (1, 7, 63, 65, 1,023), by 4-byte
+# copies (6, and odd head dims in fp32), around 64, CaLa's and the 1,024
+# limit (K, then V, streamed through the ring); two heads; more blocks
+# than SMs (two blocks an SM share its shared memory: a one-stage ring at
+# fp32 d = 640)
+WIDE_EDGES = ([(2, sq, 13, 1, 512) for sq in (1, 15, 16, 17, 33)]
+              + [(2, 17, sk, 1, 65) for sk in (1, 7, 8, 9, 17, 255, 256)]
+              + [(2, 17, 33, 1, dh) for dh in (1, 6, 7, 63, 64, 65, 512, 640, 1023, 1024)]
+              + [(2, 33, 256, 1, 1024), (3, 17, 13, 2, 192), (256, 13, 13, 1, 640)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,heads,dh", WIDE_EDGES)
+def test_wide_cross_attention_edges(device, dtype, b, sq, sk, heads, dh):
+    """The wide route's own launch (any head dim, 64 included) against
+    the plain version."""
+    g = np.random.default_rng(14)
+    w = heads * dh
+    q, kv = _t(g, (b, sq, w), 1.0, dtype, device), _t(g, (b, sk, 2 * w), 1.0, dtype, device)
+    nw = A.wide_cross_attention.launches
+    got = A.wide_cross_attention(q, kv, heads, None)
+    torch.cuda.synchronize()
+    assert A.wide_cross_attention.launches == nw + 1
+    _close(got, A.packed_kv_cross_attention_plain(q, kv, heads), dtype)
 
 
 def test_wide_cross_attention_refuses_what_it_does_not_take(device):
@@ -1482,18 +1512,22 @@ def test_bf16_attention_kernels_run_on_tensor_cores_and_cp_async(device):
 
 def test_fp32_attention_kernels_run_3xtf32_mma(device):
     """Every fp32 instance of the attention core (32: head dims 64 and 80,
-    with and without a bias, 1-8 key groups), of the grouped kernel (4)
-    and B10's fp32 instance issue their attention products as tf32
-    tensor-core MMA (HMMA.1688.F32.TF32) fed by asynchronous copies
-    (LDGSTS), the core and the grouped kernel with no other HMMA; the
+    with and without a bias, 1-8 key groups), of the grouped kernel (4),
+    of B8's wide route (8: 1-8 column units a warp) and B10's fp32
+    instance issue their attention products as tf32 tensor-core MMA
+    (HMMA.1688.F32.TF32) fed by asynchronous copies (LDGSTS), the core,
+    the grouped kernel and the wide route with no other HMMA; the wide
+    route's bf16 instances (8) issue bf16 HMMA only, on LDGSTS too; the
     CUDA-core fp32 kernels they replace are gone from the library."""
     common.LIBRARY.load()
     funcs = _sass_functions(common.LIBRARY.library_path())
     core = {k: v for k, v in funcs.items()
             if "attention_tf32_kernel" in k and "grouped" not in k}
     grouped = {k: v for k, v in funcs.items() if "grouped_attention_tf32_kernel" in k}
-    assert len(core) == 32 and len(grouped) == 4, (sorted(core), sorted(grouped))
-    for name, sass in {**core, **grouped}.items():
+    wide = {k: v for k, v in funcs.items() if "wide_tf32_attention_kernel" in k}
+    assert len(core) == 32 and len(grouped) == 4 and len(wide) == 8, (
+        sorted(core), sorted(grouped), sorted(wide))
+    for name, sass in {**core, **grouped, **wide}.items():
         hmma = [line.strip() for line in sass.splitlines() if "HMMA" in line]
         assert hmma and all("F32.TF32" in line for line in hmma), (name, hmma[:4])
         assert "LDGSTS" in sass, name
@@ -1501,6 +1535,12 @@ def test_fp32_attention_kernels_run_3xtf32_mma(device):
     assert blocks, "no fp32 block_kernel in the library"
     for name, sass in blocks.items():
         assert "HMMA.1688.F32.TF32" in sass and "LDGSTS" in sass, name
+    wide_bf16 = {k: v for k, v in funcs.items() if "wide_mma_attention_kernel" in k}
+    assert len(wide_bf16) == 8, sorted(wide_bf16)
+    for name, sass in wide_bf16.items():
+        hmma = [line.strip() for line in sass.splitlines() if "HMMA" in line]
+        assert hmma and all("F32.BF16" in line for line in hmma), (name, hmma[:4])
+        assert "LDGSTS" in sass, name
     old = [k for k in funcs if "attention_kernel" in k and "mma" not in k and "tf32" not in k]
     assert not old, old
 
