@@ -114,7 +114,10 @@ Phases (each raises on failure; nothing is caught):
       gallery cut to the images they name, on the CPU in fp32 with the
       plain versions: launch counts on the card, every CPU query's
       prediction card against CPU at cosine >= 0.99, and the recall dicts
-      of both;
+      of both; then `embed_gallery` over one of those galleries on the
+      card at prefetch 0 and 2, tokens kept: equal bit for bit, tokens on
+      the host, every batch copied from page-locked memory on the stage's
+      copy stream and none again inside the encode, each depth's seconds;
   13. the attention experiment (X1-X4, `ops/attn_experiment.py`, the
       port of `benchmarks/attn_experiment.py`) at its full shapes (the
       ViT-B-16 attention layer at B = 128: 12 heads of 64, 197 tokens,
@@ -405,7 +408,11 @@ from fashionern_aaai2024_tpu_torch.parallel import mesh as PM
 from fashionern_aaai2024_tpu_torch.parallel import multiprocess as MP
 from fashionern_aaai2024_tpu_torch.retrieval import artifact as ART
 from fashionern_aaai2024_tpu_torch.retrieval import evaluate as E
-from fashionern_aaai2024_tpu_torch.retrieval.engine import RetrievalIndex, sharded_search
+from fashionern_aaai2024_tpu_torch.retrieval.engine import (
+    RetrievalIndex,
+    embed_gallery,
+    sharded_search,
+)
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
 from fashionern_aaai2024_tpu_torch.retrieval.server import RetrievalService, serve
 from fashionern_aaai2024_tpu_torch.train.schedule import cosine_annealing_schedule
@@ -2910,10 +2917,10 @@ def phase_eval(card: str) -> dict:
     cpu_cirr = cpu_loaders(*cirr, CPU_QUERIES)
     log(f"  CPU leg: {CPU_QUERIES} queries of each evaluator over galleries of "
         f"{[sum(len(b['name']) for b in c) for c, _ in (*cpu_fiq.values(), cpu_cirr)]}")
-    runs = {}
+    runs, apis = {}, {}
     for dev, m, fiq_l, cirr_l in (("cuda", model, fiq, cirr),
                                   ("cpu", reference, cpu_fiq, cpu_cirr)):
-        api = InferenceAPI(m, tokenizer=tokenizer(), device=dev, batch_size=BATCH)
+        api = apis[dev] = InferenceAPI(m, tokenizer=tokenizer(), device=dev, batch_size=BATCH)
         reset_launches()
         t0 = time.perf_counter()
         with recorded_predictions() as preds:
@@ -2941,9 +2948,68 @@ def phase_eval(card: str) -> dict:
         f"{runs['cuda']['launches']} ({card})")
     if not torch.isfinite(cos).all() or cos.min() < 0.99:
         raise AssertionError("the card's evaluator predictions disagree with the CPU's")
+    pipeline = phase_gallery_pipeline(apis["cuda"], fiq[FIQ_TYPES[0]][0], card)
     return dict(card=runs["cuda"], cpu=runs["cpu"], launches=runs["cuda"]["launches"],
                 prediction_cosine_min=cos.min().item(),
-                prediction_cosine_median=cos.median().item())
+                prediction_cosine_median=cos.median().item(), gallery_pipeline=pipeline)
+
+
+def phase_gallery_pipeline(api: InferenceAPI, classic: list, card: str) -> dict:
+    """`embed_gallery` over one FashionIQ gallery (EVAL_GALLERY images in
+    batches of BATCH) on the card, serial (prefetch 0) and three deep
+    (prefetch 2), tokens kept: names equal; features, patches and tokens
+    bit for bit (the same kernels on the same batches), the tokens on the
+    host; the stage's counters (every batch's images and patches copied
+    from page-locked memory while the placer's stream, not the compute
+    stream, was current); and no second copy of an image batch to the
+    card inside the encode (each `InferenceAPI._to_device` call of the
+    encode takes a tensor already on the card). Each depth's seconds
+    (host clock, ending in a synchronize) are printed with no limit."""
+    real = api._to_device
+    inputs = collections.Counter()
+
+    def spy(a, dtype=None):
+        inputs["card" if isinstance(a, torch.Tensor) and a.is_cuda else "host"] += 1
+        return real(a, dtype)
+
+    runs = {}
+    for depth in (0, 2):
+        fn = api.gallery_encode_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(api, "_to_device", spy):
+            gallery = embed_gallery(fn, classic, api.batch_size, keep_tokens=True,
+                                    prefetch=depth)
+        torch.cuda.synchronize()
+        runs[depth] = (gallery, time.perf_counter() - t0, fn.place)
+    (serial, s0, p0), (deep, s2, p2) = runs[0], runs[2]
+    if serial.names != deep.names or len(deep.names) != EVAL_GALLERY:
+        raise AssertionError(f"gallery names differ between depths ({len(deep.names)} rows)")
+    for key in ("features", "local_features", "token_features"):
+        a, b = getattr(serial, key), getattr(deep, key)
+        if not torch.equal(a, b):
+            raise AssertionError(f"embed_gallery {key}: prefetch 2 differs from prefetch 0 by "
+                                 f"{(a.float() - b.float()).abs().max().item():.3e}")
+    if (deep.token_features.device.type != "cpu" or deep.features.device.type != "cuda"
+            or deep.local_features.device.type != "cuda"):
+        raise AssertionError("tokens must come to the host, features and patches stay on "
+                             "the card")
+    batches = len(classic)
+    compute = torch.cuda.current_stream()
+    for depth, place in ((0, p0), (2, p2)):
+        if place.batches != batches or place.copies != 2 * batches or place.stream == compute:
+            raise AssertionError(f"prefetch {depth}: the stage placed {place.batches} batches "
+                                 f"with {place.copies} page-locked copies on its stream "
+                                 f"(want {batches} and {2 * batches}, on a copy stream)")
+    if inputs["host"] or inputs["card"] != 2 * batches:
+        raise AssertionError(f"the encode copied {inputs['host']} host arrays to the card "
+                             f"(and took {inputs['card']} placed ones)")
+    log(f"  embed_gallery over {EVAL_GALLERY} images at B={BATCH}, tokens kept "
+        f"{tuple(deep.token_features.shape)} {deep.token_features.dtype}: prefetch 0 "
+        f"{s0:.3f} s, prefetch 2 {s2:.3f} s; equal bit for bit; {2 * batches} page-locked "
+        f"copies on the copy stream a depth, none in the encode ({card})")
+    return dict(seconds_prefetch0=s0, seconds_prefetch2=s2, batches=batches,
+                copies=p2.copies, token_shape=list(deep.token_features.shape))
 
 
 # --- phase 15: the dataset and CLI path ------------------------------------
@@ -4016,6 +4082,7 @@ WIDE_EDGES = ([(2, sq, 13, 1, 512) for sq in (1, 15, 16, 17, 33)]
               + [(2, 33, 256, 1, 1024), (3, 17, 13, 2, 192), (256, 13, 13, 1, 640)])
 # profiled calls a device time reads (after 5 warm-up calls)
 DEVICE_CALLS = 20
+PROFILE_WINDOWS = 3
 # the heads at ViT-B-16 width (d = 512), card against the port's CPU run in
 # fp32: every row's cosine (both run fp32 and differ only in summation
 # order); CompoDiff at JAX's defaults with dim 768 (ViT-L/14's, CompoDiff's
@@ -4050,21 +4117,28 @@ def device_pair_ms(kernel, library, calls: int = DEVICE_CALLS) -> tuple[float, f
     """Device ms of one call of `kernel` (the wide route's kernels) and of
     `library` (every other kernel of the window), from one
     `torch.profiler` window over `calls` calls of each, after 5 warm-up
-    calls of each."""
+    calls of each. A window in which the profiler recorded no kernel of
+    either side is taken again, up to PROFILE_WINDOWS in all (even a fresh
+    process has recorded none of the wide route's in one window), and
+    then it raises."""
     for _ in range(5):
         kernel()
         library()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            kernel()
-        for _ in range(calls):
-            library()
-        torch.cuda.synchronize()
-    times = [(e.key, e.device_time_total) for e in prof.key_averages()]
-    wide = sum(t for key, t in times if "wide_" in key)
-    other = sum(t for key, t in times if "wide_" not in key)
-    return wide / calls / 1e3, other / calls / 1e3
+    for _ in range(PROFILE_WINDOWS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kernel()
+            for _ in range(calls):
+                library()
+            torch.cuda.synchronize()
+        times = [(e.key, e.device_time_total) for e in prof.key_averages()]
+        wide = sum(t for key, t in times if "wide_" in key)
+        other = sum(t for key, t in times if "wide_" not in key)
+        if wide > 0 and other > 0:
+            return wide / calls / 1e3, other / calls / 1e3
+    raise RuntimeError(f"no profiler window of {PROFILE_WINDOWS} recorded kernels of both the "
+                       f"wide route and the library (the last: {wide} and {other} us)")
 
 
 def wide_instances() -> dict:

@@ -1,7 +1,8 @@
 """Host→device prefetch: double-buffered background transfer pipeline.
 
 A copy of `fashionern_aaai2024_tpu/data/prefetch.py`, kept in the port
-so that it imports nothing of the JAX package.
+so that it imports nothing of the JAX package; unlike it, closing the
+iterator joins the worker thread.
 
 The reference hides H2D behind compute with CUDA streams
 (`run/train/train_fiq.py:111-114`, `.to(device, non_blocking=True)` on
@@ -45,7 +46,10 @@ def prefetch_iter(
     passes items through (pure read-ahead). Exceptions in the worker
     surface in the consumer at the failing item's position. If the
     consumer abandons the iterator early (break / GC), the worker is
-    unblocked and exits — it never deadlocks on a full queue.
+    unblocked and exits — it never deadlocks on a full queue. Closing
+    the iterator (or its end, or a relayed exception) joins the worker,
+    so no thread outlives its consumer; the join waits at most for the
+    item the worker is preparing.
     """
     if depth <= 0:
         it = iter(iterable)
@@ -98,3 +102,5 @@ def prefetch_iter(
             yield item
     finally:
         stop.set()
+        if t is not threading.current_thread():  # a finalizer may run on the worker
+            t.join()

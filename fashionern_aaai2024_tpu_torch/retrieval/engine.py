@@ -1,22 +1,27 @@
 """Gallery embedding + retrieval index.
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/engine.py`:
-`names_to_ids` (`:27`), `GalleryFeatures`, `embed_gallery` (`:74`) and
-`RetrievalIndex` (`:136-235`), fp32 or int8 (`quantize=True`,
-`--quantize-gallery`), exact or approximate (`approx_recall`,
-`--topk-recall`, with `calibrate_approx`), with the name ids, top-k
-ids, member scores and row lookups the evaluators use. `embed_gallery`
-is serial here (the JAX version's prefetch thread is not ported).
-`sharded_search` (`:238-286`) is the top-k over a gallery row-sharded
-over a data-parallel mesh (`parallel/mesh.py`).
+`names_to_ids` (`:27`), `GalleryFeatures` (`:66-71`), `embed_gallery`
+(`:74-133`) and `RetrievalIndex` (`:136-235`), fp32 or int8
+(`quantize=True`, `--quantize-gallery`), exact or approximate
+(`approx_recall`, `--topk-recall`, with `calibrate_approx`), with the
+name ids, top-k ids, member scores and row lookups the evaluators use.
+`embed_gallery` runs JAX's three-deep pipeline on CUDA streams: a
+thread stages batches ahead of dispatch (`Placer`: pinned host memory,
+then a copy on a copy stream of its own), the main thread dispatches
+the encode once its stream has waited on the batch's copy, and the
+tokens' read-back trails dispatch by one batch. `sharded_search`
+(`:238-286`) is the top-k over a gallery row-sharded over a
+data-parallel mesh (`parallel/mesh.py`).
 
 Features stay on the model's device as fp32 tensors, so a query's
 reference-row gather and the search run there without a host round
-trip.
+trip; the tokens (`keep_tokens`) come to the host, as JAX's do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from typing import Callable, Iterable, Sequence
@@ -53,23 +58,159 @@ class GalleryFeatures:
     names: list[str]
     features: torch.Tensor                        # [N, d] global, fp32
     local_features: torch.Tensor | None = None    # [N, 13, d] patch features, fp32
+    token_features: torch.Tensor | None = None    # [N, S, w] tower tokens, on the host
 
 
-def embed_gallery(encode_image_fn: Callable, loader: Iterable[dict]) -> GalleryFeatures:
-    """Gallery pass. `loader` yields batches with "name", "image" and
-    optionally "patch" (numpy or tensors); `encode_image_fn` maps an
-    image batch to (global, tokens) tensors on the model's device."""
+@dataclasses.dataclass
+class PlacedBatch:
+    """One staged batch: the images (this rank's rows on a mesh) and the
+    patches on the placer's device, and the event of their copies (None
+    off the card)."""
+    images: torch.Tensor
+    patch: torch.Tensor | None
+    event: torch.cuda.Event | None
+
+    def ready(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The tensors, once the current stream has waited on their copy.
+        Each is marked as used by that stream, so the caching allocator
+        does not hand its block to the next copy while the encode reads
+        it."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.images.device)
+            stream.wait_event(self.event)
+            for t in (self.images, self.patch):
+                if t is not None:
+                    t.record_stream(stream)
+        return self.images, self.patch
+
+
+class Placer:
+    """`embed_gallery`'s stage: a loader batch's images and patches on
+    `device` (JAX `InferenceAPI._place`, `retrieval/evaluate.py:171-184`).
+
+    On a CUDA device each array is copied once into page-locked host
+    memory (strided views in, contiguous out; the patches as fp32), then to
+    the device with `non_blocking=True` on this placer's own stream, and
+    an event on that stream marks the batch. It runs on the prefetch
+    thread, which takes the device and the stream itself (both are
+    thread-local); nothing here depends on grad or inference mode. A
+    failed pin or copy raises: there is no pageable or serial fallback.
+    On the CPU the stage is `torch.as_tensor`.
+
+    `rows` (an n -> row-index function, `InferenceAPI._rank_rows`): only
+    those rows of the images are copied, this rank's part of a batch on a
+    mesh. `batches` counts the batches placed and `copies` the arrays
+    copied from page-locked memory while this placer's stream was
+    current."""
+
+    def __init__(self, device: torch.device | str,
+                 rows: Callable[[int], torch.Tensor] | None = None):
+        self.device = torch.device(device)
+        self.rows = rows
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.batches = self.copies = 0
+
+    def __call__(self, images, patch=None) -> PlacedBatch:
+        src = torch.as_tensor(images)
+        idx = None if self.rows is None else self.rows(src.shape[0])
+        self.batches += 1
+        if self.stream is None:
+            return PlacedBatch(src if idx is None else src[idx],
+                               None if patch is None else torch.as_tensor(patch).float(), None)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            img = self._copy(src, idx, src.dtype)
+            p = None if patch is None else self._copy(torch.as_tensor(patch), None, torch.float32)
+            return PlacedBatch(img, p, self.stream.record_event())
+
+    def _copy(self, src: torch.Tensor, idx: torch.Tensor | None, dtype: torch.dtype
+              ) -> torch.Tensor:
+        """`src` (its `idx` rows) -> page-locked host memory -> the device,
+        on the current stream (this placer's)."""
+        shape = src.shape if idx is None else (len(idx), *src.shape[1:])
+        host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        if idx is None:
+            host.copy_(src)
+        else:
+            torch.index_select(src, 0, idx, out=host)
+        out = host.to(self.device, non_blocking=True)
+        if host.is_pinned() and torch.cuda.current_stream(self.device) == self.stream:
+            self.copies += 1
+        return out
+
+
+def embed_gallery(encode_image_fn: Callable, loader: Iterable[dict],
+                  batch_size: int | None = None, keep_tokens: bool = False,
+                  prefetch: int = 2) -> GalleryFeatures:
+    """Gallery pass (JAX `engine.py:74-133`, the reference's
+    `extract_index_features`). `loader` yields batches with "name",
+    "image" and optionally "patch" (numpy or CPU tensors).
+
+    Three deep, as JAX's:
+      1. a thread (`data/prefetch.py prefetch_iter`) walks the loader and
+         stages each batch `prefetch` ahead: `encode_image_fn.place` (a
+         `Placer`, `InferenceAPI.gallery_encode_fn`) pins it and copies
+         it on a copy stream; a callable without `.place` gets the CPU
+         stage (host tensors);
+      2. the main thread makes its stream wait on the batch's copy and
+         dispatches `encode_image_fn` on the placed images (-> global
+         [>= n, d] and tokens, on the device; rows past the batch's n,
+         a mesh's padding, are dropped). Features and patches stay on
+         the device, so nothing syncs;
+      3. with `keep_tokens`, a batch's tokens are copied to page-locked
+         host memory behind its encode and collected after the next
+         batch is dispatched.
+    `prefetch=0` runs the stage inline: the serial feed. An exception in
+    the loader or the stage surfaces at its batch, and the thread has
+    stopped when this returns or raises. `batch_size` is JAX's
+    argument: JAX pads every batch to it; eager PyTorch runs each batch
+    at its own size, so the port does not read it."""
+    # imported here: the serve artifact's path imports this module and
+    # nothing of `data/` (tests/test_torch_artifact.py)
+    from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
+
+    del batch_size
+    place = getattr(encode_image_fn, "place", None) or Placer("cpu")
     names: list[str] = []
     feats: list[torch.Tensor] = []
     locals_: list[torch.Tensor] = []
-    for batch in loader:
-        g, _ = encode_image_fn(batch["image"])
-        names.extend(batch["name"])
-        feats.append(g.float())
-        if "patch" in batch:
-            locals_.append(torch.as_tensor(batch["patch"]).to(g.device, torch.float32))
-    return GalleryFeatures(names=names, features=torch.cat(feats),
-                           local_features=torch.cat(locals_) if locals_ else None)
+    tokens: list[torch.Tensor] = []
+    pending: tuple | None = None   # (host tokens, their copy's event)
+
+    def read_back(tok: torch.Tensor) -> tuple:
+        if not tok.is_cuda:
+            return tok, None
+        host = torch.empty(tok.shape, dtype=tok.dtype, pin_memory=True)
+        host.copy_(tok, non_blocking=True)
+        return host, torch.cuda.current_stream(tok.device).record_event()
+
+    def drain(entry: tuple) -> None:
+        host, event = entry
+        if event is not None:
+            event.synchronize()
+        tokens.append(host)
+
+    def stage(_, batch):
+        return batch, place(batch["image"], batch.get("patch")), len(batch["image"])
+
+    with contextlib.closing(prefetch_iter(loader, stage, depth=prefetch)) as feed:
+        for batch, placed, n in feed:
+            images, patch = placed.ready()
+            g, tok = encode_image_fn(images)
+            names.extend(batch["name"])
+            feats.append(g[:n].float())
+            if patch is not None:
+                locals_.append(patch)
+            if keep_tokens:
+                if pending is not None:
+                    drain(pending)
+                pending = read_back(tok[:n])
+    if pending is not None:
+        drain(pending)
+    return GalleryFeatures(
+        names=names,
+        features=torch.cat(feats) if feats else torch.zeros((0, 0), device=place.device),
+        local_features=torch.cat(locals_) if locals_ else None,
+        token_features=torch.cat(tokens) if tokens else None)
 
 
 class RetrievalIndex:

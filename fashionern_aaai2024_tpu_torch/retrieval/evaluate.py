@@ -2,7 +2,8 @@
 
 JAX counterpart: `fashionern_aaai2024_tpu/retrieval/evaluate.py`:
 `InferenceAPI` (`:39`: `encode_image`, `encode_text`, `query`,
-`refine_gallery`, `tokenize`, `gallery_encode_fn`), `last_wins_rows`,
+`refine_gallery`, `tokenize`, `gallery_encode_fn` with its `.place`
+stage, JAX `_place` at `:171-184`), `last_wins_rows`,
 and the evaluators of `:752-922`, the reference's `compute_*_val_metrics`
 pipelines: embed the gallery (global features and the 13 patch features
 of every item), tokenize the captions, run the text tower and the DVR
@@ -55,6 +56,7 @@ from fashionern_aaai2024_tpu_torch.parallel.mesh import (
 from fashionern_aaai2024_tpu_torch.retrieval import metrics as M
 from fashionern_aaai2024_tpu_torch.retrieval.engine import (
     GalleryFeatures,
+    Placer,
     RetrievalIndex,
     embed_gallery,
 )
@@ -110,11 +112,27 @@ class InferenceAPI:
     def _to_device(self, a, dtype: torch.dtype | None = None) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, dtype)
 
+    def _rank_rows(self, m: int) -> torch.Tensor:
+        """The rows of an m-row slice this rank encodes on the mesh: the
+        contiguous part [r · per, (r + 1) · per), per = ceil(m / size),
+        padded to per rows by repeating its last row (a rank past the
+        slice's rows takes its last row)."""
+        per = -(-m // self.mesh.size)
+        lo, hi = min(self.mesh.rank * per, m), min((self.mesh.rank + 1) * per, m)
+        idx = torch.arange(lo, hi) if hi > lo else torch.tensor([m - 1])
+        return torch.cat([idx, idx[-1:].expand(per - len(idx))])
+
+    def _gather(self, res):
+        """A rank's outputs (a tensor or a tuple) -> every rank's, in rank
+        order, on every rank."""
+        gathered = tuple(all_gather_rows(self.mesh, r.contiguous())
+                         for r in (res if isinstance(res, tuple) else (res,)))
+        return gathered if isinstance(res, tuple) else gathered[0]
+
     def _map(self, fn: Callable, n: int, *arrays, chunk: int | None = None) -> list:
         """`fn` over slices of `chunk` (default batch_size) rows of the
-        arrays, as device tensors. On a mesh each slice is padded to a
-        multiple of the mesh size (repeating its last row), each rank runs
-        `fn` on its contiguous part, and an all-gather gives every rank
+        arrays, as device tensors. On a mesh each rank runs `fn` on its
+        rows of a slice (`_rank_rows`), and an all-gather gives every rank
         the slice's outputs. -> the outputs of every slice, in order."""
         step = chunk or self.batch_size
         out = []
@@ -123,19 +141,10 @@ class InferenceAPI:
             if self.mesh is None:
                 out.append(fn(*xs))
                 continue
-            m, size = len(xs[0]), self.mesh.size
-            per = -(-m // size)
-            lo, hi = min(self.mesh.rank * per, m), min((self.mesh.rank + 1) * per, m)
-            local = []
-            for x in xs:
-                t = torch.as_tensor(x)[lo:hi] if hi > lo else torch.as_tensor(x)[m - 1:m]
-                if t.shape[0] < per:
-                    t = torch.cat([t, t[-1:].expand(per - t.shape[0], *t.shape[1:])])
-                local.append(t)
-            res = fn(*local)
-            gathered = tuple(all_gather_rows(self.mesh, r.contiguous())[:m]
-                             for r in (res if isinstance(res, tuple) else (res,)))
-            out.append(gathered if isinstance(res, tuple) else gathered[0])
+            m = len(xs[0])
+            idx = self._rank_rows(m)
+            res = self._gather(fn(*(torch.as_tensor(x)[idx] for x in xs)))
+            out.append(tuple(r[:m] for r in res) if isinstance(res, tuple) else res[:m])
         return out
 
     @torch.inference_mode()
@@ -203,9 +212,22 @@ class InferenceAPI:
         return self._tokenizer(captions, self.context_length)
 
     def gallery_encode_fn(self) -> Callable:
-        """The image encoder `engine.embed_gallery` takes: an image batch
-        -> (global, tokens) on the API's device."""
-        return self.encode_image
+        """The image encoder `engine.embed_gallery` takes (JAX
+        `evaluate.py:735-742`): placed images -> (global, tokens) on the
+        API's device. Its `.place` (`engine.Placer`) stages a batch on this
+        device ahead of dispatch; on a mesh it copies only this rank's rows
+        (`_rank_rows`), which the encode takes as they are, and the
+        outputs are the all-gathered [size · per] rows (the engine keeps
+        the batch's first n)."""
+        if self.mesh is None:
+            def fn(images):
+                return self.encode_image(images)
+        else:
+            @torch.inference_mode()
+            def fn(local: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                return self._gather(self.model.encode_image(local))
+        fn.place = Placer(self.device, None if self.mesh is None else self._rank_rows)
+        return fn
 
     def build_serve_fn(self, gallery_features, k_max: int = 50,
                        buckets: Sequence[int] = (1, 8, 32), patch_num: int = 13,
@@ -676,7 +698,7 @@ def evaluate_fiq_split(api: InferenceAPI, classic_loader: Iterable[dict],
     """One dress type (the reference's `compute_fiq_val_metrics`,
     `validate_fiq.py:11-47`); also the VAL protocol with its longer K
     list (`test_val.py:58-67`)."""
-    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
     preds, meta = generate_predictions(api, relative_loader, fiq_caption_fn, gallery,
                                        collect=("tar_name",))
     index, topk_ids = _search_ids(api, gallery, preds, max(ks))
@@ -688,7 +710,7 @@ def evaluate_fiq_split(api: InferenceAPI, classic_loader: Iterable[dict],
 
 def evaluate_shoes(api: InferenceAPI, classic_loader: Iterable[dict],
                    relative_loader: Iterable[dict]) -> dict:
-    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
     preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
                                        collect=("tar_name",))
     index, topk_ids = _search_ids(api, gallery, preds, 50)
@@ -699,7 +721,7 @@ def evaluate_fashion200k(api: InferenceAPI, classic_loader: Iterable[dict],
                          relative_loader: Iterable[dict]) -> dict:
     """Gallery names are caption ids: duplicate ids encode the
     multi-positive semantics (`test_200k.py:53-60`)."""
-    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
     preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
                                        collect=("tar_id",), ref_key="ref_id")
     index, topk_ids = _search_ids(api, gallery, preds, 50)
@@ -711,7 +733,7 @@ def evaluate_cirr(api: InferenceAPI, classic_loader: Iterable[dict],
     """The CIRR suite on the val split: R@K with the reference image
     dropped from the ranking, and subset recall among the 6 group
     members (`validate_cirr.py:11-126`)."""
-    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
     preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
                                        collect=("tar_name", "ref_name", "group_members"))
     index, topk_ids = _search_ids(api, gallery, preds, 51)
@@ -727,7 +749,7 @@ def generate_cirr_submission(api: InferenceAPI, classic_loader: Iterable[dict],
     """CIRR test1 split, whose targets are unpublished: the official
     submission payloads, per pair_id the top-50 gallery names (reference
     image removed) and the top-3 among the group members."""
-    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+    gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
     preds, meta = generate_predictions(api, relative_loader, plain_caption_fn, gallery,
                                        collect=("pair_id", "ref_name", "group_members"))
     refined = api.refine_gallery(gallery.features, gallery.local_features)

@@ -128,7 +128,7 @@ class RetrievalService(_ServiceBase):
         self.image_spec = image_spec or {}
         self.add_root = add_root
         t0 = time.perf_counter()
-        self.gallery = embed_gallery(api.gallery_encode_fn(), classic_loader)
+        self.gallery = embed_gallery(api.gallery_encode_fn(), classic_loader, api.batch_size)
         self._refined = api.refine_gallery(self.gallery.features, self.gallery.local_features)
         self.index = RetrievalIndex(self.gallery.names, self._refined,
                                     quantize=api.quantize_gallery,

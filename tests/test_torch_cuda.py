@@ -78,6 +78,9 @@ by UTMALDG.
 The data path: a dataset batch of the uint8 feed normalized on
 the card equals the CPU's float feed bit for bit, and `PatchExtractor`
 over a small seeded ViT on the card holds the CPU's features at 1e-4.
+The gallery pipeline (`embed_gallery`): three batches staged ahead equal
+the serial feed bit for bit over 64 batches, and a placed batch comes
+from page-locked memory on the stage's own stream.
 
 The attention experiment's X1-X4 (`ops/attn_experiment.py`) at its own
 shapes at batch 2 to 4, at the tolerances above: X1 (the grouped kernel)
@@ -1853,6 +1856,77 @@ def test_extract_patches_card_against_cpu(device, tmp_path):
     got, want = feats[str(device)], feats["cpu"]
     assert got.shape == (3, 13, 24)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# --- the gallery pipeline (retrieval/engine.py embed_gallery, Placer) -------------
+
+
+def _gallery_api(device):
+    """A small seeded fp32 ViT (image 32, 2 layers of 128, d = 24) on the
+    card, its image tower on B1-B3 and B11."""
+    from fashionern_aaai2024_tpu_torch.models.clip import config as C
+    from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+    from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
+
+    cfg = C.CLIPConfig(name="gallery-small", vision=C.VisionConfig(
+        kind="vit", image_size=32, embed_dim=24, width=128, layers=2, heads=2, patch_size=16),
+        text=C.TextConfig(vocab_size=100, context_length=16, width=64, heads=2, layers=2,
+                          embed_dim=24))
+    model = random_init_(ComposedCIRModel(cfg), torch.Generator().manual_seed(0))
+    return InferenceAPI(model, tokenizer=None, device=device, batch_size=4, context_length=16)
+
+
+def _gallery_batches(n, seed):
+    g = np.random.default_rng(seed)
+    return [{"name": [f"b{i}-{j}" for j in range(4)],
+             "image": g.random((4, 32, 32, 3), dtype=np.float32),
+             "patch": g.standard_normal((4, 13, 24)).astype(np.float32)} for i in range(n)]
+
+
+def test_gallery_pipeline_three_deep_equals_the_serial_feed(device):
+    """`embed_gallery` at prefetch 3 over 64 batches equals prefetch 0 bit
+    for bit (tokens kept): with a warm allocator and three batches staged
+    ahead, a placed batch not marked for the compute stream
+    (`record_stream`) would be read after its block went to a later copy.
+    Every batch's images and patches were copied from page-locked memory
+    on the stage's stream."""
+    from fashionern_aaai2024_tpu_torch.retrieval.engine import embed_gallery
+
+    api = _gallery_api(device)
+    batches = _gallery_batches(64, seed=0)
+    serial = embed_gallery(api.gallery_encode_fn(), batches, 4, keep_tokens=True, prefetch=0)
+    fn = api.gallery_encode_fn()
+    deep = embed_gallery(fn, batches, 4, keep_tokens=True, prefetch=3)
+    assert deep.names == serial.names and len(deep.names) == 256
+    for key in ("features", "local_features", "token_features"):
+        torch.testing.assert_close(getattr(deep, key), getattr(serial, key), atol=0, rtol=0,
+                                   msg=key)
+    assert deep.features.is_cuda and deep.local_features.is_cuda
+    assert deep.token_features.device.type == "cpu"
+    assert fn.place.batches == 64 and fn.place.copies == 128
+    want = torch.from_numpy(np.concatenate([b["patch"] for b in batches])).to(device)
+    torch.testing.assert_close(deep.local_features, want, atol=0, rtol=0)
+
+
+def test_a_placed_batch_comes_from_page_locked_memory_on_the_copy_stream(device):
+    """`.place` on a strided numpy view: its values on the card, copied
+    from page-locked memory while the placer's own stream (not the
+    caller's) was current, with an event that `ready` makes the caller's
+    stream wait on; the patches as fp32."""
+    api = _gallery_api(device)
+    place = api.gallery_encode_fn().place
+    g = np.random.default_rng(1)
+    images = g.random((5, 32, 64, 3), dtype=np.float32)[:, :, ::2]
+    patch = g.standard_normal((5, 13, 24))
+    placed = place(images, patch)
+    assert place.stream is not None and place.stream != torch.cuda.current_stream()
+    assert place.batches == 1 and place.copies == 2 and placed.event is not None
+    got, got_patch = placed.ready()
+    assert got.is_cuda and got_patch.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), torch.from_numpy(np.ascontiguousarray(images)),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(got_patch.cpu(), torch.from_numpy(patch).float(), atol=0,
+                               rtol=0)
 
 
 # --- the serve program as CUDA graphs (retrieval/evaluate.py ServeFn) -----------

@@ -160,7 +160,7 @@ def test_predictions_and_index_match_jax(apis):
     items = _gallery(names, seed=12)
     relative = _fiq_items(names, 16, 17)
     jg = JEng.embed_gallery(jax_api.gallery_encode_fn(), JaxLoader(items, 8, num_workers=0), 8)
-    tg = TEng.embed_gallery(port_api.gallery_encode_fn(), Loader(items, 8, num_workers=0))
+    tg = TEng.embed_gallery(port_api.gallery_encode_fn(), Loader(items, 8, num_workers=0), 8)
     want, jmeta = JE.generate_predictions(jax_api, JaxLoader(relative, 8, num_workers=0),
                                           JE.fiq_caption_fn, jg, collect=("tar_name",))
     got, tmeta = TE.generate_predictions(port_api, Loader(relative, 8, num_workers=0),

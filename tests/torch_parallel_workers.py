@@ -93,6 +93,36 @@ def api_rank(mesh, cfg, model_path: str, inputs: dict) -> dict:
     return out
 
 
+def gallery_rank(mesh, cfg, model_path: str, items: list) -> dict:
+    """`embed_gallery` (prefetch 2, tokens kept) through the mesh API and
+    the unsharded one over the same items at batch 4, and the image rows
+    each batch's `.place` copied on this rank."""
+    from fashionern_aaai2024_tpu_torch.data.loader import Loader
+    from fashionern_aaai2024_tpu_torch.retrieval.engine import embed_gallery
+    from fashionern_aaai2024_tpu_torch.retrieval.evaluate import InferenceAPI
+
+    model = load_model(cfg, model_path)
+    out = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        api = InferenceAPI(model, tokenizer=crc_tokenizer, device="cpu", batch_size=4,
+                           context_length=16, mesh=m)
+        fn = api.gallery_encode_fn()
+        placed = []
+
+        def recording(images, patch=None, place=fn.place, placed=placed):
+            p = place(images, patch)
+            placed.append(_np(p.images))
+            return p
+
+        fn.place = recording
+        g = embed_gallery(fn, Loader(items, 4, num_workers=0), 4, keep_tokens=True,
+                          prefetch=2)
+        out[name] = {"names": g.names, "features": _np(g.features),
+                     "tokens": _np(g.token_features), "locals": _np(g.local_features),
+                     "placed": placed}
+    return out
+
+
 def serve_rank(mesh, cfg, model_path: str, arrays: dict, flags: dict, ids: np.ndarray,
                rows: np.ndarray, k: int) -> dict:
     """Rank 0: the sharded program's answers (and the unsharded
