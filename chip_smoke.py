@@ -75,7 +75,14 @@ Phases (each raises on failure; nothing is caught):
      (1024, 512), (1000, 512), (13, 24) and (1024, 640), fp32, with the
      same timings, bursts beside `F.cross_entropy` over the logits (its
      library call), and a TF32 bound (3xTF32) beside the 67 TFLOP/s one;
-  8. the int8 train slice: 2 steps of `Trainer.train()` at B = 1024 with
+  8. the seeded init, then the int8 train slice: the package's default
+     init (the JAX package's `ComposedCIRModel.init` under
+     `PRNGKey(seed)`, `models/composed.py jax_init_`) of ViT-B-16 with
+     TME drawn on the card and timed, a sample of its variables (one of
+     each initializer, a few million values) drawn again on the CPU and
+     held to the card's within 4 float32 ulps; then a default Trainer
+     (its own seeded init, built on the card, held tensor for tensor to
+     that draw) takes 2 steps of `Trainer.train()` at B = 1024 with
      `quantize_towers=True`, launch counts and step times;
   9. the train slice: ViT-B-16 at full width, seeded weights, the bf16
      train policy, B = 1024, lr 4e-5 (the recipe, `cli/main.py:64-65`):
@@ -145,7 +152,9 @@ Phases (each raises on failure; nothing is caught):
       (`python -m fashionern_aaai2024_tpu_torch.cli.main`, run as `-m`
       runs it, in subprocesses that write their kernel launch counts at
       exit): soak legs B (learnable FashionIQ) and C (learnable CIRR) of
-      `benchmarks/accuracy_soak.py`, each `make-fixture --learnable` (64
+      `benchmarks/accuracy_soak.py`, each from the CLI's default init (the
+      JAX package's seeded init, seed 7, drawn on the card in every CLI
+      process), each `make-fixture --learnable` (64
       images a type, 128 triplets) -> untrained `eval --seed 7` -> `train`
       at ViT-B-16, B = 16, 11 epochs (the soak's 15, cut to keep the run
       under 900 s), validation every epoch, the uint8
@@ -155,8 +164,9 @@ Phases (each raises on failure; nothing is caught):
       host time of `load_and_preprocess` per decode route (a fixture PNG
       and the same pixels as a JPEG), and `extract-patches` on 4 fixture
       images: the CLI on the card (fp32), and the tool's extractor with
-      the CLI's model on the card under the bf16 policy and on the CPU in
-      fp32 (plain versions), each card crop's feature at cosine >= 0.99
+      the CLI's model (drawn on the card) under the bf16 policy and a copy
+      of it on the CPU in fp32 (plain versions), each card crop's feature
+      at cosine >= 0.99
       against the CPU's. Every kernel the legs run (B1-B4, B7, B8, B10-B12)
       must have launched; their counts go into the kernels line
       (`launches_by_path["cli_legs"]`). The legs skip the soak's steps
@@ -352,6 +362,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import os
 import random
 import signal
@@ -384,6 +395,8 @@ from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import (
     write_bpe_table,
 )
 from fashionern_aaai2024_tpu_torch.native import image as native_image
+from fashionern_aaai2024_tpu_torch.models import convert as Conv
+from fashionern_aaai2024_tpu_torch.models import init as Init
 from fashionern_aaai2024_tpu_torch.models import zoo as TZ
 from fashionern_aaai2024_tpu_torch.models.composed import (
     ComposedCIRModel,
@@ -601,6 +614,10 @@ PEAK_INT8_OPS = 1979e12
 # min 0.99960 over five runs, so held at 0.999)
 INT8_COSINE_MIN = 0.999
 INT8_TRAIN_STEPS = 2
+# phase 8's seeded init: the seed (also its Trainers'), and the largest
+# variable of the sample drawn again on the CPU
+INIT_SEED = 0
+INIT_SAMPLE_MAX = 2_500_000
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core and fp32
 # CUDA-core rates, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -2759,8 +2776,88 @@ def topk_overlap(a: list, b: list) -> float:
     return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
 
 
-def phase_int8_train(card: str, model_name: str = "ViT-B-16") -> dict:
-    """2 steps of Trainer.train() at B = 1024 with int8 frozen towers."""
+def init_sample(table: list) -> list:
+    """The variables whose CPU draw phase 8 holds the card's to: for each
+    initializer of `table`, its largest variable of at most
+    INIT_SAMPLE_MAX values."""
+    by_kind: dict = {}
+    for v in table:
+        kind = json.dumps(v.init, sort_keys=True)
+        if math.prod(v.shape) <= INIT_SAMPLE_MAX and (
+                kind not in by_kind or math.prod(v.shape) > math.prod(by_kind[kind].shape)):
+            by_kind[kind] = v
+    return list(by_kind.values())
+
+
+def tree_leaf(tree: dict, v) -> torch.Tensor:
+    node = tree[v.collection]
+    for name in v.path:
+        node = node[name]
+    return node
+
+
+def phase_seeded_init(card: str) -> tuple[dict, dict]:
+    """The package's seeded init (the JAX package's `ComposedCIRModel.init`,
+    `models/composed.py jax_init_`) of ViT-B-16 with TME at INIT_SEED,
+    drawn on the card and timed; a sample of its variables (every
+    initializer) drawn again on the CPU, held to the card's draw within 4
+    float32 ulps. Returns the phase's numbers and the card's tree, which
+    phase 8's Trainer (without TME, seed INIT_SEED) must hold."""
+    cfg = get_clip_config("ViT-B-16", activation="quick_gelu", tme=True)
+    with torch.device("meta"):
+        table = ComposedCIRModel(cfg).flax_variables()
+    values = sum(math.prod(v.shape) for v in table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = Init.variables(table, INIT_SEED, "cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    rows, cpu_s = [], 0.0
+    for v in init_sample(table):
+        t0 = time.perf_counter()
+        want = Init.initialize(v.init, Init.variable_key(INIT_SEED, v), v.shape, "cpu").numpy()
+        cpu_s += time.perf_counter() - t0
+        got = tree_leaf(tree, v).cpu().numpy()
+        ulps = np.where(got == want, 0.0, np.abs(got.astype(np.float64) - want)
+                        / np.spacing(np.abs(want)))
+        rows.append(dict(path=f"{v.collection}/{'/'.join(v.path)}", init=v.init,
+                         values=int(want.size), max_ulps=float(ulps.max()),
+                         equal=float(np.mean(got == want))))
+        if not ulps.max() <= 4:
+            raise AssertionError(f"seeded init: {rows[-1]['path']} drawn on the card is "
+                                 f"{ulps.max():.1f} ulps from the CPU's draw (> 4)")
+    sample = sum(r["values"] for r in rows)
+    log(f"  seeded init of ViT-B-16 + TME (the JAX package's, seed {INIT_SEED}): {values:,} "
+        f"values in {len(table)} variables drawn on the card in {draw_s:.3f} s ({card}); "
+        f"{len(rows)} variables ({sample:,} values, every initializer) drawn again on the "
+        f"CPU in {cpu_s:.2f} s: max {max(r['max_ulps'] for r in rows):.0f} ulps, "
+        f"{np.mean([r['equal'] for r in rows]):.6f} of them equal")
+    return dict(model="ViT-B-16+TME", seed=INIT_SEED, variables=len(table), values=values,
+                draw_seconds=draw_s, sample=rows, sample_values=sample,
+                cpu_sample_seconds=cpu_s), tree
+
+
+def hold_trainer_init(model: ComposedCIRModel, tree: dict) -> int:
+    """Every weight of a default Trainer's model (the card's draw, then its
+    casts) equals the card's draw of the same variables, cast alike;
+    returns the count of tensors held."""
+    want = Conv.state_dict_from_variables(tree, model.clip_config)   # TME's entries unread
+    got = model.state_dict()
+    held = 0
+    for k, t in got.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if not torch.equal(t, want[k].to(t.device, t.dtype)):
+            raise AssertionError(f"the default Trainer's {k} is not the seeded init's")
+        held += 1
+    return held
+
+
+def phase_int8_train(card: str, model_name: str = "ViT-B-16",
+                     expect_init: dict | None = None) -> dict:
+    """2 steps of Trainer.train() at B = 1024 with int8 frozen towers (the
+    Trainer's own seeded init, held to `expect_init`'s draw where
+    given)."""
     cfg = get_clip_config(model_name, activation="quick_gelu", quantize_mlp=True)
     g = np.random.default_rng(5)
     side = cfg.vision.image_size
@@ -2773,14 +2870,22 @@ def phase_int8_train(card: str, model_name: str = "ViT-B-16") -> dict:
                            activation="quick_gelu", batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                            num_epochs=1, print_frequency=1,
                            max_steps_per_epoch=INT8_TRAIN_STEPS, num_workers=0,
-                           precision="bf16", image_dtype="uint8", ckpt_dir=ckpt_dir, seed=0,
-                           quantize_towers=True)
+                           precision="bf16", image_dtype="uint8", ckpt_dir=ckpt_dir,
+                           seed=INIT_SEED, quantize_towers=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         trainer = Trainer(tcfg, device="cuda", train_dataset=dataset,
                           plugin=DatasetPlugin("synthetic-fashioniq", lambda c: dataset,
                                                _fiq_captions),
                           tokenizer=tokenizer())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
         if not trainer.model.clip_config.quantize_mlp:
             raise AssertionError("quantize_towers did not build int8 towers")
+        held = hold_trainer_init(trainer.model, expect_init) if expect_init else 0
+        log(f"  {model_name} Trainer built with its seeded init on the card in {build_s:.2f} s"
+            + (f"; its {held} tensors equal the phase's draw (CLIP cast to bf16)"
+               if held else ""))
         times, losses = [], []
         inner = trainer.step_fn
 
@@ -2807,7 +2912,8 @@ def phase_int8_train(card: str, model_name: str = "ViT-B-16") -> dict:
         f"{[round(1e3 * t, 2) for t in times]} ms (the second: "
         f"{TRAIN_BATCH / times[-1]:.1f} samples/s); launches {launches} ({card})")
     return dict(losses=losses, step_seconds=times, launches=launches,
-                samples_per_s_step2=TRAIN_BATCH / times[-1])
+                samples_per_s_step2=TRAIN_BATCH / times[-1], build_seconds=build_s,
+                init_tensors_held=held)
 
 
 def phase_tokenizer() -> dict:
@@ -3093,9 +3199,12 @@ def phase_extract(root: str, work: str, command) -> dict:
         "extract-patches --device cuda", command=command)
     feats["cli_cuda"] = np.load(os.path.join(out_dir, "pack.npy"))
     paths = [p for p, _ in Extract.enumerate_image_dir(work)]
-    for label, device, precision in (("cuda_bf16", "cuda", "bf16"), ("cpu", "cpu", "fp32")):
-        model = Cli.load_model_variables(get_clip_config("ViT-B-16"), None, None, 13)
-        model = apply_precision(model, precision).to(device).eval()
+    # the CLI's model (seed 42's init, drawn on the card), and a copy on the CPU
+    seeded = Cli.load_model_variables(get_clip_config("ViT-B-16"), None, None, 13,
+                                      device="cuda")
+    for label, device, precision in (("cpu", "cpu", "fp32"), ("cuda_bf16", "cuda", "bf16")):
+        model = copy.deepcopy(seeded).cpu() if device == "cpu" else seeded
+        model = apply_precision(model, precision).eval()
 
         @torch.inference_mode()
         def encode(crops):
@@ -3105,6 +3214,7 @@ def phase_extract(root: str, work: str, command) -> dict:
         feats[label] = Extract.PatchExtractor(encode, 224, EXTRACT_IMAGES).extract_batch(paths)
         seconds[label] = time.perf_counter() - t
         del model
+    del seeded
     want = torch.from_numpy(feats["cpu"]).reshape(-1, feats["cpu"].shape[-1])
     cos = {k: float(cosine(torch.from_numpy(feats[k]).reshape(want.shape), want).min())
            for k in ("cli_cuda", "cuda_bf16")}
@@ -4728,8 +4838,12 @@ def main() -> None:
     del int8_api
     phase(7, f"{B4} against its plain version ({card})")
     bbc_rows = phase_bbc()
-    phase(8, f"the int8 train slice, B={TRAIN_BATCH}, quantize_towers ({card})")
-    int8_train = phase_int8_train(card)
+    phase(8, f"the seeded init, then the int8 train slice, B={TRAIN_BATCH}, "
+             f"quantize_towers ({card})")
+    seeded_init, init_tree = phase_seeded_init(card)
+    int8_train = phase_int8_train(card, expect_init=init_tree)
+    del init_tree
+    torch.cuda.empty_cache()
     phase(9, f"the train slice, ViT-B-16, bf16 towers, B={TRAIN_BATCH} ({card})")
     train = phase_train(card)
     phase(10, f"the RN50x4 serve slice, bf16 towers ({card})")
@@ -4913,6 +5027,7 @@ def main() -> None:
                            bbc_rows=bbc_rows, slice=slice_info, timings=timings, train=train,
                            int8_kernel_rows=int8_rows, int8_slice=int8_info,
                            int8_timings=int8_timings, int8_train=int8_train,
+                           seeded_init=seeded_init,
                            rn50x4_slice=rn_info, rn50x4_timings=rn_timings,
                            block_kernel_rows=block_rows, block_gradients=block_grad,
                            tokenizer=tokenizer_info, evaluation=eval_info,

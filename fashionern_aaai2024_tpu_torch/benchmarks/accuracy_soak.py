@@ -34,15 +34,9 @@ signal: its curve is a noise floor), B learnable FashionIQ, C learnable
 CIRR, D learnable Fashion200k (`--validate-200k`, multi-positive
 protocol), E learnable FashionIQ with `--tme`.
 
-`--jax-init RECIPE` starts a leg from the JAX package's whole seeded
-init (both CLIP towers and the ERN, drawn again without JAX by
-`benchmarks/flax_init.py` from a recipe that `tests/jax_init_recipe.py`
-writes) where the leg would otherwise take the port's seeded draw: the
-evals, the export and the live service read its towers as a CLIP
-checkpoint (`--clip-path`) and the untrained eval its ERN as a fusion
-checkpoint, and train resumes from a step-0 train state that holds both
-(`--resume`). A TME recipe serves the vanilla legs too (its TME tensors
-left out).
+Every leg starts from the JAX package's seeded init at seed 7 (both
+CLIP towers and the ERN, `models/composed.py jax_init_`), the CLI's
+default init, as the JAX soak's legs do.
 
 Run (on the card, from the repo root):
     python -m fashionern_aaai2024_tpu_torch.benchmarks.accuracy_soak --legs B,C \\
@@ -166,52 +160,9 @@ def last_json(stdout: str, tag: str) -> dict:
     raise RuntimeError(f"{tag}: no JSON line in the output")
 
 
-def write_init(work: str, model: str, tme: bool, jax_init: str, seed: int = 7) -> dict:
-    """The init of the recipe `jax_init` as a step-0 train state
-    (`<work>/init-resume`, the split layout), a fusion checkpoint
-    (`<work>/init-ern`, with its sidecar) and a CLIP checkpoint
-    (`<work>/init-clip.pt`); returns their paths."""
-    import torch
-
-    from fashionern_aaai2024_tpu_torch.benchmarks import flax_init
-    from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
-    from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel
-    from fashionern_aaai2024_tpu_torch.train.checkpoint import save_params, save_state
-    from fashionern_aaai2024_tpu_torch.train.state import create_train_state
-
-    with open(jax_init) as f:
-        recipe = json.load(f)
-    if recipe["model"] != model or (tme and not recipe["tme"]):
-        raise ValueError(f"{jax_init} is the init of {recipe['model']}"
-                         f"{' + TME' if recipe['tme'] else ''}, the leg runs {model}"
-                         f"{' + TME' if tme else ''}")
-    m = ComposedCIRModel(get_clip_config(model, tme=True if tme else None))
-    own = m.state_dict()
-    sd = {k: v for k, v in flax_init.state_dict(recipe).items()
-          if k in own or not k.startswith("ern.TME.")}
-    missing = [k for k in own if k not in sd and not k.endswith("attn_mask")]
-    unknown = [k for k in sd if k not in own]
-    if missing or unknown:
-        raise KeyError(f"{jax_init}: missing {missing[:10]}, unknown {unknown[:10]}")
-    m.load_state_dict(sd, strict=False)
-    os.makedirs(work, exist_ok=True)
-    paths = {"resume": os.path.join(work, "init-resume"),
-             "ern": os.path.join(work, "init-ern"),
-             "clip": os.path.join(work, "init-clip.pt")}
-    save_state(paths["resume"], create_train_state(m, seed))
-    with open(paths["resume"] + ".meta.json", "w") as f:
-        json.dump({"clip_from_checkpoint": True}, f)
-    save_params(paths["ern"], m.ern.state_dict())
-    with open(paths["ern"] + ".meta.json", "w") as f:
-        json.dump({"init_seed": seed, "clip_model_name": model, "tme": tme,
-                   "clip_from_checkpoint": True}, f)
-    torch.save(m.clip.state_dict(), paths["clip"])
-    return paths
-
-
 def run_leg(leg: str, work: str, *, model: str = "ViT-B-16", n_images: int = 64,
             n_triplets: int = 128, batch: int = 16, epochs: int = 15, device: str = "cuda",
-            min_gain: float = 0.0, jax_init: str | None = None, artifact: bool = True,
+            min_gain: float = 0.0, artifact: bool = True,
             command: Callable = cli_command) -> dict:
     """One leg in `work` (a fresh directory); returns its summary and
     raises if a check fails."""
@@ -231,19 +182,15 @@ def run_leg(leg: str, work: str, *, model: str = "ViT-B-16", n_images: int = 64,
     _, seconds["fixture"] = run_cli(
         ["make-fixture", "--dataset", dataset, "--out", root, *sizing]
         + (["--learnable"] if learnable else []), f"leg {leg} fixture", command=command)
-    init = write_init(work, model, tme, jax_init) if jax_init else None
-    towers = ["--clip-path", init["clip"]] if init else []
-    start = (["--fusion-model-path", init["ern"], *towers] if init else ["--seed", "7"])
     out, seconds["untrained_eval"] = run_cli(
-        ["eval", *common, "--batch-size", "32", "--split", "val", *start, "--json"],
+        ["eval", *common, "--batch-size", "32", "--split", "val", "--seed", "7", "--json"],
         f"leg {leg} untrained eval", command=command)
     untrained = last_json(out, "untrained eval")
     _, seconds["train"] = run_cli(
         ["train", *common, "--batch-size", str(batch), "--num-epochs", str(epochs),
          "--validation-frequency", "1", "--validation-bs", "32", "--image-dtype", "uint8",
          "--ckpt-dir", ckpt, "--print-frequency", "5", "--log-path", log_path, "--seed", "7"]
-        + (["--validate-200k"] if dataset == "fashion200k" else [])
-        + (["--resume", init["resume"]] if init else []),
+        + (["--validate-200k"] if dataset == "fashion200k" else []),
         f"leg {leg} train", command=command)
     with open(log_path) as f:
         records = [json.loads(line) for line in f]
@@ -254,18 +201,18 @@ def run_leg(leg: str, work: str, *, model: str = "ViT-B-16", n_images: int = 64,
         sidecar = json.load(f)
     out, seconds["trained_eval"] = run_cli(
         ["eval", *common, "--batch-size", "32", "--split", "val", "--fusion-model-path",
-         best_path, *towers, "--json"], f"leg {leg} trained eval", command=command)
+         best_path, "--json"], f"leg {leg} trained eval", command=command)
     trained = last_json(out, "trained eval")
     vs_live = None
     if artifact:
         art_dir = os.path.join(work, "artifact")
         _, seconds["export"] = run_cli(
             ["export", *common, "--batch-size", "32", "--split", "val", "--fusion-model-path",
-             best_path, *towers, "--precision", "fp32", "--out", art_dir], f"leg {leg} export",
+             best_path, "--precision", "fp32", "--out", art_dir], f"leg {leg} export",
             command=command)
         out, seconds["artifact_vs_live"] = run_cli(
             [art_dir, *common, "--batch-size", "32", "--split", "val", "--fusion-model-path",
-             best_path, *towers, "--precision", "fp32"], f"leg {leg} artifact vs live",
+             best_path, "--precision", "fp32"], f"leg {leg} artifact vs live",
             command=step_command)
         vs_live = last_json(out, "artifact vs live")
     summary = {
@@ -274,7 +221,6 @@ def run_leg(leg: str, work: str, *, model: str = "ViT-B-16", n_images: int = 64,
         "train": {"steps": steps, "epochs": epochs, "batch": batch, "val_curve": curve,
                   "first_metric": curve[0][1], "best_metric": sidecar["metric"]},
         "untrained_eval": untrained, "trained_eval": trained, "metric_key": mkey,
-        "jax_init": jax_init,
         "artifact_vs_live": vs_live, "seconds": seconds}
     if trained[mkey] != sidecar["metric"] or sidecar["metric"] != max(m for _, m in curve):
         raise AssertionError(f"leg {leg}: the trained eval's {mkey} {trained[mkey]} is not "
@@ -307,9 +253,6 @@ def main() -> None:
     p.add_argument("--min-gain", type=float, default=0.0,
                    help="points the trained metric must beat the untrained one by "
                         "(leg A, the control, passes only with the default 0 if at all)")
-    p.add_argument("--jax-init", default=None, metavar="RECIPE",
-                   help="start every leg from the JAX package's whole init "
-                        "(tests/jax_init_recipe.py writes the recipe)")
     p.add_argument("--out", default=None, help="write the legs' summaries here (JSON)")
     args = p.parse_args()
     results = []
@@ -319,7 +262,7 @@ def main() -> None:
             raise SystemExit(f"{work} exists; pass a fresh --work")
         res = run_leg(leg, work, model=args.model, n_images=args.n_images,
                       n_triplets=args.n_triplets, batch=args.batch, epochs=args.epochs,
-                      device=args.device, min_gain=args.min_gain, jax_init=args.jax_init)
+                      device=args.device, min_gain=args.min_gain)
         k = res["metric_key"]
         print(f"[soak] leg {leg} ({res['dataset']}): untrained {k} "
               f"{res['untrained_eval'][k]:.2f}, val {res['train']['first_metric']:.2f} -> "

@@ -388,20 +388,17 @@ def _load_into(module, sd: dict, what: str) -> None:
 
 
 def load_model_variables(clip_cfg, clip_path: str | None, fusion_path: str | None,
-                         patch_num: int, seed: int | None = None):
-    """The composed model with its weights (on the CPU), from checkpoints
-    where given and seeded random weights (`models/composed.py
-    random_init_`) for the rest.
+                         patch_num: int, seed: int | None = None, device="cuda"):
+    """The composed model with its weights, on `device`: from checkpoints
+    where given and the JAX package's seeded init (`models/composed.py
+    jax_init_`, drawn on `device`) for the rest, so a seed gives the JAX
+    CLI's weights.
 
     The seed of the random parts: explicit `seed` > the best checkpoint's
     `.meta.json` sidecar (the init seed the fusion stack was trained
     against) > 42. With random-init towers (no `clip_path`), a trained ERN
-    evaluated against towers of another seed returns noise-level recalls.
-    The port's random weights are not the JAX package's (flax init), so
-    the two CLIs agree only where both load every weight."""
-    import torch
-
-    from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+    evaluated against towers of another seed returns noise-level recalls."""
+    from fashionern_aaai2024_tpu_torch.models.composed import seeded_model
     from fashionern_aaai2024_tpu_torch.train.checkpoint import load_meta, restore_params
 
     meta = {}
@@ -421,8 +418,7 @@ def load_model_variables(clip_cfg, clip_path: str | None, fusion_path: str | Non
             f"model is built with tme={clip_cfg.text.tme} — pass the same "
             "--tme flag the training run used (the ERN param trees differ)",
             stacklevel=2)
-    model = random_init_(ComposedCIRModel(clip_cfg, patch_num=patch_num),
-                         torch.Generator().manual_seed(seed))
+    model = seeded_model(clip_cfg, seed, device, patch_num=patch_num)
     if clip_path:
         _load_into(model.clip, _load_torch_state_dict(clip_path), clip_path)
     if fusion_path:
@@ -496,7 +492,8 @@ def build_inference_api(args):
         quantize_mlp=True if getattr(args, "quantize_towers", False) else None,
         tme=True if getattr(args, "tme", False) else None)
     model = load_model_variables(clip_cfg, args.clip_path, args.fusion_model_path,
-                                 args.patch_num, seed=getattr(args, "seed", None))
+                                 args.patch_num, seed=getattr(args, "seed", None),
+                                 device=device)
     if getattr(args, "fold_bn", False) and isinstance(model.clip.visual, ModifiedResNet):
         fold_batchnorm(model.clip.visual)
     apply_precision(model, getattr(args, "precision", "fp32"))
@@ -819,7 +816,7 @@ def run_extract_patches(args) -> int:
 
     device = resolve_device(args.device)
     clip_cfg = get_clip_config(args.clip_model_name)
-    model = load_model_variables(clip_cfg, args.clip_path, None, 13).to(device).eval()
+    model = load_model_variables(clip_cfg, args.clip_path, None, 13, device=device).eval()
 
     @torch.inference_mode()
     def encode(images):

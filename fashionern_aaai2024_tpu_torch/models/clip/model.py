@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from fashionern_aaai2024_tpu_torch.data.transforms import normalize_on_device
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 from fashionern_aaai2024_tpu_torch.models.clip.resnet import ModifiedResNet
 from fashionern_aaai2024_tpu_torch.models.clip.text import TextTower
@@ -40,6 +41,13 @@ class CLIP(TextTower):
         else:
             raise ValueError(f"unknown image tower kind {config.vision.kind!r}")
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX model's variables (`model.py:23-32`): the towers under
+        `visual` and `text`, `logit_scale` the constant log(1 / 0.07)."""
+        return [*I.scope("visual", self.visual.flax_variables()),
+                *I.scope("text", self.text_flax_variables()),
+                I.param("logit_scale", (), I.constant(math.log(1 / 0.07)), 1)]
 
     def encode_image(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """[B, H, W, 3] -> (global [B, d], tokens [B, S, d]). uint8

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.clip.config import VisionConfig
 from fashionern_aaai2024_tpu_torch.ops.attention import packed_kv_cross_attention
 
@@ -82,6 +83,20 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(OrderedDict(
                 [("0", _conv(inplanes, 4 * planes, 1)), ("1", FrozenBatchNorm2d(4 * planes))]))
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX bottleneck's variables (`resnet.py:45-66`): each BN
+        under its `BNRelu` (`bn{i}/bn`)."""
+        out = []
+        convs = [("conv1", "bn1", self.conv1), ("conv2", "bn2", self.conv2),
+                 ("conv3", "bn3", self.conv3)]
+        if self.downsample is not None:
+            convs.append(("downsample_conv", "downsample_bn", self.downsample[0]))
+        for conv_name, bn_name, conv in convs:
+            c_out, c_in, k, _ = conv.weight.shape
+            out += [*I.conv(conv_name, k, c_in, c_out),
+                    *I.scope(bn_name, I.batch_norm("bn", c_out))]
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)), inplace=True)
         out = F.relu(self.bn2(self.conv2(out)), inplace=True)
@@ -105,6 +120,15 @@ class AttentionPool2d(nn.Module):
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX pool's variables (`resnet.py:73-91`): the positional
+        embedding normal(embed_dim^-0.5), then q, k, v and c_proj."""
+        e = self.q_proj.weight.shape[0]
+        return [I.param("positional_embedding", self.positional_embedding.shape,
+                        I.normal(e ** -0.5), 1),
+                *I.dense("q_proj", e, e), *I.dense("k_proj", e, e), *I.dense("v_proj", e, e),
+                *I.dense("c_proj", e, self.c_proj.weight.shape[0])]
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:  # [B, C, H, W]
         b, c = x.shape[:2]
@@ -133,6 +157,20 @@ class ModifiedResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.attnpool = AttentionPool2d(config.image_size // 32, width * 32, config.heads,
                                         config.embed_dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX tower's variables (`resnet.py:164-193`): the stem, then
+        `layer{n}_{j}` for each bottleneck, then `attnpool`."""
+        out = []
+        for i in (1, 2, 3):
+            conv = getattr(self, f"conv{i}")
+            c_out, c_in, k, _ = conv.weight.shape
+            out += [*I.conv(f"conv{i}", k, c_in, c_out),
+                    *I.scope(f"bn{i}", I.batch_norm("bn", c_out))]
+        for i in range(len(self.config.layers)):
+            for j, block in enumerate(getattr(self, f"layer{i + 1}")):
+                out += I.scope(f"layer{i + 1}_{j}", block.flax_variables())
+        return out + I.scope("attnpool", self.attnpool.flax_variables())
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """images: [B, H, W, 3] NHWC, CLIP-normalized."""

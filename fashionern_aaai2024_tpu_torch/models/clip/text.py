@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.clip.config import TextConfig
 from fashionern_aaai2024_tpu_torch.models.clip.transformer import Transformer
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
@@ -36,6 +37,18 @@ class TextTower(nn.Module):
                                        activation, causal=True, quantize=quantize)
         self.ln_final = nn.LayerNorm(config.width)
         self.text_projection = nn.Parameter(torch.empty(config.width, config.embed_dim))
+
+    def text_flax_variables(self) -> list[I.Variable]:
+        """The JAX tower's variables (`text.py:40-70`): token embedding
+        normal(0.02), positional normal(0.01), projection
+        normal(width^-0.5)."""
+        w = self.text_config.width
+        return [I.param("token_embedding", self.token_embedding.weight.shape, I.normal(0.02), 1),
+                I.param("positional_embedding", self.positional_embedding.shape,
+                        I.normal(0.01), 2),
+                *I.scope("transformer", self.transformer.flax_variables()),
+                *I.layer_norm("ln_final", w),
+                I.param("text_projection", self.text_projection.shape, I.normal(w ** -0.5), 3)]
 
     def forward(self, text_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """text_ids: integer [B, L] -> (global [B, d], seq [B, L, d])."""

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.ops.attention import (
     attention_subblock,
     fused_qkv_self_attention,
@@ -74,6 +75,16 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = nn.ModuleDict({"c_fc": nn.Linear(width, 4 * width),
                                   "c_proj": nn.Linear(4 * width, width)})
         self._int8: tuple | None = None     # (key, {name: (values, scales)})
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX block's variables (`transformer.py:97-109`): in_proj
+        xavier_uniform, every Dense lecun_normal with zero biases."""
+        w = self.attn.in_proj_weight.shape[1]
+        return [*I.layer_norm("ln_1", w),
+                I.param("in_proj_weight", (3 * w, w), I.XAVIER_UNIFORM, 1),
+                I.param("in_proj_bias", (3 * w,), I.ZEROS, 2),
+                *I.dense("out_proj", w, w), *I.layer_norm("ln_2", w),
+                *I.dense("c_fc", w, 4 * w), *I.dense("c_proj", 4 * w, w)]
 
     def _float_weights(self) -> dict[str, torch.Tensor]:
         return {"qkv": self.attn.in_proj_weight, "out": self.attn.out_proj.weight,
@@ -150,6 +161,10 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, activation, causal, quantize)
             for _ in range(layers))
+
+    def flax_variables(self) -> list[I.Variable]:
+        return [v for i, block in enumerate(self.resblocks)
+                for v in I.scope(f"resblock_{i}", block.flax_variables())]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.resblocks:

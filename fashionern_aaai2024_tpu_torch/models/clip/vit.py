@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.clip.config import VisionConfig
 from fashionern_aaai2024_tpu_torch.models.clip.transformer import Transformer
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
@@ -44,6 +45,18 @@ class ViTTower(nn.Module):
                                        quantize=quantize)
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, config.embed_dim))
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX tower's variables (`vit.py:36-68`): the embeddings and
+        `proj` normal(width^-0.5), in that order."""
+        w, p = self.config.width, self.config.patch_size
+        std = I.normal(w ** -0.5)
+        return [*I.conv("conv1", p, 3, w),
+                I.param("class_embedding", self.class_embedding.shape, std, 1),
+                I.param("positional_embedding", self.positional_embedding.shape, std, 2),
+                *I.layer_norm("ln_pre", w),
+                *I.scope("transformer", self.transformer.flax_variables()),
+                *I.layer_norm("ln_post", w), I.param("proj", self.proj.shape, std, 3)]
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """images: [B, H, W, 3] NHWC, CLIP-normalized."""

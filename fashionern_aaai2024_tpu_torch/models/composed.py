@@ -20,7 +20,12 @@ after the towers' `torch.no_grad()` block, so it trains.
 Also here:
   * `apply_precision`, the port of `cli/main.py:554 _cast_precision`
     as the serve path sees it;
-  * `random_init_`, seeded weights for runs without a checkpoint.
+  * `jax_init_`, the package's seeded init: the JAX package's
+    `ComposedCIRModel.init` under `PRNGKey(seed)`, drawn without JAX
+    (`models/init.py`), which the Trainer, the CLI and the multiprocess
+    demo take where no checkpoint gives the weights;
+  * `random_init_`, another seeded init, kept for the card's smoke run
+    and the tests that exercise modules JAX's init leaves inert.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from fashionern_aaai2024_tpu_torch.models import convert
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 from fashionern_aaai2024_tpu_torch.models.clip.model import CLIP
 from fashionern_aaai2024_tpu_torch.models.clip.resnet import (
@@ -50,6 +57,13 @@ class ComposedCIRModel(nn.Module):
         self.clip = CLIP(clip_config)
         self.ern = ERN(clip_config.feature_dim, patch_num=patch_num,
                        tme=clip_config.text.tme)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """Every variable of the JAX model's `{"params", "batch_stats"}`
+        tree, as `train_forward` with `deterministic=False` creates it
+        (`composed.py:34-37`: `clip`, `ern`)."""
+        return [*I.scope("clip", self.clip.flax_variables()),
+                *I.scope("ern", self.ern.flax_variables())]
 
     def encode_image(self, images: torch.Tensor):
         return self.clip.encode_image(images)
@@ -147,6 +161,32 @@ def apply_precision(model: ComposedCIRModel, precision: str) -> ComposedCIRModel
     return model
 
 
+@torch.no_grad()
+def jax_init_(model: ComposedCIRModel, seed: int) -> ComposedCIRModel:
+    """The JAX package's seeded init, in place: what its
+    `ComposedCIRModel.init` draws under `jax.random.PRNGKey(seed)`
+    (`train/trainer.py:373-388`, `cli/main.py:373-384`), the same bits
+    on every device (`models/init.py`). The values are drawn on the device
+    of the model's parameters, then carried onto the port's names and
+    layouts by `models/convert.py state_dict_from_variables`.
+
+    flax's initializers leave TME's out-projection at zero (a new TME is
+    the identity) and every BatchNorm at identity."""
+    device = model.clip.logit_scale.device
+    tree = I.variables(model.flax_variables(), seed, device)
+    model.load_state_dict(convert.state_dict_from_variables(tree, model.clip_config))
+    return model
+
+
+def seeded_model(clip_config: CLIPConfig, seed: int, device: torch.device | str,
+                 patch_num: int = 13) -> ComposedCIRModel:
+    """A `ComposedCIRModel` built on `device` with the package's seeded
+    init (`jax_init_`), drawn there."""
+    with torch.device(device):
+        model = ComposedCIRModel(clip_config, patch_num=patch_num)
+    return jax_init_(model, seed)
+
+
 # std of the seeded normal init, by parameter name; the rest follows the
 # module type (see random_init_)
 _NAMED_STD = {
@@ -167,11 +207,12 @@ RESIDUAL_BN_SCALE = 0.25
 
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights, in place (there is no checkpoint in the
-    repository). Matrices and convolution kernels are normal with std
-    fan_in^-0.5, embeddings as in the JAX initializers, biases
-    normal(0.02), norm scales 1 + normal(0.02), the ERN's BN running
-    statistics near (0, 1). In the ResNet tower the last BN of each
+    """Seeded random weights, in place, that are not the package's default
+    init (`jax_init_` is): the smoke run on the card and some tests take
+    them where a module must not start inert. Matrices and convolution
+    kernels are normal with std fan_in^-0.5, embeddings as in the JAX
+    initializers, biases normal(0.02), norm scales 1 + normal(0.02), the
+    ERN's BN running statistics near (0, 1). In the ResNet tower the last BN of each
     bottleneck's branch is scaled by RESIDUAL_BN_SCALE, and the running
     statistics are those that two seeded N(0, 1) images meet at each BN
     (`calibrate_batchnorm_`), so that its activations stay O(1) through

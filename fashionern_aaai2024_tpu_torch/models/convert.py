@@ -15,8 +15,9 @@ them gives the original variables leaf for leaf.
 Input is the composed model's `{"params": {"clip", "ern"}, "batch_stats":
 {"ern"}}` tree (with `batch_stats["clip"]["visual"]` too for the RN50x4
 tower, whose BatchNorms carry running statistics) with array leaves
-(numpy, or anything `np.asarray` takes);
-output is a `clip.*` / `ern.*` state_dict of fp32 CPU tensors, with the
+(numpy, or anything `np.asarray` takes, or torch tensors, which keep
+their device: `models/composed.py jax_init_`);
+output is a `clip.*` / `ern.*` state_dict of fp32 tensors, with the
 BatchNorm step counters (`num_batches_tracked`, which reference
 checkpoints carry too) set to 0.
 
@@ -67,6 +68,8 @@ from fashionern_aaai2024_tpu_torch.models.clip.config import CLIPConfig
 
 
 def _t(x: Any) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.float()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.fusion import (
     CombinerSimple,
     DVRModule,
@@ -32,6 +33,13 @@ class ERN(nn.Module):
         self.Combiner_module = CombinerSimple(feature_dim)
         if tme:
             self.TME = TMEModule(feature_dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX ERN's variables (`ern.py:37-42`), under the same names."""
+        out = [*I.scope("DVR", self.DVR.flax_variables()),
+               *I.scope("SR_module", self.SR_module.flax_variables()),
+               *I.scope("Combiner_module", self.Combiner_module.flax_variables())]
+        return out + (I.scope("TME", self.TME.flax_variables()) if hasattr(self, "TME") else [])
 
     def enhance_text(self, text_seq: torch.Tensor, visual_emb: torch.Tensor) -> torch.Tensor:
         """TME over the text tower's token features [B, L, d], conditioned

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.layers import (
     TorchBatchNorm,
     TorchMultiheadAttention,
@@ -87,6 +88,14 @@ class CombinerSimple(nn.Module):
             nn.Linear(2 * proj, hidden), nn.ReLU(), nn.Dropout(FUSION_DROPOUT),
             nn.Linear(hidden, 1), nn.Sigmoid())
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX combiner's variables (`fusion.py:60-74`)."""
+        first = self.text_projection_layer[0]
+        d, proj = first.in_features, first.out_features
+        hidden = self.dynamic_scalar[0].out_features
+        return [*I.dense("text_projection", d, proj), *I.dense("image_projection", d, proj),
+                *I.dense("scalar_hidden", 2 * proj, hidden), *I.dense("scalar_out", hidden, 1)]
+
     def forward(self, image_features: torch.Tensor, text_features: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if generator is None:
@@ -116,6 +125,16 @@ class VisualSR(nn.Module):
             nn.Linear(embed_dim, embed_dim), TorchBatchNorm(embed_dim, feature_axis=-1),
             nn.Tanh(), nn.Dropout(FUSION_DROPOUT))
         self.embedding_common = nn.Linear(embed_dim, 1)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`fusion.py:93-110`): xavier_uniform
+        kernels, zero biases, the two BatchNorms."""
+        d = self.embedding_common.in_features
+        return [*I.dense("local_dense", d, d, I.XAVIER_UNIFORM),
+                *I.scope("local_bn", self.embedding_local[1].flax_variables()),
+                *I.dense("global_dense", d, d, I.XAVIER_UNIFORM),
+                *I.scope("global_bn", self.embedding_global[1].flax_variables()),
+                *I.dense("common_dense", d, 1, I.XAVIER_UNIFORM)]
 
     def forward(self, local_feature: torch.Tensor,  # [B, R, d]
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -185,6 +204,19 @@ class BertLayer(nn.Module):
         self.intermediate = _Linear(hidden, BERT_INTERMEDIATE)
         self.output = _DenseLayerNorm(BERT_INTERMEDIATE, hidden)
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX layer's variables (`fusion.py:127-166`): its own LN
+        parameters, counted in the order `_ln` creates them."""
+        d = self.attention.self.query.in_features
+        return [*I.dense("query", d, d), *I.dense("key", d, d), *I.dense("value", d, d),
+                *I.dense("attn_output", d, d),
+                I.param("attn_ln_scale", (d,), I.ONES, 1),
+                I.param("attn_ln_bias", (d,), I.ZEROS, 2),
+                *I.dense("intermediate", d, BERT_INTERMEDIATE),
+                *I.dense("output", BERT_INTERMEDIATE, d),
+                I.param("output_ln_scale", (d,), I.ONES, 3),
+                I.param("output_ln_bias", (d,), I.ZEROS, 4)]
+
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         qkv = self.attention.self
@@ -230,6 +262,19 @@ class BertEncoder(nn.Module):
         self.encoder = _LayerStack(hidden, heads, layers)
         self.pooler = _Linear(hidden, hidden)
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX encoder's variables (`fusion.py:184-200`)."""
+        emb = self.embeddings
+        d = emb.LayerNorm.weight.shape[0]
+        out = [I.param("position_embeddings", emb.position_embeddings.weight.shape,
+                       I.normal(0.02), 1),
+               I.param("token_type_embeddings", emb.token_type_embeddings.weight.shape,
+                       I.normal(0.02), 2),
+               I.param("emb_ln_scale", (d,), I.ONES, 3), I.param("emb_ln_bias", (d,), I.ZEROS, 4)]
+        for i, layer in enumerate(self.encoder.layer):
+            out += I.scope(f"layer_{i}", layer.flax_variables())
+        return out + I.dense("pooler", d, d)
+
     def forward(self, inputs_embeds: torch.Tensor, token_type_ids: torch.Tensor,
                 generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,6 +304,10 @@ class PlusModel(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, feature_dim))
         self.bert_encoder = _EncoderModel(feature_dim, layers)
 
+    def flax_variables(self) -> list[I.Variable]:
+        return [I.param("cls_token", self.cls_token.shape, I.ZEROS, 1),
+                *I.scope("bert", self.bert_encoder.bert_model.flax_variables())]
+
     def forward(self, reference_features: torch.Tensor, text_features: torch.Tensor,
                 generator: torch.Generator | None = None):
         b, patch_num, d = reference_features.shape
@@ -286,6 +335,15 @@ class DVRModule(nn.Module):
         self.combiner_global = CombinerSimple(feature_dim)
         self.combiner_local = CombinerSimple(feature_dim)
         self.combiner = CombinerSimple(feature_dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`fusion.py:243-289`), under its
+        names (`mr`, `sr`)."""
+        return [*I.scope("transformer_layer", self.transformer_layer.flax_variables()),
+                *I.scope("mr", self.MR_component.flax_variables()),
+                *I.scope("sr", self.SR_module.flax_variables()),
+                *(v for name in ("combiner_global", "combiner_local", "combiner")
+                  for v in I.scope(name, getattr(self, name).flax_variables()))]
 
     def forward(self, ref_patch_features: torch.Tensor, text_seq_features: torch.Tensor,
                 ref_global_feats: torch.Tensor, text_global_feats: torch.Tensor,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.ops.attention import (
     multi_head_attention,
     packed_kv_cross_attention,
@@ -64,6 +65,12 @@ class TorchMultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`layers.py:52-55, 88`)."""
+        d = self.in_proj_weight.shape[1]
+        return [I.param("in_proj_weight", (3 * d, d), I.XAVIER_UNIFORM, 1),
+                I.param("in_proj_bias", (3 * d,), I.ZEROS, 2), *I.dense("out_proj", d, d)]
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -100,6 +107,10 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables: flax's BatchNorm `bn`."""
+        return I.batch_norm("bn", self.weight.shape[0])
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         axis = self.feature_axis % x.ndim

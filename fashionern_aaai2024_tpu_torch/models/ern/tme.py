@@ -39,8 +39,9 @@ apply_precision`): all bf16, where B9 keeps fp32 scores and flax rounds
 them (ROADMAP C8).
 
 JAX zero-initializes the out-projection (`tme.py:18-20`), so that a new
-TME computes the vanilla function; `models/composed.py random_init_`
-draws it like every Linear, so that a seeded run exercises the module.
+TME computes the vanilla function, and so does the package's seeded init
+(`models/composed.py jax_init_`); `random_init_` draws it like every
+Linear, so that the smoke run's seeded models exercise the module.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.ops.attention import multi_head_attention
 from fashionern_aaai2024_tpu_torch.ops.layernorm import layer_norm
 
@@ -63,6 +65,21 @@ class _CrossAttention(nn.Module):
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """flax `MultiHeadDotProductAttention`'s variables: the
+        `DenseGeneral`s query, key, value (kernel [d, H, Dh], bias [H, Dh])
+        and out (kernel [H, Dh, d], zero-initialized, `tme.py:49`)."""
+        d, h = self.query.weight.shape[1], self.heads
+        heads = (h, d // h)
+        out = []
+        for name in ("query", "key", "value"):
+            out += I.scope(name, [
+                I.param("kernel", (d, *heads), I.dense_general_kernel(I.LECUN_NORMAL, 1, 2), 1),
+                I.param("bias", heads, I.dense_general_bias(I.ZEROS, 2), 2)])
+        return out + I.scope("out", [
+            I.param("kernel", (*heads, d), I.dense_general_kernel(I.ZEROS, 2, 1), 1),
+            I.param("bias", (d,), I.dense_general_bias(I.ZEROS, 1), 2)])
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         b, sq, d = x.shape
@@ -85,6 +102,12 @@ class TMEModule(nn.Module):
         self.visual_proj = nn.Linear(dim, dim)
         self.ln = nn.LayerNorm(dim, eps=TME_LN_EPS)
         self.cross_attn = _CrossAttention(dim, heads)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`tme.py:43-50`)."""
+        d = self.visual_proj.weight.shape[0]
+        return [*I.dense("visual_proj", d, d), *I.layer_norm("ln", d),
+                *I.scope("cross_attn", self.cross_attn.flax_variables())]
 
     def forward(self, text_seq: torch.Tensor, visual_emb: torch.Tensor) -> torch.Tensor:
         dtype = torch.promote_types(text_seq.dtype, self.visual_proj.weight.dtype)

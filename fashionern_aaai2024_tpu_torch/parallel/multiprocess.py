@@ -157,22 +157,20 @@ def one_process_step(model, schedule: Callable[[int], float], shards: int, *,
 
 
 class DemoProgram:
-    """The demo train program of one rank: model (seeded), train state and
-    step, on a mesh of one shard a rank, or (on a one-rank mesh) one
-    process standing for `shards` shards (`one_process_step`)."""
+    """The demo train program of one rank: model (the JAX demo's seeded
+    init), train state and step, on a mesh of one shard a rank, or (on a
+    one-rank mesh) one process standing for `shards` shards
+    (`one_process_step`)."""
 
     def __init__(self, mesh: ProcessMesh, shards: int = 1):
-        from fashionern_aaai2024_tpu_torch.models.composed import (
-            ComposedCIRModel,
-            random_init_,
-        )
+        from fashionern_aaai2024_tpu_torch.models.composed import seeded_model
         from fashionern_aaai2024_tpu_torch.train.step import build_train_step
 
         self.mesh = mesh
         self.n = mesh.size * shards
         self.cfg = demo_config()
-        self.model = random_init_(ComposedCIRModel(self.cfg, patch_num=13),
-                                  torch.Generator().manual_seed(0)).to(mesh.device)
+        # the JAX demo's init, `PRNGKey(0)` (JAX `multiprocess.py:146`)
+        self.model = seeded_model(self.cfg, 0, mesh.device, patch_num=13)
         self._init = {k: v.clone() for k, v in self.model.state_dict().items()}
         if shards > 1:
             self.step = one_process_step(self.model, lambda step: DEMO_LR, shards)

@@ -24,9 +24,9 @@ Differences from the JAX Trainer:
   * `device` or `mesh` (whose device the Trainer takes) in place of a
     JAX mesh.
   * The model carries its weights: pass a `ComposedCIRModel`, or the
-    Trainer builds one with seeded random weights
-    (`models/composed.py random_init_`), which are not the JAX package's
-    flax-initialized ones.
+    Trainer builds one on its device with the JAX package's seeded init
+    from `cfg.seed` (`models/composed.py jax_init_`, JAX
+    `_init_variables`), drawn there.
   * `profile_dir` writes a `torch.profiler` chrome trace of steps 2-4 of
     epoch 0 (`trace.json`).
   * The feature cache keeps the encoded globals on the device.
@@ -60,7 +60,7 @@ from fashionern_aaai2024_tpu_torch.data.prefetch import prefetch_iter
 from fashionern_aaai2024_tpu_torch.data.shoes import ShoesDataset
 from fashionern_aaai2024_tpu_torch.models.clip.config import get_clip_config
 from fashionern_aaai2024_tpu_torch.models.clip.tokenizer import tokenize
-from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, random_init_
+from fashionern_aaai2024_tpu_torch.models.composed import ComposedCIRModel, seeded_model
 from fashionern_aaai2024_tpu_torch.parallel.mesh import ProcessMesh
 from fashionern_aaai2024_tpu_torch.retrieval.evaluate import (
     InferenceAPI,
@@ -287,8 +287,7 @@ class Trainer:
             clip_cfg = get_clip_config(cfg.clip_model_name, cfg.activation,
                                        quantize_mlp=True if cfg.quantize_towers else None,
                                        tme=cfg.tme)
-            model = random_init_(ComposedCIRModel(clip_cfg, patch_num=cfg.patch_num),
-                                 torch.Generator().manual_seed(cfg.seed))
+            model = seeded_model(clip_cfg, cfg.seed, self.device, patch_num=cfg.patch_num)
         elif model.clip_config.text.tme != cfg.tme:
             raise ValueError(f"TrainConfig(tme={cfg.tme}) with a model built with "
                              f"tme={model.clip_config.text.tme}")

@@ -274,15 +274,16 @@ def test_seed_order_explicit_then_sidecar_then_42(trained, tiny):
     ckpt, trainer = trained
     best = os.path.join(ckpt, "fashioniq-best")
     cfg = _tiny(torch_config)
-    auto = cli.load_model_variables(cfg, None, best, PATCH_NUM)
-    seed7 = cli.load_model_variables(cfg, None, None, PATCH_NUM, seed=7)
-    seed42 = cli.load_model_variables(cfg, None, None, PATCH_NUM, seed=42)
+    auto = cli.load_model_variables(cfg, None, best, PATCH_NUM, device="cpu")
+    seed7 = cli.load_model_variables(cfg, None, None, PATCH_NUM, seed=7, device="cpu")
+    seed42 = cli.load_model_variables(cfg, None, None, PATCH_NUM, seed=42, device="cpu")
     assert _same(auto.clip, seed7.clip) and not _same(auto.clip, seed42.clip)
     assert _same(auto.clip, trainer.model.clip.cpu())
-    override = cli.load_model_variables(cfg, None, best, PATCH_NUM, seed=42)
+    override = cli.load_model_variables(cfg, None, best, PATCH_NUM, seed=42, device="cpu")
     assert _same(override.clip, seed42.clip)
     assert _same(auto.ern, override.ern)  # the fusion stack from the checkpoint either way
-    assert _same(cli.load_model_variables(cfg, None, None, PATCH_NUM).clip, seed42.clip)
+    default = cli.load_model_variables(cfg, None, None, PATCH_NUM, device="cpu")
+    assert _same(default.clip, seed42.clip)
 
 
 def test_sidecar_warnings(trained, tiny, tmp_path):
@@ -295,31 +296,31 @@ def test_sidecar_warnings(trained, tiny, tmp_path):
     cfg = _tiny(torch_config)
     json.dump({**meta, "clip_from_checkpoint": True}, open(best + ".meta.json", "w"))
     with pytest.warns(UserWarning, match="random-init towers"):
-        cli.load_model_variables(cfg, None, best, PATCH_NUM)
+        cli.load_model_variables(cfg, None, best, PATCH_NUM, device="cpu")
     json.dump({**meta, "tme": True}, open(best + ".meta.json", "w"))
     with pytest.warns(UserWarning, match="--tme"):
-        cli.load_model_variables(cfg, None, best, PATCH_NUM)
+        cli.load_model_variables(cfg, None, best, PATCH_NUM, device="cpu")
     os.remove(best + ".meta.json")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        cli.load_model_variables(cfg, None, best, PATCH_NUM, seed=7)
+        cli.load_model_variables(cfg, None, best, PATCH_NUM, seed=7, device="cpu")
 
 
 def test_reference_pth_pair_loads_every_weight(tiny, weights):
     clip_path, ern_path, want, _ = weights
     cfg = _tiny(torch_config)
-    model = cli.load_model_variables(cfg, clip_path, ern_path, PATCH_NUM, seed=99)
+    model = cli.load_model_variables(cfg, clip_path, ern_path, PATCH_NUM, seed=99, device="cpu")
     got = model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
     # a DDP prefix and the reference ERN's CLIP wrappers are dropped
     sd = torch.load(ern_path)
     torch.save({"module." + k: v for k, v in sd.items()} | {"image_clip.x": torch.zeros(1)},
                ern_path + ".ddp.pth")
-    again = cli.load_model_variables(cfg, clip_path, ern_path + ".ddp.pth", PATCH_NUM)
+    again = cli.load_model_variables(cfg, clip_path, ern_path + ".ddp.pth", PATCH_NUM, device="cpu")
     assert _same(again.ern, model.ern)
     torch.save({**sd, "stray": torch.zeros(1)}, ern_path + ".bad.pth")
     with pytest.raises(KeyError, match="stray"):
-        cli.load_model_variables(cfg, clip_path, ern_path + ".bad.pth", PATCH_NUM)
+        cli.load_model_variables(cfg, clip_path, ern_path + ".bad.pth", PATCH_NUM, device="cpu")
 
 
 # --- the run/ presets ----------------------------------------------------------------

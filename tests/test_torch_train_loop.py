@@ -405,7 +405,7 @@ def test_port_imports_nothing_of_jax_optax_or_orbax():
                  "tools.extract_patches", "tools.convert_patches", "cli.main", "run.train_fiq",
                  "run.test_200k", "benchmarks.accuracy_soak", "ops.library",
                  "retrieval.artifact", "retrieval.server", "tokenizer", "tools.visualize",
-                 "benchmarks.flax_init", "ops.graphs"):
+                 "models.init", "ops.graphs"):
         assert f"fashionern_aaai2024_tpu_torch.{name}" in mods, name
 
 
