@@ -263,17 +263,27 @@ Phases (each raises on failure; nothing is caught):
       heads, more blocks than SMs) within TOL; its 16 instances in the
       library's SASS (fp32: HMMA.1688.F32.TF32 only, bf16: bf16 HMMA
       only, each on LDGSTS) with no local memory (no spill); then
-      every model of the zoo's registry at ViT-B-16 width over the seeded
+      every model of the zoo's registry at ViT-B-16 width, drawn on the
+      card by the JAX package's seeded init (`models/zoo jax_init_`, seed
+      40 + its index; every state tensor equal to the draw, and each
+      drawn variable's first and last `DRAW_SAMPLE` values drawn again
+      on the CPU, 0 float32 ulps apart; the values drawn, the card's and
+      the CPU's seconds), over the seeded
       ViT-B-16's fp32 features of 128 reference and target images and 128
       captions (image globals, tower tokens 1-13, text globals and 77 token
       features; seeded [128, 1,024] inputs for Clip4Cir and VTF at
       projection 2,048 and hidden 4,096; CompoDiff at dim 768, depth 4, 8
       heads of 64, text 77 x 1,280, mask 64 x 64, B = 32, guided at (1.5,
-      7.5)), card against the port's CPU run in fp32 at cosine >= 0.99999
-      a row, each head's card ms, launch counts
+      7.5)), card against the port's CPU run on a host copy of the
+      card's draw in fp32 at cosine >= 0.99999 a row, each head's card
+      ms, launch counts
       (`launches_by_path["zoo"]`: CaLa's 8 attentions on B8's wide route,
       one B4); the registry's "bbc" on CaLa's card queries against the
-      target globals, card against CPU at rel 1e-5. Then the gradients of
+      target globals, card against CPU at rel 1e-5; the registry's
+      "text_relevance" with a bank that `TextRelevanceBank.create` made
+      without `device=` (so on the card), two calls (CaLa's queries, then
+      the target globals, against the text globals), card against CPU at
+      rel 1e-5. Then the gradients of
       the kernels' autograd Functions (B1, B2, B3, B7, B8 on the core and
       on the wide route) at their PERF.md sites (B1-B3 ViT-B-16 B = 32,
       B7 the DVR BERT at d = 640, B8 the RN50x4 pool, the wide route at
@@ -284,7 +294,9 @@ Phases (each raises on failure; nothing is caught):
       forward + backward timed in the site's dtype beside the plain
       version's and a library composition's (SDPA, `F.linear`,
       `F.layer_norm`), with the bound of the work. Last, CaLa trains on
-      the card: a seeded `TwinAttentionCompositor` at ViT-B-16 width
+      the card: a `TwinAttentionCompositor` drawn on the card by the JAX
+      package's seeded init at seed 60 + d (held as the heads' draw; the
+      CPU's step on a host copy of it) at ViT-B-16 width
       (d = 512, the tower's 13 patch tokens of 128 reference and target
       images) and at RN50x4 width (d = 640, seeded tokens), the registry's
       bbc on its queries against the target globals, Adam at lr 4e-5:
@@ -292,9 +304,10 @@ Phases (each raises on failure; nothing is caught):
       parameter gradient at cosine >= 0.99999), 8 wide-route launches a
       forward and none in a backward, 3 steps with the loss finite and
       falling (`launches_by_path["cala_train"]`), a step's ms, and (in
-      the `--wide-trace` process, on seeded tokens) one profiled step's
-      device split (the wide route, B4, forward, backward, Adam) and idle
-      share. The run ends with each phase's seconds.
+      the `--wide-trace` process, on seeded tokens, with nothing else
+      running) one profiled step's device split (the wide route, B4,
+      forward, backward, Adam) and idle share. The run ends with each
+      phase's seconds.
 
 Phase 2 also holds B9 (`multi_head_attention`) at TME's shapes (b = 32
 and 1024, head dim 64 and 80, fp32 and bf16, and one biased case, whose
@@ -415,7 +428,11 @@ from fashionern_aaai2024_tpu_torch.ops import losses as L
 from fashionern_aaai2024_tpu_torch.ops import mlp as M
 from fashionern_aaai2024_tpu_torch.ops import qmlp as Q
 from fashionern_aaai2024_tpu_torch.ops import similarity as S
-from fashionern_aaai2024_tpu_torch.ops.extra_losses import get_loss
+from fashionern_aaai2024_tpu_torch.ops.extra_losses import (
+    LOGIT_SCALE_INIT,
+    TextRelevanceBank,
+    get_loss,
+)
 from fashionern_aaai2024_tpu_torch.ops.qmatmul import int8_product, quantize_rowwise
 from fashionern_aaai2024_tpu_torch.parallel import mesh as PM
 from fashionern_aaai2024_tpu_torch.parallel import multiprocess as MP
@@ -4204,6 +4221,32 @@ COMPODIFF_BATCH, COMPODIFF_SCALE = 32, (1.5, 7.5)
 # "bbc" is one B4 launch
 ZOO_LAUNCHES = {B8: 8, B8W: 8, B4: 1}
 ZOO_BBC_RTOL = 1e-5
+# phase 20's heads: label -> (registry name, constructor keywords), each
+# drawn on the card by the JAX package's seeded init (`models/zoo
+# jax_init_`) at seed 40 + its index
+_COMBINER = dict(clip_feature_dim=ZOO_WIDTH, projection_dim=4 * ZOO_WIDTH,
+                 hidden_dim=8 * ZOO_WIDTH)
+ZOO_HEADS = {
+    "clip4cir_combiner": ("clip4cir_combiner", _COMBINER),
+    "vtf": ("vtf", _COMBINER),
+    "attention_pooling": ("attention_pooling", dict(emb_dim=ZOO_WIDTH, emb_num=13)),
+    "cala": ("cala", dict(embedding_dim=ZOO_WIDTH)),
+    "artemis": ("artemis", dict(clip_feature_dim=ZOO_WIDTH)),
+    "artemis_broadcast": ("artemis", dict(clip_feature_dim=ZOO_WIDTH)),
+    "dqu_cir": ("dqu_cir", dict(clip_feature_dim=ZOO_WIDTH, hidden_dim=2 * ZOO_WIDTH)),
+    "amc": ("amc", dict(embed_size=ZOO_WIDTH, hid_router=ZOO_WIDTH)),
+    "amc_ensemble": ("amc_ensemble", dict(embed_size=ZOO_WIDTH)),
+    "compodiff": ("compodiff", COMPODIFF),
+}
+# values at each end of every variable of a seeded draw on the card that
+# are drawn again on the CPU (each value depends only on its key, its flat
+# index and its initializer, so both ends hold the chunked draw's offsets)
+DRAW_SAMPLE = 4096
+# the registry's text_relevance after bbc: a bank of two batches' rows made
+# without `device=` (so on the card), two calls (CaLa's queries, then the
+# target globals, against the text globals), card against CPU at
+# ZOO_BBC_RTOL
+TEXT_BANK_ROWS = 2 * ZOO_BATCH
 # the autograd Functions of B1, B2, B3, B7 and B8 (both routes) at the
 # PERF.md §6 sites: (kernel, site, the dtype timed, shape); each site's
 # gradients are checked in both dtypes against the plain version's
@@ -4388,7 +4431,8 @@ def wide_trace_process() -> None:
     for label, d in CALA_WIDTHS:
         ref, tar, target = (torch.randn(shape, generator=g).cuda()
                             for shape in ((ZOO_BATCH, 13, d), (ZOO_BATCH, 13, d), (ZOO_BATCH, d)))
-        model, opt, loss_of, step = cala_setup(d, ref, tar, target)
+        model = cala_model(d)
+        opt, loss_of, step = cala_setup(model, ref, tar, target)
 
         def forward_backward():
             opt.zero_grad(set_to_none=True)
@@ -4419,11 +4463,68 @@ def zoo_features(seed: int) -> dict:
                 tar_tok=tokens[n:, 1:14], txt_g=txt_g, txt_seq=txt_seq)
 
 
-def zoo_heads(f: dict) -> dict:
-    """name -> (seeded port module, its call on the features): every model
-    of the zoo's registry at ViT-B-16 width; Clip4Cir and VTF on seeded
-    [B, 2d] features (their inputs are 2d wide), CompoDiff on seeded
-    conditioning (its dim is 768)."""
+def zoo_seeded() -> tuple[dict, float]:
+    """label -> (each `ZOO_HEADS` model built on the card and drawn there by
+    the JAX package's seeded init at seed 40 + its index, in eval mode; its
+    seed); and the seconds it took (ending in a synchronize)."""
+    t = time.perf_counter()
+    models = {label: (TZ.seeded_zoo_model(name, 40 + i, "cuda", **ctor).eval(), 40 + i)
+              for i, (label, (name, ctor)) in enumerate(ZOO_HEADS.items())}
+    torch.cuda.synchronize()
+    return models, time.perf_counter() - t
+
+
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The most float32 ulps between two tensors' elements (each bit pattern
+    as an ordered integer: -0 and +0 are one)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def held_draw(models: dict) -> dict:
+    """label -> (a zoo model drawn on the card by `jax_init_`, its seed):
+    each model's draw made again on the card (`models/init.py variables`,
+    as `jax_init_` makes it), every state tensor equal to it; then the
+    first and last `DRAW_SAMPLE` values of every variable drawn on the CPU
+    (`flat_values`), held to the card's at 0 float32 ulps. -> the values
+    and variables drawn, the values drawn on the CPU and its seconds, the
+    most ulps apart."""
+    out = dict(values=0, variables=0, tensors=0, cpu_values=0, cpu_seconds=0.0, max_ulps=0)
+    for label, (model, seed) in models.items():
+        table = model.flax_variables()
+        tree = Init.variables(table, seed, "cuda")
+        want = TZ.state_dict_from_variables(model, tree)
+        for k, t in model.state_dict().items():
+            if not torch.equal(t, want[k]):
+                raise AssertionError(f"{label}: {k} is not the seeded init's draw")
+            out["tensors"] += 1
+        for v in table:
+            n = math.prod(v.shape)
+            got = tree_leaf(tree, v).reshape(-1)
+            key = Init.variable_key(seed, v)
+            for start, stop in sorted({(0, min(n, DRAW_SAMPLE)), (max(0, n - DRAW_SAMPLE), n)}):
+                t = time.perf_counter()
+                cpu = Init.flat_values(v.init, key, v.shape, start, stop, "cpu")
+                out["cpu_seconds"] += time.perf_counter() - t
+                out["max_ulps"] = max(out["max_ulps"], f32_ulps(got[start:stop].cpu(), cpu))
+                out["cpu_values"] += stop - start
+            out["values"] += n
+            out["variables"] += 1
+        del tree, want
+    if out["max_ulps"]:
+        raise AssertionError(f"{sorted(models)}: the card's seeded draw is {out['max_ulps']} "
+                             "ulps from the CPU's")
+    return out
+
+
+def zoo_heads(f: dict, models: dict) -> dict:
+    """label -> (the card's seeded model, its call, args, keywords): every
+    model of the zoo's registry at ViT-B-16 width (`models`, `zoo_seeded`'s
+    label -> model); Clip4Cir and VTF on seeded [B, 2d] features (their
+    inputs are 2d wide), CompoDiff on seeded conditioning (its dim is
+    768)."""
     d, b = ZOO_WIDTH, ZOO_BATCH
     g = torch.Generator().manual_seed(21)
 
@@ -4439,25 +4540,22 @@ def zoo_heads(f: dict) -> dict:
                  mask.float().cuda(), torch.randint(0, 1000, (cb,), generator=g).float().cuda(),
                  seeded(cb, 77, COMPODIFF["text_cond_dim"]))
     calls = {
-        "clip4cir_combiner": (lambda: TZ.Clip4CirCombiner(d, 4 * d, 8 * d), pair, {}),
-        "vtf": (lambda: TZ.VTFModule(d, 4 * d, 8 * d), pair, {}),
-        "attention_pooling": (lambda: TZ.AttentionPooling(d, 13), (f["ref_tok"],), {}),
-        "cala": (lambda: TZ.TwinAttentionCompositor(d), (f["ref_tok"], f["tar_tok"]), {}),
-        "artemis": (lambda: TZ.Artemis(d), (f["ref_g"], f["txt_g"], f["tar_g"]), {}),
-        "artemis_broadcast": (lambda: TZ.Artemis(d), (f["ref_g"], f["txt_g"], f["tar_g"]),
-                              {"broadcast": True}),
-        "dqu_cir": (lambda: TZ.DQUCIRHead(d, hidden_dim=2 * d), (f["txt_g"], f["ref_g"]), {}),
-        "amc": (lambda: TZ.AMCInteractionModule(d, d), amc, {}),
-        "amc_ensemble": (lambda: TZ.AMCEnsemble(d), amc, {}),
-        "compodiff": (lambda: TZ.CompoDiffNetwork(**COMPODIFF), compodiff,
-                      {"cond_scale": COMPODIFF_SCALE}),
+        "clip4cir_combiner": (pair, {}),
+        "vtf": (pair, {}),
+        "attention_pooling": ((f["ref_tok"],), {}),
+        "cala": ((f["ref_tok"], f["tar_tok"]), {}),
+        "artemis": ((f["ref_g"], f["txt_g"], f["tar_g"]), {}),
+        "artemis_broadcast": ((f["ref_g"], f["txt_g"], f["tar_g"]), {"broadcast": True}),
+        "dqu_cir": ((f["txt_g"], f["ref_g"]), {}),
+        "amc": (amc, {}),
+        "amc_ensemble": (amc, {}),
+        "compodiff": (compodiff, {"cond_scale": COMPODIFF_SCALE}),
     }
     heads = {}
-    for i, (name, (build, args, kw)) in enumerate(calls.items()):
-        torch.manual_seed(40 + i)
-        module = build().eval()
-        fn = module.forward_with_cond_scale if name == "compodiff" else module
-        heads[name] = (module.cuda(), fn, args, kw)
+    for label, (args, kw) in calls.items():
+        module = models[label]
+        fn = module.forward_with_cond_scale if label == "compodiff" else module
+        heads[label] = (module, fn, args, kw)
     return heads
 
 
@@ -4578,13 +4676,18 @@ def cala_step_split(forward, forward_backward, step) -> dict:
                 adam_device_ms=full["device_ms"] - fb["device_ms"], top=full["top"][:6])
 
 
-def cala_setup(d: int, ref: torch.Tensor, tar: torch.Tensor, target: torch.Tensor) -> tuple:
-    """CaLa's train step on the card: a `TwinAttentionCompositor(d)` seeded
-    with 60 + d, the registry's bbc on its normalized queries against the
-    normalized `target`, Adam at `TRAIN_LR`. -> (model, optimizer,
-    loss_of(model, ref, tar, target), step() -> loss)."""
-    torch.manual_seed(60 + d)
-    model = TZ.TwinAttentionCompositor(d).cuda()
+def cala_model(d: int) -> torch.nn.Module:
+    """A `TwinAttentionCompositor(d)` drawn on the card by the JAX
+    package's seeded init at seed 60 + d."""
+    return TZ.seeded_zoo_model("cala", 60 + d, "cuda", embedding_dim=d)
+
+
+def cala_setup(model: torch.nn.Module, ref: torch.Tensor, tar: torch.Tensor,
+               target: torch.Tensor) -> tuple:
+    """CaLa's train step on the card for `model` (`cala_model`): the
+    registry's bbc on its normalized queries against the normalized
+    `target`, Adam at `TRAIN_LR`. -> (optimizer, loss_of(model, ref, tar,
+    target), step() -> loss)."""
     bbc = get_loss("bbc").fn
 
     def loss_of(m, r, t, y):
@@ -4599,24 +4702,35 @@ def cala_setup(d: int, ref: torch.Tensor, tar: torch.Tensor, target: torch.Tenso
         opt.step()
         return loss
 
-    return model, opt, loss_of, step
+    return opt, loss_of, step
 
 
 def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
                target: torch.Tensor) -> dict:
     """CaLa's train step at ref / tar [B, 13, d]: a seeded
-    `TwinAttentionCompositor(d)`, the registry's bbc on its normalized
-    queries against the normalized `target`, Adam at `TRAIN_LR`. Step 1
-    card against the same step on the CPU (loss at `CALA_LOSS_RTOL`,
+    `TwinAttentionCompositor(d)` (the JAX package's seeded init at 60 + d,
+    drawn on the card and held by `held_draw`), the registry's bbc on its
+    normalized queries against the normalized `target`, Adam at
+    `TRAIN_LR`. Step 1 card against the same step on a host copy of the
+    card's draw (loss at `CALA_LOSS_RTOL`,
     every parameter gradient's cosine at `CALA_GRAD_COSINE_MIN`), the
     forward's launches (8 B8 on the wide route, 1 B4) and none in the
     backward; `CALA_STEPS` steps whose loss must be finite and falling,
     their launches (set to 0 just before, read just after); then a step's
     ms (CUDA events, median of 10)."""
     d = ref.shape[-1]
-    torch.manual_seed(60 + d)
-    cpu = copy.deepcopy(TZ.TwinAttentionCompositor(d))
-    model, opt, loss_of, step = cala_setup(d, ref, tar, target)
+    t_draw = time.perf_counter()
+    model = cala_model(d)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t_draw
+    draw = dict(held_draw({"cala": (model, 60 + d)}), card_seconds=t_draw)
+    log(f"  CaLa {label} (d = {d}): the JAX package's seeded init at seed {60 + d}, "
+        f"{draw['values']:,} values drawn on the card in {t_draw:.3f} s; {draw['tensors']} "
+        f"tensors equal to it; {draw['cpu_values']:,} values of its {draw['variables']} "
+        f"variables drawn again on the CPU in {draw['cpu_seconds']:.3f} s, at most "
+        f"{draw['max_ulps']} float32 ulps apart ({card})")
+    cpu = copy.deepcopy(model).cpu()
+    opt, loss_of, step = cala_setup(model, ref, tar, target)
 
     reset_launches()
     loss = loss_of(model, ref, tar, target)
@@ -4643,7 +4757,8 @@ def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
     with torch.no_grad():
         losses.append(loss_of(model, ref, tar, target).item())
     out = dict(loss_cpu=want.item(), rel=rel, grad_cosines=cos, losses=losses,
-               launches=launches, step_ms=median_ms(step, runs=10), cpu_seconds=t_cpu)
+               launches=launches, step_ms=median_ms(step, runs=10), cpu_seconds=t_cpu,
+               draw=draw)
     log(f"  CaLa train step {label} (d = {d}, B = {ref.shape[0]}, fp32): step-1 loss "
         f"{losses[0]:.6f} vs CPU {want.item():.6f} (rel {rel:.3e}); {len(cos)} parameter "
         f"gradients card vs CPU, min cosine {min(cos.values()):.8f}; losses over "
@@ -4660,6 +4775,37 @@ def cala_train(card: str, label: str, ref: torch.Tensor, tar: torch.Tensor,
     return out
 
 
+def zoo_text_relevance(card: str, pred: torch.Tensor, target: torch.Tensor,
+                       txt_g: torch.Tensor) -> dict:
+    """The registry's text_relevance, stateful: a bank made by
+    `TextRelevanceBank.create` without `device=` (the card), two calls
+    (CaLa's normalized queries, then the normalized target globals, each
+    against the normalized text globals), each loss card against the same
+    calls on a CPU bank at `ZOO_BBC_RTOL`."""
+    fn = get_loss("text_relevance").fn
+    text = F.normalize(txt_g, dim=-1)
+    bank = TextRelevanceBank.create(TEXT_BANK_ROWS, ZOO_WIDTH)
+    cpu_bank = TextRelevanceBank.create(TEXT_BANK_ROWS, ZOO_WIDTH, device="cpu")
+    if bank.query.device != pred.device:
+        raise AssertionError(f"TextRelevanceBank.create made its bank on {bank.query.device}, "
+                             f"not on the card ({pred.device})")
+    scale = torch.tensor(LOGIT_SCALE_INIT)
+    losses, rels = [], []
+    with torch.no_grad():
+        for queries in (pred, target):
+            got, bank = fn(bank, queries, text, scale.cuda())
+            want, cpu_bank = fn(cpu_bank, queries.cpu(), text.cpu(), scale)
+            losses.append((got.item(), want.item()))
+            rels.append(abs(got.item() - want.item()) / abs(want.item()))
+    log(f"  registry 'text_relevance' (a bank of {TEXT_BANK_ROWS} rows made on the card "
+        f"without device=) on CaLa's card queries, then the target globals: "
+        + ", ".join(f"{g:.6f} vs CPU {w:.6f}" for g, w in losses)
+        + f" (rel up to {max(rels):.3e}); {bank.size} rows filled ({card})")
+    if not max(rels) <= ZOO_BBC_RTOL:
+        raise AssertionError(f"registry text_relevance: card against CPU {losses}")
+    return dict(losses=losses, rel=max(rels), bank_rows=bank.size)
+
+
 def phase_zoo(card: str) -> dict:
     """Phase 20 (module docstring)."""
     t0 = time.perf_counter()
@@ -4668,7 +4814,14 @@ def phase_zoo(card: str) -> dict:
     sass = concurrent.futures.ThreadPoolExecutor(1).submit(wide_instances)
     out["wide_worst"], out["wide_rows"] = phase_wide_kernel()
     features = zoo_features(seed=20)
-    heads = zoo_heads(features)
+    models, card_s = zoo_seeded()
+    out["draw"] = draw = dict(held_draw(models), card_seconds=card_s)
+    log(f"  the zoo's {len(models)} heads by the JAX package's seeded init (seeds 40-"
+        f"{39 + len(models)}): {draw['values']:,} values drawn on the card in {card_s:.3f} s; "
+        f"{draw['tensors']} tensors equal to it; {draw['cpu_values']:,} values of its "
+        f"{draw['variables']} variables drawn again on the CPU in {draw['cpu_seconds']:.3f} s, "
+        f"at most {draw['max_ulps']} float32 ulps apart ({card})")
+    heads = zoo_heads(features, {label: m for label, (m, _) in models.items()})
     cpu = {name: copy.deepcopy(module).cpu() for name, (module, _, _, _) in heads.items()}
     reset_launches()
     with torch.no_grad():
@@ -4700,10 +4853,11 @@ def phase_zoo(card: str) -> dict:
         f"{ {n: launches[n] for n in ZOO_LAUNCHES} } ({card})")
     if not rel <= ZOO_BBC_RTOL:
         raise AssertionError(f"registry bbc: card {bbc.item()} against CPU {want.item()}")
+    out["text_relevance"] = zoo_text_relevance(card, pred, target, features["txt_g"])
     t1 = time.perf_counter()
     out["grad_least_cosine"], out["grad_rows"] = phase_grad_functions(card)
     out["grad_seconds"] = time.perf_counter() - t1
-    del heads, cpu, card_out
+    del heads, models, cpu, card_out
     # ViT-B-16 width on the tower's features, RN50x4's on seeded ones
     g = torch.Generator().manual_seed(22)
     out["cala_train"] = {}

@@ -284,12 +284,14 @@ _EXPERIMENT_KERNELS = ("w_qkv", "w_out")
 
 def attn_experiment_params_from_jax(params: Mapping[str, Any], *,
                                     dtype: torch.dtype = torch.float32,
-                                    device: torch.device | str = "cpu") -> dict:
+                                    device: torch.device | str = "cuda") -> dict:
     """The attention experiment's JAX weights (any of `g_`, `be`, `w_qkv`
     [W, 3W], `b_qkv`, `w_out` [W, W], `b_out`, as numpy or anything
     `np.asarray` takes, fp32 or bf16) -> the arguments of
     `ops/attn_experiment.py qkvattn` / `attnblock` (`g`, `be`, `w_qkv`
-    [3W, W], `b_qkv`, `w_out` [W, W], `b_out`) in `dtype` on `device`.
+    [3W, W], `b_qkv`, `w_out` [W, W], `b_out`) in `dtype` on `device` (the
+    card unless the caller names another: they are the arguments of
+    kernels X3 and X4).
     Run once, as a checkpoint load, before any timed call."""
     unknown = set(params) - set(_EXPERIMENT_NAMES)
     if unknown:
@@ -335,11 +337,12 @@ def combiner_state_dict(variables: Mapping) -> dict:
 def vtf_state_dict(variables: Mapping) -> dict:
     """`VTFModule`: inverse of `vtf_from_torch`. The JAX tree holds a copy
     of `text_mlp` as `text_mlp_shared` (the reference's image stream calls
-    `text_mlp`); the port holds one `text_mlp`, so the copy must equal it."""
+    `text_mlp`); the port holds one `text_mlp`, so the copy must equal it
+    (numpy or torch leaves)."""
     p = dict(variables["params"])
     for i in (0, 3):
         shared, own = p.pop(f"text_mlp_shared_{i}"), p[f"text_mlp_{i}"]
-        if any(not np.array_equal(np.asarray(shared[k]), np.asarray(own[k])) for k in own):
+        if any(not torch.equal(_t(shared[k]), _t(own[k])) for k in own):
             raise ValueError(f"vtf_state_dict: text_mlp_shared_{i} differs from text_mlp_{i}; "
                              "the port, like the reference, holds one text_mlp")
     return _zoo_tree(p)

@@ -27,11 +27,12 @@ without x64; `fold_in(k, d)` is `threefry2x32(k, (0, d))`.
 
 The values (JAX's `random_bits`, partitionable Threefry, and
 `uniform` / `normal` / `truncated_normal`), on the device the caller
-names, in chunks of `CHUNK` values: the counter pair (0, i) of the flat
-index i hashed by Threefry-2x32 in int64 tensors masked to 32 bits, its
-two words xor-ed; the mantissa from the top 23 bits; then the float32
-arithmetic that XLA's CPU backend compiles for these functions, step by
-step: the uniform's multiply-add and every step of the `erf_inv`
+names, in chunks of `CHUNK` values (any range of a variable's flat
+indices can be drawn alone, `flat_values`): the counter pair (0, i) of
+the flat index i hashed by Threefry-2x32 in int64 tensors masked to 32
+bits, its two words xor-ed; the mantissa from the top 23 bits; then the
+float32 arithmetic that XLA's CPU backend compiles for these functions,
+step by step: the uniform's multiply-add and every step of the `erf_inv`
 polynomial as fused multiply-adds (a float32 product is exact in
 float64: one float64 add, one rounding), XLA's own `log1p` and `log`
 (Cephes' polynomials, not `torch.log1p`), square roots rounded from
@@ -142,11 +143,20 @@ def scope(name: str, variables: Iterable[Variable]) -> list[Variable]:
     return [dataclasses.replace(v, path=(name, *v.path)) for v in variables]
 
 
-def dense(name: str, d_in: int, d_out: int, kernel_init: dict = LECUN_NORMAL) -> list[Variable]:
-    """`nn.Dense(d_out, name=name)` on d_in features (or the JAX
-    package's `_DenseParams` holders, which keep its names and rules)."""
-    return scope(name, [param("kernel", (d_in, d_out), kernel_init, 1),
-                        param("bias", (d_out,), ZEROS, 2)])
+def dense(name: str, d_in: int, d_out: int, kernel_init: dict = LECUN_NORMAL,
+          use_bias: bool = True) -> list[Variable]:
+    """`nn.Dense(d_out, use_bias=use_bias, name=name)` on d_in features
+    (or the JAX package's `_DenseParams` holders, which keep its names and
+    rules)."""
+    bias = [param("bias", (d_out,), ZEROS, 2)] if use_bias else []
+    return scope(name, [param("kernel", (d_in, d_out), kernel_init, 1), *bias])
+
+
+def dense_like(name: str, linear: torch.nn.Linear) -> list[Variable]:
+    """`dense` at a port `nn.Linear`'s widths, with a bias where it has
+    one."""
+    return dense(name, linear.in_features, linear.out_features,
+                 use_bias=linear.bias is not None)
 
 
 def conv(name: str, k: int, c_in: int, c_out: int) -> list[Variable]:
@@ -335,34 +345,40 @@ def _sampler(spec: dict, shape: tuple[int, ...]):
     raise ValueError(f"unknown initializer {kind!r}")
 
 
-def initialize(spec: dict, key: tuple[int, int], shape: Iterable[int],
-               device: torch.device | str) -> torch.Tensor:
-    """One variable's value (float32, on `device`) from its initializer and
-    key."""
+def flat_values(spec: dict, key: tuple[int, int], shape: Iterable[int], start: int,
+                stop: int, device: torch.device | str) -> torch.Tensor:
+    """A variable's values at the flat (row-major) indices [start, stop)
+    of its value, drawing only those: `initialize(...).reshape(-1)[start:
+    stop]`."""
     shape = tuple(int(s) for s in shape)
     kind = spec["kind"]
-    if kind == "zeros":
-        return torch.zeros(shape, device=device)
-    if kind == "ones":
-        return torch.ones(shape, device=device)
-    if kind == "constant":
-        return torch.full(shape, spec["value"], device=device)
+    if kind in ("zeros", "ones", "constant"):
+        value = spec["value"] if kind == "constant" else float(kind == "ones")
+        return torch.full((stop - start,), value, dtype=torch.float32, device=device)
     if kind == "dense_general_kernel":
         nb, na, nf = spec["n_batch_dims"], spec["n_axis"], spec["n_features"]
         flat = (math.prod(shape[:nb]) * math.prod(shape[nb:nb + na]), math.prod(shape[-nf:]))
-        return initialize(spec["inner"], key, flat, device).reshape(shape)
+        return flat_values(spec["inner"], key, flat, start, stop, device)
     if kind == "dense_general_bias":
         flat = (math.prod(shape[:spec["n_batch_dims"]])
                 * math.prod(shape[-spec["n_features"]:]),)
-        return initialize(spec["inner"], key, flat, device).reshape(shape)
-    sample = _sampler(spec, shape)
+        return flat_values(spec["inner"], key, flat, start, stop, device)
     n = math.prod(shape)
     if n >= 1 << 32:
         raise ValueError(f"{n} values: past the 32-bit counters this draw covers")
+    return _sampler(spec, shape)(_bits(key, start, stop, device))
+
+
+def initialize(spec: dict, key: tuple[int, int], shape: Iterable[int],
+               device: torch.device | str) -> torch.Tensor:
+    """One variable's value (float32, on `device`) from its initializer and
+    key, drawn `CHUNK` values at a time."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
     for start in range(0, n, CHUNK):
         stop = min(n, start + CHUNK)
-        out[start:stop] = sample(_bits(key, start, stop, device))
+        out[start:stop] = flat_values(spec, key, shape, start, stop, device)
     return out.reshape(shape)
 
 

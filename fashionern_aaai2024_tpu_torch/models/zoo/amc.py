@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
+
 LN_EPS = 1e-5
 SA_HEADS = 8
 
@@ -49,6 +51,12 @@ class Router(nn.Module):
                                  nn.LayerNorm(hid, eps=LN_EPS), nn.ReLU(),
                                  nn.Linear(hid, num_out_path, bias=False), nn.Sigmoid())
 
+    def flax_variables(self) -> list[I.Variable]:
+        """`mlp_0` and `mlp_3` without bias, `mlp_1` a LayerNorm."""
+        return [*I.dense_like("mlp_0", self.mlp[0]),
+                *I.layer_norm("mlp_1", self.mlp[1].normalized_shape[0]),
+                *I.dense_like("mlp_3", self.mlp[3])]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B, K, 2d] -> [B, cells]
         return self.mlp(x.mean(dim=-2))
 
@@ -67,6 +75,10 @@ class StyleCell(nn.Module):
         super().__init__()
         self.fc_gamma = nn.Sequential(nn.Linear(embed_size, embed_size))
         self.fc_beta = nn.Sequential(nn.Linear(embed_size, embed_size))
+
+    def flax_variables(self) -> list[I.Variable]:
+        return [*I.dense_like("fc_gamma_0", self.fc_gamma[0]),
+                *I.dense_like("fc_beta_0", self.fc_beta[0])]
 
     def forward(self, rgn, img, wrd, stc, stc_lens=None) -> torch.Tensor:
         return _torch_layer_norm(rgn * self.fc_gamma(stc)[:, None, :]
@@ -103,6 +115,15 @@ class SelfAttentionCell(nn.Module):
         self.att_layer = _Linears(embed_size)
         self.feed_forward_layer = _FeedForward(embed_size)
 
+    def flax_variables(self) -> list[I.Variable]:
+        d = self.norm1.normalized_shape[0]
+        q, k, v = self.att_layer.linears
+        return [*I.layer_norm("norm1", d), *I.dense_like("att_q", q),
+                *I.dense_like("att_k", k), *I.dense_like("att_v", v),
+                *I.layer_norm("norm2", d),
+                *I.dense_like("ff_1", self.feed_forward_layer.fc1),
+                *I.dense_like("ff_2", self.feed_forward_layer.fc2)]
+
     def forward(self, local_emb: torch.Tensor) -> torch.Tensor:
         b, s, d = local_emb.shape
         head = d // SA_HEADS
@@ -125,6 +146,9 @@ class GlobalCell(nn.Module):
         self.linear = nn.Linear(2 * embed_size, embed_size)
         self.SA = SelfAttentionCell(embed_size)
 
+    def flax_variables(self) -> list[I.Variable]:
+        return [*I.dense_like("linear", self.linear), *I.scope("SA", self.SA.flax_variables())]
+
     def forward(self, rgn, img, wrd, stc, stc_lens=None) -> torch.Tensor:
         return _torch_layer_norm(self.SA(self.linear(_with_sentence(rgn, stc))))
 
@@ -138,6 +162,11 @@ class _Cells(nn.Module):
         self.glo = GlobalCell(embed_size)
         self.sty = StyleCell(embed_size)
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The cells' variables (`ric` has none)."""
+        return [*I.scope("glo", self.glo.flax_variables()),
+                *I.scope("sty", self.sty.flax_variables())]
+
     def cells(self, rgn, img, wrd, stc, stc_lens=None) -> list[torch.Tensor]:
         return [self.ric(rgn), self.glo(rgn, img, wrd, stc, stc_lens),
                 self.sty(rgn, img, wrd, stc, stc_lens)]
@@ -147,6 +176,9 @@ class DynamicInteractionLayer(_Cells):
     def __init__(self, embed_size: int, hid_router: int, num_cells: int = 3):
         super().__init__(embed_size)
         self.router = Router(num_cells, embed_size, hid_router)
+
+    def flax_variables(self) -> list[I.Variable]:
+        return [*I.scope("router", self.router.flax_variables()), *super().flax_variables()]
 
     def forward(self, rgn, img, wrd, stc, stc_lens=None) -> tuple[torch.Tensor, torch.Tensor]:
         path_prob = self.router(_with_sentence(rgn, stc))                    # [B, cells]
@@ -162,6 +194,11 @@ class AMCInteractionModule(nn.Module):
         super().__init__()
         self.dynamic_itr_l0 = DynamicInteractionLayer(embed_size, hid_router)
         self.dynamic_itr_l1 = DynamicInteractionLayer(embed_size, hid_router)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`amc.py:27-163`)."""
+        return [*I.scope("dynamic_itr_l0", self.dynamic_itr_l0.flax_variables()),
+                *I.scope("dynamic_itr_l1", self.dynamic_itr_l1.flax_variables())]
 
     def forward(self, rgn, img, wrd, stc, stc_lens=None):
         emb1, p1 = self.dynamic_itr_l0(rgn, img, wrd, stc, stc_lens)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.layers import torch_normalize
 
 TEMPERATURE_INIT = 2.65926
@@ -30,6 +31,10 @@ class AttentionMechanism(nn.Module):
         self.attention = nn.Sequential(nn.Linear(embed_dim, embed_dim), nn.ReLU(),
                                        nn.Linear(embed_dim, embed_dim), nn.Softmax(dim=1))
 
+    def flax_variables(self) -> list[I.Variable]:
+        return [*I.dense_like("attention_0", self.attention[0]),
+                *I.dense_like("attention_2", self.attention[2])]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.attention(x)
 
@@ -42,6 +47,15 @@ class Artemis(nn.Module):
         self.Attention_EM = AttentionMechanism(d)
         self.Attention_IS = AttentionMechanism(d)
         self.temperature = nn.Parameter(torch.tensor([TEMPERATURE_INIT]))
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`artemis.py:35-44`). `temperature`'s
+        initializer is a constant, but flax still hands it a key: the
+        scope's first `make_rng`, counter 1."""
+        return [*I.dense_like("Transform_m", self.Transform_m[0]),
+                *I.scope("Attention_EM", self.Attention_EM.flax_variables()),
+                *I.scope("Attention_IS", self.Attention_IS.flax_variables()),
+                I.param("temperature", (1,), I.constant(TEMPERATURE_INIT), 1)]
 
     def score_em(self, r: torch.Tensor, m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         tr_m = torch_normalize(self.Transform_m(m))

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.layers import TorchMultiheadAttention
 
 REFINEMENTS = 3
@@ -35,6 +36,14 @@ class TwinAttentionCompositor(nn.Module):
         for attn in (self.reference_as_query_attention, self.target_as_query_attention):
             nn.init.xavier_uniform_(attn.in_proj_weight)
             nn.init.zeros_(attn.in_proj_bias)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`cala.py:15-24`): two
+        `TorchMultiheadAttention`s, xavier-uniform `in_proj_weight`."""
+        return [*I.scope("reference_as_query_attention",
+                         self.reference_as_query_attention.flax_variables()),
+                *I.scope("target_as_query_attention",
+                         self.target_as_query_attention.flax_variables())]
 
     @staticmethod
     def _refine(attn: TorchMultiheadAttention, query: torch.Tensor,

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.layers import torch_normalize
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
 
@@ -28,6 +29,11 @@ def _scalar_mlp(d_in: int, hidden: int) -> nn.Sequential:
     `.0` and `.3`, as the reference's `nn.Sequential`s hold them."""
     return nn.Sequential(nn.Linear(d_in, hidden), nn.ReLU(), nn.Dropout(DROPOUT),
                          nn.Linear(hidden, 1))
+
+
+def _scalar_mlp_variables(name: str, mlp: nn.Sequential) -> list[I.Variable]:
+    """flax's `{name}_0` and `{name}_3` Denses of a `_scalar_mlp`."""
+    return [*I.dense_like(f"{name}_0", mlp[0]), *I.dense_like(f"{name}_3", mlp[3])]
 
 
 class Clip4CirCombiner(nn.Module):
@@ -42,6 +48,17 @@ class Clip4CirCombiner(nn.Module):
         self.combiner_layer = nn.Linear(2 * projection_dim, hidden_dim)
         self.output_layer = nn.Linear(hidden_dim, d2)
         self.dynamic_scalar = _scalar_mlp(2 * projection_dim, hidden_dim)
+
+    def _projection_variables(self) -> list[I.Variable]:
+        return [*I.dense_like("text_projection_layer", self.text_projection_layer),
+                *I.dense_like("image_projection_layer", self.image_projection_layer),
+                *I.dense_like("combiner_layer", self.combiner_layer),
+                *_scalar_mlp_variables("dynamic_scalar", self.dynamic_scalar)]
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`combiner.py:22-46`), in flax's
+        order of creation."""
+        return [*self._projection_variables(), *I.dense_like("output_layer", self.output_layer)]
 
     def mix(self, image_features: torch.Tensor, text_features: torch.Tensor,
             generator: torch.Generator | None) -> torch.Tensor:
@@ -81,6 +98,20 @@ class VTFModule(Clip4CirCombiner):
         self.output_layer2 = nn.Linear(hidden_dim, d2)
         self.dynamic_scalar2 = _scalar_mlp(2 * d2, hidden_dim)
 
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`combiner.py:49-104`), in flax's
+        order of creation, `text_mlp_shared_{0,3}` included: the JAX
+        module draws that copy of `text_mlp` apart (`zoo.jax_init_` drops
+        the draw, ROADMAP C28)."""
+        return [*_scalar_mlp_variables("image_mlp", self.image_mlp),
+                *self._projection_variables(),
+                *_scalar_mlp_variables("text_mlp", self.text_mlp),
+                *_scalar_mlp_variables("text_mlp_shared", self.text_mlp),
+                *I.dense_like("combiner_layer2", self.combiner_layer2),
+                *_scalar_mlp_variables("dynamic_scalar2", self.dynamic_scalar2),
+                *I.dense_like("output_layer", self.output_layer),
+                *I.dense_like("output_layer2", self.output_layer2)]
+
     def forward(self, image_features: torch.Tensor, text_features: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         def relu_drop(x):
@@ -109,6 +140,10 @@ class AttentionPooling(nn.Module):
     def __init__(self, emb_dim: int, emb_num: int):
         super().__init__()
         self.projection = nn.Linear(emb_dim * emb_num, emb_num)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX module's variables (`combiner.py:107-119`)."""
+        return I.dense_like("projection", self.projection)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         energy = self.projection(inputs.reshape(inputs.shape[0], -1))

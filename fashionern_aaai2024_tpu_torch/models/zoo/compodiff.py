@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
+
 
 class DalleLayerNorm(nn.Module):
     def __init__(self, dim: int, stable: bool = False, eps: float = 1e-5):
@@ -46,6 +48,9 @@ class DalleLayerNorm(nn.Module):
         self.stable = stable
         self.eps = eps
         self.g = nn.Parameter(torch.ones(dim))
+
+    def flax_variables(self) -> list[I.Variable]:
+        return [I.param("g", self.g.shape, I.ONES, 1)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stable:
@@ -75,6 +80,12 @@ class MLP(nn.Module):
         self.mid = nn.ModuleList(nn.Linear(hidden, hidden) for _ in range(depth - 1))
         self.proj_out = nn.Linear(hidden, dim_out)
 
+    def flax_variables(self) -> list[I.Variable]:
+        """flax's `in`, `mid_{i}`, `out`."""
+        return [*I.dense_like("in", self.proj_in),
+                *(v for i, layer in enumerate(self.mid) for v in I.dense_like(f"mid_{i}", layer)),
+                *I.dense_like("out", self.proj_out)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.proj_in(x.float()))
         for layer in self.mid:
@@ -99,6 +110,10 @@ class RelPosBias(nn.Module):
         self.num_buckets = num_buckets
         self.max_distance = max_distance
         self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+
+    def flax_variables(self) -> list[I.Variable]:
+        return [I.param("relative_attention_bias", self.relative_attention_bias.weight.shape,
+                        I.normal(1.0), 1)]
 
     def forward(self, i: int, j: int) -> torch.Tensor:
         """[heads, i, j] bias of query position q against key position k."""
@@ -136,6 +151,17 @@ def _masked_softmax(sim: torch.Tensor, mask: torch.Tensor | None) -> torch.Tenso
     return torch.softmax(sim.float(), dim=-1).to(sim.dtype)
 
 
+def _attention_variables(attn: nn.Module, norms: dict) -> list[I.Variable]:
+    """A CompoDiff attention's flax variables: its input `norms` (name ->
+    `DalleLayerNorm`), `to_q` and `to_kv` (no bias), `null_kv` (normal(1.0),
+    the attention scope's own first `make_rng`), `to_out`, `out_norm`."""
+    return [*(v for name, norm in norms.items() for v in I.scope(name, norm.flax_variables())),
+            *I.dense_like("to_q", attn.to_q), *I.dense_like("to_kv", attn.to_kv),
+            I.param("null_kv", attn.null_kv.shape, I.normal(1.0), 1),
+            *I.dense_like("to_out", attn.to_out),
+            *I.scope("out_norm", attn.out_norm.flax_variables())]
+
+
 class CompoDiffSelfAttention(nn.Module):
     """Multi-query cosine-sim self-attention with a null K/V slot
     (`CompoDiff_Model.py:295-389`)."""
@@ -153,6 +179,9 @@ class CompoDiffSelfAttention(nn.Module):
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
         self.to_out = nn.Linear(dim_head * heads, dim, bias=False)
         self.out_norm = DalleLayerNorm(dim)
+
+    def flax_variables(self) -> list[I.Variable]:
+        return _attention_variables(self, {"norm": self.norm})
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -200,6 +229,12 @@ class CompoDiffCrossAttention(nn.Module):
         self.to_out = nn.Linear(inner, dim, bias=False)
         self.out_norm = DalleLayerNorm(dim)
 
+    def flax_variables(self) -> list[I.Variable]:
+        norms = {"norm": self.norm}
+        if self.norm_context is not None:
+            norms["norm_context"] = self.norm_context
+        return _attention_variables(self, norms)
+
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         b, n, _ = x.shape
@@ -232,6 +267,13 @@ class SwiGLUFeedForward(nn.Module):
         self.post_norm = DalleLayerNorm(inner) if post_activation_norm else None
         self.proj_out = nn.Linear(inner, dim, bias=False)
 
+    def flax_variables(self) -> list[I.Variable]:
+        post = [] if self.post_norm is None else I.scope("post_norm",
+                                                          self.post_norm.flax_variables())
+        return [*I.scope("norm", self.norm.flax_variables()),
+                *I.dense_like("proj_in", self.proj_in), *post,
+                *I.dense_like("proj_out", self.proj_out)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, gate = self.proj_in(self.norm(x)).chunk(2, dim=-1)
         x = a * F.silu(gate)
@@ -256,6 +298,17 @@ class CrossTransformer(nn.Module):
         self.ff = nn.ModuleList(SwiGLUFeedForward(dim, mult=ff_mult) for _ in range(depth))
         self.norm = DalleLayerNorm(dim, stable=True) if norm_out else None
         self.project_out = nn.Linear(dim, dim, bias=False) if final_proj else None
+
+    def flax_variables(self) -> list[I.Variable]:
+        out = I.scope("rel_pos_bias", self.rel_pos_bias.flax_variables())
+        for i, layers in enumerate(zip(self.attn, self.cross, self.ff)):
+            for kind, layer in zip(("attn", "cross", "ff"), layers):
+                out += I.scope(f"{kind}_{i}", layer.flax_variables())
+        if self.norm is not None:
+            out += I.scope("norm", self.norm.flax_variables())
+        if self.project_out is not None:
+            out += I.dense_like("project_out", self.project_out)
+        return out
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -286,6 +339,14 @@ class CompoDiffNetwork(nn.Module):
         self.mask_mlp = MLP(mask_hw * mask_hw, dim)
         self.transformer = CrossTransformer(dim=dim, depth=depth, dim_head=dim_head,
                                             heads=heads)
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX network's variables (`compodiff.py:30-330`); every Dense
+        of the transformer is without bias."""
+        return [*I.dense_like("to_text_embeds", self.to_text_embeds),
+                *I.scope("time_mlp", self.time_mlp.flax_variables()),
+                *I.scope("mask_mlp", self.mask_mlp.flax_variables()),
+                *I.scope("transformer", self.transformer.flax_variables())]
 
     def forward(self, image_embed: torch.Tensor, image_cond: torch.Tensor,
                 text_cond: torch.Tensor, input_mask: torch.Tensor,

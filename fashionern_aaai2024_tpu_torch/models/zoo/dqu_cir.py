@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fashionern_aaai2024_tpu_torch.models import init as I
 from fashionern_aaai2024_tpu_torch.models.ern.layers import torch_normalize
 from fashionern_aaai2024_tpu_torch.ops.dropout import dropout
 
@@ -31,6 +32,12 @@ class DQUCIRHead(nn.Module):
         self.scaler_fc = nn.Sequential(nn.Linear(hidden_dim, hidden_dim), nn.ReLU(),
                                        nn.Dropout(dropout), nn.Linear(hidden_dim, 1),
                                        nn.Sigmoid())
+
+    def flax_variables(self) -> list[I.Variable]:
+        """The JAX head's variables (`dqu_cir.py:19-38`)."""
+        return [*I.dense_like("combiner_fc_0", self.combiner_fc[0]),
+                *I.dense_like("scaler_fc_0", self.scaler_fc[0]),
+                *I.dense_like("scaler_fc_3", self.scaler_fc[3])]
 
     def forward(self, textual_query: torch.Tensor, visual_query: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

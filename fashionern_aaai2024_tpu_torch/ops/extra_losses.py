@@ -86,7 +86,9 @@ def cyclip_loss(image_emb: torch.Tensor, text_emb: torch.Tensor, logit_scale: to
 
 @dataclasses.dataclass(frozen=True)
 class TextRelevanceBank:
-    """FIFO feature bank, newest rows first; `size` counts valid rows."""
+    """FIFO feature bank, newest rows first; `size` counts valid rows.
+    `create` allocates it on the card unless the caller names another
+    device (JAX's on the default device)."""
 
     query: torch.Tensor   # [K, d]
     doc: torch.Tensor     # [K, d]
@@ -94,7 +96,7 @@ class TextRelevanceBank:
 
     @classmethod
     def create(cls, capacity: int, dim: int,
-               device: torch.device | str = "cpu") -> "TextRelevanceBank":
+               device: torch.device | str = "cuda") -> "TextRelevanceBank":
         zeros = torch.zeros((capacity, dim), dtype=torch.float32, device=device)
         return cls(query=zeros, doc=zeros.clone(), size=0)
 

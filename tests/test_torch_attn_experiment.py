@@ -24,6 +24,7 @@ frameworks accumulate in other orders).
 """
 
 import importlib.util
+import inspect
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -153,7 +154,8 @@ def test_x3_plain_matches_the_pallas_kernel(dtype):
     with pltpu.force_tpu_interpret_mode():
         want = JX.qkvattn(jx, jnp.asarray(jw["w_qkv"], jd), jnp.asarray(jw["b_qkv"], jd),
                           jnp.asarray(bias), SCALE)
-    p = attn_experiment_params_from_jax({n: jw[n] for n in ("w_qkv", "b_qkv")}, dtype=td)
+    p = attn_experiment_params_from_jax({n: jw[n] for n in ("w_qkv", "b_qkv")}, dtype=td,
+                                        device="cpu")
     _close(want, X.qkvattn(tx, p["w_qkv"], p["b_qkv"], torch.from_numpy(bias), SCALE), dtype)
 
 
@@ -168,7 +170,7 @@ def test_x4_plain_matches_the_pallas_kernel(dtype):
     with pltpu.force_tpu_interpret_mode():
         want = JX.attnblock(jx, *(jnp.asarray(jw[n], jd) for n in names), jnp.asarray(bias),
                             SCALE)
-    p = attn_experiment_params_from_jax(jw, dtype=td)
+    p = attn_experiment_params_from_jax(jw, dtype=td, device="cpu")
     got = X.attnblock(tx, p["g"], p["be"], p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
                       torch.from_numpy(bias), SCALE)
     _close(want, got, dtype)
@@ -184,7 +186,7 @@ def test_attention_ref_matches_xla_ref(dtype):
 
 def test_converter_gives_the_torch_layout():
     jw = _weights(50)
-    p = attn_experiment_params_from_jax(jw)
+    p = attn_experiment_params_from_jax(jw, device="cpu")
     assert set(p) == {"g", "be", "w_qkv", "b_qkv", "w_out", "b_out"}
     np.testing.assert_array_equal(p["w_qkv"].numpy(), jw["w_qkv"].T)
     np.testing.assert_array_equal(p["w_out"].numpy(), jw["w_out"].T)
@@ -192,12 +194,26 @@ def test_converter_gives_the_torch_layout():
         np.testing.assert_array_equal(p[port].numpy(), jw[jax_name])
     assert all(t.is_contiguous() and t.dtype == torch.float32 for t in p.values())
     pb = attn_experiment_params_from_jax({"w_qkv": jnp.asarray(jw["w_qkv"], jnp.bfloat16)},
-                                         dtype=torch.bfloat16)
+                                         dtype=torch.bfloat16, device="cpu")
     np.testing.assert_array_equal(
         pb["w_qkv"].float().numpy(),
         np.asarray(jnp.asarray(jw["w_qkv"], jnp.bfloat16), np.float32).T)
     with pytest.raises(KeyError, match="unknown"):
         attn_experiment_params_from_jax({"w": jw["w_qkv"]})
+
+
+def test_converter_puts_the_weights_on_the_card_by_default():
+    """Without `device=` the weights (X3's and X4's arguments) go to the
+    card; without a card the call raises and never falls back to the
+    CPU."""
+    default = inspect.signature(attn_experiment_params_from_jax).parameters["device"].default
+    assert default == "cuda"
+    jw = _weights(51)
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in attn_experiment_params_from_jax(jw).values())
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            attn_experiment_params_from_jax(jw)
 
 
 # (sq, sk, head dim, causal, bias): the grouped kernel's shapes on the
@@ -318,7 +334,7 @@ def test_experiment_wrappers_launch_their_kernels(fake_card):
     with pytest.raises(ValueError, match="bias"):
         X.mha_packed(qkv, torch.zeros(X.S, X.S), SCALE, 1)
     assert not fake_card
-    p = attn_experiment_params_from_jax(_weights(1))
+    p = attn_experiment_params_from_jax(_weights(1), device="cpu")
     x = torch.zeros(2, X.S, X.W)
     sbias = torch.zeros(X.S, X.S)
     X.qkvattn(x, p["w_qkv"], p["b_qkv"], sbias, SCALE)

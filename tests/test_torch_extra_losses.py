@@ -7,6 +7,8 @@ three calls; `accuracy` with ties; the registry, whose "bbc" is the
 port's `batch_based_classification_loss`.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,7 +81,8 @@ def test_text_relevance_bank_over_three_calls():
     detached) and size after each, from an empty bank of 10 rows filled
     by batches of 4 (the third call overflows it)."""
     rng = np.random.default_rng(3)
-    jbank, tbank = J.TextRelevanceBank.create(10, 8), T.TextRelevanceBank.create(10, 8)
+    jbank = J.TextRelevanceBank.create(10, 8)
+    tbank = T.TextRelevanceBank.create(10, 8, device="cpu")
     for step in range(3):
         img, txt = _np(rng, 4, 8), _np(rng, 4, 8)
         scale = np.array(2.0 + step, np.float32)
@@ -98,6 +101,19 @@ def test_text_relevance_bank_over_three_calls():
         assert not tbank.query.requires_grad and not tbank.doc.requires_grad
         np.testing.assert_array_equal(tbank.query.numpy(), np.asarray(jbank.query))
         np.testing.assert_array_equal(tbank.doc.numpy(), np.asarray(jbank.doc))
+
+
+def test_bank_is_made_on_the_card_by_default():
+    """`create` without `device=` allocates on the card (JAX's on its
+    default device); without a card it raises and never falls back to the
+    CPU."""
+    assert inspect.signature(T.TextRelevanceBank.create).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        bank = T.TextRelevanceBank.create(4, 2)
+        assert bank.query.device.type == bank.doc.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            T.TextRelevanceBank.create(4, 2)
 
 
 def test_accuracy_takes_the_lower_index_on_ties():

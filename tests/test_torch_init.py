@@ -200,6 +200,23 @@ def test_initializers_draw_jax_values_across_chunks(monkeypatch, spec, shape):
     assert_values_match({"x": got}, {"x": want})
 
 
+@pytest.mark.parametrize("spec,shape", [
+    (I.ZEROS, (7, 5)), (I.ONES, (40,)), (I.constant(2.65926), (1,)),
+    (I.normal(0.02), (3, 1000)), (I.XAVIER_UNIFORM, (96, 32)),
+    (I.dense_general_kernel(I.LECUN_NORMAL, 2, 1), (4, 6, 24)),
+    (I.dense_general_bias(I.ZEROS, 2), (4, 6))])
+def test_flat_values_are_the_draw_at_any_range(monkeypatch, spec, shape):
+    """`flat_values` on a range of flat indices equals that range of the
+    whole chunked draw, bit for bit."""
+    monkeypatch.setattr(I, "CHUNK", 1000)
+    key = (5, 77)
+    whole = I.initialize(spec, key, shape, "cpu").reshape(-1)
+    n = whole.numel()
+    for start, stop in {(0, n), (0, min(n, 3)), (max(0, n - 1001), n), (n // 3, n // 2)}:
+        assert torch.equal(I.flat_values(spec, key, shape, start, stop, "cpu"),
+                           whole[start:stop])
+
+
 def _stub_trainer(jcfg, **cfg) -> types.SimpleNamespace:
     return types.SimpleNamespace(cfg=JT.TrainConfig(**cfg), clip_cfg=jcfg,
                                  model=JaxModel(jcfg, patch_num=cfg["patch_num"]))
